@@ -1,0 +1,35 @@
+"""ADE-HGNN in PyTorch with hand-written CUDA kernels for Hopper.
+
+A port of the ``repro`` package's pruned HGNN inference path. The module
+layout follows ``repro`` one for one (``repro_torch/core/flows.py`` is the
+counterpart of ``repro/core/flows.py``); inside, models are ``nn.Module``s
+and everything else is plain functions on tensors.
+
+Rules every module keeps:
+
+  * entry points take an explicit ``device``, default ``"cuda"``, and raise
+    when no GPU is present unless the caller passed ``device="cpu"``
+    (:func:`resolve_device`) — nothing drops to the CPU on its own;
+  * randomness comes from explicit ``torch.Generator``s or seeded numpy;
+  * all math is float32, and TF32 is off for matmuls and convolutions (set
+    below, at import), so a float32 product on the card keeps full float32
+    precision.
+"""
+from __future__ import annotations
+
+import torch
+
+# float32 means float32: no TF32 rounding in cuBLAS or cuDNN
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on. ``"cuda"`` without a GPU raises:
+    the CPU is used only when the caller asks for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return dev

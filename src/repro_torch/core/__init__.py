@@ -1,0 +1,15 @@
+"""The paper's contribution in PyTorch: attention-disparity-exploiting HGNN
+inference.
+
+  * ``hetgraph``  — HetG container + Semantic Graph Build (SGB), numpy
+  * ``attention`` — decomposed additive attention (Eq. 2) + staged NA
+  * ``pruning``   — the staged_pruned flow's top-K keep-mask
+  * ``flows``     — staged / staged_pruned / fused_kernel execution flows
+  * ``batch``     — ``GraphBatch``: the single model input
+  * ``session``   — ``InferenceSession``: the serving entry
+  * ``pipeline``  — dataset → SGB → model assembly
+  * ``models``    — HAN behind the ``HGNNModel`` protocol
+"""
+from repro_torch.core.batch import GraphBatch, ModelSpec  # noqa: F401
+from repro_torch.core.flows import FlowConfig  # noqa: F401
+from repro_torch.core.session import InferenceSession  # noqa: F401

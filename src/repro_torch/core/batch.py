@@ -1,0 +1,108 @@
+"""``GraphBatch`` — the single input type every HGNN model consumes — and
+``ModelSpec``, the shape-level facts a model's parameters are sized from.
+
+A batch packs the per-type feature tensors (on the batch's device), the
+semantic graphs driving NA (numpy layouts; device mirrors are cached on
+them at first use), and the type offset/count metadata.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping, Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+class GraphBatch:
+    """One heterograph's model input: features + semantic graphs + meta.
+
+    ``features`` maps node type to an ``(N_t, F_t)`` float32 tensor; ``sgs``
+    are the semantic graphs in model dispatch order; ``node_types`` is the
+    global concatenation order; ``offsets``/``num_nodes`` are per-type row
+    ranges in the global vertex table.
+    """
+
+    def __init__(
+        self,
+        features: Mapping[str, torch.Tensor],
+        sgs: Sequence,
+        node_types: Sequence[str],
+        offsets: Mapping[str, int],
+        num_nodes: Mapping[str, int],
+        label_type: str,
+    ):
+        self.features = dict(features)
+        self.sgs = tuple(sgs)
+        self.node_types = tuple(node_types)
+        self.offsets = dict(offsets)
+        self.num_nodes = dict(num_nodes)
+        self.label_type = label_type
+
+    @classmethod
+    def from_graph(cls, g, sgs, device: torch.device) -> "GraphBatch":
+        """Build from a ``HetGraph`` + its SGB output, with the feature
+        tables copied to ``device``."""
+        features = {
+            t: torch.from_numpy(np.ascontiguousarray(f, np.float32)).to(device)
+            for t, f in g.features.items()
+        }
+        return cls(
+            features=features, sgs=sgs, node_types=g.node_types,
+            offsets=g.type_offsets(), num_nodes=g.num_nodes,
+            label_type=g.label_type,
+        )
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.features.values())).device
+
+    @property
+    def total_nodes(self) -> int:
+        return sum(self.num_nodes[t] for t in self.node_types)
+
+    @property
+    def num_targets(self) -> int:
+        """Rows of the labeled type — the logits' leading dim."""
+        return self.num_nodes[self.label_type]
+
+    @property
+    def dst_offset(self) -> int:
+        return self.offsets[self.label_type]
+
+    def constrain(self, x: torch.Tensor, role: str) -> torch.Tensor:
+        """Placement hook of the reference's sharded path; the identity on
+        one device."""
+        return x
+
+    def __repr__(self):
+        return (
+            f"GraphBatch(types={self.node_types}, "
+            f"sgs={[sg.name for sg in self.sgs]}, "
+            f"label_type={self.label_type!r}, device={self.device})"
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    """Everything a model needs to size its parameters. Hashable."""
+
+    feat_dims: Tuple[Tuple[str, int], ...]  # (node type, feature dim)
+    num_classes: int
+    node_types: Tuple[str, ...]
+    sg_names: Tuple[str, ...]  # semantic-graph (metapath / relation) names
+    num_edge_types: int = 1
+
+    @classmethod
+    def from_graph(cls, g, sgs) -> "ModelSpec":
+        return cls(
+            feat_dims=tuple((t, g.features[t].shape[1]) for t in g.node_types),
+            num_classes=g.num_classes,
+            node_types=tuple(g.node_types),
+            sg_names=tuple(sg.name for sg in sgs),
+            num_edge_types=max((sg.num_edge_types for sg in sgs), default=1),
+        )
+
+    @property
+    def feat_dim_map(self) -> Dict[str, int]:
+        return dict(self.feat_dims)

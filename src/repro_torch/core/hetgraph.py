@@ -1,0 +1,557 @@
+"""Heterogeneous graph containers and Semantic Graph Build (SGB), numpy only.
+
+The port's copy of ``repro/core/hetgraph.py`` for the metapath path: the
+same vectorized builds give bit-identical tables for the same graph and
+seed. A semantic graph is stored as padded-CSC (per target, a fixed-width
+row of global source ids plus a validity mask), either flat
+(:class:`SemanticGraph`, one ``(T, D_max)`` table) or degree-bucketed
+(:class:`BucketedSemanticGraph`): targets partitioned by degree into buckets
+of capacity e.g. ``{8, 32, 128, D_max}``, so padded NA slots follow the
+degree histogram, and buckets with capacity ≤ K bypass the pruner (§4.3).
+
+:meth:`BucketedSemanticGraph.grouped` re-tiles every bucket into one
+grid-ordered stack of ``(t_tile, w)`` tiles (a :class:`GroupedBucketLayout`),
+which the fused prune+aggregate kernel pair walks in one launch each.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+
+Relation = Tuple[str, str, str]  # (src_type, rel_name, dst_type)
+
+AnySemanticGraph = Union["SemanticGraph", "BucketedSemanticGraph"]
+
+# Default degree-bucket capacities (the final bucket stretches to D_max).
+DEFAULT_BUCKET_SIZES: Tuple[int, ...] = (8, 32, 128)
+
+
+@dataclasses.dataclass
+class HetGraph:
+    """An in-memory heterogeneous graph.
+
+    ``edges[rel]`` is ``(src_ids, dst_ids)`` with ids local to their node
+    type. ``features[t]`` is an ``(N_t, F_t)`` float array. ``labels`` lives
+    on ``label_type`` vertices.
+    """
+
+    node_types: Tuple[str, ...]
+    num_nodes: Dict[str, int]
+    features: Dict[str, np.ndarray]
+    relations: Tuple[Relation, ...]
+    edges: Dict[str, Tuple[np.ndarray, np.ndarray]]  # rel_name -> (src, dst)
+    label_type: str
+    labels: np.ndarray
+    num_classes: int
+
+    def rel(self, name: str) -> Relation:
+        for r in self.relations:
+            if r[1] == name:
+                return r
+        raise KeyError(name)
+
+    def validate(self) -> "HetGraph":
+        """Schema validation: edge ids against ``num_nodes``, feature/label
+        row counts, relation-name uniqueness, endpoint types. Collects every
+        violation and raises one ``ValueError``; returns ``self``."""
+        errs: List[str] = []
+        types = set(self.node_types)
+        if len(types) != len(self.node_types):
+            errs.append(f"duplicate node types in {self.node_types}")
+        for t in self.node_types:
+            if t not in self.num_nodes:
+                errs.append(f"node type {t!r} missing from num_nodes")
+            elif self.num_nodes[t] <= 0:
+                errs.append(f"node type {t!r} has {self.num_nodes[t]} nodes")
+            f = self.features.get(t)
+            if f is None:
+                errs.append(f"node type {t!r} has no feature table")
+            elif f.ndim != 2 or f.shape[0] != self.num_nodes.get(t, -1):
+                errs.append(
+                    f"features[{t!r}] shape {f.shape} != "
+                    f"({self.num_nodes.get(t)}, F)"
+                )
+        names = [r[1] for r in self.relations]
+        if len(set(names)) != len(names):
+            dup = sorted({n for n in names if names.count(n) > 1})
+            errs.append(f"duplicate relation names {dup}")
+        for (src_t, name, dst_t) in self.relations:
+            if src_t not in types or dst_t not in types:
+                errs.append(
+                    f"relation {name!r} endpoints ({src_t!r}, {dst_t!r}) not "
+                    f"in node types {sorted(types)}"
+                )
+                continue
+            if name not in self.edges:
+                errs.append(f"relation {name!r} has no edge list")
+                continue
+            src, dst = self.edges[name]
+            if len(src) != len(dst):
+                errs.append(
+                    f"relation {name!r}: src/dst length mismatch "
+                    f"({len(src)} vs {len(dst)})"
+                )
+            for ids, t, side in ((src, src_t, "src"), (dst, dst_t, "dst")):
+                if len(ids) == 0:
+                    continue
+                lo, hi = int(np.min(ids)), int(np.max(ids))
+                if lo < 0 or hi >= self.num_nodes.get(t, 0):
+                    errs.append(
+                        f"relation {name!r} {side} ids [{lo}, {hi}] out of "
+                        f"range for {t!r} (num_nodes={self.num_nodes.get(t)})"
+                    )
+        if self.label_type not in types:
+            errs.append(f"label_type {self.label_type!r} not a node type")
+        elif self.labels.shape[0] != self.num_nodes.get(self.label_type, -1):
+            errs.append(
+                f"labels rows {self.labels.shape[0]} != num_nodes"
+                f"[{self.label_type!r}] = {self.num_nodes.get(self.label_type)}"
+            )
+        if self.labels.size and (
+            int(self.labels.min()) < 0
+            or int(self.labels.max()) >= self.num_classes
+        ):
+            errs.append(
+                f"labels range [{int(self.labels.min())}, "
+                f"{int(self.labels.max())}] outside [0, {self.num_classes})"
+            )
+        if errs:
+            raise ValueError(
+                "HetGraph validation failed:\n  - " + "\n  - ".join(errs)
+            )
+        return self
+
+    def type_offsets(self) -> Dict[str, int]:
+        """Global-id offsets: node types concatenated in ``node_types`` order."""
+        off, out = 0, {}
+        for t in self.node_types:
+            out[t] = off
+            off += self.num_nodes[t]
+        return out
+
+
+@dataclasses.dataclass
+class SemanticGraph:
+    """A single semantic graph in flat padded-CSC form.
+
+    ``nbr_idx[v, j]`` is the *global* id of the j-th in-neighbor of target
+    ``v``. Invalid slots are masked by ``nbr_mask`` and point at index 0.
+    ``edge_type`` is all-zeros for single-relation graphs.
+    """
+
+    name: str
+    src_types: Tuple[str, ...]
+    dst_type: str
+    nbr_idx: np.ndarray  # (T, D) int32, GLOBAL source ids
+    nbr_mask: np.ndarray  # (T, D) bool
+    edge_type: np.ndarray  # (T, D) int32
+    num_edge_types: int = 1
+
+    @property
+    def num_targets(self) -> int:
+        return self.nbr_idx.shape[0]
+
+
+@dataclasses.dataclass
+class DegreeBucket:
+    """One degree bucket: the targets whose degree fits this capacity (and
+    no tighter one). Rows are left-packed."""
+
+    targets: np.ndarray  # (T_b,) int32 local target ids
+    nbr_idx: np.ndarray  # (T_b, D_b) int32 GLOBAL source ids
+    nbr_mask: np.ndarray  # (T_b, D_b) bool
+    edge_type: np.ndarray  # (T_b, D_b) int32
+
+    @property
+    def capacity(self) -> int:
+        return self.nbr_idx.shape[1]
+
+    @property
+    def num_targets(self) -> int:
+        return self.targets.shape[0]
+
+
+@dataclasses.dataclass
+class GroupedBucketLayout:
+    """All buckets flattened into one grid-ordered tile stack.
+
+    Rows of each bucket are padded to a multiple of ``t_tile`` and
+    capacities to a multiple of ``w``; every ``(t_tile, w)`` tile is stored
+    bucket-major, row-tile next, D-tile innermost, so one row block's D-tiles
+    are contiguous steps. ``perm`` maps each target to its padded grouped
+    row. Arrays are numpy; the kernel wrapper caches device mirrors in
+    ``_dev``.
+    """
+
+    t_tile: int
+    w: int
+    nbr: np.ndarray  # (G, t_tile, w) int32 grid-ordered neighbor-id tiles
+    msk: np.ndarray  # (G, t_tile, w) bool
+    ety: np.ndarray  # (G, t_tile, w) int32
+    step_row: np.ndarray  # (G,) int32 — row block of step g
+    step_dt: np.ndarray  # (G,) int32 — D-tile index within the row block
+    step_ndt: np.ndarray  # (G,) int32 — total D-tiles of step g's bucket
+    step_bucket: np.ndarray  # (G,) int32 — owning bucket of step g
+    caps: np.ndarray  # (B,) int32 true bucket capacities
+    caps_pad: np.ndarray  # (B,) int32 w-aligned capacities
+    row_targets: np.ndarray  # (num_rows,) int32 target id per row (0 on pad)
+    perm: np.ndarray  # (num_targets,) int32 grouped row of each target
+    num_rows: int  # total padded rows across buckets
+    _dev: Dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False
+    )
+
+    @property
+    def num_steps(self) -> int:
+        return self.nbr.shape[0]
+
+
+def _group_buckets(
+    buckets: Sequence[DegreeBucket],
+    num_targets: int,
+    t_tile: int,
+    w: int,
+) -> GroupedBucketLayout:
+    """Re-tile per-bucket padded-CSC tables into grid order. Pure relayout:
+    every valid slot keeps its (target, slot-position) identity; padding
+    rows/columns are mask-False."""
+    tiles_n, tiles_m, tiles_e = [], [], []
+    step_row, step_dt, step_ndt, step_bucket = [], [], [], []
+    caps, caps_pad, row_targets = [], [], []
+    perm = np.zeros(num_targets, dtype=np.int32)
+    row_off = 0  # in units of rows
+    for bi, b in enumerate(buckets):
+        t_b, d_b = b.nbr_idx.shape
+        caps.append(d_b)
+        cap_p = max(-(-d_b // w) * w, w)
+        caps_pad.append(cap_p)
+        if t_b == 0:
+            continue
+        rows_p = -(-t_b // t_tile) * t_tile
+        n_dt = cap_p // w
+        n_rt = rows_p // t_tile
+
+        for a, fill, dtype, acc in (
+            (b.nbr_idx, 0, np.int32, tiles_n),
+            (b.nbr_mask, False, bool, tiles_m),
+            (b.edge_type, 0, np.int32, tiles_e),
+        ):
+            p = np.full((rows_p, cap_p), fill, dtype=dtype)
+            p[:t_b, :d_b] = a
+            # (n_rt, t_tile, n_dt, w) -> grid order (row tile, then D tile)
+            p = p.reshape(n_rt, t_tile, n_dt, w).transpose(0, 2, 1, 3)
+            acc.append(p.reshape(n_rt * n_dt, t_tile, w))
+        rb0 = row_off // t_tile
+        step_row.append(np.repeat(np.arange(rb0, rb0 + n_rt), n_dt))
+        step_dt.append(np.tile(np.arange(n_dt), n_rt))
+        step_ndt.append(np.full(n_rt * n_dt, n_dt))
+        step_bucket.append(np.full(n_rt * n_dt, bi))
+        rt = np.zeros(rows_p, dtype=np.int32)
+        rt[:t_b] = b.targets
+        row_targets.append(rt)
+        perm[b.targets] = row_off + np.arange(t_b, dtype=np.int32)
+        row_off += rows_p
+
+    def cat(parts, dtype):
+        if not parts:
+            return np.zeros((0,), dtype=dtype)
+        return np.concatenate(parts).astype(dtype)
+
+    def stack(parts, dtype):
+        if not parts:
+            return np.zeros((0, t_tile, w), dtype)
+        return np.concatenate(parts)
+
+    return GroupedBucketLayout(
+        t_tile=t_tile,
+        w=w,
+        nbr=stack(tiles_n, np.int32),
+        msk=stack(tiles_m, bool),
+        ety=stack(tiles_e, np.int32),
+        step_row=cat(step_row, np.int32),
+        step_dt=cat(step_dt, np.int32),
+        step_ndt=cat(step_ndt, np.int32),
+        step_bucket=cat(step_bucket, np.int32),
+        caps=np.asarray(caps, np.int32),
+        caps_pad=np.asarray(caps_pad, np.int32),
+        row_targets=cat(row_targets, np.int32),
+        perm=perm,
+        num_rows=row_off,
+    )
+
+
+@dataclasses.dataclass
+class BucketedSemanticGraph:
+    """A semantic graph as a small set of degree buckets.
+
+    Every target of ``dst_type`` lands in exactly one bucket — the tightest
+    capacity that fits its (build-time-capped) degree. NA runs all buckets
+    in one dispatch and restores target order with the precomputed inverse
+    permutation. ``_device`` caches device mirrors of the bucket tables.
+    """
+
+    name: str
+    src_types: Tuple[str, ...]
+    dst_type: str
+    num_targets: int
+    buckets: Tuple[DegreeBucket, ...]
+    num_edge_types: int = 1
+    _perm: Optional[np.ndarray] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False
+    )
+    _grouped: Dict[Tuple[int, int], GroupedBucketLayout] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False
+    )
+    _device: Dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False
+    )
+
+    @property
+    def bucket_capacities(self) -> Tuple[int, ...]:
+        return tuple(b.capacity for b in self.buckets)
+
+    def concat_targets(self) -> np.ndarray:
+        """Target ids in bucket-concatenation order (NA's output order
+        before the inverse permutation restores target order)."""
+        if self.buckets:
+            return np.concatenate([b.targets for b in self.buckets])
+        return np.zeros(0, np.int32)
+
+    def target_perm(self) -> np.ndarray:
+        """``perm[t]`` = row of target ``t`` in the bucket-concatenated NA
+        output, so ``concat_out[perm]`` is in target order. Cached."""
+        if self._perm is None:
+            perm = np.zeros(self.num_targets, dtype=np.int32)
+            off = 0
+            for b in self.buckets:
+                perm[b.targets] = off + np.arange(b.num_targets, dtype=np.int32)
+                off += b.num_targets
+            self._perm = perm
+        return self._perm
+
+    def grouped(self, t_tile: int = 8, w: int = 8) -> GroupedBucketLayout:
+        """The single-launch ragged-grid relayout (cached per tile shape)."""
+        key = (t_tile, w)
+        if key not in self._grouped:
+            self._grouped[key] = _group_buckets(
+                self.buckets, self.num_targets, t_tile, w
+            )
+        return self._grouped[key]
+
+
+def _pad_csc(
+    src: np.ndarray,
+    dst: np.ndarray,
+    num_targets: int,
+    max_degree: int | None,
+    rng: np.random.Generator,
+    edge_type: np.ndarray | None = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Bucket edges by destination into a fixed-width padded table.
+
+    Stable sort by destination, per-row slot positions from a cumsum, one
+    flat scatter. Rows over the degree cap are down-sampled uniformly (a
+    random re-ranking confined to the overflowing rows; intact rows keep
+    arrival order, which the pruner's tie rule depends on).
+    """
+    e = len(dst)
+    dst = dst.astype(np.int64, copy=False)
+    counts = np.bincount(dst, minlength=num_targets) if e else np.zeros(
+        num_targets, np.int64
+    )
+    deg_cap = int(counts.max()) if counts.size and counts.max() > 0 else 1
+    if max_degree is not None:
+        deg_cap = min(deg_cap, max_degree)
+    deg_cap = max(deg_cap, 1)
+    counts_capped = np.minimum(counts, deg_cap)
+    nbr = np.zeros((num_targets, deg_cap), dtype=np.int32)
+    msk = np.zeros((num_targets, deg_cap), dtype=bool)
+    ety = np.zeros((num_targets, deg_cap), dtype=np.int32)
+    if e == 0:
+        return nbr, msk, ety
+    # stable sort by destination via a unique composite key (dst, arrival)
+    order = np.argsort(dst * e + np.arange(e, dtype=np.int64))
+    src = src[order]
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    pos = np.arange(e, dtype=np.int64) - np.repeat(starts, counts)
+    over = counts > deg_cap
+    if over.any():
+        # uniform down-sample of overflow rows: re-rank just their slots by
+        # a random key
+        sub = np.flatnonzero(np.repeat(over, counts))
+        row = np.searchsorted(np.cumsum(counts), sub, side="right")
+        order_sub = np.lexsort((rng.random(sub.size), row))
+        srt = sub[order_sub]
+        row = row[order_sub]
+        idx = np.arange(srt.size, dtype=np.int64)
+        first = np.empty(srt.size, dtype=bool)
+        first[0] = True
+        np.not_equal(row[1:], row[:-1], out=first[1:])
+        pos[srt] = idx - np.maximum.accumulate(np.where(first, idx, 0))
+    keep = pos < deg_cap
+    base = np.arange(num_targets, dtype=np.int64) * deg_cap
+    flat = np.repeat(base, counts_capped) + pos[keep]
+    nbr.reshape(-1)[flat] = src[keep].astype(np.int32, copy=False)
+    msk.reshape(-1)[flat] = True
+    if edge_type is not None:
+        etype = edge_type[order]
+        ety.reshape(-1)[flat] = etype[keep].astype(np.int32, copy=False)
+    return nbr, msk, ety
+
+
+def bucketize(
+    name: str,
+    src_types: Tuple[str, ...],
+    dst_type: str,
+    nbr: np.ndarray,
+    msk: np.ndarray,
+    ety: np.ndarray,
+    bucket_sizes: Sequence[int],
+    num_edge_types: int = 1,
+) -> BucketedSemanticGraph:
+    """Partition a flat padded-CSC table into degree buckets: each target
+    goes to the tightest capacity ≥ its degree; the last bucket has capacity
+    D_max. Per-bucket tables are row/column slices of the flat table."""
+    if isinstance(bucket_sizes, str):
+        raise NotImplementedError(
+            f"bucket_sizes={bucket_sizes!r}: histogram autotuning comes with "
+            "a later slice of the port; pass a capacity list or None"
+        )
+    t, d_max = nbr.shape
+    deg = msk.sum(axis=1)
+    caps = sorted({int(c) for c in bucket_sizes if 0 < c < d_max})
+    caps.append(d_max)
+    # assignment = index of the first capacity >= degree
+    assign = np.searchsorted(np.asarray(caps), deg, side="left")
+    buckets = []
+    for i, cap in enumerate(caps):
+        targets = np.where(assign == i)[0].astype(np.int32)
+        if targets.size == 0:
+            continue
+        buckets.append(
+            DegreeBucket(
+                targets=targets,
+                nbr_idx=nbr[targets, :cap],
+                nbr_mask=msk[targets, :cap],
+                edge_type=ety[targets, :cap],
+            )
+        )
+    sg = BucketedSemanticGraph(
+        name=name, src_types=src_types, dst_type=dst_type,
+        num_targets=t, buckets=tuple(buckets), num_edge_types=num_edge_types,
+    )
+    sg.target_perm()  # precompute: NA's inverse-permutation gather needs it
+    return sg
+
+
+def _make_graph(
+    name: str,
+    src_types: Tuple[str, ...],
+    dst_type: str,
+    nbr: np.ndarray,
+    msk: np.ndarray,
+    ety: np.ndarray,
+    num_edge_types: int,
+    bucket_sizes: Sequence[int] | None,
+):
+    if bucket_sizes is None:
+        return SemanticGraph(
+            name=name, src_types=src_types, dst_type=dst_type,
+            nbr_idx=nbr, nbr_mask=msk, edge_type=ety,
+            num_edge_types=num_edge_types,
+        )
+    return bucketize(
+        name, src_types, dst_type, nbr, msk, ety, bucket_sizes, num_edge_types
+    )
+
+
+def _compose(
+    ab: Tuple[np.ndarray, np.ndarray],
+    bc: Tuple[np.ndarray, np.ndarray],
+    cap_fanout: int,
+    rng: np.random.Generator,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Join two relations A->B and B->C on B, returning A->C pairs.
+
+    Sort-merge join vectorized over B (row-major pair enumeration within
+    each B block). Per-B fan-out is capped; capped blocks draw uniform pairs
+    with replacement.
+    """
+    a, b1 = ab
+    b2, c = bc
+    o1 = np.argsort(b1, kind="stable")
+    a, b1 = a[o1], b1[o1]
+    o2 = np.argsort(b2, kind="stable")
+    b2, c = b2[o2], c[o2]
+    n_b = int(max(b1.max(initial=-1), b2.max(initial=-1))) + 1
+    c1 = np.bincount(b1, minlength=n_b).astype(np.int64)
+    c2 = np.bincount(b2, minlength=n_b).astype(np.int64)
+    s1 = np.concatenate([[0], np.cumsum(c1)[:-1]])
+    s2 = np.concatenate([[0], np.cumsum(c2)[:-1]])
+    pairs = c1 * c2
+    take = np.minimum(pairs, cap_fanout)
+    total = int(take.sum())
+    if total == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    b_of = np.repeat(np.arange(n_b, dtype=np.int64), take)
+    t_starts = np.concatenate([[0], np.cumsum(take)[:-1]])
+    p = np.arange(total, dtype=np.int64) - t_starts[b_of]
+    c2_safe = np.maximum(c2[b_of], 1)
+    li = p // c2_safe
+    ri = p % c2_safe
+    capped = pairs[b_of] > cap_fanout
+    if capped.any():
+        idx = np.where(capped)[0]
+        li[idx] = rng.integers(0, c1[b_of[idx]])
+        ri[idx] = rng.integers(0, c2[b_of[idx]])
+    return a[s1[b_of] + li], c[s2[b_of] + ri]
+
+
+def build_metapath_graphs(
+    g: HetGraph,
+    metapaths: Dict[str, Sequence[str]],
+    max_degree: int | None = None,
+    cap_fanout: int = 4096,
+    seed: int = 0,
+    bucket_sizes: Sequence[int] | None = None,
+) -> List[AnySemanticGraph]:
+    """SGB for metapath-based models (HAN).
+
+    ``metapaths`` maps a name (e.g. ``"PAP"``) to the relation names to
+    compose, e.g. ``("AP_rev", "AP")``; a ``_rev`` suffix transposes the
+    edge list. Endpoints share the metapath's end type. Self-loops are added
+    (HAN aggregates v itself).
+    """
+    rng = np.random.default_rng(seed)
+    offs = g.type_offsets()
+
+    def rel_pairs(name: str) -> Tuple[np.ndarray, np.ndarray, str, str]:
+        rev = name.endswith("_rev")
+        base = name[:-4] if rev else name
+        src_t, _, dst_t = g.rel(base)
+        s, d = g.edges[base]
+        if rev:
+            return d.astype(np.int64), s.astype(np.int64), dst_t, src_t
+        return s.astype(np.int64), d.astype(np.int64), src_t, dst_t
+
+    out = []
+    for mp_name, chain in metapaths.items():
+        s, d, src_t, dst_t = rel_pairs(chain[0])
+        for nxt in chain[1:]:
+            s2, d2, _, dst_t = rel_pairs(nxt)
+            s, d = _compose((s, d), (s2, d2), cap_fanout, rng)
+        # dedupe parallel paths (HAN treats the metapath graph as simple)
+        key = s.astype(np.int64) * (g.num_nodes[dst_t] + 1) + d.astype(np.int64)
+        _, uniq = np.unique(key, return_index=True)
+        s, d = s[uniq], d[uniq]
+        loops = np.arange(g.num_nodes[dst_t], dtype=np.int64)
+        s = np.concatenate([s, loops])
+        d = np.concatenate([d, loops])
+        gsrc = s + offs[dst_t]  # metapath endpoints share the dst type
+        nbr, msk, ety = _pad_csc(gsrc, d, g.num_nodes[dst_t], max_degree, rng)
+        out.append(
+            _make_graph(mp_name, (dst_t,), dst_t, nbr, msk, ety, 1, bucket_sizes)
+        )
+    return out

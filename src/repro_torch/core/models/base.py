@@ -1,0 +1,115 @@
+"""The ``HGNNModel`` protocol: one interface for every HGNN architecture.
+
+A model is an ``nn.Module`` whose parameters are registered under the
+reference's tree paths (``proj.<type>.w``, ``attn.<metapath>.a_src``, …), so
+``dict(model.named_parameters())`` is a flat parameter mapping in the same
+naming as the reference's nested tree. The forward pass is functional over
+such a mapping:
+
+  * ``layer_steps(params, batch, flow)`` yields each layer's stages
+    (FP -> NA per semantic graph -> fuse) as composable callables;
+  * ``apply(params, batch, flow)`` is defined HERE as the fold of
+    ``layer_steps`` and ``readout``, so running the stages by hand and
+    calling ``apply`` are the same program;
+  * ``forward(batch, flow)`` is ``apply`` over the module's own parameters.
+
+Serving passes a mapping explicitly (``session(params)``), so one model
+serves several weight versions.
+
+``MODELS`` is the model registry: ``pipeline.prepare`` is table-driven over
+it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Iterator, Mapping, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.core.batch import GraphBatch, ModelSpec
+from repro_torch.core.flows import FlowConfig
+
+Carry = object
+Params = Mapping[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerStep:
+    """One layer's stages as independent callables.
+
+    ``project(carry) -> h`` — the layer's Feature Projection to the
+    (N, H, dh) global table. ``na`` — ``(semantic_graph_name, fn)`` pairs in
+    dispatch order; ``fn(h) -> z`` runs that graph's score decomposition +
+    NA. ``fuse(carry, h, zs) -> carry'`` closes the layer.
+    """
+
+    index: int
+    project: Callable[[Carry], torch.Tensor]
+    na: Tuple[Tuple[str, Callable[[torch.Tensor], torch.Tensor]], ...]
+    fuse: Callable[[Carry, torch.Tensor, Dict[str, torch.Tensor]], Carry]
+
+
+class HGNNModel(nn.Module):
+    """Base class / protocol all HGNN models implement."""
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Seeded initialization of every parameter from ``generator``."""
+        raise NotImplementedError
+
+    def layer_steps(
+        self, params: Params, batch: GraphBatch, flow: FlowConfig = FlowConfig()
+    ) -> Iterator[LayerStep]:
+        raise NotImplementedError
+
+    def readout(self, params: Params, batch: GraphBatch, carry: Carry) -> torch.Tensor:
+        """Final carry -> (num_targets, num_classes) logits."""
+        raise NotImplementedError
+
+    def apply(
+        self, params: Params, batch: GraphBatch, flow: FlowConfig = FlowConfig()
+    ) -> torch.Tensor:
+        """The canonical forward pass: fold ``layer_steps`` then ``readout``.
+        (Replaces ``nn.Module.apply``, which this protocol does not use.)"""
+        carry: Carry = dict(batch.features)
+        for step in self.layer_steps(params, batch, flow):
+            h = step.project(carry)
+            zs = {name: fn(h) for name, fn in step.na}
+            carry = step.fuse(carry, h, zs)
+        return self.readout(params, batch, carry)
+
+    def forward(self, batch: GraphBatch, flow: FlowConfig = FlowConfig()) -> torch.Tensor:
+        return self.apply(dict(self.named_parameters()), batch, flow)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelEntry:
+    """How ``pipeline.prepare`` assembles one architecture: ``factory(spec)``
+    builds the module; ``sgb_kind`` names the Semantic Graph Build it
+    consumes (``"metapath"`` for HAN)."""
+
+    name: str
+    factory: Callable[[ModelSpec], HGNNModel]
+    sgb_kind: str
+
+
+MODELS: Dict[str, ModelEntry] = {}
+
+
+def register_model(
+    name: str, factory: Callable[[ModelSpec], HGNNModel], sgb_kind: str
+) -> None:
+    """Register an architecture under ``name`` (overwrites)."""
+    if sgb_kind not in ("metapath", "relation", "union"):
+        raise ValueError(f"unknown sgb_kind {sgb_kind!r}")
+    MODELS[name] = ModelEntry(name=name, factory=factory, sgb_kind=sgb_kind)
+
+
+def get_entry(name: str) -> ModelEntry:
+    try:
+        return MODELS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown model {name!r}; registered: {sorted(MODELS)}"
+        ) from None
+

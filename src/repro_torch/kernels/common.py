@@ -1,0 +1,44 @@
+"""The retention-domain rule shared by the fused kernel and its plain
+version.
+
+One step of the paper's Algorithm 1 (lines 14-22), as the reference's TPU
+kernels run it (``repro/kernels/common.py``): find the FIRST minimum slot
+of the retention domain; replace it only if the candidate is STRICTLY
+greater. An incumbent therefore survives a tie with a newcomer, and among
+equal incumbents the lowest slot is evicted first. This is not
+``lax.top_k``'s rule (lower index wins): for scores ``[1, 1, 2]`` at k=2 the
+kernel keeps slots {1, 2} and ``top_k`` keeps {0, 2}.
+"""
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+
+NEG = -3.0e38  # below any real score
+POS = 3.0e38  # above any real score: parks retention slots past a row's
+# effective K so min_replace never selects them
+
+
+def min_replace(
+    rd_vals: torch.Tensor,
+    rd_aux: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    cur_val: torch.Tensor,
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """One retention-domain step, vectorized over rows.
+
+    ``rd_vals`` (rows, K); ``cur_val`` (rows,). ``rd_aux`` pairs each side
+    array (rows, K, ...) of the domain with its candidate value
+    (rows, ...). Returns the updated values and side arrays.
+    """
+    k = rd_vals.shape[-1]
+    m = rd_vals.amin(dim=-1, keepdim=True)
+    iota = torch.arange(k, device=rd_vals.device)
+    first = torch.where(rd_vals == m, iota, k).amin(dim=-1, keepdim=True)
+    repl = (iota == first) & (cur_val[:, None] > m)
+    new_vals = torch.where(repl, cur_val[:, None], rd_vals)
+    new_aux = []
+    for aux, cur in rd_aux:
+        r = repl.reshape(repl.shape + (1,) * (aux.dim() - repl.dim()))
+        new_aux.append(torch.where(r, cur[:, None], aux))
+    return new_vals, new_aux

@@ -1,0 +1,3 @@
+"""ADE fused NA: K1 prune + softmax and K2 gather-aggregate over a grouped
+bucket layout, as CUDA C++ kernels (``csrc/``) beside their plain PyTorch
+versions (``ref.py``); ``ops.py`` is the public wrapper."""

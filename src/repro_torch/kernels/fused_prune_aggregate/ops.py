@@ -1,0 +1,282 @@
+"""Public wrappers of the fused prune+aggregate kernel pair.
+
+:func:`fused_prune_aggregate_grouped` runs NA over every degree bucket of a
+``BucketedSemanticGraph`` as ONE launch of each kernel: K1 :func:`prune`
+then K2 :func:`aggregate`, then one ``perm`` gather back to target order.
+For CUDA tensors :func:`prune` and :func:`aggregate` launch the CUDA
+kernels of ``csrc/`` (built at first use) or raise; for CPU tensors they run
+the plain versions of ``ref.py``. There is no fallback from one to the
+other.
+
+Device mirrors of a layout's tile stack and its per-``prune_k`` block table
+are cached on the ``GroupedBucketLayout``, keyed by device and ``prune_k``,
+so repeated forwards ship no host arrays.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.fused_prune_aggregate import ref
+
+T_TILE = 8  # rows per row block (one thread block of K1)
+W_TILE = 8  # candidates per D-tile
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (CSRC / "fused_prune_aggregate.cu",)
+MAX_KS = 256  # retention-domain width the CUDA K1 supports (default max_degree)
+
+# kernel launches, one per launch of each CUDA kernel; the plain versions do
+# not count
+LAUNCHES = {"prune": 0, "aggregate": 0}
+
+_ptr = ctypes.c_void_p
+_int = ctypes.c_int
+
+
+def library():
+    """The built kernel library (built with nvcc at first call) and its
+    build record (see :func:`repro_torch.kernels.build.load`)."""
+    lib, record = build.load("fused_prune_aggregate", SOURCES)
+    if not getattr(lib, "_typed", False):
+        lib.fpa_grouped_prune.argtypes = [_ptr] * 10 + [_int] * 5 + [ctypes.c_float, _ptr]
+        lib.fpa_grouped_prune.restype = _int
+        lib.fpa_grouped_aggregate.argtypes = [_ptr] * 5 + [_int] * 5 + [_ptr]
+        lib.fpa_grouped_aggregate.restype = _int
+        lib.fpa_max_ks.argtypes = []
+        lib.fpa_max_ks.restype = _int
+        if lib.fpa_max_ks() != MAX_KS:
+            raise RuntimeError("kernel library disagrees on MAX_KS")
+        lib._typed = True
+    return lib, record
+
+
+def grouped_meta(layout, prune_k: Optional[int]):
+    """Per-grid-step metadata and scratch width for a grouped launch (the
+    reference's ``ops.grouped_meta``, table for table).
+
+    ``k_eff`` per bucket is ``prune_k`` when the bucket is pruned and the
+    w-aligned capacity when it takes the §4.3 bypass (capacity ≤ prune_k,
+    or no pruning). ``k_s`` is the max effective K across buckets that
+    contribute grid steps. Returns ``(k1_meta, k2_meta, k_s)``: K1 rows are
+    (row_block, dt, n_dt, bypass, k_eff) per step; K2 rows are
+    (grouped_row, slot) per gather step.
+    """
+    caps = layout.caps.astype(np.int64)
+    caps_pad = layout.caps_pad.astype(np.int64)
+    if prune_k is None:
+        bypass = np.ones_like(caps)
+        k_eff = caps_pad
+    else:
+        bypass = (caps <= prune_k).astype(np.int64)
+        k_eff = np.where(bypass, caps_pad, np.minimum(prune_k, caps_pad))
+    present = np.unique(layout.step_bucket)
+    k_s = int(k_eff[present].max()) if len(present) else 1
+    meta = np.stack(
+        [
+            layout.step_row,
+            layout.step_dt,
+            layout.step_ndt,
+            bypass[layout.step_bucket],
+            k_eff[layout.step_bucket],
+        ]
+    ).astype(np.int32)
+    n_blocks = layout.num_rows // layout.t_tile
+    block_bucket = np.zeros(n_blocks, np.int64)
+    block_bucket[layout.step_row] = layout.step_bucket
+    k_row = np.repeat(k_eff[block_bucket], layout.t_tile)
+    starts = np.concatenate([[0], np.cumsum(k_row)[:-1]])
+    slots = np.arange(int(k_row.sum())) - np.repeat(starts, k_row)
+    agg_meta = np.stack(
+        [np.repeat(np.arange(layout.num_rows), k_row), slots]
+    ).astype(np.int32)
+    return meta, agg_meta, k_s
+
+
+def block_table(layout, meta: np.ndarray) -> np.ndarray:
+    """(4, n_blocks) int32 per row block: first grid step, D-tile count,
+    bypass flag, k_eff — the K1 step metadata folded per row block (a
+    block's D-tiles are contiguous steps, the first with dt = 0)."""
+    n_blocks = layout.num_rows // layout.t_tile
+    starts = np.flatnonzero(meta[1] == 0)
+    rb = meta[0, starts]
+    blk = np.zeros((4, n_blocks), np.int32)
+    blk[0, rb] = starts
+    blk[1:, rb] = meta[2:, starts]
+    return blk
+
+
+def _layout_device(layout, prune_k: Optional[int], device: torch.device):
+    """Device mirrors of the layout's static arrays and of the block table
+    for ``prune_k``, cached on the layout."""
+    cache = layout._dev
+    base_key = ("base", device)
+    if base_key not in cache:
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        cache[base_key] = (
+            put(layout.nbr.astype(np.int32)),
+            put(layout.msk.astype(bool)),
+            put(layout.ety.astype(np.int32)),
+            put(layout.row_targets.astype(np.int32)),
+            put(layout.perm.astype(np.int64)),
+        )
+    key = (device, prune_k)
+    if key not in cache:
+        meta, _, k_s = grouped_meta(layout, prune_k)
+        blk = torch.from_numpy(block_table(layout, meta)).to(device)
+        cache[key] = (blk, k_s)
+    return cache[base_key], cache[key]
+
+
+def _check(name, t, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _cuda_device(t: torch.Tensor) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(
+            f"tensors on {t.device}: the kernels run on CUDA tensors, the "
+            "plain versions on CPU tensors"
+        )
+    return t.device
+
+
+def prune(
+    nbr: torch.Tensor,
+    msk: torch.Tensor,
+    ety: Optional[torch.Tensor],
+    theta_src: torch.Tensor,
+    theta_rel: Optional[torch.Tensor],
+    theta_dst: torch.Tensor,
+    row_targets: torch.Tensor,
+    blk: torch.Tensor,
+    k_s: int,
+    slope: float = 0.2,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 over a grouped layout -> (alpha (rows, k_s, H) f32, ids (rows,
+    k_s) int32). See ``ref.prune_plain`` for the arguments. CUDA tensors
+    launch the kernel; CPU tensors run the plain version."""
+    if theta_src.device.type == "cpu":
+        return ref.prune_plain(
+            nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets, blk,
+            k_s, slope,
+        )
+    dev = _cuda_device(theta_src)
+    g, t_tile, w = nbr.shape
+    n, h = theta_src.shape
+    n_blocks = blk.shape[1]
+    rows = n_blocks * t_tile
+    if not 1 <= k_s <= MAX_KS:
+        raise ValueError(f"k_s={k_s} outside [1, {MAX_KS}] (the CUDA K1's domain width)")
+    if not 1 <= w <= 32:
+        raise ValueError(f"tile width w={w} outside [1, 32] (one candidate per lane)")
+    if not 1 <= t_tile <= 32:
+        raise ValueError(f"t_tile={t_tile} outside [1, 32] (one warp per row)")
+    if h < 1:
+        raise ValueError("theta_src has no heads")
+    i32, f32 = torch.int32, torch.float32
+    _check("nbr", nbr, i32, (g, t_tile, w), dev)
+    _check("msk", msk, torch.bool, (g, t_tile, w), dev)
+    _check("theta_src", theta_src, f32, (n, h), dev)
+    _check("theta_dst", theta_dst, f32, (theta_dst.shape[0], h), dev)
+    _check("row_targets", row_targets, i32, (rows,), dev)
+    _check("blk", blk, i32, (4, n_blocks), dev)
+    if theta_rel is not None:
+        if ety is None:
+            raise ValueError("theta_rel needs the edge-type tiles ety")
+        _check("theta_rel", theta_rel, f32, (theta_rel.shape[0], h), dev)
+        _check("ety", ety, i32, (g, t_tile, w), dev)
+    else:
+        ety = None  # the kernel reads edge types only with a rel term
+    alpha = torch.empty((rows, k_s, h), dtype=f32, device=dev)
+    ids = torch.empty((rows, k_s), dtype=i32, device=dev)
+    lib, _ = library()
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = lib.fpa_grouped_prune(
+        ptr(nbr), ptr(msk), ptr(ety), ptr(theta_src), ptr(theta_rel),
+        ptr(theta_dst), ptr(row_targets), ptr(blk), ptr(alpha), ptr(ids),
+        n_blocks, t_tile, w, h, k_s, slope,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fpa_grouped_prune launch failed: cudaError {err}")
+    LAUNCHES["prune"] += 1
+    return alpha, ids
+
+
+def aggregate(
+    alpha: torch.Tensor,
+    ids: torch.Tensor,
+    h_proj: torch.Tensor,
+    blk: torch.Tensor,
+) -> torch.Tensor:
+    """K2 over the retained slots -> (rows, H, dh) f32 in grouped-row
+    order. See ``ref.aggregate_plain``. CUDA tensors launch the kernel; CPU
+    tensors run the plain version."""
+    if h_proj.device.type == "cpu":
+        return ref.aggregate_plain(alpha, ids, h_proj, blk)
+    dev = _cuda_device(h_proj)
+    rows, k_s, h = alpha.shape
+    n, _, dh = h_proj.shape
+    n_blocks = blk.shape[1]
+    if n_blocks == 0 or rows % n_blocks:
+        raise ValueError(f"{rows} rows do not split into {n_blocks} row blocks")
+    if not 1 <= h * dh <= 1024:
+        raise ValueError(f"H*dh={h * dh} outside [1, 1024] (one thread per output)")
+    _check("alpha", alpha, torch.float32, (rows, k_s, h), dev)
+    _check("ids", ids, torch.int32, (rows, k_s), dev)
+    _check("h_proj", h_proj, torch.float32, (n, h, dh), dev)
+    _check("blk", blk, torch.int32, (4, n_blocks), dev)
+    out = torch.empty((rows, h, dh), dtype=torch.float32, device=dev)
+    lib, _ = library()
+    err = lib.fpa_grouped_aggregate(
+        alpha.data_ptr(), ids.data_ptr(), h_proj.data_ptr(), blk.data_ptr(),
+        out.data_ptr(), n_blocks, rows // n_blocks, h, dh, k_s,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fpa_grouped_aggregate launch failed: cudaError {err}")
+    LAUNCHES["aggregate"] += 1
+    return out
+
+
+def fused_prune_aggregate_grouped(
+    h_proj: torch.Tensor,  # (N, H, dh) f32
+    theta_src: torch.Tensor,  # (N, H)
+    theta_dst: torch.Tensor,  # (T, H) — full target range of the graph
+    sg,  # BucketedSemanticGraph
+    theta_rel: Optional[torch.Tensor] = None,  # (R, H)
+    prune_k: Optional[int] = None,
+    slope: float = 0.2,
+) -> torch.Tensor:
+    """NA over ALL buckets of ``sg`` as one launch of each kernel.
+
+    Returns ``(sg.num_targets, H, dh)`` float32 in target order; zeros for
+    a graph whose layout has no grid steps.
+    """
+    layout = sg.grouped(T_TILE, W_TILE)
+    n, h, dh = h_proj.shape
+    if layout.num_steps == 0:
+        return torch.zeros((sg.num_targets, h, dh), dtype=h_proj.dtype, device=h_proj.device)
+    (nbr, msk, ety, row_targets, perm), (blk, k_s) = _layout_device(
+        layout, prune_k, h_proj.device
+    )
+    alpha, ids = prune(
+        nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets, blk, k_s,
+        slope,
+    )
+    return aggregate(alpha, ids, h_proj, blk).index_select(0, perm)

@@ -1,0 +1,71 @@
+"""Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` import
+neither JAX nor anything of the reference package ``repro`` (the machine
+with the GPU has no JAX, and the port keeps its own copy of what it
+needs)."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module
+
+
+def test_no_jax_or_reference_imports(tmp_path):
+    assert len(PORT_FILES) > 10
+    assert (ROOT / "chip_smoke.py").is_file()
+    probe = tmp_path / "probe.py"
+    probe.write_text(
+        "import jax.numpy as jnp\nfrom repro.core import flows\n"
+        "import repro_torch\nfrom repro_torch.core import flows\n"
+    )
+    found = [mod for _, mod in _imports(probe) if _forbidden(mod)]
+    assert found == ["jax.numpy", "repro.core"]
+    bad = [
+        (str(path.relative_to(ROOT)), line, mod)
+        for path in PORT_FILES
+        for line, mod in _imports(path)
+        if _forbidden(mod)
+    ]
+    assert not bad, f"forbidden imports: {bad}"
+
+
+def test_cpu_forward_loads_neither_jax_nor_reference():
+    code = (
+        "import sys\n"
+        "from repro_torch.core import pipeline\n"
+        "from repro_torch.core.flows import FlowConfig\n"
+        "task = pipeline.prepare('han', 'acm', scale=0.03, device='cpu')\n"
+        "out = task.compile(FlowConfig('fused_kernel', prune_k=4))(task.params)\n"
+        "assert out.shape == (task.batch.num_targets, task.spec.num_classes)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print('LOADED', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
