@@ -12,21 +12,33 @@ exits non-zero at the first phase that fails:
 1. prints the card's name and power limit, builds the CUDA kernels from
    ``src/repro_torch/kernels/*/csrc`` with ``nvcc`` and prints the build
    time and the compiler's register/shared-memory report;
-2. holds each CUDA kernel against its plain PyTorch version on the card, on
-   the kernel-test parametrisations (pruned/bypass mix, unaligned
-   capacities, one bucket, all-bypass, no pruning, a relation term, an
-   empty bucket, an empty graph), a score tie, and the real DBLP and ACM
-   layouts: retained ids equal, alpha within 1e-6, outputs within 1e-5
-   (``expf`` and FMA contraction differ from the CPU's arithmetic);
-3. drives the main path — ``prepare`` → ``task.compile(FlowConfig(
-   "fused_kernel", prune_k=8))`` → ``session(params)`` — for HAN on DBLP and
-   ACM at ``scale=1.0`` with seeded random weights: exactly one launch of
-   each kernel per semantic graph, finite logits within 1e-4 of the same
-   forward on the CPU (plain versions; the projection sums in another
-   order), and ``session.query`` blocks at capacities 1, 8, 64
-   bit-identical to the full forward's rows;
-4. times each kernel, its plain version and (for K2) one library call at
-   the DBLP APA shapes with CUDA events, and the whole forward;
+2. holds each CUDA kernel against its plain PyTorch version on the card:
+   the grouped pair on the kernel-test parametrisations (pruned/bypass mix,
+   unaligned capacities, one bucket, all-bypass, no pruning, a relation
+   term, an empty bucket, an empty graph), a score tie, and the real DBLP
+   and ACM layouts; the flat pair on the reference's sweep shapes (random
+   masks with holes), a relation term, k = D, an empty row, a score tie and
+   the real ACM ``union:paper`` table; a domain wider than 256 raises
+   before any launch. Retained ids equal, alpha within 1e-6, outputs within
+   1e-5 (``expf`` and FMA contraction differ from the CPU's arithmetic);
+3. drives the main paths — ``prepare`` → ``task.compile(FlowConfig(
+   "fused_kernel", prune_k=8))`` → ``session(params)`` — at ``scale=1.0``
+   with seeded random weights: HAN on DBLP and ACM (bucketed), then RGAT
+   and Simple-HGN on ACM and IMDB on three routes each (the bucketed single
+   dispatch, the per-bucket loop and the flat SGB). The launch counters are
+   set to 0 just before each forward and read just after; every count must
+   equal the count derived from the semantic graphs. Logits must be finite,
+   within 1e-4 of the same route's forward on the CPU (plain versions; the
+   projection sums in another order) and of the other routes, and
+   ``session.query`` blocks at capacities 1, 8, 64 bit-identical to the
+   full forward's rows;
+4. times each kernel and (for the aggregates) one library call twice: its
+   device time per call from the profiler (CUPTI), and the CUDA-event time
+   of back-to-back calls, which also holds the host's launch cost when the
+   kernel is shorter than that; the plain versions with CUDA events. The
+   grouped pair at the DBLP APA shapes, the flat pair at the ACM
+   ``union:paper`` shapes of Simple-HGN's first layer; then every forward,
+   with a profiler breakdown of the ACM forwards;
 5. prints the card line, then the ``{"kernels": [...]}`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -42,6 +54,11 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, published
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores, published
 TOL_ALPHA, TOL_OUT, TOL_LOGITS = 1e-6, 1e-5, 1e-4
+SCALE = 1.0  # dataset scale of the main paths: the published node counts
+PRUNE_K = 8
+ROUTES = ("bucketed", "loop", "flat")
+FLAT_SWEEP = ((11, 70, 8, 8, 200, 5), (8, 128, 8, 8, 64, 50), (5, 33, 4, 16, 40, 33), (2, 7, 2, 4, 10, 3))
+REPORT = ROOT / "build" / "chip_smoke.json"  # the full report, beside the built kernels
 
 
 def check(cond, msg: str) -> None:
@@ -56,6 +73,38 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def reset_launches(ops) -> None:
+    for key in ops.LAUNCHES:
+        ops.LAUNCHES[key] = 0
+
+
+def expected_launches(sgs, route: str, prune_k: int, layers: int, ops) -> dict:
+    """Kernel launches of one forward, derived from the semantic graphs:
+    per layer and graph, the grouped pair once when its layout has grid
+    steps (bucketed route), the flat pair once per non-empty bucket wider
+    than K (loop route), or once per table wider than K (flat route)."""
+    n = 0
+    for sg in sgs:
+        if route == "bucketed":
+            n += sg.grouped(ops.T_TILE, ops.W_TILE).num_steps > 0
+        elif route == "loop":
+            n += sum(b.num_targets > 0 and b.capacity > prune_k for b in sg.buckets)
+        else:
+            n += sg.num_targets > 0 and sg.nbr_idx.shape[1] > prune_k
+    keys = ("prune", "aggregate") if route == "bucketed" else ("flat_prune", "flat_aggregate")
+    out = {key: 0 for key in ops.LAUNCHES}
+    for key in keys:
+        out[key] = layers * n
+    return out
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -139,7 +188,7 @@ def check_kernels(cases, dev):
         a_p, i_p = ref.prune_plain(nbr, msk, ety, ts, tr, td, rt, blk, k_s, 0.2)
         o_k = ops.aggregate(a_p, i_p, hp, blk)
         o_p = ref.aggregate_plain(a_p, i_p, hp, blk)
-        torch.cuda.synchronize()
+        sync(dev)
         if not torch.equal(i_k, i_p):
             bad = int((i_k != i_p).sum())
             raise AssertionError(f"{name}: K1 retained ids differ from the plain version in {bad} slots")
@@ -180,30 +229,253 @@ def check_tie(hetgraph, dev):
     print("  kernels == plain  score tie: kernel keeps {b, c} (first-minimum eviction)")
 
 
+def flat_cases(acm_paper_sg, n_acm):
+    """(name, nbr, msk, ety, N, H, dh, num_rel_types, k) for the flat pair
+    in phase 2: numpy tables."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+
+    def table(t, d, n, p_valid, r=0):
+        idx = rng.integers(0, n, size=(t, d)).astype(np.int32)
+        msk = rng.random((t, d)) < p_valid
+        ety = rng.integers(0, r, size=(t, d)).astype(np.int32) if r else None
+        return idx, msk, ety
+
+    cases = []
+    for t, d, h, dh, n, k in FLAT_SWEEP:
+        cases.append((f"sweep t={t} d={d} h={h} dh={dh} k={k}", *table(t, d, n, 0.85), n, h, dh, 0, k))
+    cases.append(("relation term", *table(6, 40, 50, 0.9, r=5), 50, 4, 8, 5, 8))
+    cases.append(("k = D", *table(11, 70, 200, 0.85), 200, 8, 8, 0, 70))
+    idx, msk, _ = table(9, 20, 30, 0.85)
+    msk[3] = False
+    cases.append(("empty row", idx, msk, None, 30, 4, 8, 0, 6))
+    sg = acm_paper_sg
+    for k in (PRUNE_K, None):
+        cases.append((
+            f"acm {sg.name} {sg.nbr_idx.shape[0]}x{sg.nbr_idx.shape[1]} k={k}", sg.nbr_idx, sg.nbr_mask,
+            sg.edge_type, n_acm, 8, 8, sg.num_edge_types, k if k is not None else sg.nbr_idx.shape[1],
+        ))
+    return cases
+
+
+def check_flat_kernels(cases, dev):
+    """Phase 2, flat pair. Returns the largest alpha and output errors."""
+    import torch
+
+    from repro_torch.kernels.fused_prune_aggregate import ops, ref
+
+    err = {"flat_prune": 0.0, "flat_aggregate": 0.0}
+    gen = torch.Generator().manual_seed(1)
+    for name, idx, msk, ety, n, h, dh, n_rel, k in cases:
+        t = idx.shape[0]
+        hp = torch.randn((n, h, dh), generator=gen).to(dev)
+        ts = torch.randn((n, h), generator=gen).to(dev)
+        td = torch.randn((t, h), generator=gen).to(dev)
+        tr = torch.randn((n_rel, h), generator=gen).to(dev) if n_rel else None
+        nbr = torch.from_numpy(idx).to(dev)
+        mk = torch.from_numpy(msk).to(dev)
+        et = torch.from_numpy(ety).to(dev) if n_rel else None
+        a_k, i_k = ops.flat_prune(nbr, mk, et, ts, tr, td, k)
+        a_p, i_p = ref.flat_prune_plain(nbr, mk, et, ts, tr, td, k, 0.2)
+        o_k = ops.flat_aggregate(a_p, i_p, hp)
+        o_p = ref.flat_aggregate_plain(a_p, i_p, hp)
+        out = ops.fused_prune_aggregate(hp, ts, td, nbr, mk, theta_rel=tr, edge_type=et, prune_k=k)
+        sync(dev)
+        if not torch.equal(i_k, i_p):
+            bad = int((i_k != i_p).sum())
+            raise AssertionError(f"flat {name}: K1 retained ids differ from the plain version in {bad} slots")
+        e_a = float((a_k - a_p).abs().max())
+        e_o = max(float((o_k - o_p).abs().max()), float((out - o_p).abs().max()))
+        if e_a > TOL_ALPHA or e_o > TOL_OUT:
+            raise AssertionError(f"flat {name}: alpha err {e_a:.3g}, out err {e_o:.3g}")
+        empty = ~mk.any(dim=1)
+        check(bool((i_k[empty] == -1).all()) and not bool(out[empty].any()),
+              f"flat {name}: a row with no valid slot kept something")
+        err["flat_prune"] = max(err["flat_prune"], e_a)
+        err["flat_aggregate"] = max(err["flat_aggregate"], e_o)
+        print(f"  kernels == plain  flat {name}: ids equal, alpha err {e_a:.3g}, out err {e_o:.3g}"
+              + (f", {int(empty.sum())} empty rows zero" if bool(empty.any()) else ""))
+    return err
+
+
+def check_flat_tie_and_width(dev):
+    """Scores [1, 1, 2] at k = 2 in one flat row: the kernel keeps {b, c}
+    (ids [c, b]); a domain wider than 256 raises before any launch."""
+    import torch
+
+    from repro_torch.kernels.fused_prune_aggregate import ops, ref
+
+    nbr = torch.tensor([[0, 1, 2], [3, 1, 0]], dtype=torch.int32, device=dev)
+    msk = torch.tensor([[True, True, True], [True, True, False]], device=dev)
+    ts = torch.randn((4, 4), generator=torch.Generator().manual_seed(1))
+    ts[1] = ts[0]
+    ts[2] = ts[0] + 1.0
+    ts, td = ts.to(dev), torch.zeros((2, 4), device=dev)
+    _, i_k = ops.flat_prune(nbr, msk, None, ts, None, td, 2)
+    _, i_p = ref.flat_prune_plain(nbr, msk, None, ts, None, td, 2, 0.2)
+    got = i_k[0].tolist()
+    if got != [2, 1] or not torch.equal(i_k, i_p):
+        raise AssertionError(f"flat tie case: kernel kept ids {got}, expected [2, 1]")
+    print("  kernels == plain  flat score tie: kernel keeps {b, c} (first-minimum eviction)")
+    before = dict(ops.LAUNCHES)
+    wide = torch.zeros((2, ops.MAX_KS + 1), dtype=torch.int32, device=dev)
+    try:
+        ops.fused_prune_aggregate(
+            torch.zeros((4, 4, 2), device=dev), ts, td, wide, wide.bool(), prune_k=None
+        )
+    except ValueError as e:
+        check(ops.LAUNCHES == before, "the k > 256 case launched a kernel")
+        print(f"  k = {ops.MAX_KS + 1} raises before launch: {e}")
+    else:
+        raise AssertionError("a flat domain wider than 256 did not raise")
+
+
+def prepare_route(pipeline, hetgraph, model, ds, route, dev):
+    bucket_sizes = None if route == "flat" else hetgraph.DEFAULT_BUCKET_SIZES
+    return pipeline.prepare(model, ds, scale=SCALE, seed=0, bucket_sizes=bucket_sizes, device=dev)
+
+
+def route_flow(FlowConfig, route):
+    return FlowConfig("fused_kernel", prune_k=PRUNE_K, bucket_dispatch="loop" if route == "loop" else "single")
+
+
+def model_paths(pipeline, hetgraph, FlowConfig, ops, dev):
+    """Phase 3, RGAT and Simple-HGN on ACM and IMDB, three routes each.
+    Returns per-path results and the GPU tasks."""
+    import numpy as np
+    import torch
+
+    results, gpu_tasks = {}, {}
+    for model in ("rgat", "simple_hgn"):
+        for ds in ("acm", "imdb"):
+            logits_by_route = {}
+            for route in ROUTES:
+                key = f"{model}/{ds}/{route}"
+                task = prepare_route(pipeline, hetgraph, model, ds, route, dev)
+                cpu_task = prepare_route(pipeline, hetgraph, model, ds, route, torch.device("cpu"))
+                gpu_tasks[key] = task
+                flow = route_flow(FlowConfig, route)
+                sess = task.compile(flow)
+                want = expected_launches(task.sgs, route, PRUNE_K, task.model.num_layers, ops)
+                reset_launches(ops)
+                logits = sess(task.params)
+                sync(dev)
+                launches = dict(ops.LAUNCHES)
+                if launches != want:
+                    raise AssertionError(f"{key}: launches {launches}, expected {want}")
+                if tuple(logits.shape) != sess.out_shape or not bool(torch.isfinite(logits).all()):
+                    raise AssertionError(f"{key}: logits shape {tuple(logits.shape)} or non-finite values")
+                err = float((logits.cpu() - cpu_task.compile(flow)(cpu_task.params)).abs().max())
+                if err > TOL_LOGITS:
+                    raise AssertionError(f"{key}: GPU logits differ from the CPU forward by {err:.3g}")
+                rng = np.random.default_rng(0)
+                for cap in (1, 8, 64):
+                    idx = rng.integers(0, logits.shape[0], size=cap)
+                    rows = sess.query(task.params, idx)
+                    if not torch.equal(rows, sess(task.params)[torch.from_numpy(idx).to(dev)]):
+                        raise AssertionError(f"{key}: query block (capacity {cap}) differs from the full rows")
+                logits_by_route[route] = logits
+                results[key] = {
+                    "launches": launches, "logits_shape": list(logits.shape),
+                    "max_abs_err_vs_cpu": err, "query_blocks_bit_identical": 3,
+                }
+                print(f"  main path {key}: launches "
+                      f"{ {k: v for k, v in launches.items() if v} }, logits {tuple(logits.shape)} "
+                      f"finite, |gpu-cpu| {err:.3g}, 3 query blocks bit-identical")
+            for route in ROUTES[1:]:
+                d = float((logits_by_route[route] - logits_by_route[ROUTES[0]]).abs().max())
+                if d > TOL_LOGITS:
+                    raise AssertionError(f"{model}/{ds}: route {route} differs from {ROUTES[0]} by {d:.3g}")
+                results[f"{model}/{ds}/{route}"]["max_abs_diff_vs_bucketed"] = d
+            print(f"  routes agree {model}/{ds}: " + ", ".join(
+                f"{r} {results[f'{model}/{ds}/{r}']['max_abs_diff_vs_bucketed']:.3g}" for r in ROUTES[1:]))
+    return results, gpu_tasks
+
+
+def flat_timings(task, dev):
+    """Phase 4, flat pair, at the ACM union:paper shapes of Simple-HGN's
+    first layer (real projected features and weights, the relation term
+    on): kernel, plain and library times, and the bounds from the bytes and
+    operations this run's inputs need."""
+    import torch
+
+    from repro_torch.core import attention, flows
+    from repro_torch.core.projection import project_features
+    from repro_torch.kernels.fused_prune_aggregate import ops, ref
+
+    p, batch, model = task.params, task.batch, task.model
+    sg = batch.sg_by_dst["paper"]
+    heads, dh = model.heads, model.dh
+    with torch.inference_mode():
+        h = project_features(p, batch.features, batch.node_types, heads, dh, "layers.0.")
+        off, nt = batch.offsets["paper"], batch.num_nodes["paper"]
+        sc = attention.decompose_scores(
+            h, p["layers.0.a_src"], p["layers.0.a_dst"], slice(off, off + nt),
+            rel_emb=p["layers.0.rel_emb"].reshape(-1, heads, model.rel_dim), a_rel=p["layers.0.a_rel"],
+        )
+        nbr, msk, ety = flows._flat_tables(sg, True, dev)
+        args = (nbr, msk, ety, sc.theta_src, sc.theta_rel, sc.theta_dst, PRUNE_K)
+        alpha, ids = ops.flat_prune(*args)
+        out = ops.flat_aggregate(alpha, ids, h)
+        t = {
+            "flat_prune_plain": cuda_ms(lambda: ref.flat_prune_plain(*args, 0.2), 5, warmup=1),
+            "flat_aggregate_plain": cuda_ms(lambda: ref.flat_aggregate_plain(alpha, ids, h), 20),
+        }
+        timed(t, "flat_prune", lambda: ops.flat_prune(*args), 200)
+        timed(t, "flat_aggregate", lambda: ops.flat_aggregate(alpha, ids, h), 200)
+        lib_fn, lib_err = library_aggregate(alpha, ids, h, out)
+        check(lib_err <= TOL_OUT, f"library flat K2 differs from the kernel by {lib_err:.3g}")
+        timed(t, "flat_aggregate_library", lib_fn, 200)
+        torch.cuda.synchronize()
+        rows, k, _ = alpha.shape
+        # bytes this run's data needs: every slot's mask (1 B), the ids and
+        # edge types of valid slots, the theta_src rows they reference,
+        # theta_rel, theta_dst, and the outputs
+        valid = int(msk.sum())
+        src_rows = int(torch.unique(nbr[msk]).numel())
+        retained = ids[ids >= 0]
+        distinct = int(torch.unique(retained).numel())
+        k1_bytes = msk.numel() + valid * (nbr.element_size() + ety.element_size()) \
+            + (src_rows * heads + sc.theta_rel.numel() + sc.theta_dst.numel()) * 4 \
+            + alpha.numel() * 4 + ids.numel() * 4
+        k1_ops = valid * (2 * heads + 1) + rows * k * heads * 6
+        k2_bytes = (alpha.numel() + ids.numel()) * 4 + distinct * heads * dh * 4 + out.numel() * 4
+        k2_ops = 2 * int(retained.numel()) * heads * dh
+    bounds = {"flat_prune": bound(k1_bytes, k1_ops), "flat_aggregate": bound(k2_bytes, k2_ops)}
+    shapes = {
+        "graph": f"acm {sg.name} (simple_hgn layer 0)", "rows": rows, "width": int(nbr.shape[1]), "k": k,
+        "edge_types": int(sc.theta_rel.shape[0]), "valid_edge_slots": valid,
+        "distinct_source_rows": src_rows, "retained_slots": int(retained.numel()),
+        "distinct_retained_rows": distinct,
+    }
+    return t, bounds, shapes
+
+
 def main_path(pipeline, FlowConfig, ops, cpu_tasks, dev):
     """Phase 3. Returns per-dataset results and the GPU tasks."""
     import numpy as np
     import torch
 
-    flow = FlowConfig("fused_kernel", prune_k=8)
+    flow = FlowConfig("fused_kernel", prune_k=PRUNE_K)
     results, gpu_tasks = {}, {}
     for ds, cpu_task in cpu_tasks.items():
         t0 = time.perf_counter()
-        task = pipeline.prepare("han", ds, scale=1.0, seed=0, device=dev)
+        task = pipeline.prepare("han", ds, scale=SCALE, seed=0, device=dev)
         prep_s = time.perf_counter() - t0
         gpu_tasks[ds] = task
         for name, p in task.params.items():
             check(torch.equal(p.cpu(), cpu_task.params[name]), f"{ds}: weights differ on {name}")
         sess = task.compile(flow)
         n_sg = len(task.sgs)
-        check(all(sg.grouped(ops.T_TILE, ops.W_TILE).num_steps > 0 for sg in task.sgs),
-              f"{ds}: a semantic graph has no grid steps")
-        ops.LAUNCHES.update(prune=0, aggregate=0)
+        want = expected_launches(task.sgs, "bucketed", PRUNE_K, 1, ops)
+        check(want["prune"] == n_sg, f"{ds}: a semantic graph has no grid steps")
+        reset_launches(ops)
         logits = sess(task.params)
-        torch.cuda.synchronize()
+        sync(dev)
         launches = dict(ops.LAUNCHES)
-        if launches != {"prune": n_sg, "aggregate": n_sg}:
-            raise AssertionError(f"{ds}: launches {launches}, expected {n_sg} of each kernel")
+        if launches != want:
+            raise AssertionError(f"{ds}: launches {launches}, expected {want}")
         if tuple(logits.shape) != sess.out_shape or not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"{ds}: logits shape {tuple(logits.shape)} or non-finite values")
         cpu_logits = cpu_task.compile(flow)(cpu_task.params)
@@ -220,19 +492,48 @@ def main_path(pipeline, FlowConfig, ops, cpu_tasks, dev):
                 if not torch.equal(rows, full[torch.from_numpy(idx).to(dev)]):
                     raise AssertionError(f"{ds}: query block (capacity {cap}) differs from the full rows")
                 n_blocks += 1
-        results[ds] = {
+        results[f"han/{ds}"] = {
             "semantic_graphs": [sg.name for sg in task.sgs], "launches": launches,
             "logits_shape": list(logits.shape), "max_abs_err_vs_cpu": err,
             "query_blocks_bit_identical": n_blocks, "prepare_s": prep_s,
         }
-        print(f"  main path {ds}: {n_sg} semantic graphs, launches {launches}, "
+        print(f"  main path han/{ds}: {n_sg} semantic graphs, launches {launches}, "
               f"logits {tuple(logits.shape)} finite, |gpu-cpu| {err:.3g}, "
               f"{n_blocks} query blocks bit-identical")
     return results, gpu_tasks
 
 
-def timings(task, dev):
-    """Phase 4 at the DBLP APA shapes: kernel, plain and library times, and
+def library_aggregate(alpha, ids, h, out):
+    """K2 as one library call: a CSR sparse-dense product, row r*H + hh of
+    the sparse matrix holding alpha[r, :, hh] at columns id*H + hh. Returns
+    the call and its largest difference from ``out``."""
+    import torch
+
+    rows, _, heads = alpha.shape
+    n, _, dh = h.shape
+    r_i, s_i = torch.nonzero(ids >= 0, as_tuple=True)
+    hh = torch.arange(heads, device=alpha.device)
+    with torch.sparse.check_sparse_tensor_invariants(enable=True):
+        coo = torch.sparse_coo_tensor(
+            torch.stack([(r_i[:, None] * heads + hh).reshape(-1),
+                         (ids[r_i, s_i].long()[:, None] * heads + hh).reshape(-1)]),
+            alpha[r_i, s_i].reshape(-1), size=(rows * heads, n * heads),
+        )
+        csr = coo.coalesce().to_sparse_csr()
+    hflat = h.reshape(n * heads, dh)
+    lib_out = torch.sparse.mm(csr, hflat).reshape(rows, heads, dh)
+    return (lambda: torch.sparse.mm(csr, hflat)), float((lib_out - out).abs().max())
+
+
+def bound(nbytes: int, nops: int):
+    """(least ms, what bounds it, bytes, operations) on the published H100
+    peaks."""
+    b_ms, o_ms = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_F32_FLOPS * 1e3
+    return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations", nbytes, nops
+
+
+def grouped_timings(task, dev):
+    """Phase 4, grouped pair, at the DBLP APA shapes: kernel, plain and library times, and
     the bounds from the bytes and operations this run's inputs need."""
     import torch
 
@@ -251,30 +552,17 @@ def timings(task, dev):
         alpha, ids = ops.prune(*args)
         out = ops.aggregate(alpha, ids, h, blk)
         t = {
-            "prune": cuda_ms(lambda: ops.prune(*args), 200),
             "prune_plain": cuda_ms(lambda: ref.prune_plain(*args, 0.2), 5, warmup=1),
-            "aggregate": cuda_ms(lambda: ops.aggregate(alpha, ids, h, blk), 200),
             "aggregate_plain": cuda_ms(lambda: ref.aggregate_plain(alpha, ids, h, blk), 20),
         }
-        # K2 as one library call: a CSR sparse-dense product, row r*H + hh
-        # of the sparse matrix holding alpha[r, :, hh] at columns id*H + hh
-        rows, _, heads = alpha.shape
-        n, _, dh = h.shape
-        r_i, s_i = torch.nonzero(ids >= 0, as_tuple=True)
-        hh = torch.arange(heads, device=dev)
-        with torch.sparse.check_sparse_tensor_invariants(enable=True):
-            coo = torch.sparse_coo_tensor(
-                torch.stack([(r_i[:, None] * heads + hh).reshape(-1),
-                             (ids[r_i, s_i].long()[:, None] * heads + hh).reshape(-1)]),
-                alpha[r_i, s_i].reshape(-1), size=(rows * heads, n * heads),
-            )
-            csr = coo.coalesce().to_sparse_csr()
-        hflat = h.reshape(n * heads, dh)
-        lib_out = torch.sparse.mm(csr, hflat).reshape(rows, heads, dh)
-        lib_err = float((lib_out - out).abs().max())
+        timed(t, "prune", lambda: ops.prune(*args), 200)
+        timed(t, "aggregate", lambda: ops.aggregate(alpha, ids, h, blk), 200)
+        lib_fn, lib_err = library_aggregate(alpha, ids, h, out)
         check(lib_err <= TOL_OUT, f"library K2 differs from the kernel by {lib_err:.3g}")
-        t["aggregate_library"] = cuda_ms(lambda: torch.sparse.mm(csr, hflat), 200)
+        timed(t, "aggregate_library", lib_fn, 200)
         torch.cuda.synchronize()
+        rows, _, heads = alpha.shape
+        dh = h.shape[2]
         # bytes this run's data needs: every slot's mask (1 B), the ids of
         # valid slots, the theta_src rows they reference (as K2 counts the
         # h' rows its retained ids reference), theta_dst, the row tables
@@ -289,10 +577,7 @@ def timings(task, dev):
         k1_ops = valid * (heads + 1) + rows * k_s * heads * 6
         k2_bytes = (alpha.numel() + ids.numel() + 4 * n_blocks) * 4 + distinct * heads * dh * 4 + out.numel() * 4
         k2_ops = 2 * int((ids >= 0).sum()) * heads * dh
-    bounds = {}
-    for key, nbytes, nops in (("prune", k1_bytes, k1_ops), ("aggregate", k2_bytes, k2_ops)):
-        b_ms, o_ms = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_F32_FLOPS * 1e3
-        bounds[key] = (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations", nbytes, nops)
+    bounds = {"prune": bound(k1_bytes, k1_ops), "aggregate": bound(k2_bytes, k2_ops)}
     shapes = {
         "graph": f"dblp {sg.name}", "grid_steps": layout.num_steps, "rows": rows, "k_s": k_s,
         "valid_edge_slots": valid, "distinct_source_rows": src_rows,
@@ -301,17 +586,18 @@ def timings(task, dev):
     return t, bounds, shapes
 
 
-def forward_profile(sess, params, forward_ms: float, reps: int = 5):
-    """Device time per forward by kernel name (torch.profiler, CUPTI) and
-    the device's busy share of the event-timed forward. ``None`` when the
-    profiler sees no device time."""
+def device_times(fn, reps: int) -> dict:
+    """Device time per call of ``fn`` by kernel name (torch.profiler,
+    CUPTI), over ``reps`` calls after one warm-up call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            sess(params)
+            fn()
         torch.cuda.synchronize()
     per_kernel = {}
     for ev in prof.key_averages():
@@ -322,6 +608,26 @@ def forward_profile(sess, params, forward_ms: float, reps: int = 5):
             us = getattr(ev, "self_cuda_time_total", 0)
         if us > 0:
             per_kernel[ev.key] = us / reps / 1e3
+    return per_kernel
+
+
+def timed(t: dict, key: str, fn, iters: int) -> None:
+    """Two times per call of ``fn`` into ``t``: ``key`` is the device time
+    (the sum of its kernels' times from the profiler), ``key_event`` the
+    CUDA-event time of back-to-back calls, which also holds the host's
+    launch cost when the kernels are shorter than it. Without profiler
+    data ``key`` is the event time (``key_source`` says which)."""
+    t[f"{key}_event"] = cuda_ms(fn, iters)
+    dev = sum(device_times(fn, 50).values())
+    t[key] = dev if dev > 0 else t[f"{key}_event"]
+    t[f"{key}_source"] = "profiler" if dev > 0 else "events"
+
+
+def forward_profile(sess, params, forward_ms: float, reps: int = 5):
+    """Device time per forward by kernel name and the device's busy share
+    of the event-timed forward. ``None`` when the profiler sees no device
+    time."""
+    per_kernel = device_times(lambda: sess(params), reps)
     busy = sum(per_kernel.values())
     if busy == 0:
         return None
@@ -330,6 +636,16 @@ def forward_profile(sess, params, forward_ms: float, reps: int = 5):
         "device_busy_ms": busy, "forward_ms": forward_ms, "busy_share": busy / forward_ms,
         "top_kernels_ms": [[name[:80], ms] for name, ms in top],
     }
+
+
+KERNELS = (
+    # (LAUNCHES key, TPU kernel body it replaces, library-call timing key)
+    ("prune", "kernel.py:219 _grouped_prune_kernel", None),
+    ("aggregate", "kernel.py:137 _grouped_aggregate_kernel", "aggregate_library"),
+    ("flat_prune", "kernel.py:69 _prune_kernel (fused_prune_aggregate_pallas, kernel.py:153)", None),
+    ("flat_aggregate", "kernel.py:124 _aggregate_kernel (fused_prune_aggregate_pallas, kernel.py:153)",
+     "flat_aggregate_library"),
+)
 
 
 def main() -> int:
@@ -343,6 +659,7 @@ def main() -> int:
     from repro_torch.core.flows import FlowConfig
     from repro_torch.kernels.fused_prune_aggregate import ops
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"card: {card}")
@@ -358,63 +675,88 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
 
     # host-side SGB for the main path, on the CPU (also the CPU reference)
-    cpu_tasks = {ds: pipeline.prepare("han", ds, scale=1.0, seed=0, device="cpu") for ds in ("dblp", "acm")}
+    cpu_tasks = {ds: pipeline.prepare("han", ds, scale=SCALE, seed=0, device="cpu") for ds in ("dblp", "acm")}
+    acm_union = pipeline.prepare("simple_hgn", "acm", scale=SCALE, seed=0, bucket_sizes=None, device="cpu")
 
     # phase 2: kernels against their plain versions on the card
     print("phase 2: CUDA kernels against their plain PyTorch versions")
     err = check_kernels(kernel_cases(hetgraph, cpu_tasks), dev)
     check_tie(hetgraph, dev)
+    err.update(check_flat_kernels(
+        flat_cases(acm_union.batch.sg_by_dst["paper"], acm_union.batch.total_nodes), dev
+    ))
+    check_flat_tie_and_width(dev)
 
-    # phase 3: the main path
-    print("phase 3: HAN fused_kernel serving at scale=1.0")
+    # phase 3: the main paths
+    print(f"phase 3: fused_kernel serving at scale={SCALE}, prune_k={PRUNE_K}")
     results, gpu_tasks = main_path(pipeline, FlowConfig, ops, cpu_tasks, dev)
+    model_results, model_tasks = model_paths(pipeline, hetgraph, FlowConfig, ops, dev)
+    results.update(model_results)
 
     # phase 4: times
     print("phase 4: times (CUDA events)")
-    t, bounds, shapes = timings(gpu_tasks["dblp"], dev)
-    flow = FlowConfig("fused_kernel", prune_k=8)
+    t, bounds, shapes = grouped_timings(gpu_tasks["dblp"], dev)
+    t_flat, b_flat, s_flat = flat_timings(model_tasks["simple_hgn/acm/flat"], dev)
+    t.update(t_flat)
+    bounds.update(b_flat)
     fwd, latency, prof = {}, {}, {}
-    for ds, task in gpu_tasks.items():
+    sessions = {f"han/{ds}/bucketed": (task, FlowConfig("fused_kernel", prune_k=PRUNE_K))
+                for ds, task in gpu_tasks.items()}
+    for key, task in model_tasks.items():
+        sessions[key] = (task, route_flow(FlowConfig, key.rsplit("/", 1)[1]))
+    for key, (task, flow) in sessions.items():
         sess = task.compile(flow)
-        fwd[ds] = cuda_ms(lambda: sess(task.params), 20)
+        fwd[key] = cuda_ms(lambda: sess(task.params), 20)
         lat = []
         for _ in range(20):  # one forward at a time: host clock around a synchronized call
             t0 = time.perf_counter()
             sess(task.params)
             torch.cuda.synchronize()
             lat.append((time.perf_counter() - t0) * 1e3)
-        latency[ds] = sorted(lat)[len(lat) // 2]
-        prof[ds] = forward_profile(sess, task.params, fwd[ds])
-    print("  shapes: " + json.dumps(shapes))
+        latency[key] = sorted(lat)[len(lat) // 2]
+        if "/acm/" in key:
+            prof[key] = forward_profile(sess, task.params, fwd[key])
+    print("  shapes, grouped pair: " + json.dumps(shapes))
+    print("  shapes, flat pair: " + json.dumps(s_flat))
     print("  times_ms: " + json.dumps(t))
     print("  forward_ms (back to back, CUDA events): " + json.dumps(fwd))
     print("  forward_latency_ms (median, host clock, synchronized): " + json.dumps(latency))
-    for ds, p in prof.items():
-        print(f"  profile {ds}: " + (json.dumps(p) if p else "profiler saw no device time: not measured"))
-    print("  results: " + json.dumps(results))
+    for key, p in prof.items():
+        if p:
+            p = dict(p, top_kernels_ms=p["top_kernels_ms"][:6])
+        print(f"  profile {key}: " + (json.dumps(p) if p else "profiler saw no device time: not measured"))
 
     kernels = []
-    launches = {k: sum(r["launches"][k] for r in results.values()) for k in ("prune", "aggregate")}
-    for key, line, lib in (("prune", "kernel.py:219", None), ("aggregate", "kernel.py:137", "aggregate_library")):
+    for key, line, lib in KERNELS:
         bound_ms, bound_by, nbytes, nops = bounds[key]
+        per_fwd = {path: r["launches"][key] for path, r in results.items() if r["launches"][key]}
         kernels.append({
             "name": f"fused_prune_aggregate.{key}",
             "route": "cuda",
             "source": "src/repro_torch/kernels/fused_prune_aggregate/csrc/fused_prune_aggregate.cu",
             "replaces": f"src/repro/kernels/fused_prune_aggregate/{line}",
-            "launches": launches[key],
-            "launches_per_forward": {ds: r["launches"][key] for ds, r in results.items()},
+            "launches": sum(per_fwd.values()),
+            "launches_per_forward": per_fwd,
             "max_abs_err": err[key],
             "ms": t[key],
+            "ms_source": t[f"{key}_source"],
+            "event_ms": t[f"{key}_event"],
             "plain_ms": t[f"{key}_plain"],
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "bound_bytes": nbytes,
             "bound_ops": nops,
             "library_ms": t[lib] if lib else None,
-            "shapes": shapes["graph"],
-            "check": "pass: ids equal, alpha <= 1e-6" if key == "prune" else "pass: out <= 1e-5",
+            "library_event_ms": t[f"{lib}_event"] if lib else None,
+            "shapes": (shapes if key in ("prune", "aggregate") else s_flat)["graph"],
+            "check": "pass: ids equal, alpha <= 1e-6" if key.endswith("prune") else "pass: out <= 1e-5",
         })
+    REPORT.parent.mkdir(exist_ok=True)
+    REPORT.write_text(json.dumps({
+        "card": card, "results": results, "times_ms": t, "forward_ms": fwd,
+        "forward_latency_ms": latency, "profiles": prof, "kernels": kernels,
+    }, indent=1))
+    print(f"  full report: {REPORT.relative_to(ROOT)}; wall time {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

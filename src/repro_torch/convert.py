@@ -1,22 +1,32 @@
-"""Parameters from the reference package's HAN tree.
+"""Parameters from the reference package's parameter trees.
 
-The reference keeps HAN's parameters as a nested tree of arrays::
+The reference keeps a model's parameters as a nested tree of arrays, with
+dicts and lists as inner nodes. HAN's::
 
     {"proj": {type: {"w": (F, H·dh), "b": (H·dh,)}},
      "attn": {metapath: {"a_src": (H, dh), "a_dst": (H, dh)}},
      "sem":  {"w": (H·dh, hidden), "b": (hidden,), "q": (hidden,)},
      "out":  {"w": (H·dh, C), "b": (C,)}}
 
-:func:`params_from_reference` takes that tree with numpy arrays as leaves
+RGAT's and Simple-HGN's hold one dict per layer in a list::
+
+    {"layers": [{"proj": {...}, "attn": {relation: {...}}}, ...],   # RGAT
+     "out": {...}}
+    {"layers": [{"proj": {...}, "a_src": ..., "a_dst": ..., "a_rel": ...,
+                 "rel_emb": (R, H·rel_dim), "res": {type: ...}}, ...],
+     "out": {...}}                                                    # Simple-HGN
+
+:func:`params_from_reference` takes such a tree with numpy arrays as leaves
 (convert the reference's arrays with ``np.asarray`` first) and returns the
-port's flat parameter mapping, named as ``HAN.named_parameters()`` names
-them (``"proj.paper.w"``, ``"attn.PAP.a_src"``, …). Weights keep the
-reference's ``(in, out)`` layout — the port multiplies ``x @ w`` too — so no
-tensor is transposed.
+port's flat parameter mapping, named as the model's ``named_parameters()``
+names them: dict keys and list positions joined by dots
+(``"proj.paper.w"``, ``"layers.0.attn.AP.a_src"``, …). Weights keep the
+reference's ``(in, out)`` layout — the port multiplies ``x @ w`` too — so
+no tensor is transposed.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -24,22 +34,28 @@ import torch
 from repro_torch import resolve_device
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    if isinstance(tree, Mapping):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: tree}
     out: Dict[str, np.ndarray] = {}
-    for key, val in tree.items():
+    for key, val in items:
         name = f"{prefix}{key}"
         if "." in str(key):
             raise ValueError(f"parameter key {name!r} contains '.'")
-        if isinstance(val, Mapping):
-            out.update(_flatten(val, name + "."))
-        else:
-            out[name] = val
+        out.update(_flatten(val, name + "."))
     return out
 
 
-def params_from_reference(tree: Mapping, device="cuda") -> Dict[str, torch.Tensor]:
-    """The reference's nested HAN parameter tree (numpy leaves) as the
-    port's flat float32 parameter mapping on ``device``."""
+def params_from_reference(
+    tree: Mapping, device="cuda", model: Optional[torch.nn.Module] = None
+) -> Dict[str, torch.Tensor]:
+    """The reference's nested parameter tree (numpy leaves) as the port's
+    flat float32 parameter mapping on ``device``. With ``model``, the names
+    and shapes must equal ``model.named_parameters()``'s, or it raises."""
     dev = resolve_device(device)
     out = {}
     for name, leaf in _flatten(tree).items():
@@ -49,4 +65,15 @@ def params_from_reference(tree: Mapping, device="cuda") -> Dict[str, torch.Tenso
                 f"reference's arrays), got {type(leaf).__name__}"
             )
         out[name] = torch.tensor(leaf, dtype=torch.float32, device=dev)
+    if model is not None:
+        want = {n: tuple(p.shape) for n, p in model.named_parameters()}
+        got = {n: tuple(t.shape) for n, t in out.items()}
+        if got != want:
+            missing = sorted(set(want) - set(got))
+            extra = sorted(set(got) - set(want))
+            shapes = sorted(n for n in set(want) & set(got) if want[n] != got[n])
+            raise ValueError(
+                f"reference tree does not match {type(model).__name__}: missing "
+                f"{missing}, unexpected {extra}, shapes differ for {shapes}"
+            )
     return out

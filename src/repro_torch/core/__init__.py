@@ -2,13 +2,15 @@
 inference.
 
   * ``hetgraph``  — HetG container + Semantic Graph Build (SGB), numpy
-  * ``attention`` — decomposed additive attention (Eq. 2) + staged NA
+  * ``attention`` — decomposed additive attention (Eq. 2), staged NA and
+                    the fused NA (scan emulation or the flat kernel pair)
   * ``pruning``   — the staged_pruned flow's top-K keep-mask
-  * ``flows``     — staged / staged_pruned / fused_kernel execution flows
+  * ``flows``     — staged / staged_pruned / fused / fused_kernel flows
   * ``batch``     — ``GraphBatch``: the single model input
   * ``session``   — ``InferenceSession``: the serving entry
   * ``pipeline``  — dataset → SGB → model assembly
-  * ``models``    — HAN behind the ``HGNNModel`` protocol
+  * ``models``    — HAN, RGAT and Simple-HGN behind the ``HGNNModel``
+                    protocol
 """
 from repro_torch.core.batch import GraphBatch, ModelSpec  # noqa: F401
 from repro_torch.core.flows import FlowConfig  # noqa: F401

@@ -8,7 +8,9 @@ what the fused kernel exploits.
 
 ``aggregate_staged`` is the traditional-platform flow: it materializes the
 (T, D, H) scores and the (T, D, H, dh) gathered features. With ``prune_k``
-a separate selection pass shrinks the mask first (``staged_pruned``).
+a separate selection pass shrinks the mask first (``staged_pruned``, and
+``fused``: the reference's scan emulation keeps the same neighbor set).
+The fused kernel pairs live in ``repro_torch.kernels.fused_prune_aggregate``.
 """
 from __future__ import annotations
 
@@ -33,13 +35,28 @@ def decompose_scores(
     a_src: torch.Tensor,  # (H, dh)
     a_dst: torch.Tensor,  # (H, dh)
     dst_slice: slice | None = None,
+    rel_emb: Optional[torch.Tensor] = None,  # (R, H, dr)
+    a_rel: Optional[torch.Tensor] = None,  # (H, dr)
 ) -> DecomposedScores:
-    """Eq. 2: per-vertex attention coefficients, computed once and reused.
-    Both tables come back contiguous, as the NA kernels take them."""
+    """Eq. 2: per-vertex attention coefficients, computed once and reused;
+    with ``rel_emb`` and ``a_rel`` also the per-edge-type term θ_rel
+    (Simple-HGN). The tables come back contiguous, as the NA kernels take
+    them."""
     theta_src = torch.einsum("nhd,hd->nh", h_proj, a_src).contiguous()
     h_dst = h_proj[dst_slice] if dst_slice is not None else h_proj
     theta_dst = torch.einsum("nhd,hd->nh", h_dst, a_dst).contiguous()
-    return DecomposedScores(theta_src, theta_dst)
+    theta_rel = None
+    if rel_emb is not None and a_rel is not None:
+        theta_rel = torch.einsum("rhd,hd->rh", rel_emb, a_rel).contiguous()
+    return DecomposedScores(theta_src, theta_dst, theta_rel)
+
+
+def slice_targets(scores: DecomposedScores, targets: torch.Tensor) -> DecomposedScores:
+    """Restrict θ_*v to the rows ``targets`` (one gather); θ_u* is a global
+    per-source table and stays whole."""
+    return DecomposedScores(
+        scores.theta_src, scores.theta_dst[targets].contiguous(), scores.theta_rel
+    )
 
 
 def _edge_scores(
@@ -50,7 +67,7 @@ def _edge_scores(
     """Per-edge θ_u* (+ rel term), (T, D, H)."""
     th = scores.theta_src[nbr_idx]
     if scores.theta_rel is not None and edge_type is not None:
-        th = th + scores.theta_rel[edge_type]
+        th = th + scores.theta_rel[edge_type.long()]
     return th
 
 
@@ -77,3 +94,4 @@ def aggregate_staged(
     alpha = torch.where(mask[..., None], alpha, torch.zeros_like(alpha))
     feats = h_proj[nbr_idx]  # (T, D, H, dh)
     return torch.einsum("tdh,tdhf->thf", alpha, feats)
+

@@ -70,6 +70,11 @@ class GraphBatch:
     def dst_offset(self) -> int:
         return self.offsets[self.label_type]
 
+    @property
+    def sg_by_dst(self) -> Dict[str, object]:
+        """Semantic graphs keyed by destination type (union-graph models)."""
+        return {sg.dst_type: sg for sg in self.sgs}
+
     def constrain(self, x: torch.Tensor, role: str) -> torch.Tensor:
         """Placement hook of the reference's sharded path; the identity on
         one device."""

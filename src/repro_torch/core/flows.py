@@ -4,20 +4,31 @@
   * ``staged``        — traditional baseline (no pruning)
   * ``staged_pruned`` — separate top-K pass then staged NA (``lax.top_k``
                         tie rule: lower slot index wins)
-  * ``fused``         — the reference's scan emulation of the fused flow;
-                        comes with a later slice of the port
-  * ``fused_kernel``  — ADE fused NA through the CUDA kernel pair on a
-                        degree-bucketed graph (first-minimum eviction,
-                        strict ``>``)
+  * ``fused``         — the reference's scan emulation of the fused flow.
+                        Its domain always holds earlier slots than the tile
+                        merged into it, so ``top_k`` over [domain, tile]
+                        keeps the same neighbors as ``staged_pruned``; it
+                        runs that computation
+  * ``fused_kernel``  — ADE fused NA through the CUDA kernel pairs
+                        (first-minimum eviction, strict ``>``)
 
 ``run_aggregate`` works on raw padded-CSC tensors; ``run_aggregate_graph``
 takes a flat ``SemanticGraph`` or a degree-bucketed
 ``BucketedSemanticGraph``. Bucketed NA is one dispatch per semantic graph:
 ``fused_kernel`` runs the grouped kernel pair (one launch of each kernel
-for all buckets), the staged flows run each bucket on a contiguous view of
+for all buckets), the other flows run each bucket on a contiguous view of
 θ_*v reordered once into bucket-concatenation order, and one
-inverse-permutation gather restores target order. Buckets whose capacity
-is ≤ ``prune_k`` take the paper's §4.3 pruner bypass.
+inverse-permutation gather restores target order.
+``FlowConfig(bucket_dispatch="loop")`` is the reference's per-bucket
+dispatch instead: one ``run_aggregate`` per bucket (under ``fused_kernel``
+one launch of the flat kernel pair per pruned bucket), each followed by an
+``index_copy`` into the output. A flat graph is one ``run_aggregate``
+(under ``fused_kernel`` one flat launch pair when D > K). Wherever a
+table's padded width is ≤ ``prune_k``, ``fused_kernel`` takes the paper's
+§4.3 pruner bypass: the plain aggregation, no retention domain.
+
+Device mirrors of a graph's tables are cached on the graph per device, so
+repeated forwards copy nothing from the host.
 """
 from __future__ import annotations
 
@@ -30,11 +41,10 @@ from repro_torch.core import attention
 from repro_torch.core.hetgraph import BucketedSemanticGraph, SemanticGraph
 
 # Python-side dispatch accounting:
-#   graph_calls — run_aggregate_graph entries on bucketed graphs
-#   query_calls — InferenceSession.query blocks served
-DISPATCH = {"graph_calls": 0, "query_calls": 0}
-
-_LATER = "comes with a later slice of the port"
+#   graph_calls  — run_aggregate_graph entries on bucketed graphs
+#   bucket_calls — per-bucket NA dispatches of bucket_dispatch="loop"
+#   query_calls  — InferenceSession.query blocks served
+DISPATCH = {"graph_calls": 0, "bucket_calls": 0, "query_calls": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,7 +52,7 @@ class FlowConfig:
     flow: str = "staged"
     prune_k: Optional[int] = None
     # "single": one dispatch per semantic graph; "loop": the reference's
-    # per-bucket dispatch (reaches the flat kernel, not ported yet)
+    # per-bucket dispatch (the flat kernel pair per pruned bucket)
     bucket_dispatch: str = "single"
 
     def __post_init__(self):
@@ -65,21 +75,56 @@ def run_aggregate(
         return attention.aggregate_staged(
             h_proj, scores, nbr_idx, nbr_mask, edge_type, prune_k=None
         )
-    if cfg.flow == "staged_pruned":
+    # paper §4.3: when the whole padded table fits under K, the retention
+    # domain is a no-op and the fused flow IS the plain aggregation
+    if cfg.flow in ("staged_pruned", "fused") or (
+        cfg.prune_k is not None and cfg.prune_k >= nbr_idx.shape[1]
+    ):
         return attention.aggregate_staged(
             h_proj, scores, nbr_idx, nbr_mask, edge_type, prune_k=cfg.prune_k
         )
-    if cfg.flow == "fused":
-        raise NotImplementedError(f"flow 'fused' (the scan emulation) {_LATER}")
-    # paper §4.3: when the whole padded table fits under K, the retention
-    # domain is a no-op and the fused flow IS the plain aggregation
-    if cfg.prune_k is not None and cfg.prune_k >= nbr_idx.shape[1]:
-        return attention.aggregate_staged(
-            h_proj, scores, nbr_idx, nbr_mask, edge_type, prune_k=None
-        )
-    raise NotImplementedError(
-        f"fused_kernel on a flat padded-CSC table runs the flat kernel, which {_LATER}"
+    from repro_torch.kernels.fused_prune_aggregate import ops as k_ops
+
+    return k_ops.fused_prune_aggregate(
+        h_proj, scores.theta_src, scores.theta_dst, nbr_idx, nbr_mask,
+        theta_rel=scores.theta_rel, edge_type=edge_type,
+        prune_k=cfg.prune_k, slope=attention.LEAKY_SLOPE,
     )
+
+
+def _put(a, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(a).to(device)
+
+
+def _table(nbr, msk, ety, use_ety: bool, device: torch.device):
+    """Device mirror of one padded-CSC table: int32 ids, bool mask, int32
+    edge types (``None`` without a rel term), the dtypes the kernels take."""
+    return (
+        _put(nbr.astype("int32"), device),
+        _put(msk, device),
+        _put(ety.astype("int32"), device) if use_ety else None,
+    )
+
+
+def _flat_tables(sg: SemanticGraph, use_ety: bool, device: torch.device):
+    """Device mirror of a flat graph's table, cached on the graph per
+    device."""
+    key = ("tables", use_ety, device)
+    if key not in sg._device:
+        sg._device[key] = _table(sg.nbr_idx, sg.nbr_mask, sg.edge_type, use_ety, device)
+    return sg._device[key]
+
+
+def _bucket_loop_tables(sg: BucketedSemanticGraph, use_ety: bool, device: torch.device):
+    """Per bucket: device targets and table, cached on the graph."""
+    key = ("loop", use_ety, device)
+    if key not in sg._device:
+        sg._device[key] = tuple(
+            (_put(b.targets.astype("int64"), device),)
+            + _table(b.nbr_idx, b.nbr_mask, b.edge_type, use_ety, device)
+            for b in sg.buckets
+        )
+    return sg._device[key]
 
 
 def _device_tables(sg: BucketedSemanticGraph, use_ety: bool, device: torch.device):
@@ -87,24 +132,37 @@ def _device_tables(sg: BucketedSemanticGraph, use_ety: bool, device: torch.devic
     cached on the graph per device."""
     key = ("tables", use_ety, device)
     if key not in sg._device:
-        def put(a):
-            return torch.from_numpy(a).to(device)
-
         tables = tuple(
-            (
-                put(b.nbr_idx.astype("int64")),
-                put(b.nbr_mask),
-                put(b.edge_type.astype("int64")) if use_ety else None,
-            )
+            _table(b.nbr_idx, b.nbr_mask, b.edge_type, use_ety, device)
             for b in sg.buckets
             if b.num_targets > 0
         )
         sg._device[key] = (
             tables,
-            put(sg.concat_targets().astype("int64")),
-            put(sg.target_perm().astype("int64")),
+            _put(sg.concat_targets().astype("int64"), device),
+            _put(sg.target_perm().astype("int64"), device),
         )
     return sg._device[key]
+
+
+def run_aggregate_graph_bucket_loop(
+    cfg: FlowConfig,
+    h_proj: torch.Tensor,
+    scores: attention.DecomposedScores,
+    sg: BucketedSemanticGraph,
+) -> torch.Tensor:
+    """The reference's per-bucket dispatch: per bucket one θ_*v gather, one
+    ``run_aggregate`` and one ``index_copy`` into a zero output."""
+    use_ety = scores.theta_rel is not None
+    _, h, dh = h_proj.shape
+    out = torch.zeros((sg.num_targets, h, dh), dtype=h_proj.dtype, device=h_proj.device)
+    for targets, nbr, msk, ety in _bucket_loop_tables(sg, use_ety, h_proj.device):
+        DISPATCH["bucket_calls"] += 1
+        z = run_aggregate(
+            cfg, h_proj, attention.slice_targets(scores, targets), nbr, msk, ety
+        )
+        out.index_copy_(0, targets, z.to(h_proj.dtype))
+    return out
 
 
 def run_aggregate_graph(
@@ -118,16 +176,12 @@ def run_aggregate_graph(
     ``scores.theta_dst`` covers the graph's full target range (one row per
     ``dst_type`` vertex, in local order).
     """
-    if cfg.flow == "fused":
-        raise NotImplementedError(f"flow 'fused' (the scan emulation) {_LATER}")
     use_ety = scores.theta_rel is not None
     dev = h_proj.device
     if isinstance(sg, BucketedSemanticGraph):
         DISPATCH["graph_calls"] += 1
         if cfg.bucket_dispatch == "loop":
-            raise NotImplementedError(
-                f"bucket_dispatch='loop' reaches the flat kernel, which {_LATER}"
-            )
+            return run_aggregate_graph_bucket_loop(cfg, h_proj, scores, sg)
         if cfg.flow == "fused_kernel":
             from repro_torch.kernels.fused_prune_aggregate import ops as k_ops
 
@@ -152,9 +206,4 @@ def run_aggregate_graph(
             outs.append(run_aggregate(cfg, h_proj, sc, nbr, msk, ety))
             off += t_b
         return torch.cat(outs, dim=0)[perm]
-    return run_aggregate(
-        cfg, h_proj, scores,
-        torch.from_numpy(sg.nbr_idx.astype("int64")).to(dev),
-        torch.from_numpy(sg.nbr_mask).to(dev),
-        torch.from_numpy(sg.edge_type.astype("int64")).to(dev) if use_ety else None,
-    )
+    return run_aggregate(cfg, h_proj, scores, *_flat_tables(sg, use_ety, dev))

@@ -1,9 +1,10 @@
 """Heterogeneous graph containers and Semantic Graph Build (SGB), numpy only.
 
-The port's copy of ``repro/core/hetgraph.py`` for the metapath path: the
-same vectorized builds give bit-identical tables for the same graph and
-seed. A semantic graph is stored as padded-CSC (per target, a fixed-width
-row of global source ids plus a validity mask), either flat
+The port's copy of ``repro/core/hetgraph.py`` for the metapath (HAN),
+relation (RGAT) and union (Simple-HGN) builds: the same vectorized builds
+give bit-identical tables for the same graph and seed. A semantic graph is
+stored as padded-CSC (per target, a fixed-width row of global source ids
+plus a validity mask), either flat
 (:class:`SemanticGraph`, one ``(T, D_max)`` table) or degree-bucketed
 (:class:`BucketedSemanticGraph`): targets partitioned by degree into buckets
 of capacity e.g. ``{8, 32, 128, D_max}``, so padded NA slots follow the
@@ -138,7 +139,8 @@ class SemanticGraph:
 
     ``nbr_idx[v, j]`` is the *global* id of the j-th in-neighbor of target
     ``v``. Invalid slots are masked by ``nbr_mask`` and point at index 0.
-    ``edge_type`` is all-zeros for single-relation graphs.
+    ``edge_type`` is all-zeros for single-relation graphs. ``_device``
+    caches device mirrors of the table.
     """
 
     name: str
@@ -148,6 +150,9 @@ class SemanticGraph:
     nbr_mask: np.ndarray  # (T, D) bool
     edge_type: np.ndarray  # (T, D) int32
     num_edge_types: int = 1
+    _device: Dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False
+    )
 
     @property
     def num_targets(self) -> int:
@@ -465,6 +470,79 @@ def _make_graph(
     return bucketize(
         name, src_types, dst_type, nbr, msk, ety, bucket_sizes, num_edge_types
     )
+
+
+def build_relation_graphs(
+    g: HetGraph,
+    max_degree: int | None = None,
+    add_self_loops: bool = True,
+    seed: int = 0,
+    bucket_sizes: Sequence[int] | None = None,
+) -> List[AnySemanticGraph]:
+    """SGB for relation-based models (RGAT): one semantic graph per
+    relation, in ``g.relations`` order; the model decides which to use.
+    A relation whose endpoints share a type gets self-loops."""
+    rng = np.random.default_rng(seed)
+    offs = g.type_offsets()
+    out = []
+    for (src_t, name, dst_t) in g.relations:
+        src, dst = g.edges[name]
+        gsrc = src.astype(np.int64) + offs[src_t]
+        if add_self_loops and src_t == dst_t:
+            loops = np.arange(g.num_nodes[dst_t], dtype=np.int64)
+            gsrc = np.concatenate([gsrc, loops + offs[dst_t]])
+            dst = np.concatenate([dst, loops])
+        nbr, msk, ety = _pad_csc(
+            gsrc, dst.astype(np.int64), g.num_nodes[dst_t], max_degree, rng
+        )
+        out.append(
+            _make_graph(name, (src_t,), dst_t, nbr, msk, ety, 1, bucket_sizes)
+        )
+    return out
+
+
+def build_union_graph(
+    g: HetGraph,
+    dst_types: Sequence[str] | None = None,
+    max_degree: int | None = None,
+    add_self_loops: bool = True,
+    seed: int = 0,
+    bucket_sizes: Sequence[int] | None = None,
+) -> Dict[str, AnySemanticGraph]:
+    """SGB for Simple-HGN: one union graph per destination type (all of
+    ``g.node_types`` by default, in that order) holding the in-edges of
+    every relation, with per-slot relation ids for the edge-type term.
+    Self-loops get their own type id, ``len(g.relations)``."""
+    rng = np.random.default_rng(seed)
+    offs = g.type_offsets()
+    rel_ids = {name: i for i, (_, name, _) in enumerate(g.relations)}
+    self_loop_id = len(rel_ids)
+    by_dst: Dict[str, List[Tuple[np.ndarray, np.ndarray, np.ndarray]]] = {}
+    for (src_t, name, dst_t) in g.relations:
+        src, dst = g.edges[name]
+        gsrc = src.astype(np.int64) + offs[src_t]
+        et = np.full(len(gsrc), rel_ids[name], dtype=np.int64)
+        by_dst.setdefault(dst_t, []).append((gsrc, dst.astype(np.int64), et))
+    out = {}
+    wanted = dst_types if dst_types is not None else list(g.node_types)
+    for dst_t in wanted:
+        parts = list(by_dst.get(dst_t, []))
+        if add_self_loops:
+            loops = np.arange(g.num_nodes[dst_t], dtype=np.int64)
+            parts.append((
+                loops + offs[dst_t], loops,
+                np.full(g.num_nodes[dst_t], self_loop_id, dtype=np.int64),
+            ))
+        src, dst, et = (
+            np.concatenate([p[i] for p in parts]) if parts else np.zeros(0, np.int64)
+            for i in range(3)
+        )
+        nbr, msk, ety = _pad_csc(src, dst, g.num_nodes[dst_t], max_degree, rng, et)
+        out[dst_t] = _make_graph(
+            f"union:{dst_t}", tuple(g.node_types), dst_t, nbr, msk, ety,
+            self_loop_id + 1, bucket_sizes,
+        )
+    return out
 
 
 def _compose(

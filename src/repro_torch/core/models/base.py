@@ -22,16 +22,38 @@ it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Iterator, Mapping, Tuple
+from typing import Callable, Dict, Iterable, Iterator, Mapping, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.core.batch import GraphBatch, ModelSpec
 from repro_torch.core.flows import FlowConfig
+from repro_torch.core.projection import glorot_
 
 Carry = object
 Params = Mapping[str, torch.Tensor]
+
+
+def frozen(*shape) -> nn.Parameter:
+    """An inference-only parameter (no autograd state), zero until
+    ``reset_parameters`` fills it."""
+    return nn.Parameter(torch.zeros(shape), requires_grad=False)
+
+
+def projection(in_dims: Iterable[Tuple[str, int]], dim: int) -> nn.ModuleDict:
+    """Feature-projection parameters ``<type>.w`` (F_t, dim) and
+    ``<type>.b`` (dim,) for every ``(type, F_t)``."""
+    return nn.ModuleDict({
+        t: nn.ParameterDict({"w": frozen(f, dim), "b": frozen(dim)}) for t, f in in_dims
+    })
+
+
+def reset_projection(proj: nn.ModuleDict, generator: torch.Generator) -> None:
+    """Glorot weights and zero biases, types in sorted order."""
+    for t in sorted(proj):
+        glorot_(proj[t]["w"], generator)
+        proj[t]["b"].data.zero_()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,7 +108,8 @@ class HGNNModel(nn.Module):
 class ModelEntry:
     """How ``pipeline.prepare`` assembles one architecture: ``factory(spec)``
     builds the module; ``sgb_kind`` names the Semantic Graph Build it
-    consumes (``"metapath"`` for HAN)."""
+    consumes (``"metapath"`` for HAN, ``"relation"`` for RGAT, ``"union"``
+    for Simple-HGN)."""
 
     name: str
     factory: Callable[[ModelSpec], HGNNModel]

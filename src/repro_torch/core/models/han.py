@@ -19,13 +19,15 @@ from torch import nn
 from repro_torch.core import attention, semantic_fusion
 from repro_torch.core.batch import GraphBatch, ModelSpec
 from repro_torch.core.flows import FlowConfig, run_aggregate_graph
-from repro_torch.core.models.base import HGNNModel, LayerStep, Params
+from repro_torch.core.models.base import (
+    HGNNModel,
+    LayerStep,
+    Params,
+    frozen,
+    projection,
+    reset_projection,
+)
 from repro_torch.core.projection import glorot_, project_features
-
-
-def _frozen(*shape) -> nn.Parameter:
-    # inference-only in this slice: no autograd state on the weights
-    return nn.Parameter(torch.zeros(shape), requires_grad=False)
 
 
 class HAN(HGNNModel):
@@ -34,31 +36,26 @@ class HAN(HGNNModel):
         self.heads, self.dh = heads, dh
         self.dim = heads * dh
         self.num_classes = spec.num_classes
-        self.proj = nn.ModuleDict({
-            t: nn.ParameterDict({"w": _frozen(f, self.dim), "b": _frozen(self.dim)})
-            for t, f in spec.feat_dims
-        })
+        self.proj = projection(spec.feat_dims, self.dim)
         self.attn = nn.ModuleDict({
-            mp: nn.ParameterDict({"a_src": _frozen(heads, dh), "a_dst": _frozen(heads, dh)})
+            mp: nn.ParameterDict({"a_src": frozen(heads, dh), "a_dst": frozen(heads, dh)})
             for mp in spec.sg_names
         })
         self.sem = nn.ParameterDict({
-            "w": _frozen(self.dim, sem_hidden),
-            "b": _frozen(sem_hidden),
-            "q": _frozen(sem_hidden),
+            "w": frozen(self.dim, sem_hidden),
+            "b": frozen(sem_hidden),
+            "q": frozen(sem_hidden),
         })
         self.out = nn.ParameterDict({
-            "w": _frozen(self.dim, spec.num_classes),
-            "b": _frozen(spec.num_classes),
+            "w": frozen(self.dim, spec.num_classes),
+            "b": frozen(spec.num_classes),
         })
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Glorot-uniform weights, zero biases, drawn in a fixed order from
         ``generator`` (on the CPU, so every device gets the same values;
         move the module afterwards)."""
-        for t in sorted(self.proj):
-            glorot_(self.proj[t]["w"], generator)
-            self.proj[t]["b"].data.zero_()
+        reset_projection(self.proj, generator)
         for mp in self.attn:
             glorot_(self.attn[mp]["a_src"], generator)
             glorot_(self.attn[mp]["a_dst"], generator)

@@ -79,8 +79,10 @@ def prepare(
 ) -> HGNNTask:
     """Assemble dataset → SGB → model on ``device``.
 
-    ``dataset`` is a registry name, generated with ``scale``/``seed``.
-    ``bucket_sizes`` selects the SGB layout: a capacity list
+    ``dataset`` is a registry name, generated with ``scale``/``seed``. The
+    model's registry entry names its SGB kind: metapath graphs (HAN), one
+    graph per relation (RGAT) or one union graph per node type
+    (Simple-HGN). ``bucket_sizes`` selects the SGB layout: a capacity list
     gives the degree-bucketed build (the default), ``None`` the flat
     ``(T, D_max)`` one. The model's parameters are drawn on the CPU from a
     ``torch.Generator`` seeded with ``seed`` and then moved, so the same
@@ -90,17 +92,19 @@ def prepare(
     dev = resolve_device(device)
     entry = get_entry(model_name)
     g, mps = datasets.resolve(dataset, scale=scale, seed=seed)
-    if entry.sgb_kind != "metapath":
-        raise NotImplementedError(
-            f"SGB kind {entry.sgb_kind!r} comes with a later slice of the port"
-        )
-    if not mps:
-        raise ValueError(
-            f"model {model_name!r} needs metapaths for dataset {dataset!r}"
-        )
-    sgs = hetgraph.build_metapath_graphs(
-        g, mps, max_degree=max_degree, seed=seed, bucket_sizes=bucket_sizes
-    )
+    sgb_kw = dict(max_degree=max_degree, seed=seed, bucket_sizes=bucket_sizes)
+    if entry.sgb_kind == "metapath":
+        if not mps:
+            raise ValueError(
+                f"model {model_name!r} needs metapaths for dataset {dataset!r}"
+            )
+        built = hetgraph.build_metapath_graphs(g, mps, **sgb_kw)
+    elif entry.sgb_kind == "relation":
+        built = hetgraph.build_relation_graphs(g, **sgb_kw)
+    else:
+        built = hetgraph.build_union_graph(g, **sgb_kw)
+    # a union build is keyed by destination type, in node_types order
+    sgs = list(built.values()) if isinstance(built, dict) else list(built)
     batch = GraphBatch.from_graph(g, sgs, dev)
     spec = ModelSpec.from_graph(g, sgs)
     model = entry.factory(spec)

@@ -26,12 +26,14 @@ def project_features(
     node_types: Tuple[str, ...],
     heads: int,
     dh: int,
+    prefix: str = "",
 ) -> torch.Tensor:
     """FP for every node type -> (N_total, heads, dh) global table, in
-    ``node_types`` (= global id) order. ``params`` holds ``proj.<type>.w``
-    (F_t, heads·dh) and ``proj.<type>.b``."""
+    ``node_types`` (= global id) order. ``params`` holds
+    ``<prefix>proj.<type>.w`` (F_t, heads·dh) and ``<prefix>proj.<type>.b``."""
     outs = []
     for t in node_types:
-        h = features[t] @ params[f"proj.{t}.w"] + params[f"proj.{t}.b"]
+        w, b = params[f"{prefix}proj.{t}.w"], params[f"{prefix}proj.{t}.b"]
+        h = features[t] @ w + b
         outs.append(h.reshape(-1, heads, dh))
     return torch.cat(outs, dim=0)

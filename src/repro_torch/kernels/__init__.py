@@ -1,8 +1,10 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 version.
 
-  * ``fused_prune_aggregate`` — ADE fused NA over a grouped bucket layout:
-    K1 prune + softmax, K2 gather-aggregate (CUDA C++ in ``csrc/``).
+  * ``fused_prune_aggregate`` — ADE fused NA, K1 prune + softmax and K2
+    gather-aggregate, as two pairs of CUDA C++ kernels in ``csrc/``: one
+    over a grouped bucket layout (all buckets of a graph in one launch),
+    one over a flat ``(T, D)`` padded-CSC table.
 
 A kernel package holds ``ops.py`` (the public wrapper: the plain version for
 CPU tensors, the CUDA kernel for CUDA tensors, never a fallback between

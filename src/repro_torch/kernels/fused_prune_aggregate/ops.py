@@ -1,12 +1,14 @@
-"""Public wrappers of the fused prune+aggregate kernel pair.
+"""Public wrappers of the fused prune+aggregate kernel pairs.
 
 :func:`fused_prune_aggregate_grouped` runs NA over every degree bucket of a
-``BucketedSemanticGraph`` as ONE launch of each kernel: K1 :func:`prune`
-then K2 :func:`aggregate`, then one ``perm`` gather back to target order.
-For CUDA tensors :func:`prune` and :func:`aggregate` launch the CUDA
-kernels of ``csrc/`` (built at first use) or raise; for CPU tensors they run
-the plain versions of ``ref.py``. There is no fallback from one to the
-other.
+``BucketedSemanticGraph`` as ONE launch of each grouped kernel: K1
+:func:`prune` then K2 :func:`aggregate`, then one ``perm`` gather back to
+target order. :func:`fused_prune_aggregate` runs NA over one flat ``(T,
+D)`` padded-CSC table (a flat graph, or one bucket of the per-bucket loop):
+K1 :func:`flat_prune` then K2 :func:`flat_aggregate`. For CUDA tensors the
+four step wrappers launch the CUDA kernels of ``csrc/`` (built at first
+use) or raise; for CPU tensors they run the plain versions of ``ref.py``.
+There is no fallback from one to the other.
 
 Device mirrors of a layout's tile stack and its per-``prune_k`` block table
 are cached on the ``GroupedBucketLayout``, keyed by device and ``prune_k``,
@@ -33,7 +35,7 @@ MAX_KS = 256  # retention-domain width the CUDA K1 supports (default max_degree)
 
 # kernel launches, one per launch of each CUDA kernel; the plain versions do
 # not count
-LAUNCHES = {"prune": 0, "aggregate": 0}
+LAUNCHES = {"prune": 0, "aggregate": 0, "flat_prune": 0, "flat_aggregate": 0}
 
 _ptr = ctypes.c_void_p
 _int = ctypes.c_int
@@ -48,6 +50,10 @@ def library():
         lib.fpa_grouped_prune.restype = _int
         lib.fpa_grouped_aggregate.argtypes = [_ptr] * 5 + [_int] * 5 + [_ptr]
         lib.fpa_grouped_aggregate.restype = _int
+        lib.fpa_flat_prune.argtypes = [_ptr] * 8 + [_int] * 4 + [ctypes.c_float, _ptr]
+        lib.fpa_flat_prune.restype = _int
+        lib.fpa_flat_aggregate.argtypes = [_ptr] * 4 + [_int] * 4 + [_ptr]
+        lib.fpa_flat_aggregate.restype = _int
         lib.fpa_max_ks.argtypes = []
         lib.fpa_max_ks.restype = _int
         if lib.fpa_max_ks() != MAX_KS:
@@ -280,3 +286,119 @@ def fused_prune_aggregate_grouped(
         slope,
     )
     return aggregate(alpha, ids, h_proj, blk).index_select(0, perm)
+
+
+def flat_prune(
+    nbr: torch.Tensor,
+    msk: torch.Tensor,
+    ety: Optional[torch.Tensor],
+    theta_src: torch.Tensor,
+    theta_rel: Optional[torch.Tensor],
+    theta_dst: torch.Tensor,
+    k: int,
+    slope: float = 0.2,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flat K1 over a (T, D) table -> (alpha (T, k, H) f32, ids (T, k)
+    int32). See ``ref.flat_prune_plain`` for the arguments. CUDA tensors
+    launch the kernel (``k`` at most ``MAX_KS``); CPU tensors run the plain
+    version."""
+    if theta_src.device.type == "cpu":
+        return ref.flat_prune_plain(
+            nbr, msk, ety, theta_src, theta_rel, theta_dst, k, slope
+        )
+    dev = _cuda_device(theta_src)
+    t, d = nbr.shape
+    n, h = theta_src.shape
+    if not 1 <= k <= MAX_KS:
+        raise ValueError(f"k={k} outside [1, {MAX_KS}] (the CUDA K1's domain width)")
+    if h < 1:
+        raise ValueError("theta_src has no heads")
+    i32, f32 = torch.int32, torch.float32
+    _check("nbr", nbr, i32, (t, d), dev)
+    _check("msk", msk, torch.bool, (t, d), dev)
+    _check("theta_src", theta_src, f32, (n, h), dev)
+    _check("theta_dst", theta_dst, f32, (t, h), dev)
+    if theta_rel is not None:
+        if ety is None:
+            raise ValueError("theta_rel needs the edge types ety")
+        _check("theta_rel", theta_rel, f32, (theta_rel.shape[0], h), dev)
+        _check("ety", ety, i32, (t, d), dev)
+    else:
+        ety = None  # the kernel reads edge types only with a rel term
+    alpha = torch.empty((t, k, h), dtype=f32, device=dev)
+    ids = torch.empty((t, k), dtype=i32, device=dev)
+    if t == 0:
+        return alpha, ids
+    lib, _ = library()
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    err = lib.fpa_flat_prune(
+        ptr(nbr), ptr(msk), ptr(ety), ptr(theta_src), ptr(theta_rel),
+        ptr(theta_dst), ptr(alpha), ptr(ids), t, d, h, k, slope,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fpa_flat_prune launch failed: cudaError {err}")
+    LAUNCHES["flat_prune"] += 1
+    return alpha, ids
+
+
+def flat_aggregate(
+    alpha: torch.Tensor,
+    ids: torch.Tensor,
+    h_proj: torch.Tensor,
+) -> torch.Tensor:
+    """Flat K2 -> (T, H, dh) f32. See ``ref.flat_aggregate_plain``. CUDA
+    tensors launch the kernel; CPU tensors run the plain version."""
+    if h_proj.device.type == "cpu":
+        return ref.flat_aggregate_plain(alpha, ids, h_proj)
+    dev = _cuda_device(h_proj)
+    t, k, h = alpha.shape
+    n, _, dh = h_proj.shape
+    if not 1 <= h * dh <= 1024:
+        raise ValueError(f"H*dh={h * dh} outside [1, 1024] (one thread per output)")
+    _check("alpha", alpha, torch.float32, (t, k, h), dev)
+    _check("ids", ids, torch.int32, (t, k), dev)
+    _check("h_proj", h_proj, torch.float32, (n, h, dh), dev)
+    out = torch.empty((t, h, dh), dtype=torch.float32, device=dev)
+    if t == 0:
+        return out
+    lib, _ = library()
+    err = lib.fpa_flat_aggregate(
+        alpha.data_ptr(), ids.data_ptr(), h_proj.data_ptr(), out.data_ptr(),
+        t, h, dh, k, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fpa_flat_aggregate launch failed: cudaError {err}")
+    LAUNCHES["flat_aggregate"] += 1
+    return out
+
+
+def fused_prune_aggregate(
+    h_proj: torch.Tensor,  # (N, H, dh) f32
+    theta_src: torch.Tensor,  # (N, H)
+    theta_dst: torch.Tensor,  # (T, H)
+    nbr_idx: torch.Tensor,  # (T, D) global ids
+    nbr_mask: torch.Tensor,  # (T, D) bool
+    theta_rel: Optional[torch.Tensor] = None,  # (R, H)
+    edge_type: Optional[torch.Tensor] = None,  # (T, D)
+    prune_k: Optional[int] = None,
+    slope: float = 0.2,
+) -> torch.Tensor:
+    """NA over one flat padded-CSC table with a k-slot retention domain,
+    k = min(prune_k, D) (k = D without pruning) -> (T, H, dh) float32.
+
+    The rel term enters only with both ``theta_rel`` and ``edge_type``, as
+    in the reference's wrapper. A table with no rows launches nothing.
+    """
+    t, d = nbr_idx.shape
+    k = d if prune_k is None else min(int(prune_k), d)
+    if k < 1:
+        raise ValueError(f"prune_k={prune_k} leaves no retention slot")
+    use_rel = theta_rel is not None and edge_type is not None
+    alpha, ids = flat_prune(
+        nbr_idx.to(torch.int32).contiguous(), nbr_mask.to(torch.bool).contiguous(),
+        edge_type.to(torch.int32).contiguous() if use_rel else None,
+        theta_src.contiguous(), theta_rel.contiguous() if use_rel else None,
+        theta_dst.contiguous(), k, slope,
+    )
+    return flat_aggregate(alpha, ids, h_proj.contiguous())

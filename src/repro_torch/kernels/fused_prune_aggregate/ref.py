@@ -1,20 +1,23 @@
-"""Plain PyTorch versions of the two CUDA kernels in ``csrc/``.
+"""Plain PyTorch versions of the CUDA kernels in ``csrc/``.
 
-They walk the same grouped layout with the same rule as the kernels:
+They walk the same layouts with the same rule as the kernels:
 
-  * :func:`prune_plain` (K1) streams each row's candidates one column at a
-    time, vectorized over all grouped rows, through the ``min_replace`` step
-    of ``kernels/common.py`` (first-minimum eviction, strict ``>``), copies
-    bypass rows straight into their slots, and flushes LeakyReLU + masked
-    softmax at the end. The head sum is taken left to right, as the kernel
-    takes it, so kernel and plain ranks — and the retained ids — are
-    bit-identical.
-  * :func:`aggregate_plain` (K2) accumulates ``alpha · h'[id]`` over each
-    row's own ``k_eff`` slots in slot order.
+  * :func:`prune_plain` (grouped K1) streams each row's candidates one
+    column at a time, vectorized over all grouped rows, through the
+    ``min_replace`` step of ``kernels/common.py`` (first-minimum eviction,
+    strict ``>``), copies bypass rows straight into their slots, and
+    flushes LeakyReLU + masked softmax at the end. The head sum is taken
+    left to right, as the kernel takes it, so kernel and plain ranks — and
+    the retained ids — are bit-identical.
+  * :func:`aggregate_plain` (grouped K2) accumulates ``alpha · h'[id]`` over
+    each row's own ``k_eff`` slots in slot order.
+  * :func:`flat_prune_plain` and :func:`flat_aggregate_plain` are the same
+    two steps over one flat ``(T, D)`` padded-CSC table with one domain
+    width ``k`` for every row and no bypass.
 
 The wrapper in ``ops.py`` uses these for CPU tensors; ``chip_smoke.py``
-holds the kernels against them on the card. Both take device tensors of
-any device.
+holds the kernels against them on the card. They take tensors of any
+device.
 """
 from __future__ import annotations
 
@@ -41,7 +44,6 @@ def prune_plain(
     retained global ids (rows, k_s) int32, -1 = empty."""
     dev = theta_src.device
     _, t_tile, w = nbr.shape
-    h = theta_src.shape[1]
     rows = blk.shape[1] * t_tile
     first, n_dt, bypass, k_eff = (
         blk[i].long().repeat_interleave(t_tile) for i in range(4)
@@ -62,9 +64,7 @@ def prune_plain(
         th = theta_src[c_nbr]  # (rows, w, H)
         if theta_rel is not None:
             th = th + theta_rel[c_ety]
-        rank = th[..., 0]
-        for hh in range(1, h):
-            rank = rank + th[..., hh]
+        rank = _head_sum(th)
         rank = torch.where(c_msk, rank, torch.full_like(rank, NEG))
         gid = torch.where(c_msk, c_nbr, torch.full_like(c_nbr, -1))
         # §4.3 bypass rows: candidate j of D-tile dt goes to slot dt*w + j
@@ -83,10 +83,27 @@ def prune_plain(
                 rd_rank, [(rd_id, gid[:, j]), (rd_ety, c_ety[:, j])], cand[:, j]
             )
     ok = (rd_rank > NEG / 2) & (slot[None, :] < k_eff[:, None])
-    th = theta_src[rd_id.clamp(min=0)]  # (rows, k_s, H)
+    return _flush(
+        ok, rd_id, rd_ety, theta_src, theta_rel, theta_dst[row_targets.long()], slope
+    )
+
+
+def _head_sum(th: torch.Tensor) -> torch.Tensor:
+    """Sum over the last (head) axis, left to right, as the kernels sum."""
+    rank = th[..., 0]
+    for hh in range(1, th.shape[-1]):
+        rank = rank + th[..., hh]
+    return rank
+
+
+def _flush(ok, rd_id, rd_ety, theta_src, theta_rel, theta_dst_rows, slope):
+    """K1's flush: θ of the retained slots re-read from θ_u* (+ rel), plus
+    θ_*v, LeakyReLU, masked softmax (eps 1e-30) -> alpha (rows, k, H) and
+    ids (rows, k) int32 with -1 on empty slots."""
+    th = theta_src[rd_id.clamp(min=0)]  # (rows, k, H)
     if theta_rel is not None:
         th = th + theta_rel[rd_ety]
-    th = th + theta_dst[row_targets.long()][:, None, :]
+    th = th + theta_dst_rows[:, None, :]
     th = torch.where(th >= 0, th, slope * th)
     okh = ok[..., None]
     th = torch.where(okh, th, torch.full_like(th, NEG))
@@ -113,4 +130,50 @@ def aggregate_plain(
     for s in range(k_s):
         step = out + alpha[:, s, :, None] * h_proj[safe[:, s]]
         out = torch.where((s < k_row)[:, None, None], step, out)
+    return out
+
+
+def flat_prune_plain(
+    nbr: torch.Tensor,  # (T, D) int32 global source ids
+    msk: torch.Tensor,  # (T, D) bool
+    ety: Optional[torch.Tensor],  # (T, D) int32, with theta_rel
+    theta_src: torch.Tensor,  # (N, H) f32
+    theta_rel: Optional[torch.Tensor],  # (R, H) f32
+    theta_dst: torch.Tensor,  # (T, H) f32
+    k: int,
+    slope: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flat K1: each row's D slots in slot order through a k-slot domain
+    (first-minimum eviction, strict ``>``), then the flush -> alpha (T, k,
+    H) f32 and ids (T, k) int32, -1 = empty."""
+    t, d = nbr.shape
+    dev = theta_src.device
+    rd_rank = torch.full((t, k), NEG, dtype=torch.float32, device=dev)
+    rd_id = torch.full((t, k), -1, dtype=torch.long, device=dev)
+    rd_ety = torch.zeros((t, k), dtype=torch.long, device=dev)
+    for j in range(d):
+        c_nbr = nbr[:, j].long()
+        c_ety = ety[:, j].long() if ety is not None else torch.zeros_like(c_nbr)
+        th = theta_src[c_nbr]  # (T, H)
+        if theta_rel is not None:
+            th = th + theta_rel[c_ety]
+        rank = torch.where(msk[:, j], _head_sum(th), torch.full_like(th[:, 0], NEG))
+        rd_rank, (rd_id, rd_ety) = min_replace(
+            rd_rank, [(rd_id, c_nbr), (rd_ety, c_ety)], rank
+        )
+    return _flush(rd_rank > NEG / 2, rd_id, rd_ety, theta_src, theta_rel, theta_dst, slope)
+
+
+def flat_aggregate_plain(
+    alpha: torch.Tensor,  # (T, k, H) f32
+    ids: torch.Tensor,  # (T, k) int32, -1 = empty
+    h_proj: torch.Tensor,  # (N, H, dh) f32
+) -> torch.Tensor:
+    """Flat K2: out[t] = Σ_s alpha[t, s, :, None] · h'[id(t, s)] in slot
+    order -> (T, H, dh) f32. Empty slots read id 0 with α = 0."""
+    t, k, h = alpha.shape
+    safe = ids.long().clamp(min=0)
+    out = torch.zeros((t, h, h_proj.shape[2]), dtype=torch.float32, device=alpha.device)
+    for s in range(k):
+        out = out + alpha[:, s, :, None] * h_proj[safe[:, s]]
     return out

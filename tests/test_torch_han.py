@@ -4,8 +4,9 @@ serving contracts of the port's session.
 The reference's initialized parameter tree goes through
 ``repro_torch.convert.params_from_reference``; both packages then run the
 same graph (bit-identical SGB, see ``test_torch_sgb.py``) under
-``staged``, ``staged_pruned`` and ``fused_kernel``. Logits agree within
-1e-5, the reference's own flat-vs-bucketed logit tolerance.
+``staged``, ``staged_pruned``, ``fused`` and ``fused_kernel`` (grouped,
+per-bucket loop and flat routes). Logits agree within 1e-5, the
+reference's own flat-vs-bucketed logit tolerance.
 """
 import gc
 import sys
@@ -64,10 +65,9 @@ def test_han_logits_match_reference(port_tasks, ref_tasks, ds, flow, k):
     from repro.core.flows import FlowConfig as JFlowConfig
 
     jt, tt = ref_tasks[ds], port_tasks[ds]
-    params = params_from_reference(jax.tree_util.tree_map(np.asarray, jt.params), device="cpu")
-    assert set(params) == set(tt.params)
-    for name, p in params.items():
-        assert p.shape == tt.params[name].shape, name
+    params = params_from_reference(
+        jax.tree_util.tree_map(np.asarray, jt.params), device="cpu", model=tt.model
+    )
     want = np.asarray(jt.model.apply(jt.params, jt.batch, JFlowConfig(flow, prune_k=k)))
     got = tt.compile(FlowConfig(flow, prune_k=k))(params).numpy()
     assert got.shape == want.shape
@@ -140,20 +140,42 @@ def test_default_device_raises_without_gpu():
     FlowConfig("fused", prune_k=4),
     FlowConfig("fused_kernel", prune_k=4, bucket_dispatch="loop"),
 ), ids=("fused", "loop"))
-def test_unported_flows_raise(port_tasks, flow):
-    tt = port_tasks["acm"]
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tt.compile(flow)(tt.params)
+def test_ported_flows_match_reference(port_tasks, ref_tasks, flow):
+    """The scan emulation (``fused``) and the per-bucket dispatch (``loop``,
+    one flat-kernel launch pair per pruned bucket) against the reference's
+    own ``fused`` and ``fused_kernel`` on the bucketed ACM build."""
+    import jax
+    from repro.core.flows import FlowConfig as JFlowConfig
+
+    jt, tt = ref_tasks["acm"], port_tasks["acm"]
+    params = params_from_reference(
+        jax.tree_util.tree_map(np.asarray, jt.params), device="cpu", model=tt.model
+    )
+    want = np.asarray(jt.model.apply(jt.params, jt.batch, JFlowConfig(flow.flow, prune_k=4)))
+    before = tflows.DISPATCH["bucket_calls"]
+    got = tt.compile(flow)(params).numpy()
+    loops = tflows.DISPATCH["bucket_calls"] - before
+    assert loops == (sum(len(sg.buckets) for sg in tt.sgs) if flow.bucket_dispatch == "loop" else 0)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 
-def test_flat_sgb(port_tasks):
-    """On a flat SGB ``fused_kernel`` raises NotImplementedError (flat
-    kernel #2 is not ported); ``staged_pruned`` runs and matches the
+def test_flat_sgb(port_tasks, ref_tasks):
+    """On a flat SGB, ``fused_kernel`` (flat kernel pair) matches the
+    reference's flat Pallas route, and ``staged_pruned`` matches the
     bucketed build."""
+    import jax
+    from repro.core import pipeline as jpipe
+    from repro.core.flows import FlowConfig as JFlowConfig
+
     tt = port_tasks["acm"]
     flat = tpipe.prepare("han", "acm", scale=SCALE, seed=0, device="cpu", bucket_sizes=None)
-    with pytest.raises(NotImplementedError, match="flat kernel"):
-        flat.compile(FlowConfig("fused_kernel", prune_k=4))(flat.params)
+    jflat = jpipe.prepare("han", "acm", scale=SCALE, seed=0, bucket_sizes=None)
+    params = params_from_reference(
+        jax.tree_util.tree_map(np.asarray, jflat.params), device="cpu", model=flat.model
+    )
+    want = np.asarray(jflat.model.apply(jflat.params, jflat.batch, JFlowConfig("fused_kernel", prune_k=4)))
+    got = flat.compile(FlowConfig("fused_kernel", prune_k=4))(params).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
     flow = FlowConfig("staged_pruned", prune_k=4)
     torch.testing.assert_close(
         flat.compile(flow)(flat.params), tt.compile(flow)(tt.params), atol=1e-5, rtol=0,

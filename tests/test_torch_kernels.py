@@ -1,18 +1,20 @@
 """Port parity: the fused prune+aggregate op against the reference kernel.
 
-On the CPU the port's ``fused_prune_aggregate_grouped`` runs the plain
-versions of its CUDA kernels (``ref.py``). It is held against the
-reference's grouped Pallas kernel, run as the reference's own tests run it
-(``interpret=True``), on the parametrisations of the reference's grouped
-kernel tests, at the reference's own kernel-vs-oracle tolerance (2e-5).
+On the CPU the port's ``fused_prune_aggregate_grouped`` and flat
+``fused_prune_aggregate`` run the plain versions of their CUDA kernels
+(``ref.py``). They are held against the reference's grouped and flat
+Pallas kernels, run as the reference's own tests run them
+(``interpret=True``), on the parametrisations of the reference's kernel
+tests, at the reference's own kernel-vs-oracle tolerance (2e-5).
 
-The tie tests pin the retention rule: the fused kernels evict the FIRST
+The tie tests pin the retention rules: the fused kernels evict the FIRST
 minimum slot and insert only on a strictly greater score, which is not
-``lax.top_k``'s rule; the port's fused path must follow the kernel, its
-``staged_pruned`` path must follow ``top_k``.
+``lax.top_k``'s rule; the port's ``fused_kernel`` path must follow the
+kernel, its ``staged_pruned`` path ``top_k``, and its ``fused`` scan
+emulation ``top_k`` over [domain, tile] as the reference's does.
 
-The test marked ``cuda`` holds the CUDA kernels against the plain versions
-on a card; it skips without one.
+The tests marked ``cuda`` hold the CUDA kernels against the plain versions
+on a card; they skip without one.
 """
 import gc
 import sys
@@ -22,6 +24,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import attention as tattention  # noqa: E402
 from repro_torch.core import hetgraph as thg  # noqa: E402
 from repro_torch.core import pruning as tpruning  # noqa: E402
 from repro_torch.kernels import common as tcommon  # noqa: E402
@@ -280,6 +283,156 @@ def test_wrapper_cpu_only_and_uncounted():
         )
 
 
+FLAT_SWEEP = ((11, 70, 8, 8, 200, 5), (8, 128, 8, 8, 64, 50), (5, 33, 4, 16, 40, 33), (2, 7, 2, 4, 10, 3))
+
+
+def _flat_inputs(rng, t, d, h, dh, n, r=0, p_valid=0.85):
+    """The reference's flat-kernel test inputs: random ids, a random mask
+    with holes (not left-packed), optional edge types."""
+    hp, ts, td = _normal(rng, n, h, dh), _normal(rng, n, h), _normal(rng, t, h)
+    idx = rng.integers(0, n, size=(t, d)).astype(np.int32)
+    msk = rng.random((t, d)) < p_valid
+    if not r:
+        return hp, ts, td, idx, msk, None, None
+    tr = _normal(rng, r, h)
+    ety = rng.integers(0, r, size=(t, d)).astype(np.int32)
+    return hp, ts, td, idx, msk, tr, ety
+
+
+def _flat_both(hp, ts, td, idx, msk, tr, ety, k):
+    import jax.numpy as jnp
+    from repro.kernels.fused_prune_aggregate.ops import fused_prune_aggregate
+
+    opt = lambda a, f: None if a is None else f(a)  # noqa: E731
+    out_j = fused_prune_aggregate(
+        jnp.asarray(hp), jnp.asarray(ts), jnp.asarray(td), jnp.asarray(idx),
+        jnp.asarray(msk), theta_rel=opt(tr, jnp.asarray), edge_type=opt(ety, jnp.asarray),
+        prune_k=k,
+    )
+    out_t = tops.fused_prune_aggregate(
+        torch.from_numpy(hp), torch.from_numpy(ts), torch.from_numpy(td),
+        torch.from_numpy(idx), torch.from_numpy(msk),
+        theta_rel=opt(tr, torch.from_numpy), edge_type=opt(ety, torch.from_numpy),
+        prune_k=k,
+    )
+    return np.asarray(out_j), out_t.numpy()
+
+
+@pytest.mark.parametrize("t,d,h,dh,n,k", FLAT_SWEEP)
+def test_flat_matches_reference_kernel(t, d, h, dh, n, k):
+    """The flat op against the flat Pallas kernel on the reference's sweep
+    shapes (random masks with holes; the Pallas kernel pads T to 8 and D
+    to 128, the port does not)."""
+    pytest.importorskip("jax")
+    rng = np.random.default_rng(10 + t)
+    out_j, out_t = _flat_both(*_flat_inputs(rng, t, d, h, dh, n), k)
+    assert out_t.shape == (t, h, dh)
+    np.testing.assert_allclose(out_t, out_j, atol=ATOL)
+
+
+def test_flat_rel_term_matches_reference_kernel():
+    pytest.importorskip("jax")
+    rng = np.random.default_rng(11)
+    out_j, out_t = _flat_both(*_flat_inputs(rng, 6, 40, 4, 8, 50, r=5, p_valid=0.9), 8)
+    np.testing.assert_allclose(out_t, out_j, atol=ATOL)
+
+
+def test_flat_edges_and_launch_accounting():
+    """k = D (no pruning), an empty row and a table with no rows, against
+    the reference where it has one; CPU tensors count no launch."""
+    pytest.importorskip("jax")
+    rng = np.random.default_rng(12)
+    hp, ts, td, idx, msk, _, _ = _flat_inputs(rng, 9, 20, 4, 8, 30)
+    msk[3] = False  # a row with no valid slot: zeros
+    before = dict(tops.LAUNCHES)
+    for k in (None, 20, 6):
+        out_j, out_t = _flat_both(hp, ts, td, idx, msk, None, None, k)
+        np.testing.assert_allclose(out_t, out_j, atol=ATOL)
+        np.testing.assert_array_equal(out_t[3], 0.0)
+    empty = tops.fused_prune_aggregate(
+        torch.from_numpy(hp), torch.from_numpy(ts), torch.zeros((0, 4)),
+        torch.zeros((0, 5), dtype=torch.int32), torch.zeros((0, 5), dtype=torch.bool),
+        prune_k=3,
+    )
+    assert tuple(empty.shape) == (0, 4, 8)
+    assert tops.LAUNCHES == before
+    with pytest.raises(ValueError, match="no retention slot"):
+        tops.fused_prune_aggregate(
+            torch.from_numpy(hp), torch.from_numpy(ts), torch.from_numpy(td),
+            torch.from_numpy(idx), torch.from_numpy(msk), prune_k=0,
+        )
+
+
+def test_flat_tie_follows_kernel_rule_not_top_k():
+    """Scores [1, 1, 2] at k = 2 in one flat row: the flat kernel keeps
+    {b, c} (ids [c, b] in slots 0, 1), the reference's Pallas kernel agrees,
+    and the ``top_k`` oracle, which keeps {a, c}, differs."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.fused_prune_aggregate.ref import fused_prune_aggregate_ref
+
+    rng = np.random.default_rng(13)
+    n, h, dh = 4, 4, 8
+    ts = _normal(rng, n, h)
+    ts[1] = ts[0]
+    ts[2] = ts[0] + 1.0
+    hp, td = _normal(rng, n, h, dh), _normal(rng, 2, h)
+    idx = np.array([[0, 1, 2], [3, 1, 0]], np.int32)
+    msk = np.array([[True, True, True], [True, True, False]])
+    out_j, out_t = _flat_both(hp, ts, td, idx, msk, None, None, 2)
+    np.testing.assert_allclose(out_t, out_j, atol=ATOL)
+    out_topk = np.asarray(fused_prune_aggregate_ref(
+        jnp.asarray(ts[idx]), jnp.asarray(msk), jnp.asarray(td), jnp.asarray(idx),
+        jnp.asarray(hp), 2,
+    ))
+    assert np.abs(out_topk[0] - out_j[0]).max() > 1e-2, "top_k oracle should differ"
+    _, ids = tref.flat_prune_plain(
+        torch.from_numpy(idx), torch.from_numpy(msk), None, torch.from_numpy(ts), None,
+        torch.from_numpy(td), 2, 0.2,
+    )
+    assert ids[0].tolist() == [2, 1]
+
+
+@pytest.mark.parametrize("tile", (1, 3, 8))
+def test_fused_emulation_ties_follow_reference(tile):
+    """On integer-valued scores full of ties, the port's ``fused`` flow
+    equals the reference's scan emulation ``aggregate_fused`` for several
+    tile widths, and so does ``staged_pruned`` (``top_k`` over [domain,
+    tile] keeps the whole row's lower-index ``top_k`` set, since the domain
+    holds earlier slots than the tile); the kernel rule keeps another set
+    on these inputs."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.core import attention as jattention
+
+    from repro_torch.core import flows as tflows
+
+    rng = np.random.default_rng(14)
+    t, d, h, dh, n, k = 16, 12, 4, 8, 20, 3
+    hp = _normal(rng, n, h, dh)
+    ts = rng.integers(0, 2, size=(n, h)).astype(np.float32)
+    td = _normal(rng, t, h)
+    idx = rng.integers(0, n, size=(t, d)).astype(np.int32)
+    msk = rng.random((t, d)) < 0.8
+    jargs = (
+        jnp.asarray(hp), jattention.DecomposedScores(jnp.asarray(ts), jnp.asarray(td)),
+        jnp.asarray(idx), jnp.asarray(msk),
+    )
+    want = np.asarray(jattention.aggregate_fused(*jargs, prune_k=k, tile=tile))
+    want_staged = np.asarray(jattention.aggregate_staged(*jargs, prune_k=k))
+    np.testing.assert_allclose(want_staged, want, atol=ATOL)
+    sc = tattention.DecomposedScores(torch.from_numpy(ts), torch.from_numpy(td))
+    args = (torch.from_numpy(hp), sc, torch.from_numpy(idx), torch.from_numpy(msk))
+    got = tflows.run_aggregate(tflows.FlowConfig("fused", prune_k=k), *args).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    staged = tattention.aggregate_staged(*args, prune_k=k).numpy()
+    np.testing.assert_allclose(staged, want, atol=ATOL)
+    kernel_rule = tflows.run_aggregate(
+        tflows.FlowConfig("fused_kernel", prune_k=k), *args
+    ).numpy()
+    assert np.abs(kernel_rule - got).max() > 1e-2, "the kernel rule should differ on ties"
+
+
 @pytest.fixture()
 def cuda_device():
     if not torch.cuda.is_available():
@@ -307,3 +460,23 @@ def test_cuda_kernels_match_plain(cuda_device, caps, k):
         tops.aggregate(a_p, i_p, hp, blk), tref.aggregate_plain(a_p, i_p, hp, blk),
         atol=1e-5, rtol=0,
     )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d,h,dh,n,k", FLAT_SWEEP + ((9, 300, 8, 8, 50, 256),))
+def test_cuda_flat_kernels_match_plain(cuda_device, t, d, h, dh, n, k):
+    rng = np.random.default_rng(t)
+    hp, ts, td, idx, msk, tr, ety = (
+        None if a is None else torch.from_numpy(a).to(cuda_device)
+        for a in _flat_inputs(rng, t, d, h, dh, n, r=3)
+    )
+    a_k, i_k = tops.flat_prune(idx, msk, ety, ts, tr, td, k)
+    a_p, i_p = tref.flat_prune_plain(idx, msk, ety, ts, tr, td, k, 0.2)
+    assert torch.equal(i_k, i_p)
+    torch.testing.assert_close(a_k, a_p, atol=1e-6, rtol=0)
+    torch.testing.assert_close(
+        tops.flat_aggregate(a_p, i_p, hp), tref.flat_aggregate_plain(a_p, i_p, hp),
+        atol=1e-5, rtol=0,
+    )
+    with pytest.raises(ValueError, match="domain width"):
+        tops.flat_prune(idx, msk, ety, ts, tr, td, tops.MAX_KS + 1)

@@ -2,9 +2,9 @@
 
 The same ``(dataset, scale, seed)`` goes through ``repro.core.pipeline``
 and ``repro_torch.core.pipeline``; every numpy artifact the port builds —
-the generated graph, the metapath SGB tables (bucketed and flat), the
-grouped ``(8, 8)`` tile stack, the kernel metadata tables and the splits —
-must equal the reference's array for array.
+the generated graph, the metapath, relation and union SGB tables (bucketed
+and flat), the grouped ``(8, 8)`` tile stack, the kernel metadata tables
+and the splits — must equal the reference's array for array.
 """
 import gc
 import sys
@@ -15,9 +15,11 @@ import pytest
 pytest.importorskip("torch")
 pytest.importorskip("jax")
 
+from repro.core import hetgraph as jhg  # noqa: E402
 from repro.core import pipeline as jpipe  # noqa: E402
 from repro.core.hetgraph import DEFAULT_BUCKET_SIZES as J_BUCKETS  # noqa: E402
 from repro.kernels.fused_prune_aggregate import ops as jops  # noqa: E402
+from repro_torch.core import hetgraph as thg  # noqa: E402
 from repro_torch.core import pipeline as tpipe  # noqa: E402
 from repro_torch.core.hetgraph import DEFAULT_BUCKET_SIZES as T_BUCKETS  # noqa: E402
 from repro_torch.kernels.fused_prune_aggregate import ops as tops  # noqa: E402
@@ -92,13 +94,9 @@ def test_splits_identical(n):
         _eq(js[k], ts[k], k)
 
 
-@pytest.mark.parametrize("layout", LAYOUTS, ids=("bucketed", "flat"))
-@pytest.mark.parametrize("ds", DATASETS)
-def test_metapath_sgb_tables_identical(tasks, ds, layout):
-    assert tuple(T_BUCKETS) == tuple(J_BUCKETS)
-    jt, tt = tasks(ds, layout)
-    assert [sg.name for sg in jt.sgs] == [sg.name for sg in tt.sgs]
-    for js, ts in zip(jt.sgs, tt.sgs):
+def _sgs_identical(jsgs, tsgs, layout):
+    assert [sg.name for sg in jsgs] == [sg.name for sg in tsgs]
+    for js, ts in zip(jsgs, tsgs):
         what = js.name
         assert type(js).__name__ == type(ts).__name__, what
         assert (js.src_types, js.dst_type, js.num_targets) == (
@@ -114,6 +112,14 @@ def test_metapath_sgb_tables_identical(tasks, ds, layout):
                 _eq(getattr(jb, f), getattr(tb, f), f"{what}.b{i}.{f}")
         _eq(js.target_perm(), ts.target_perm(), f"{what}.perm")
         _eq(js.concat_targets(), ts.concat_targets(), f"{what}.concat")
+
+
+@pytest.mark.parametrize("layout", LAYOUTS, ids=("bucketed", "flat"))
+@pytest.mark.parametrize("ds", DATASETS)
+def test_metapath_sgb_tables_identical(tasks, ds, layout):
+    assert tuple(T_BUCKETS) == tuple(J_BUCKETS)
+    jt, tt = tasks(ds, layout)
+    _sgs_identical(jt.sgs, tt.sgs, layout)
 
 
 GROUPED_FIELDS = (
@@ -153,3 +159,41 @@ def test_grouped_meta_identical(tasks, ds, prune_k):
         _eq(step, np.arange(tl.num_steps, dtype=step.dtype), f"{what} step order")
         for r in range(3):
             _eq(blk[r + 1, tm[0]], tm[r + 2], f"{what} blk row {r + 1}")
+
+
+def _build(hg, g, kind, **kw):
+    if kind == "relation":
+        return hg.build_relation_graphs(g, **kw)
+    built = hg.build_union_graph(g, **kw)
+    assert list(built) == list(g.node_types)
+    return list(built.values())
+
+
+@pytest.mark.parametrize("max_degree", (256, 16), ids=("cap256", "cap16"))
+@pytest.mark.parametrize("layout", LAYOUTS, ids=("bucketed", "flat"))
+@pytest.mark.parametrize("kind", ("relation", "union"))
+@pytest.mark.parametrize("ds", DATASETS)
+def test_relation_union_sgb_identical(tasks, ds, kind, layout, max_degree):
+    """RGAT's relation graphs and Simple-HGN's union graphs, table for
+    table, with their grouped (8, 8) layouts and K1/K2 metadata; the
+    ``max_degree=16`` case down-samples over-full rows (the cap's RNG)."""
+    jt, tt = tasks(ds, "default")
+    bucket_sizes = J_BUCKETS if layout == "default" else None
+    kw = dict(max_degree=max_degree, seed=0, bucket_sizes=bucket_sizes)
+    jsgs, tsgs = _build(jhg, jt.graph, kind, **kw), _build(thg, tt.graph, kind, **kw)
+    _sgs_identical(jsgs, tsgs, layout)
+    for js, ts in zip(jsgs, tsgs):
+        assert js.num_edge_types == ts.num_edge_types, js.name
+    if kind == "union":
+        assert tsgs[0].num_edge_types == len(tt.graph.relations) + 1
+    if max_degree == 16 and layout is None:
+        uncapped = _build(thg, tt.graph, kind, max_degree=None, seed=0, bucket_sizes=None)
+        assert any(sg.nbr_idx.shape[1] > 16 for sg in uncapped), "cap not hit"
+    if layout is None:
+        return
+    for js, ts in zip(jsgs, tsgs):
+        jl, tl = js.grouped(8, 8), ts.grouped(8, 8)
+        for f in GROUPED_FIELDS:
+            _eq(getattr(jl, f), getattr(tl, f), f"{js.name}.grouped.{f}")
+        for a, b in zip(jops.grouped_meta(jl, 8), tops.grouped_meta(tl, 8)):
+            _eq(a, b, f"{js.name} meta")
