@@ -10,8 +10,9 @@ It imports ``repro_torch`` from ``src/`` (never JAX, never ``repro``) and
 exits non-zero at the first phase that fails:
 
 1. prints the card's name and power limit, builds the CUDA kernels from
-   ``src/repro_torch/kernels/*/csrc`` with ``nvcc`` and prints the build
-   time and the compiler's register/shared-memory report;
+   ``src/repro_torch/kernels/*/csrc`` with ``nvcc`` (one compiler per
+   source, all started together) and prints the build times and the
+   compiler's register/shared-memory report;
 2. holds each CUDA kernel against its plain PyTorch version on the card:
    the grouped pair on the kernel-test parametrisations (pruned/bypass mix,
    unaligned capacities, one bucket, all-bypass, no pruning, a relation
@@ -19,8 +20,13 @@ exits non-zero at the first phase that fails:
    and ACM layouts; the flat pair on the reference's sweep shapes (random
    masks with holes), a relation term, k = D, an empty row, a score tie and
    the real ACM ``union:paper`` table; a domain wider than 256 raises
-   before any launch. Retained ids equal, alpha within 1e-6, outputs within
-   1e-5 (``expf`` and FMA contraction differ from the CPU's arithmetic);
+   before any launch; the top-K decode attention pair on the reference's
+   sweep shapes, k >= length (equal to the dense attention), per-row
+   lengths with one below K, the logits [1, 1, 2, 1] tie at k = 2 (keeps
+   positions {1, 2}), gemma3-4b's decode shapes in float32 and bfloat16,
+   and a K too wide for shared memory, which raises before any launch.
+   Retained ids equal, alpha within 1e-6, outputs within 1e-5 (``expf``
+   and FMA contraction differ from the CPU's arithmetic);
 3. drives the main paths — ``prepare`` → ``task.compile(FlowConfig(
    "fused_kernel", prune_k=8))`` → ``session(params)`` — at ``scale=1.0``
    with seeded random weights: HAN on DBLP and ACM (bucketed), then RGAT
@@ -31,23 +37,41 @@ exits non-zero at the first phase that fails:
    within 1e-4 of the same route's forward on the CPU (plain versions; the
    projection sums in another order) and of the other routes, and
    ``session.query`` blocks at capacities 1, 8, 64 bit-identical to the
-   full forward's rows;
+   full forward's rows. Then gemma3-4b LM serving at full width and depth
+   as published (bfloat16 activations, float32 seeded weights,
+   ``attn_prune_k=2048``): ``prefill`` of (4, 3072) tokens (no kernel #4
+   launch) and 32 greedy ``decode_step``s, the counters set to 0 before
+   each step and read after it: exactly one launch of each kernel of the
+   decode pair per global layer whose cache is wider than K (5 a step).
+   One decode step of a float32 copy of the config, on the same weights
+   and cache, must give logits within 1e-4 with the kernels and with their
+   plain versions; one cycle of depth (6 layers) at full width in float32
+   must give the same prefill and decode logits (1e-4) on the card and in
+   the port's CPU forward, with a prompt long enough that pruning drops
+   rows;
 4. times each kernel and (for the aggregates) one library call twice: its
    device time per call from the profiler (CUPTI), and the CUDA-event time
    of back-to-back calls, which also holds the host's launch cost when the
    kernel is shorter than that; the plain versions with CUDA events. The
    grouped pair at the DBLP APA shapes, the flat pair at the ACM
-   ``union:paper`` shapes of Simple-HGN's first layer; then every forward,
-   with a profiler breakdown of the ACM forwards;
+   ``union:paper`` shapes of Simple-HGN's first layer, the decode pair at
+   the inputs of gemma3-4b's last global layer in the first decode step;
+   then every forward, with a profiler breakdown of the ACM forwards; then
+   the LM's prefill, its decode step (median of the main path's steps
+   after the first) and tokens/s, and the decode pair's share of a decode
+   step's device time;
 5. prints the card line, then the ``{"kernels": [...]}`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -59,6 +83,14 @@ PRUNE_K = 8
 ROUTES = ("bucketed", "loop", "flat")
 FLAT_SWEEP = ((11, 70, 8, 8, 200, 5), (8, 128, 8, 8, 64, 50), (5, 33, 4, 16, 40, 33), (2, 7, 2, 4, 10, 3))
 REPORT = ROOT / "build" / "chip_smoke.json"  # the full report, beside the built kernels
+DECODE_SWEEP = ((2, 8, 2, 16, 200, 12), (3, 4, 4, 8, 128, 5), (1, 16, 4, 32, 300, 50))
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "gemma3-4b", 4, 3072, 32
+# decode logits of the float32 config (|logit| up to ~10): kernel vs plain
+# keep the same retained rows (their logits are bit-identical), so only K2's
+# sum order and expf differ, ~1e-7 relative, carried through 34 layers; card
+# vs CPU (6 layers) differ by the matmuls' sum order, TF32 off.
+TOL_LM = 1e-4
+CPU_CHECK_PROMPT = 2100  # > K = 2048: the global layer's retention domain drops rows
 
 
 def check(cond, msg: str) -> None:
@@ -611,6 +643,20 @@ def device_times(fn, reps: int) -> dict:
     return per_kernel
 
 
+def host_ops(fn) -> int:
+    """PyTorch operators the host dispatches in one call of ``fn``: the
+    top-level ``aten::`` events of a CPU profile (operators called from
+    inside another operator are not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return sum(
+        1 for ev in prof.events()
+        if ev.name.startswith("aten::") and (ev.cpu_parent is None or not ev.cpu_parent.name.startswith("aten::"))
+    )
+
+
 def timed(t: dict, key: str, fn, iters: int) -> None:
     """Two times per call of ``fn`` into ``t``: ``key`` is the device time
     (the sum of its kernels' times from the profiler), ``key_event`` the
@@ -638,6 +684,332 @@ def forward_profile(sess, params, forward_ms: float, reps: int = 5):
     }
 
 
+def decode_cases():
+    """(name, B, H, Hkv, dh, S, k, lengths, dtype) for the decode pair in
+    phase 2."""
+    import numpy as np
+
+    rng = np.random.default_rng(2)
+    cases = []
+    for b, h, hkv, dh, s, k in DECODE_SWEEP:
+        cases.append((f"sweep b={b} h={h} hkv={hkv} dh={dh} s={s} k={k}", b, h, hkv, dh, s, k,
+                      rng.integers(k + 1, s, size=(b,)), "float32"))
+    cases.append(("k >= length", 2, 4, 2, 8, 64, 64, [40, 64], "float32"))
+    cases.append(("per-row lengths, one below K", 3, 8, 2, 16, 160, 50, [17, 51, 160], "float32"))
+    cases.append(("integer q and keys (tie-heavy logits)", 2, 8, 2, 16, 180, 40, [180, 97], "ints"))
+    for dt in ("float32", "bfloat16"):
+        cases.append((f"gemma3-4b decode shapes {dt}", 4, 8, 4, 256, 3104, 2048, [3104, 3090, 3073, 3100], dt))
+    return cases
+
+
+def check_decode_kernels(dev):
+    """Phase 2, decode pair. Returns the largest alpha and output errors."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.topk_decode_attention import ops, ref
+
+    err = {"score_prune": 0.0, "value_gather": 0.0}
+    gen = torch.Generator().manual_seed(2)
+    for name, b, h, hkv, dh, s, k, lens, dt in decode_cases():
+        dtype = torch.float32 if dt == "ints" else getattr(torch, dt)
+        q, kc, vc = (torch.randn(shape, generator=gen).to(dev, dtype)
+                     for shape in ((b, h, dh), (b, s, hkv, dh), (b, s, hkv, dh)))
+        if dt == "ints":  # small integers: exact logits, ties everywhere
+            q, kc = q.round().clamp(-1, 1), kc.round().clamp(-1, 1)
+        lens = torch.tensor(np.asarray(lens), dtype=torch.int32, device=dev)
+        scale = dh ** -0.5
+        a_k, i_k = ops.score_prune(q, kc, lens, k, scale)
+        a_p, i_p = ref.score_prune_plain(q, kc, lens, k, scale)
+        o_k = ops.value_gather(a_p, i_p, vc)
+        o_p = ref.value_gather_plain(a_p, i_p, vc)
+        out = ops.topk_decode_attention(q, kc, vc, lens, k)
+        sync(dev)
+        if not torch.equal(i_k, i_p):
+            bad = int((i_k != i_p).sum())
+            raise AssertionError(f"decode {name}: K1 retained ids differ from the plain version in {bad} slots")
+        e_a = float((a_k - a_p).abs().max())
+        e_o = max(float((o_k - o_p).abs().max()), float((out - o_p).abs().max()))
+        if e_a > TOL_ALPHA or e_o > TOL_OUT:
+            raise AssertionError(f"decode {name}: alpha err {e_a:.3g}, out err {e_o:.3g}")
+        extra = ""
+        if k >= s:
+            e_d = float((out - ref.full_decode_attention(q, kc, vc, lens)).abs().max())
+            check(e_d <= TOL_OUT, f"decode {name}: differs from the dense attention by {e_d:.3g}")
+            extra = f", dense err {e_d:.3g}"
+        short = lens < k
+        if bool(short.any()):
+            pos = torch.arange(k, device=dev)
+            want_empty = pos[None, None, :] >= lens[:, None, None]
+            check(bool(((i_k == -1) == want_empty.expand_as(i_k))[short].all()),
+                  f"decode {name}: a row shorter than K kept a wrong set of slots")
+            extra += f", {int(short.sum())} row(s) below K keep only their valid positions"
+        err["score_prune"] = max(err["score_prune"], e_a)
+        err["value_gather"] = max(err["value_gather"], e_o)
+        print(f"  kernels == plain  decode {name}: ids equal, alpha err {e_a:.3g}, out err {e_o:.3g}{extra}")
+    return err
+
+
+def check_decode_tie_and_width(dev):
+    """Logits [1, 1, 2, 1] at k = 2 keep positions {1, 2} (first-minimum
+    eviction, strict >); a K wider than shared memory holds raises before
+    any launch."""
+    import torch
+
+    from repro_torch.kernels.topk_decode_attention import ops, ref
+
+    q = torch.tensor([[[1.0, 0.0, 0.0, 0.0]]], device=dev)
+    kc = torch.zeros((1, 4, 1, 4), device=dev)
+    kc[0, :, 0, 0] = torch.tensor([1.0, 1.0, 2.0, 1.0])
+    vc = torch.arange(16.0, device=dev).reshape(1, 4, 1, 4)
+    lens = torch.tensor([4], dtype=torch.int32, device=dev)
+    _, i_k = ops.score_prune(q, kc, lens, 2, 1.0)
+    _, i_p = ref.score_prune_plain(q, kc, lens, 2, 1.0)
+    out = ops.topk_decode_attention(q, kc, vc, lens, 2, 1.0)
+    want = torch.tensor([6.9241, 7.9241, 8.9241, 9.9241], device=dev)
+    if sorted(i_k[0, 0].tolist()) != [1, 2] or not torch.equal(i_k, i_p) or float((out[0, 0] - want).abs().max()) > 1e-3:
+        raise AssertionError(f"decode tie: kernel kept {i_k[0, 0].tolist()}, out {out[0, 0].tolist()}")
+    print("  kernels == plain  decode tie [1, 1, 2, 1], k = 2: keeps positions {1, 2}, out "
+          + str([round(x, 4) for x in out[0, 0].tolist()]))
+    h, hkv, dh = 8, 1, 1024
+    k = ops.max_k(h // hkv, dh) + 1
+    before = dict(ops.LAUNCHES)
+    try:
+        ops.score_prune(torch.zeros((1, h, dh), device=dev), torch.zeros((1, k + 8, hkv, dh), device=dev),
+                        torch.full((1,), k + 8, dtype=torch.int32, device=dev), k, dh ** -0.5)
+    except ValueError as e:
+        check(ops.LAUNCHES == before, "the too-wide decode domain launched a kernel")
+        print(f"  decode k = {k} (group {h // hkv}, dh {dh}) raises before launch: {e}")
+    else:
+        raise AssertionError("a decode domain wider than shared memory did not raise")
+
+
+@contextlib.contextmanager
+def plain_decode_attention():
+    """The LM's pruned decode branch on the plain version of the decode
+    pair, on whatever device its tensors are (the kernels' own wrapper
+    always launches the kernels for CUDA tensors)."""
+    from repro_torch.kernels.topk_decode_attention import ref
+    from repro_torch.layers import attention
+
+    saved = attention.topk_decode_attention
+    attention.topk_decode_attention = ref.topk_decode_attention_plain
+    try:
+        yield
+    finally:
+        attention.topk_decode_attention = saved
+
+
+def all_launches(*modules) -> dict:
+    return {f"{m.__name__.split('.')[-2]}.{k}": v for m in modules for k, v in m.LAUNCHES.items()}
+
+
+def lm_main_path(dev, hgnn_ops):
+    """Phase 3, gemma3-4b serving. Returns the results, the model, the
+    prompts and the cache right after prefill (for phase 4)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.topk_decode_attention import ops
+    from repro_torch.layers.attention import KVCache
+    from repro_torch.models import build_model
+
+    cfg = get_config(LM_ARCH)
+    max_len = LM_PROMPT + LM_GEN
+    per_step = sum(kind == "A" and cfg.attn_prune_k < max_len for kind in cfg.pattern())
+    want_step = {"topk_decode_attention.score_prune": per_step, "topk_decode_attention.value_gather": per_step}
+    zero = {key: 0 for key in all_launches(hgnn_ops, ops)}
+    t0 = time.perf_counter()
+    lm = build_model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    lm.compute_params()
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), device=dev,
+                            generator=torch.Generator(dev).manual_seed(1))
+    reset_launches(hgnn_ops)
+    reset_launches(ops)
+    logits, cache = lm.prefill(prompts, max_len=max_len)
+    sync(dev)
+    check(all_launches(hgnn_ops, ops) == zero, f"prefill launched kernels: {all_launches(hgnn_ops, ops)}")
+    check(tuple(logits.shape) == (LM_BATCH, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          f"prefill logits {tuple(logits.shape)} or non-finite values")
+    cache0 = [KVCache(c.k.clone(), c.v.clone()) for c in cache]
+    tok = logits.argmax(-1)[:, None]
+    tok0 = tok.clone()
+
+    # one float32 decode step, same weights and cache: kernel vs plain
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    lm32 = build_model(cfg32, device=dev, params=dict(lm.named_parameters()))
+    outs = {}
+    for route in ("kernel", "plain"):
+        c32 = [KVCache(c.k.float(), c.v.float()) for c in cache0]
+        reset_launches(ops)
+        with plain_decode_attention() if route == "plain" else contextlib.nullcontext():
+            lg, _ = lm32.decode_step(tok0, LM_PROMPT, c32)
+        sync(dev)
+        got = dict(ops.LAUNCHES)
+        expect = {"score_prune": per_step, "value_gather": per_step} if route == "kernel" else {"score_prune": 0, "value_gather": 0}
+        check(got == expect, f"float32 decode step ({route}): launches {got}, expected {expect}")
+        outs[route] = lg
+        del c32
+    e32 = float((outs["kernel"] - outs["plain"]).abs().max())
+    check(bool(torch.isfinite(outs["kernel"]).all()) and e32 <= TOL_LM,
+          f"float32 decode logits, kernel vs plain: {e32:.3g} > {TOL_LM}")
+    top32 = float(outs["plain"].abs().max())
+    del lm32, outs
+    print(f"  main path {LM_ARCH} float32 decode step: kernel vs plain logits {e32:.3g} (max |logit| {top32:.3g})")
+
+    # the main path: 32 greedy decode steps
+    step_ms, launches = [], {k: 0 for k in zero}
+    for i in range(LM_GEN):
+        pos = LM_PROMPT + i
+        reset_launches(hgnn_ops)
+        reset_launches(ops)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, cache = lm.decode_step(tok, pos, cache)
+        end.record()
+        end.synchronize()
+        got = all_launches(hgnn_ops, ops)
+        check(got == dict(zero, **want_step), f"decode step {i} (pos {pos}): launches {got}, expected {want_step}")
+        check(bool(torch.isfinite(logits).all()), f"decode step {i}: non-finite logits")
+        for key, n in got.items():
+            launches[key] += n
+        step_ms.append(start.elapsed_time(end))
+        tok = logits.argmax(-1)[:, None]
+    print(f"  main path {LM_ARCH}: prefill {LM_BATCH}x{LM_PROMPT}, {LM_GEN} decode steps, "
+          f"{per_step} + {per_step} decode-pair launches each step, logits finite, "
+          f"sample tokens {tok[:, 0].tolist()}")
+    res = {
+        "launches": launches, "launches_per_decode_step": per_step, "decode_steps": LM_GEN,
+        "prefill_launches": 0, "float32_kernel_vs_plain_logits": e32, "float32_max_abs_logit": top32,
+        "init_and_cast_s": init_s,
+        "step_ms_events": step_ms, "param_count": cfg.param_count(),
+    }
+    return res, lm, prompts, cache0, tok0
+
+
+def lm_cpu_check(dev):
+    """Phase 3: one cycle of depth (6 layers: L x5, A) at full width in
+    float32, the same weights on the card and on the CPU; prefill logits
+    and two decode steps' logits must agree within TOL_LM."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.topk_decode_attention import ops
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=6, dtype="float32")
+    max_len = CPU_CHECK_PROMPT + 2
+    cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(2))
+    gpu = build_model(cfg, device=dev, params={n: p.to(dev) for n, p in cpu.named_parameters()})
+    toks = torch.randint(0, cfg.vocab_size, (1, CPU_CHECK_PROMPT), generator=torch.Generator().manual_seed(3))
+    with torch.inference_mode():
+        l_c, c_c = cpu.prefill(toks, max_len=max_len)
+        l_g, c_g = gpu.prefill(toks.to(dev), max_len=max_len)
+        errs = [float((l_g.cpu() - l_c).abs().max())]
+        for pos in range(CPU_CHECK_PROMPT, max_len):
+            tok = l_c.argmax(-1)[:, None]
+            reset_launches(ops)
+            l_c, c_c = cpu.decode_step(tok, pos, c_c)
+            l_g, c_g = gpu.decode_step(tok.to(dev), pos, c_g)
+            sync(dev)
+            check(ops.LAUNCHES == {"score_prune": 1, "value_gather": 1},
+                  f"6-layer decode at pos {pos}: launches {ops.LAUNCHES}")
+            errs.append(float((l_g.cpu() - l_c).abs().max()))
+    check(max(errs) <= TOL_LM, f"6-layer float32 logits, card vs CPU: {errs} > {TOL_LM}")
+    print(f"  main path {LM_ARCH} 6 layers float32, prompt {CPU_CHECK_PROMPT} (> K {cfg.attn_prune_k}): "
+          f"card vs CPU logits, prefill {errs[0]:.3g}, decode {max(errs[1:]):.3g}")
+    return {"prefill_err": errs[0], "decode_errs": errs[1:], "prompt": CPU_CHECK_PROMPT}
+
+
+def decode_timings(lm, prompts, cache0, tok0, dev):
+    """Phase 4, the decode pair at the inputs of the last global layer in
+    the first decode step (bfloat16 cache), its bounds from this run's
+    inputs, the LM's prefill and decode-step times, and the decode pair's
+    share of a decode step's device time."""
+    import torch
+
+    from repro_torch.kernels.topk_decode_attention import ops, ref
+    from repro_torch.layers import attention
+    from repro_torch.layers.attention import KVCache
+
+    cache = [KVCache(c.k.clone(), c.v.clone()) for c in cache0]
+    seen = []
+    real = attention.topk_decode_attention
+
+    def record(q, kc, vc, lens, k, scale):
+        seen.append((q.clone(), kc.clone(), vc.clone(), lens.clone(), k, scale))
+        return real(q, kc, vc, lens, k, scale)
+
+    attention.topk_decode_attention = record
+    try:
+        lm.decode_step(tok0, LM_PROMPT, cache)
+    finally:
+        attention.topk_decode_attention = real
+    q, kc, vc, lens, prune_k, scale = seen[-1]
+    del seen
+    k = min(prune_k, kc.shape[1])
+    t = {}
+    with torch.inference_mode():
+        alpha, ids = ops.score_prune(q, kc, lens, k, scale)
+        out = ops.value_gather(alpha, ids, vc)
+        t["score_prune_plain"] = cuda_ms(lambda: ref.score_prune_plain(q, kc, lens, k, scale), 2, warmup=1)
+        t["value_gather_plain"] = cuda_ms(lambda: ref.value_gather_plain(alpha, ids, vc), 10)
+        timed(t, "score_prune", lambda: ops.score_prune(q, kc, lens, k, scale), 30)
+        timed(t, "value_gather", lambda: ops.value_gather(alpha, ids, vc), 100)
+        # the library call for K2: a CSR sparse-dense product, row b*H + h
+        # holding alpha at column (b*S + id)*Hkv + h // group of the cache
+        # as a float32 (S*B*Hkv, dh) matrix (bfloat16 -> float32 is exact)
+        b, h, _ = alpha.shape
+        s, hkv, dh = kc.shape[1], kc.shape[2], kc.shape[3]
+        r_b, r_h, r_s = torch.nonzero(ids >= 0, as_tuple=True)
+        col = ((r_b * s + ids[r_b, r_h, r_s].long()) * hkv + r_h // (h // hkv))
+        with torch.sparse.check_sparse_tensor_invariants(enable=True):
+            csr = torch.sparse_coo_tensor(
+                torch.stack([r_b * h + r_h, col]), alpha[r_b, r_h, r_s], size=(b * h, b * s * hkv),
+            ).coalesce().to_sparse_csr()
+        vflat = vc.float().reshape(b * s * hkv, dh)
+        lib_err = float((torch.sparse.mm(csr, vflat).reshape(b, h, dh) - out).abs().max())
+        check(lib_err <= TOL_OUT, f"library decode K2 differs from the kernel by {lib_err:.3g}")
+        timed(t, "value_gather_library", lambda: torch.sparse.mm(csr, vflat), 100)
+        # bytes this run's data needs: K1 reads each valid key row once, q
+        # and the lengths, and writes alpha and ids; K2 reads alpha, ids and
+        # each distinct retained V row once, and writes the output
+        el = kc.element_size()
+        valid_rows = int(lens.long().clamp(max=s).sum()) * hkv
+        k1_bytes = valid_rows * dh * el + q.numel() * el + lens.numel() * 4 + (alpha.numel() + ids.numel()) * 4
+        k1_ops = 2 * valid_rows * (h // hkv) * dh + alpha.numel() * 6
+        kvh = (torch.arange(h, device=dev) // (h // hkv))[None, :, None].expand_as(ids)
+        bidx = torch.arange(b, device=dev)[:, None, None].expand_as(ids)
+        keep = ids >= 0
+        distinct = int(torch.unique((bidx[keep] * hkv + kvh[keep]) * s + ids[keep].long()).numel())
+        retained = int(keep.sum())
+        k2_bytes = distinct * dh * el + (alpha.numel() + ids.numel()) * 4 + out.numel() * 4
+        k2_ops = 2 * retained * dh
+        # the LM: prefill, and the decode pair's share of a decode step
+        fresh = [KVCache(c.k.clone(), c.v.clone()) for c in cache0]
+        t["lm_prefill_ms"] = cuda_ms(lambda: lm.prefill(prompts, max_len=LM_PROMPT + LM_GEN), 2, warmup=1)
+        step_ms = cuda_ms(lambda: lm.decode_step(tok0, LM_PROMPT, fresh), 5, warmup=1)
+        per_kernel = device_times(lambda: lm.decode_step(tok0, LM_PROMPT, fresh), 3)
+        n_ops = host_ops(lambda: lm.decode_step(tok0, LM_PROMPT, fresh))
+    busy = sum(per_kernel.values())
+    pair = sum(ms for name, ms in per_kernel.items() if "score_prune_kernel" in name or "value_gather_kernel" in name)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    prof = None if busy == 0 else {
+        "device_busy_ms": busy, "step_ms_events": step_ms, "busy_share": busy / step_ms,
+        "decode_pair_ms": pair, "decode_pair_share_of_device": pair / busy,
+        "host_ops_per_step": n_ops, "top_kernels_ms": [[name[:80], ms] for name, ms in top],
+    }
+    bounds = {"score_prune": bound(k1_bytes, k1_ops), "value_gather": bound(k2_bytes, k2_ops)}
+    shapes = {
+        "inputs": f"{LM_ARCH} decode step 1, last global layer", "q": list(q.shape), "cache": list(kc.shape),
+        "dtype": str(kc.dtype), "k": k, "lengths": lens.tolist(), "retained_slots": retained,
+        "distinct_retained_rows": distinct,
+    }
+    return t, bounds, shapes, prof
+
+
 KERNELS = (
     # (LAUNCHES key, TPU kernel body it replaces, library-call timing key)
     ("prune", "kernel.py:219 _grouped_prune_kernel", None),
@@ -645,6 +1017,11 @@ KERNELS = (
     ("flat_prune", "kernel.py:69 _prune_kernel (fused_prune_aggregate_pallas, kernel.py:153)", None),
     ("flat_aggregate", "kernel.py:124 _aggregate_kernel (fused_prune_aggregate_pallas, kernel.py:153)",
      "flat_aggregate_library"),
+)
+DECODE_KERNELS = (
+    ("score_prune", "kernel.py:31 _score_prune_kernel (topk_decode_attention_pallas, kernel.py:97)", None),
+    ("value_gather", "kernel.py:83 _value_gather_kernel (topk_decode_attention_pallas, kernel.py:97)",
+     "value_gather_library"),
 )
 
 
@@ -658,6 +1035,7 @@ def main() -> int:
     from repro_torch.core import hetgraph, pipeline
     from repro_torch.core.flows import FlowConfig
     from repro_torch.kernels.fused_prune_aggregate import ops
+    from repro_torch.kernels.topk_decode_attention import ops as tda_ops
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -665,14 +1043,17 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
-    # phase 1: build
+    # phase 1: build, one nvcc per source, all at once
     t0 = time.perf_counter()
-    _, record = ops.library()
+    with ThreadPoolExecutor(2) as pool:
+        builds = list(pool.map(lambda m: m.library()[1], (ops, tda_ops)))
     build_s = time.perf_counter() - t0
-    print(f"phase 1: built {record['path']} in {build_s:.2f} s (nvcc {record['seconds']:.2f} s)")
-    for line in record["log"].splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    print(f"phase 1: built {len(builds)} kernel libraries in {build_s:.2f} s")
+    for record in builds:
+        print(f"  {record['path']}: nvcc {record['seconds']:.2f} s")
+        for line in record["log"].splitlines():
+            if "registers" in line or "Compiling entry" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
 
     # host-side SGB for the main path, on the CPU (also the CPU reference)
     cpu_tasks = {ds: pipeline.prepare("han", ds, scale=SCALE, seed=0, device="cpu") for ds in ("dblp", "acm")}
@@ -686,12 +1067,17 @@ def main() -> int:
         flat_cases(acm_union.batch.sg_by_dst["paper"], acm_union.batch.total_nodes), dev
     ))
     check_flat_tie_and_width(dev)
+    err.update(check_decode_kernels(dev))
+    check_decode_tie_and_width(dev)
 
     # phase 3: the main paths
     print(f"phase 3: fused_kernel serving at scale={SCALE}, prune_k={PRUNE_K}")
     results, gpu_tasks = main_path(pipeline, FlowConfig, ops, cpu_tasks, dev)
     model_results, model_tasks = model_paths(pipeline, hetgraph, FlowConfig, ops, dev)
     results.update(model_results)
+    print(f"phase 3: {LM_ARCH} serving, prefill {LM_BATCH}x{LM_PROMPT} + {LM_GEN} decode steps")
+    lm_result, lm, prompts, cache0, tok0 = lm_main_path(dev, ops)
+    lm_result["cpu_check"] = lm_cpu_check(dev)
 
     # phase 4: times
     print("phase 4: times (CUDA events)")
@@ -725,6 +1111,21 @@ def main() -> int:
         if p:
             p = dict(p, top_kernels_ms=p["top_kernels_ms"][:6])
         print(f"  profile {key}: " + (json.dumps(p) if p else "profiler saw no device time: not measured"))
+    t_dec, b_dec, s_dec, lm_prof = decode_timings(lm, prompts, cache0, tok0, dev)
+    t.update(t_dec)
+    bounds.update(b_dec)
+    steps = sorted(lm_result["step_ms_events"][1:])
+    lm_result["decode_step_ms_median"] = steps[len(steps) // 2]
+    lm_result["tokens_per_s"] = LM_BATCH / (lm_result["decode_step_ms_median"] / 1e3)
+    lm_result["prefill_ms"] = t_dec["lm_prefill_ms"]
+    lm_result["profile"] = lm_prof
+    print("  shapes, decode pair: " + json.dumps(s_dec))
+    print("  times_ms, decode pair: " + json.dumps({k: v for k, v in t_dec.items() if not k.startswith("lm_")}))
+    print(f"  {LM_ARCH}: prefill {LM_BATCH}x{LM_PROMPT} {lm_result['prefill_ms']:.1f} ms (CUDA events), "
+          f"decode step {lm_result['decode_step_ms_median']:.2f} ms median of steps 2-{LM_GEN} "
+          f"({lm_result['tokens_per_s']:.1f} tokens/s at batch {LM_BATCH})")
+    print(f"  profile {LM_ARCH} decode step: " + (json.dumps(dict(lm_prof, top_kernels_ms=lm_prof["top_kernels_ms"][:6]))
+                                                 if lm_prof else "profiler saw no device time: not measured"))
 
     kernels = []
     for key, line, lib in KERNELS:
@@ -751,9 +1152,32 @@ def main() -> int:
             "shapes": (shapes if key in ("prune", "aggregate") else s_flat)["graph"],
             "check": "pass: ids equal, alpha <= 1e-6" if key.endswith("prune") else "pass: out <= 1e-5",
         })
+    for key, line, lib in DECODE_KERNELS:
+        bound_ms, bound_by, nbytes, nops = bounds[key]
+        kernels.append({
+            "name": f"topk_decode_attention.{key}",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/topk_decode_attention/csrc/topk_decode_attention.cu",
+            "replaces": f"src/repro/kernels/topk_decode_attention/{line}",
+            "launches": lm_result["launches"][f"topk_decode_attention.{key}"],
+            "launches_per_decode_step": lm_result["launches_per_decode_step"],
+            "max_abs_err": err[key],
+            "ms": t[key],
+            "ms_source": t[f"{key}_source"],
+            "event_ms": t[f"{key}_event"],
+            "plain_ms": t[f"{key}_plain"],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "bound_bytes": nbytes,
+            "bound_ops": nops,
+            "library_ms": t[lib] if lib else None,
+            "library_event_ms": t[f"{lib}_event"] if lib else None,
+            "shapes": s_dec["inputs"],
+            "check": "pass: ids equal, alpha <= 1e-6" if key == "score_prune" else "pass: out <= 1e-5",
+        })
     REPORT.parent.mkdir(exist_ok=True)
     REPORT.write_text(json.dumps({
-        "card": card, "results": results, "times_ms": t, "forward_ms": fwd,
+        "card": card, "results": results, "lm": lm_result, "times_ms": t, "forward_ms": fwd,
         "forward_latency_ms": latency, "profiles": prof, "kernels": kernels,
     }, indent=1))
     print(f"  full report: {REPORT.relative_to(ROOT)}; wall time {time.perf_counter() - t_start:.1f} s")

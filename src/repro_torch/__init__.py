@@ -1,9 +1,11 @@
 """ADE-HGNN in PyTorch with hand-written CUDA kernels for Hopper.
 
-A port of the ``repro`` package's pruned HGNN inference path. The module
+A port of the ``repro`` package's pruned HGNN inference path and of its LM
+serving path (prefill + ADE-pruned decode; gemma3-4b so far). The module
 layout follows ``repro`` one for one (``repro_torch/core/flows.py`` is the
-counterpart of ``repro/core/flows.py``); inside, models are ``nn.Module``s
-and everything else is plain functions on tensors.
+counterpart of ``repro/core/flows.py``, ``repro_torch/models/lm.py`` of
+``repro/models/lm.py``); inside, models are ``nn.Module``s and everything
+else is plain functions on tensors.
 
 Rules every module keeps:
 
@@ -11,9 +13,10 @@ Rules every module keeps:
     when no GPU is present unless the caller passed ``device="cpu"``
     (:func:`resolve_device`) — nothing drops to the CPU on its own;
   * randomness comes from explicit ``torch.Generator``s or seeded numpy;
-  * all math is float32, and TF32 is off for matmuls and convolutions (set
-    below, at import), so a float32 product on the card keeps full float32
-    precision.
+  * the HGNN path is float32; the LM path computes in ``cfg.dtype`` as the
+    reference does (bfloat16 activations for the published configs); TF32
+    is off for matmuls and convolutions (set below, at import), so a
+    float32 product on the card keeps full float32 precision.
 """
 from __future__ import annotations
 

@@ -23,10 +23,24 @@ names them: dict keys and list positions joined by dots
 (``"proj.paper.w"``, ``"layers.0.attn.AP.a_src"``, …). Weights keep the
 reference's ``(in, out)`` layout — the port multiplies ``x @ w`` too — so
 no tensor is transposed.
+
+:func:`lm_params_from_reference` does the same for the reference's
+language model, whose tree stacks the layers of each group of the layer
+pattern (``ModelConfig.layer_groups``)::
+
+    {"embed": {"table": (V, d)}, "final_norm": {"scale": (d,)},
+     "groups": [(block tree of cycle position p, leaves stacked over the
+                 group's repeats: (n, ...)) for p in the cycle], ...}
+
+Layer ``i`` of the pattern is group ``gi``, repeat ``r``, position ``p``
+with ``i = offset_gi + r·len(cycle_gi) + p``; its leaves go to
+``layers.<i>.<path>`` (``layers.5.attn.wq``). gemma3-4b has two groups, the
+cycle ``L L L L L A`` five times and a remainder ``L L L L`` (layers
+30–33).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,4 +90,47 @@ def params_from_reference(
                 f"reference tree does not match {type(model).__name__}: missing "
                 f"{missing}, unexpected {extra}, shapes differ for {shapes}"
             )
+    return out
+
+
+def lm_layout(cfg, tree: Mapping) -> Iterator[Tuple[str, str, Optional[int]]]:
+    """``(port name, reference path, repeat)`` for every leaf of the
+    reference LM tree, one per layer for stacked leaves (``repeat`` indexes
+    the stacking axis; ``None`` for the unstacked embedding and final
+    norm). Leaves may be arrays or shape structs: only the tree is read."""
+    unknown = sorted(set(tree) - {"embed", "final_norm", "groups"})
+    if unknown:
+        raise NotImplementedError(f"LM tree parts {unknown} are not ported to repro_torch yet")
+    for top in ("embed", "final_norm"):
+        for path in _flatten(tree[top], f"{top}."):
+            yield path, path, None
+    offset = 0
+    for gi, ((cycle, n), stacked) in enumerate(zip(cfg.layer_groups(), tree["groups"])):
+        if len(stacked) != len(cycle):
+            raise ValueError(f"group {gi}: {len(stacked)} cycle positions, expected {len(cycle)}")
+        for p, block in enumerate(stacked):
+            for path in _flatten(block):
+                for r in range(n):
+                    i = offset + r * len(cycle) + p
+                    yield f"layers.{i}.{path}", f"groups.{gi}.{p}.{path}", r
+        offset += n * len(cycle)
+    if offset != cfg.num_layers:
+        raise ValueError(f"the groups hold {offset} layers, the config {cfg.num_layers}")
+
+
+def lm_params_from_reference(cfg, tree: Mapping, device="cuda") -> Dict[str, torch.Tensor]:
+    """The reference LM's parameter tree (numpy leaves) as the port's flat
+    mapping in ``cfg.param_dtype`` on ``device``; ``LM.load_params`` (and
+    ``build_model(cfg, params=...)``) checks its names and shapes."""
+    dev = resolve_device(device)
+    leaves = _flatten(tree)
+    out = {}
+    for name, path, r in lm_layout(cfg, tree):
+        leaf = leaves[path]
+        if not isinstance(leaf, np.ndarray):
+            raise TypeError(
+                f"{path}: leaves must be numpy arrays (np.asarray the "
+                f"reference's arrays), got {type(leaf).__name__}"
+            )
+        out[name] = torch.tensor(leaf if r is None else leaf[r], dtype=cfg.pdtype, device=dev)
     return out

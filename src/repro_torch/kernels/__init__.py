@@ -5,6 +5,9 @@ version.
     gather-aggregate, as two pairs of CUDA C++ kernels in ``csrc/``: one
     over a grouped bucket layout (all buckets of a graph in one launch),
     one over a flat ``(T, D)`` padded-CSC table.
+  * ``topk_decode_attention`` — ADE-pruned LM decode attention, K1 score +
+    top-K retention + softmax and K2 value gather, as a pair of CUDA C++
+    kernels in ``csrc/``.
 
 A kernel package holds ``ops.py`` (the public wrapper: the plain version for
 CPU tensors, the CUDA kernel for CUDA tensors, never a fallback between

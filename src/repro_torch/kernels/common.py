@@ -1,5 +1,5 @@
-"""The retention-domain rule shared by the fused kernel and its plain
-version.
+"""The retention-domain rule shared by the kernels and their plain
+versions, and the checks their wrappers make before a launch.
 
 One step of the paper's Algorithm 1 (lines 14-22), as the reference's TPU
 kernels run it (``repro/kernels/common.py``): find the FIRST minimum slot
@@ -42,3 +42,27 @@ def min_replace(
         r = repl.reshape(repl.shape + (1,) * (aux.dim() - repl.dim()))
         new_aux.append(torch.where(r, cur[:, None], aux))
     return new_vals, new_aux
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what a kernel wrapper checks before a launch."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def cuda_device(t: torch.Tensor) -> torch.device:
+    """``t``'s device, which must be a CUDA device: the kernels run on CUDA
+    tensors, their plain versions on CPU tensors."""
+    if t.device.type != "cuda":
+        raise ValueError(
+            f"tensors on {t.device}: the kernels run on CUDA tensors, the "
+            "plain versions on CPU tensors"
+        )
+    return t.device

@@ -24,6 +24,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.common import check_tensor as _check
+from repro_torch.kernels.common import cuda_device as _cuda_device
 from repro_torch.kernels.fused_prune_aggregate import ref
 
 T_TILE = 8  # rows per row block (one thread block of K1)
@@ -139,26 +141,6 @@ def _layout_device(layout, prune_k: Optional[int], device: torch.device):
         blk = torch.from_numpy(block_table(layout, meta)).to(device)
         cache[key] = (blk, k_s)
     return cache[base_key], cache[key]
-
-
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _cuda_device(t: torch.Tensor) -> torch.device:
-    if t.device.type != "cuda":
-        raise ValueError(
-            f"tensors on {t.device}: the kernels run on CUDA tensors, the "
-            "plain versions on CPU tensors"
-        )
-    return t.device
 
 
 def prune(

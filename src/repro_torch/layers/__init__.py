@@ -1,0 +1,3 @@
+"""LM layers (the reference's ``repro/layers``): norms, RoPE, MLP, the
+flash forward, GQA attention with the ADE-pruned decode branch, and the
+layer blocks. Functions over nested parameter dicts, as the reference's."""

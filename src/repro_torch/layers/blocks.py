@@ -1,0 +1,72 @@
+"""Layer blocks: parameter shapes, prefill-apply, cache init and
+decode-apply, dispatched by kind (the reference's ``repro/layers/blocks.py``).
+
+Kinds ported:
+  A  global attention + MLP            L  sliding-window attention + MLP
+
+Every other kind of the reference (M, C, R, W, E, D) raises
+``NotImplementedError`` naming its ROADMAP item.
+"""
+from __future__ import annotations
+
+from repro_torch.layers import attention as attn
+from repro_torch.layers import mlp as mlp_mod
+from repro_torch.layers.norms import apply_norm, norm_shapes
+
+_NOT_PORTED = {
+    "M": "ROADMAP §1 LM-2 (MoE 'M' blocks, layers/moe.py)",
+    "R": "ROADMAP §1 LM-3 (RG-LRU 'R' blocks, layers/rglru.py)",
+    "W": "ROADMAP §1 LM-4 (RWKV 'W' blocks, layers/rwkv.py)",
+    "C": "ROADMAP §1 LM-5 (cross-attention 'C' decode)",
+    "E": "ROADMAP §1 LM-6 (audio encoder-decoder 'E'/'D')",
+    "D": "ROADMAP §1 LM-6 (audio encoder-decoder 'E'/'D')",
+}
+
+
+def _check_kind(kind: str) -> None:
+    if kind not in ("A", "L"):
+        if kind in _NOT_PORTED:
+            raise NotImplementedError(
+                f"block kind {kind!r} is not ported to repro_torch yet: {_NOT_PORTED[kind]}"
+            )
+        raise ValueError(kind)
+
+
+def block_shapes(cfg, kind: str):
+    """``{"ln1": {...}, "ln2": {...}, "attn": {...}, "mlp": {...}}`` of
+    parameter shapes, the reference's tree for one block."""
+    _check_kind(kind)
+    return {
+        "ln1": norm_shapes(cfg),
+        "ln2": norm_shapes(cfg),
+        "attn": attn.attention_shapes(cfg),
+        "mlp": mlp_mod.mlp_shapes(cfg),
+    }
+
+
+def apply_block_train(cfg, kind: str, params, x, positions, emit_cache: bool = False):
+    """Returns (x, cache_or_None)."""
+    _check_kind(kind)
+    h, cache = attn.attention_train(
+        cfg, params["attn"], apply_norm(cfg, params["ln1"], x), positions,
+        kind=kind, emit_cache=emit_cache,
+    )
+    x = x + h
+    x = x + mlp_mod.apply_mlp(cfg, params["mlp"], apply_norm(cfg, params["ln2"], x))
+    return x, cache
+
+
+def init_block_cache(cfg, kind: str, batch: int, max_len: int, device):
+    _check_kind(kind)
+    return attn.init_kv_cache(cfg, batch, max_len, kind, device)
+
+
+def apply_block_decode(cfg, kind: str, params, x, pos: int, cache):
+    """Single-token step. Returns (x, cache), the cache updated in place."""
+    _check_kind(kind)
+    h, cache = attn.attention_decode(
+        cfg, params["attn"], apply_norm(cfg, params["ln1"], x), pos, cache, kind=kind
+    )
+    x = x + h
+    x = x + mlp_mod.apply_mlp(cfg, params["mlp"], apply_norm(cfg, params["ln2"], x))
+    return x, cache

@@ -1,0 +1,230 @@
+"""Decoder-only language model assembled from layer blocks (the
+reference's ``repro/models/lm.py``), for the block kinds ported so far
+(A, L): prefill, then one token per ``decode_step``.
+
+The layers are a ``ModuleList`` in ``cfg.pattern()`` order; the reference's
+``lax.scan`` over stacked cycle repeats is a Python loop here, and its
+sharding constraints have no counterpart on one card. Parameter names
+follow the port's flat naming (``embed.table``, ``layers.<i>.attn.wq``,
+``layers.<i>.mlp.wi``, ``final_norm.scale``, …; ``convert`` maps the
+reference's stacked tree onto them). Weights keep the reference's
+``(in, out)`` layout and its ``param_dtype``.
+
+Compute dtype. The reference casts each float32 weight to ``cfg.dtype`` at
+every use; the port casts every weight and the embedding table once, at
+first use, and keeps those copies (:meth:`LM.compute_params`), which gives
+the same values. With ``dtype="bfloat16"`` and float32 parameters that is
+2 bytes more per parameter (7.8 GB for gemma3-4b's 3.88 B); with a
+float32 ``dtype`` the copies are the parameters themselves. Norm scales
+stay float32, as the reference reads them.
+
+Caches are a list of ``KVCache`` per layer, updated in place by
+``decode_step`` (the same list comes back).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Mapping, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.projection import glorot_
+from repro_torch.layers import blocks
+from repro_torch.layers.attention import KVCache
+from repro_torch.layers.norms import apply_norm, norm_shapes
+
+
+def _params(shapes: Mapping, dtype, device) -> nn.ParameterDict:
+    """Inference-only parameters (no autograd state), zero until
+    ``reset_parameters`` or ``load_params`` fills them."""
+    return nn.ParameterDict({
+        name: nn.Parameter(torch.zeros(shape, dtype=dtype, device=device), requires_grad=False)
+        for name, shape in shapes.items()
+    })
+
+
+def _reset_norm(cfg, norm: nn.ParameterDict) -> None:
+    """RMSNorm's (1 + scale) at zero; LayerNorm's scale one, bias zero."""
+    norm["scale"].data.fill_(0.0 if cfg.norm == "rmsnorm" else 1.0)
+    if "bias" in norm:
+        norm["bias"].data.zero_()
+
+
+class Block(nn.Module):
+    """One layer's parameters: ``ln1``, ``ln2``, ``attn``, ``mlp``."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, device):
+        super().__init__()
+        for part, shapes in blocks.block_shapes(cfg, kind).items():
+            setattr(self, part, _params(shapes, cfg.pdtype, device))
+
+
+class LM(nn.Module):
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        super().__init__()
+        if cfg.family in ("vlm", "audio"):
+            raise NotImplementedError(
+                f"{cfg.family} models are not ported to repro_torch yet: "
+                "ROADMAP §1 LM-5 / LM-6"
+            )
+        if not cfg.tie_embeddings:
+            raise NotImplementedError("an untied LM head is not ported to repro_torch yet: ROADMAP §1 LM-1")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        pdt = cfg.pdtype
+        self.embed = _params({"table": (cfg.vocab_size, cfg.d_model)}, pdt, self.device)
+        self.layers = nn.ModuleList(Block(cfg, kind, self.device) for kind in cfg.pattern())
+        self.final_norm = _params(norm_shapes(cfg), pdt, self.device)
+        self._compute: Optional[Dict] = None
+
+    # ------------------------------------------------------------- params
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Seeded init in a fixed order from ``generator`` (on any device;
+        values are drawn there and copied): the embedding normal × 0.02,
+        glorot-uniform weights, norms as the reference inits them (RMSNorm's
+        scale at zero)."""
+
+        def fill(p: nn.Parameter, draw) -> None:
+            buf = torch.empty(p.shape, dtype=torch.float32, device=generator.device)
+            draw(buf)
+            p.data.copy_(buf)
+
+        normal = lambda t: t.normal_(0.0, 1.0, generator=generator).mul_(0.02)  # noqa: E731
+        fill(self.embed["table"], normal)
+        for layer in self.layers:
+            for part in (layer.attn, layer.mlp):
+                for p in part.values():
+                    fill(p, lambda t: glorot_(t, generator))
+            for norm in (layer.ln1, layer.ln2):
+                _reset_norm(self.cfg, norm)
+        _reset_norm(self.cfg, self.final_norm)
+        self._compute = None
+
+    def load_params(self, params: Mapping[str, torch.Tensor]) -> None:
+        """Take ``params`` (the names and shapes of ``named_parameters()``)
+        as the model's parameters; a tensor already on the model's device
+        in ``param_dtype`` is shared, not copied."""
+        want = {n: tuple(p.shape) for n, p in self.named_parameters()}
+        got = {n: tuple(t.shape) for n, t in params.items()}
+        if got != want:
+            missing = sorted(set(want) - set(got))
+            extra = sorted(set(got) - set(want))
+            shapes = sorted(n for n in set(want) & set(got) if want[n] != got[n])
+            raise ValueError(
+                f"parameters do not match the LM: missing {missing}, unexpected "
+                f"{extra}, shapes differ for {shapes}"
+            )
+        for name, p in self.named_parameters():
+            p.data = params[name].detach().to(self.device, self.cfg.pdtype)
+        self._compute = None
+
+    def compute_params(self) -> Dict:
+        """The parameters as the forward uses them, as the reference's tree:
+        ``{"embed", "final_norm", "layers": [per-layer dicts]}``,
+        weights and the table in ``cfg.dtype`` (built once, kept), norm
+        scales as stored."""
+        if self._compute is None:
+            dt = self.cfg.adtype
+
+            def tree(pd: nn.ParameterDict):
+                return {n: (p.detach().to(dt) if p.dim() >= 2 else p.detach()) for n, p in pd.items()}
+
+            self._compute = {
+                "embed": tree(self.embed),
+                "final_norm": tree(self.final_norm),
+                "layers": [
+                    {part: tree(getattr(layer, part)) for part in ("ln1", "ln2", "attn", "mlp")}
+                    for layer in self.layers
+                ],
+            }
+        return self._compute
+
+    # ------------------------------------------------------------ helpers
+    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = params["embed"]["table"][tokens]
+        # gemma-style scaled embeddings (tied), the scale rounded to adtype; a
+        # CPU scalar tensor, since a device one would be a synchronizing copy
+        return x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.adtype)
+
+    def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = apply_norm(cfg, params["final_norm"], x)
+        logits = (x @ params["embed"]["table"].T).float()  # tied head
+        if cfg.logit_softcap:
+            logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+        return logits
+
+    # ------------------------------------------------------------- decode
+    def init_cache(self, batch: int, max_len: int) -> List[KVCache]:
+        return [
+            blocks.init_block_cache(self.cfg, kind, batch, max_len, self.device)
+            for kind in self.cfg.pattern()
+        ]
+
+    def decode_step(self, token: torch.Tensor, pos: int, cache: List[KVCache]):
+        """One decode step: ``token`` (B, 1) at position ``pos`` -> (logits
+        (B, V) float32, cache), the cache updated in place."""
+        cfg, params = self.cfg, self.compute_params()
+        x = self._embed(params, token)
+        for i, kind in enumerate(cfg.pattern()):
+            x, cache[i] = blocks.apply_block_decode(cfg, kind, params["layers"][i], x, pos, cache[i])
+        return self._logits(params, x)[:, 0], cache
+
+    # ------------------------------------------------------------ prefill
+    def prefill(self, tokens: torch.Tensor, max_len: int) -> Tuple[torch.Tensor, List[KVCache]]:
+        """Run the prompt (B, S), returning (last-token logits (B, V)
+        float32, decode cache for ``max_len`` positions).
+
+        The prefill attention emits each layer's K/V, re-laid-out into the
+        decode cache: global layers left-aligned and zero-padded to
+        ``max_len``, local layers in the ring layout of the last ``window``
+        rows.
+        """
+        cfg, params = self.cfg, self.compute_params()
+        s = tokens.shape[1]
+        x = self._embed(params, tokens)
+        positions = torch.arange(s, device=tokens.device)
+        caches = []
+        for i, kind in enumerate(cfg.pattern()):
+            x, em = blocks.apply_block_train(
+                cfg, kind, params["layers"][i], x, positions, emit_cache=True
+            )
+            caches.append(self._relayout_cache(kind, em, s, max_len))
+        return self._logits(params, x[:, -1:, :])[:, 0], caches
+
+    def _relayout_cache(self, kind: str, em: KVCache, s: int, max_len: int) -> KVCache:
+        """One layer's emitted (B, S, Hkv, hd) K/V -> its decode cache."""
+        cfg = self.cfg
+        if kind == "A":
+            pad = (0, 0, 0, 0, 0, max_len - s)
+            return KVCache(k=nn.functional.pad(em.k, pad), v=nn.functional.pad(em.v, pad))
+        w = min(cfg.sliding_window or s, max_len, s)
+        slots = torch.remainder(torch.arange(s - w, s, device=em.k.device), w)
+        width = min(cfg.sliding_window or max_len, max_len)
+        out = []
+        for t in (em.k, em.v):
+            z = t.new_zeros((t.shape[0], width) + t.shape[2:])
+            z[:, slots] = t[:, s - w:]
+            out.append(z)
+        return KVCache(k=out[0], v=out[1])
+
+
+def build_model(
+    cfg: ModelConfig,
+    device="cuda",
+    generator: Optional[torch.Generator] = None,
+    params: Optional[Mapping[str, torch.Tensor]] = None,
+) -> LM:
+    """An ``LM`` for ``cfg`` on ``device``, with ``params`` (a flat mapping
+    named as ``named_parameters()``, e.g. from
+    ``convert.lm_params_from_reference``) or seeded weights drawn from
+    ``generator`` (default: a CPU generator seeded 0)."""
+    lm = LM(cfg, device)
+    if params is not None:
+        lm.load_params(params)
+    else:
+        lm.reset_parameters(generator if generator is not None else torch.Generator().manual_seed(0))
+    return lm

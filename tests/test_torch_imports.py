@@ -34,6 +34,10 @@ def _imports(path: Path):
 def test_no_jax_or_reference_imports(tmp_path):
     assert len(PORT_FILES) > 10
     assert (ROOT / "chip_smoke.py").is_file()
+    port = ROOT / "src" / "repro_torch"
+    for sub in ("core", "data", "kernels", "configs", "layers", "models", "launch"):
+        assert port / sub / "__init__.py" in PORT_FILES, sub
+    assert port / "kernels" / "topk_decode_attention" / "ops.py" in PORT_FILES
     probe = tmp_path / "probe.py"
     probe.write_text(
         "import jax.numpy as jnp\nfrom repro.core import flows\n"
@@ -58,6 +62,13 @@ def test_cpu_forward_loads_neither_jax_nor_reference():
         "task = pipeline.prepare('han', 'acm', scale=0.03, device='cpu')\n"
         "out = task.compile(FlowConfig('fused_kernel', prune_k=4))(task.params)\n"
         "assert out.shape == (task.batch.num_targets, task.spec.num_classes)\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.models import build_model\n"
+        "import torch\n"
+        "lm = build_model(get_config('gemma3-4b', smoke=True), device='cpu')\n"
+        "lg, cache = lm.prefill(torch.zeros((1, 12), dtype=torch.long), max_len=14)\n"
+        "lg, cache = lm.decode_step(lg.argmax(-1)[:, None], 12, cache)\n"
+        "assert lg.shape == (1, 512)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print('LOADED', bad)\n"
         "sys.exit(1 if bad else 0)\n"

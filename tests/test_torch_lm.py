@@ -1,0 +1,290 @@
+"""Port parity: the LM serving path (gemma3-4b) against the reference.
+
+The same numpy inputs and the reference's own parameters (converted with
+``convert.lm_params_from_reference``) go through the reference's JAX
+layers and LM and through the port's, on the CPU, in float32 (the smoke
+config's dtype). Norms, RoPE, GeGLU and the flash forward agree within
+1e-5; ``attention_decode`` (a sliding-window layer past its ring wrap, and
+a global layer whose cache is wider than K, so the port's pruned branch
+runs the plain version of kernel #4) within 1e-5; the gemma3 smoke
+``prefill`` and 8 ``decode_step``s within 1e-4, the reference's own decode
+tolerance (``tests/test_lm_archs.py``), with and without a logit softcap.
+The pruned branches agree because the retained sets agree on float32
+logits without ties (the reference keeps every logit at or above the K-th,
+the port exactly K by the kernel's rule).
+"""
+import dataclasses
+import gc
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import convert  # noqa: E402
+from repro_torch.configs import get_config as tget  # noqa: E402
+from repro_torch.layers import attention as tattn  # noqa: E402
+from repro_torch.layers import blocks as tblocks  # noqa: E402
+from repro_torch.layers import flash as tflash  # noqa: E402
+from repro_torch.layers import mlp as tmlp  # noqa: E402
+from repro_torch.layers import norms as tnorms  # noqa: E402
+from repro_torch.layers import rope as trope  # noqa: E402
+from repro_torch.models import LM  # noqa: E402
+from repro_torch.models import build_model as tbuild  # noqa: E402
+
+ATOL_LAYER = 1e-5
+ATOL_LOGITS = 1e-4  # the reference's decode-vs-forward tolerance
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _end_leaked_serve_threads():
+    """The reference's ``test_serve_faults.py`` closes threaded front-ends
+    whose drain it poisoned for good; their threads then spin for the rest
+    of the process, growing in memory and slowing whatever file this worker
+    runs next (ROADMAP, "Faults found"). Lift the poison from such closed
+    front-ends so their loops drain and return."""
+    frontend = sys.modules.get("repro.serve.frontend")
+    if frontend is not None:
+        for fe in [o for o in gc.get_objects() if type(o) is frontend.ServeFrontend]:
+            h = fe.health()
+            if h.closed and (h.collector_alive or h.stepper_alive):
+                fe.faults = None
+                fe.queue.notify_all()
+                fe.executor.join(5.0)
+
+
+def _cfgs(**over):
+    from repro.configs import get_config as jget
+
+    j, t = jget("gemma3_4b", smoke=True), tget("gemma3-4b", smoke=True)
+    return dataclasses.replace(j, **over), dataclasses.replace(t, **over)
+
+
+def _t(tree):
+    """A numpy tree as torch tensors (the same nesting)."""
+    if isinstance(tree, dict):
+        return {k: _t(v) for k, v in tree.items()}
+    return torch.from_numpy(np.asarray(tree))
+
+
+def _np(x):
+    return np.asarray(x)
+
+
+def test_config_matches_reference():
+    from repro.configs import get_config as jget
+
+    j, t = jget("gemma3-4b"), tget("gemma3-4b")
+    fields = [f.name for f in dataclasses.fields(j)]
+    assert fields == [f.name for f in dataclasses.fields(t)]
+    for name in fields:
+        assert getattr(j, name) == getattr(t, name), name
+    assert j.layer_groups() == t.layer_groups() and j.pattern() == t.pattern()
+    assert j.param_count() == t.param_count() == 3_879_731_200
+    assert t.adtype == torch.bfloat16 and t.pdtype == torch.float32
+
+
+def test_unported_arch_and_kind_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tget("qwen2-1.5b")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tget("rwkv6_3b", smoke=True)
+    with pytest.raises(ValueError):
+        tget("no-such-arch")
+    smoke = tget("gemma3-4b", smoke=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tblocks.block_shapes(smoke, "M")
+    for over in ({"qkv_bias": True}, {"tie_embeddings": False}, {"activation": "swiglu"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            LM(dataclasses.replace(smoke, **over), device="meta")
+
+
+@pytest.mark.parametrize("norm", ("rmsnorm", "layernorm"))
+def test_norms_match_reference(norm):
+    from repro.layers import norms as jnorms
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(3, 5, 64)).astype(np.float32) * 3
+    p = {"scale": rng.normal(size=(64,)).astype(np.float32), "bias": rng.normal(size=(64,)).astype(np.float32)}
+    if norm == "rmsnorm":
+        want, got = jnorms.rmsnorm(p, x), tnorms.rmsnorm(_t(p), torch.from_numpy(x))
+    else:
+        want, got = jnorms.layernorm(p, x), tnorms.layernorm(_t(p), torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=ATOL_LAYER, rtol=0)
+
+
+@pytest.mark.parametrize("fraction", (1.0, 0.5))
+def test_rope_matches_reference(fraction):
+    import jax.numpy as jnp
+    from repro.layers import rope as jrope
+
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(2, 40, 4, 16)).astype(np.float32)
+    pos = np.arange(1000, 1040)
+    rot = int(16 * fraction)
+    cj, sj = jrope.rope_angles(jnp.asarray(pos), rot, 10_000.0)
+    ct, st = trope.rope_angles(torch.from_numpy(pos), rot, 10_000.0)
+    np.testing.assert_allclose(ct.numpy(), _np(cj), atol=ATOL_LAYER, rtol=0)
+    want = jrope.apply_rope(jnp.asarray(x), cj, sj, fraction)
+    got = trope.apply_rope(torch.from_numpy(x), ct, st, fraction)
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=ATOL_LAYER, rtol=0)
+    if fraction < 1.0:
+        np.testing.assert_array_equal(got.numpy()[..., rot:], x[..., rot:])
+
+
+def test_geglu_matches_reference():
+    from repro.layers import mlp as jmlp
+
+    jcfg, tcfg = _cfgs()
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(2, 7, 64)).astype(np.float32)
+    p = {n: (rng.normal(size=s) * 0.2).astype(np.float32) for n, s in tmlp.mlp_shapes(tcfg).items()}
+    want = jmlp.apply_mlp(jcfg, p, x)
+    got = tmlp.apply_mlp(tcfg, _t(p), torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=ATOL_LAYER, rtol=0)
+
+
+@pytest.mark.parametrize("window", (None, 12))
+def test_flash_forward_matches_reference(window):
+    """Chunks of 8 (q and kv), S = 37 (not a multiple), GQA group 2, with
+    and without a sliding window."""
+    import jax.numpy as jnp
+    from repro.layers import flash as jflash
+
+    jcfg, tcfg = _cfgs(attn_chunk_q=8, attn_chunk_kv=8)
+    rng = np.random.default_rng(3)
+    q = rng.normal(size=(2, 37, 4, 16)).astype(np.float32)
+    k = rng.normal(size=(2, 37, 2, 16)).astype(np.float32)
+    v = rng.normal(size=(2, 37, 2, 16)).astype(np.float32)
+    want = jflash.flash_attention(jcfg, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), True, window)
+    got = tflash.flash_attention(tcfg, *(torch.from_numpy(a) for a in (q, k, v)), True, window)
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=ATOL_LAYER, rtol=0)
+
+
+@pytest.mark.parametrize("kind,pos", (("L", 37), ("A", 29)))
+def test_attention_decode_matches_reference(kind, pos):
+    """'L': a ring cache of window 16 at pos 37 (wrapped twice); 'A': a
+    global cache of 32 rows, 30 valid, with prune_k 8 < 32, so the port's
+    pruned branch runs kernel #4's plain version."""
+    import jax.numpy as jnp
+    from repro.layers import attention as jattn
+
+    jcfg, tcfg = _cfgs()
+    rng = np.random.default_rng(4)
+    p = {n: (rng.normal(size=s) * 0.2).astype(np.float32) for n, s in tattn.attention_shapes(tcfg).items()}
+    c = 16 if kind == "L" else 32
+    ck = rng.normal(size=(2, c, 2, 16)).astype(np.float32)
+    cv = rng.normal(size=(2, c, 2, 16)).astype(np.float32)
+    if kind == "A":
+        ck[:, pos + 1:] = 0.0
+        cv[:, pos + 1:] = 0.0
+    x = rng.normal(size=(2, 1, 64)).astype(np.float32)
+    want, wc = jattn.attention_decode(
+        jcfg, p, jnp.asarray(x), pos, jattn.KVCache(jnp.asarray(ck), jnp.asarray(cv)), kind=kind
+    )
+    got, gc_ = tattn.attention_decode(
+        tcfg, _t(p), torch.from_numpy(x), pos,
+        tattn.KVCache(torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy())), kind=kind,
+    )
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=ATOL_LAYER, rtol=0)
+    np.testing.assert_allclose(gc_.k.numpy(), _np(wc.k), atol=ATOL_LAYER, rtol=0)
+    np.testing.assert_allclose(gc_.v.numpy(), _np(wc.v), atol=ATOL_LAYER, rtol=0)
+
+
+def _reference_lm(jcfg, seed=0):
+    import jax
+    from repro.models import build_model as jbuild
+
+    model = jbuild(jcfg)
+    params = model.init(jax.random.PRNGKey(seed))
+    return model, params, jax.tree.map(np.asarray, params)
+
+
+@pytest.mark.parametrize("softcap", (None, 30.0))
+def test_lm_prefill_and_decode_match_reference(softcap):
+    """gemma3 smoke (layers L A L: a remainder group; window 16; prune_k 8):
+    prefill of 24 tokens, then 8 decode steps at positions 24..31, where
+    the global layer prunes 25..32 cached rows to 8 and the local layer's
+    ring has wrapped."""
+    import jax.numpy as jnp
+
+    jcfg, tcfg = _cfgs(logit_softcap=softcap)
+    jm, params, tree = _reference_lm(jcfg)
+    tm = tbuild(tcfg, device="cpu", params=convert.lm_params_from_reference(tcfg, tree, device="cpu"))
+    rng = np.random.default_rng(5)
+    b, t, gen = 2, 24, 8
+    toks = rng.integers(0, tcfg.vocab_size, size=(b, t + gen))
+    lj, cj = jm.prefill(params, jnp.asarray(toks[:, :t]), max_len=t + gen)
+    lt, ct = tm.prefill(torch.from_numpy(toks[:, :t]), max_len=t + gen)
+    np.testing.assert_allclose(lt.numpy(), _np(lj), atol=ATOL_LOGITS, rtol=0)
+    assert [(c.k.shape, c.k.dtype) for c in tm.init_cache(b, t + gen)] == [(c.k.shape, c.k.dtype) for c in ct]
+    for pos in range(t, t + gen):
+        lj, cj = jm.decode_step(params, jnp.asarray(toks[:, pos:pos + 1]), pos, cj)
+        lt, ct = tm.decode_step(torch.from_numpy(toks[:, pos:pos + 1]), pos, ct)
+        np.testing.assert_allclose(lt.numpy(), _np(lj), atol=ATOL_LOGITS, rtol=0)
+    if softcap:
+        assert float(lt.abs().max()) < softcap
+
+
+def test_lm_params_round_trip_smoke():
+    """Every reference leaf maps to exactly one port parameter of the same
+    shape, and back: layer i's leaf is the stacked leaf's row r."""
+    jcfg, tcfg = _cfgs()
+    _, _, tree = _reference_lm(jcfg)
+    port = tbuild(tcfg, device="cpu", params=convert.lm_params_from_reference(tcfg, tree, device="cpu"))
+    named = dict(port.named_parameters())
+    leaves = convert._flatten(tree)
+    seen = set()
+    for name, path, r in convert.lm_layout(tcfg, tree):
+        leaf = leaves[path] if r is None else leaves[path][r]
+        assert (path, r) not in seen
+        seen.add((path, r))
+        np.testing.assert_array_equal(named[name].numpy(), leaf)
+    assert len(seen) == len(named) == sum(
+        leaves[p].shape[0] if p.startswith("groups.") else 1 for p in leaves
+    )
+
+
+def test_lm_layout_full_config_shapes():
+    """The published config, on shapes only (``jax.eval_shape`` of the
+    reference's init; the port's LM on the meta device): every leaf maps to
+    one parameter of the same shape, and the remainder group ("L" × 4)
+    lands at pattern layers 30–33."""
+    import jax
+    from repro.configs import get_config as jget
+    from repro.models import build_model as jbuild
+
+    jcfg, tcfg = jget("gemma3-4b"), tget("gemma3-4b")
+    shapes = jax.eval_shape(jbuild(jcfg).init, jax.random.PRNGKey(0))
+    leaves = convert._flatten(shapes)
+    port = {n: tuple(p.shape) for n, p in LM(tcfg, device="meta").named_parameters()}
+    names = {}
+    for name, path, r in convert.lm_layout(tcfg, shapes):
+        want = tuple(leaves[path].shape) if r is None else tuple(leaves[path].shape[1:])
+        assert port[name] == want, name
+        assert name not in names
+        names[name] = (path, r)
+    assert set(names) == set(port)
+    for i in range(30, 34):
+        path, r = names[f"layers.{i}.attn.wq"]
+        assert path.startswith("groups.1.") and r == 0
+        assert path == f"groups.1.{i - 30}.attn.wq"
+    assert names["layers.29.attn.wq"] == ("groups.0.5.attn.wq", 4)
+    assert tcfg.pattern()[29] == "A" and set(tcfg.pattern()[30:]) == {"L"}
+
+
+def test_serve_cli_on_cpu(capsys):
+    from repro_torch.launch import serve
+
+    toks = serve.main(["--arch", "gemma3-4b", "--smoke", "--device", "cpu", "--prompt-len", "20", "--gen", "4"])
+    assert tuple(toks.shape) == (4, 5)
+    out = capsys.readouterr().out
+    assert "[serve] arch=gemma3-4b-smoke prune_k=8" in out and "[serve] decode 4 steps" in out
+
+
+def test_lm_default_device_needs_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tbuild(tget("gemma3-4b", smoke=True))
