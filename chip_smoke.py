@@ -24,9 +24,15 @@ exits non-zero at the first phase that fails:
    sweep shapes, k >= length (equal to the dense attention), per-row
    lengths with one below K, the logits [1, 1, 2, 1] tie at k = 2 (keeps
    positions {1, 2}), gemma3-4b's decode shapes in float32 and bfloat16,
-   and a K too wide for shared memory, which raises before any launch.
-   Retained ids equal, alpha within 1e-6, outputs within 1e-5 (``expf``
-   and FMA contraction differ from the CPU's arithmetic);
+   and a K too wide for shared memory, which raises before any launch;
+   the Pruner (kernel #3) on the shapes of the reference's kernel tests,
+   k = 1, all-masked rows, k > D, tie-heavy integer scores, a row of
+   special values (±0.0, ±NaN, ±inf, values in (NEG, NEG/2]) and a wide
+   domain (32 x 3104, k 2048), and a k too wide for shared memory, which
+   raises before any launch. Retained ids equal, alpha within 1e-6,
+   outputs within 1e-5 (``expf`` and FMA contraction differ from the CPU's
+   arithmetic); the Pruner's values equal bit for bit (it only compares
+   and copies);
 3. drives the main paths — ``prepare`` → ``task.compile(FlowConfig(
    "fused_kernel", prune_k=8))`` → ``session(params)`` — at ``scale=1.0``
    with seeded random weights: HAN on DBLP and ACM (bucketed), then RGAT
@@ -48,7 +54,15 @@ exits non-zero at the first phase that fails:
    plain versions; one cycle of depth (6 layers) at full width in float32
    must give the same prefill and decode logits (1e-4) on the card and in
    the port's CPU forward, with a prompt long enough that pruning drops
-   rows;
+   rows. Then the Pruner through its entry point ``topk_select`` on the
+   scores of two served paths (the counters set to 0 just before and read
+   just after; no serving flow calls it): the ranks of every table the
+   flat K1 prunes in one forward of RGAT and Simple-HGN on ACM, where
+   ``nbr[row, ids]`` must equal K1's retained ids slot for slot, and
+   gemma3-4b's float32 logits of the last global layer in decode step 1,
+   where the ids must equal decode K1's; on each of these inputs the
+   kernel's values must also equal its plain version's bit for bit, and
+   its ids slot for slot;
 4. times each kernel and (for the aggregates) one library call twice: its
    device time per call from the profiler (CUPTI), and the CUDA-event time
    of back-to-back calls, which also holds the host's launch cost when the
@@ -59,7 +73,11 @@ exits non-zero at the first phase that fails:
    then every forward, with a profiler breakdown of the ACM forwards; then
    the LM's prefill, its decode step (median of the main path's steps
    after the first) and tokens/s, and the decode pair's share of a decode
-   step's device time;
+   step's device time; then the Pruner at three shapes (the reference's
+   microbenchmark 2048 x 512 k 50, the ACM ``union:paper`` ranks and the
+   gemma3-4b logits of phase 3) beside ``torch.topk`` as a yardstick; its
+   row of the ``kernels`` line takes the times of the gemma3-4b logits,
+   the widest shape phase 3 gives it, and lists all three by shape;
 5. prints the card line, then the ``{"kernels": [...]}`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -85,6 +103,13 @@ FLAT_SWEEP = ((11, 70, 8, 8, 200, 5), (8, 128, 8, 8, 64, 50), (5, 33, 4, 16, 40,
 REPORT = ROOT / "build" / "chip_smoke.json"  # the full report, beside the built kernels
 DECODE_SWEEP = ((2, 8, 2, 16, 200, 12), (3, 4, 4, 8, 128, 5), (1, 16, 4, 32, 300, 50))
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "gemma3-4b", 4, 3072, 32
+# the Pruner (kernel #3) in phase 2: the shapes of the reference's kernel
+# tests (tests/test_kernels.py:15-83), and a row of special values (-NaN at
+# index 5, filled in from its bits)
+PRUNER_SHAPES = ((3, 17, 4), (8, 128, 50), (13, 300, 7), (1, 1, 1), (5, 260, 64), (7, 100, 4),
+                 (9, 129, 8), (8, 127, 8), (15, 255, 16), (1, 3, 2), (8, 128, 8), (16, 256, 4))
+SPECIAL_ROW = (-0.0, 0.0, 1.0, float("nan"), 2.0, float("nan"), float("inf"), float("-inf"), -3.0e38,
+               -2.0e38, -1.5e38, 0.0, -0.0, -3.4e38, 1.0, 2.0)
 # decode logits of the float32 config (|logit| up to ~10): kernel vs plain
 # keep the same retained rows (their logits are bit-identical), so only K2's
 # sum order and expf differ, ~1e-7 relative, carried through 34 layers; card
@@ -804,9 +829,11 @@ def all_launches(*modules) -> dict:
     return {f"{m.__name__.split('.')[-2]}.{k}": v for m in modules for k, v in m.LAUNCHES.items()}
 
 
-def lm_main_path(dev, hgnn_ops):
+def lm_main_path(dev, hgnn_ops, ts_ops):
     """Phase 3, gemma3-4b serving. Returns the results, the model, the
-    prompts and the cache right after prefill (for phase 4)."""
+    prompts and the cache right after prefill (for phase 4). No kernel but
+    the decode pair may launch (``ts_ops`` is the Pruner's, which must
+    stay at 0)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -818,7 +845,7 @@ def lm_main_path(dev, hgnn_ops):
     max_len = LM_PROMPT + LM_GEN
     per_step = sum(kind == "A" and cfg.attn_prune_k < max_len for kind in cfg.pattern())
     want_step = {"topk_decode_attention.score_prune": per_step, "topk_decode_attention.value_gather": per_step}
-    zero = {key: 0 for key in all_launches(hgnn_ops, ops)}
+    zero = {key: 0 for key in all_launches(hgnn_ops, ts_ops, ops)}
     t0 = time.perf_counter()
     lm = build_model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
     lm.compute_params()
@@ -826,11 +853,11 @@ def lm_main_path(dev, hgnn_ops):
     init_s = time.perf_counter() - t0
     prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), device=dev,
                             generator=torch.Generator(dev).manual_seed(1))
-    reset_launches(hgnn_ops)
-    reset_launches(ops)
+    for m in (hgnn_ops, ts_ops, ops):
+        reset_launches(m)
     logits, cache = lm.prefill(prompts, max_len=max_len)
     sync(dev)
-    check(all_launches(hgnn_ops, ops) == zero, f"prefill launched kernels: {all_launches(hgnn_ops, ops)}")
+    check(all_launches(hgnn_ops, ts_ops, ops) == zero, f"prefill launched kernels: {all_launches(hgnn_ops, ts_ops, ops)}")
     check(tuple(logits.shape) == (LM_BATCH, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
           f"prefill logits {tuple(logits.shape)} or non-finite values")
     cache0 = [KVCache(c.k.clone(), c.v.clone()) for c in cache]
@@ -863,14 +890,14 @@ def lm_main_path(dev, hgnn_ops):
     step_ms, launches = [], {k: 0 for k in zero}
     for i in range(LM_GEN):
         pos = LM_PROMPT + i
-        reset_launches(hgnn_ops)
-        reset_launches(ops)
+        for m in (hgnn_ops, ts_ops, ops):
+            reset_launches(m)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         logits, cache = lm.decode_step(tok, pos, cache)
         end.record()
         end.synchronize()
-        got = all_launches(hgnn_ops, ops)
+        got = all_launches(hgnn_ops, ts_ops, ops)
         check(got == dict(zero, **want_step), f"decode step {i} (pos {pos}): launches {got}, expected {want_step}")
         check(bool(torch.isfinite(logits).all()), f"decode step {i}: non-finite logits")
         for key, n in got.items():
@@ -923,14 +950,9 @@ def lm_cpu_check(dev):
     return {"prefill_err": errs[0], "decode_errs": errs[1:], "prompt": CPU_CHECK_PROMPT}
 
 
-def decode_timings(lm, prompts, cache0, tok0, dev):
-    """Phase 4, the decode pair at the inputs of the last global layer in
-    the first decode step (bfloat16 cache), its bounds from this run's
-    inputs, the LM's prefill and decode-step times, and the decode pair's
-    share of a decode step's device time."""
-    import torch
-
-    from repro_torch.kernels.topk_decode_attention import ops, ref
+def capture_decode_inputs(lm, cache0, tok0):
+    """The inputs of the decode pair at the last global layer in the first
+    decode step: (q, k_cache, v_cache, lengths, prune_k, scale)."""
     from repro_torch.layers import attention
     from repro_torch.layers.attention import KVCache
 
@@ -947,8 +969,20 @@ def decode_timings(lm, prompts, cache0, tok0, dev):
         lm.decode_step(tok0, LM_PROMPT, cache)
     finally:
         attention.topk_decode_attention = real
-    q, kc, vc, lens, prune_k, scale = seen[-1]
-    del seen
+    return seen[-1]
+
+
+def decode_timings(lm, prompts, cache0, tok0, decode_in, dev):
+    """Phase 4, the decode pair at ``decode_in`` (the inputs of the last
+    global layer in the first decode step, bfloat16 cache), its bounds from
+    this run's inputs, the LM's prefill and decode-step times, and the
+    decode pair's share of a decode step's device time."""
+    import torch
+
+    from repro_torch.kernels.topk_decode_attention import ops, ref
+    from repro_torch.layers.attention import KVCache
+
+    q, kc, vc, lens, prune_k, scale = decode_in
     k = min(prune_k, kc.shape[1])
     t = {}
     with torch.inference_mode():
@@ -1010,6 +1044,197 @@ def decode_timings(lm, prompts, cache0, tok0, dev):
     return t, bounds, shapes, prof
 
 
+def pruner_cases():
+    """(name, scores, mask, k) numpy arrays for the Pruner in phase 2."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+
+    def normal(t, d, p):
+        return rng.normal(size=(t, d)).astype(np.float32), rng.random((t, d)) < p
+
+    cases = [(f"reference test shape t={t} d={d} k={k}", *normal(t, d, 0.75), k) for t, d, k in PRUNER_SHAPES]
+    for t, d in ((3, 40), (8, 128), (9, 130)):
+        cases.append((f"k = 1 t={t} d={d}", *normal(t, d, 0.8), 1))
+    s, m = normal(10, 137, 0.6)
+    m[[1, 4, 9]] = False
+    cases.append(("all-masked rows 1, 4, 9 of 10x137 k=6", s, m, 6))
+    for t, d, k in ((3, 17, 40), (1, 3, 8)):
+        cases.append((f"k > D t={t} d={d} k={k}", *normal(t, d, 0.8), k))
+    for t, d, k in ((9, 300, 7), (5, 260, 64), (300, 260, 64)):
+        cases.append((f"tie-heavy integers t={t} d={d} k={k}",
+                      rng.integers(-2, 3, size=(t, d)).astype(np.float32), rng.random((t, d)) < 0.85, k))
+    row = np.array(SPECIAL_ROW, np.float32)
+    row[5] = np.array([0xFFC00000], np.uint32).view(np.float32)[0]  # -NaN
+    s = np.stack([row, row[::-1]])
+    m = np.ones_like(s, bool)
+    m[1, ::3] = False
+    for k in (3, 8, 16, 20):
+        cases.append((f"special values (+-0, +-NaN, +-inf, NEG band) k={k}", s, m, k))
+    cases.append(("wide domain 32x3104 k=2048", *normal(32, 3104, 0.99), 2048))
+    return cases
+
+
+def check_pruner_kernel(dev):
+    """Phase 2, the Pruner: kernel against plain, values bit for bit and ids
+    slot for slot; a domain wider than shared memory raises before any
+    launch. Returns the largest value difference (0 when all are equal)."""
+    import torch
+
+    from repro_torch.kernels.topk_select import ops, ref
+
+    err = 0.0
+    for name, s, m, k in pruner_cases():
+        st, mt = torch.from_numpy(s).to(dev), torch.from_numpy(m).to(dev)
+        v_k, i_k = ops.topk_select(st, mt, k)
+        v_p, i_p = ref.topk_select_plain(st, mt, k)
+        sync(dev)
+        if not torch.equal(v_k.view(torch.int32), v_p.view(torch.int32)) or not torch.equal(i_k, i_p):
+            bad = int((v_k.view(torch.int32) != v_p.view(torch.int32)).sum() + (i_k != i_p).sum())
+            raise AssertionError(f"pruner {name}: kernel differs from the plain version in {bad} values/ids")
+        err = max(err, float(torch.where(v_k == v_p, 0.0, (v_k - v_p).abs()).max()))
+        print(f"  kernels == plain  pruner {name}: values bitwise equal, ids equal")
+    before = dict(ops.LAUNCHES)
+    k = ops.max_k() + 1
+    try:
+        ops.topk_select(torch.zeros((2, 4), device=dev), torch.ones((2, 4), dtype=torch.bool, device=dev), k)
+    except ValueError as e:
+        check(ops.LAUNCHES == before, "the too-wide Pruner domain launched a kernel")
+        print(f"  pruner k = {k} raises before launch: {e}")
+    else:
+        raise AssertionError("a Pruner domain wider than shared memory did not raise")
+    return err
+
+
+def flat_ranks(nbr, ety, theta_src, theta_rel):
+    """The flat K1's rank of every slot: the left-to-right head sum of
+    theta_src[nbr] (+ theta_rel[ety])."""
+    th = theta_src[nbr.long()]
+    if theta_rel is not None:
+        th = th + theta_rel[ety.long()]
+    rank = th[..., 0]
+    for hh in range(1, th.shape[-1]):
+        rank = rank + th[..., hh]
+    return rank
+
+
+def pruner_main_path(model_tasks, FlowConfig, fpa_ops, ts_ops, tda_ops, decode_in, dev):
+    """Phase 3, the Pruner through its entry point ``topk_select`` on the
+    scores of two served paths, each a cross-check between two kernels
+    that keep the same rule: (a) the ranks of every table the flat K1
+    prunes in one forward of RGAT and of Simple-HGN on ACM (flat route),
+    where ``nbr[row, ids]`` must equal K1's retained ids; (b) the float32
+    logits of gemma3-4b's last global layer in decode step 1
+    (``score_logits_plain``, bit-identical to decode K1's), where the ids
+    must equal decode K1's. The counters are set to 0 just before the
+    Pruner's calls and read just after. Returns the results and the inputs
+    of the timed shapes (ii) and (iii). Each output is then held to the
+    plain version on the same input, values bit for bit and ids slot for
+    slot."""
+    import torch
+
+    from repro_torch.kernels.topk_decode_attention import ref as tda_ref
+
+    tables, real = [], fpa_ops.flat_prune
+
+    def record(nbr, msk, ety, ts, tr, td, k, slope=0.2):
+        alpha, ids = real(nbr, msk, ety, ts, tr, td, k, slope)
+        tables.append((f"{key} table {len(tables)} {tuple(nbr.shape)}", nbr, msk, ety, ts, tr, k, ids))
+        return alpha, ids
+
+    fpa_ops.flat_prune = record
+    try:
+        for key in ("rgat/acm/flat", "simple_hgn/acm/flat"):
+            task = model_tasks[key]
+            task.compile(route_flow(FlowConfig, "flat"))(task.params)
+    finally:
+        fpa_ops.flat_prune = real
+    ranks = [(name, flat_ranks(nbr, ety, ts, tr), msk, k) for name, nbr, msk, ety, ts, tr, k, _ in tables]
+    q, kc, _, lens, prune_k, scale = decode_in
+    b, h, _ = q.shape
+    s = kc.shape[1]
+    k_dec = min(prune_k, s)
+    logits = tda_ref.score_logits_plain(q, kc, scale).reshape(b * h, s)
+    dmask = (torch.arange(s, device=dev)[None, :] < lens.long()[:, None]).repeat_interleave(h, dim=0)
+    _, dec_ids = tda_ops.score_prune(q, kc, lens, k_dec, scale)
+    sync(dev)
+
+    for m in (fpa_ops, ts_ops, tda_ops):
+        reset_launches(m)
+    outs = [ts_ops.topk_select(r, msk, k) for _, r, msk, k in ranks]
+    out_dec = ts_ops.topk_select(logits, dmask, k_dec)
+    sync(dev)
+    launches = all_launches(fpa_ops, ts_ops, tda_ops)
+    want = dict({key: 0 for key in launches}, **{"topk_select.topk_select": len(ranks) + 1})
+    check(launches == want, f"pruner main path: launches {launches}, expected {want}")
+
+    from repro_torch.kernels.topk_select import ref as ts_ref
+
+    inputs = ranks + [(f"{LM_ARCH} decode logits", logits, dmask, k_dec)]
+    for (name, r, msk, k), (v_k, i_k) in zip(inputs, outs + [out_dec]):
+        v_p, i_p = ts_ref.topk_select_plain(r, msk, k)
+        if not torch.equal(v_k.view(torch.int32), v_p.view(torch.int32)) or not torch.equal(i_k, i_p):
+            bad = int((v_k.view(torch.int32) != v_p.view(torch.int32)).sum() + (i_k != i_p).sum())
+            raise AssertionError(f"pruner main path {name}: kernel differs from the plain version in {bad} values/ids")
+    for (name, nbr, msk, *_, k1_ids), (_, ids3) in zip(tables, outs):
+        mapped = torch.where(ids3 >= 0, nbr.gather(1, ids3.clamp(min=0).long()), -1)
+        if not torch.equal(mapped, k1_ids):
+            raise AssertionError(f"pruner vs flat K1 {name}: {int((mapped != k1_ids).sum())} slots differ")
+    dec_ids3 = out_dec[1].reshape(b, h, k_dec)
+    if not torch.equal(dec_ids3, dec_ids):
+        raise AssertionError(f"pruner vs decode K1: {int((dec_ids3 != dec_ids).sum())} slots differ")
+    print(f"  main path pruner: {len(ranks)} flat K1 tables of RGAT/Simple-HGN ACM (nbr[row, ids] == K1 ids, "
+          f"slot for slot) and {LM_ARCH} decode logits {b * h}x{s} k={k_dec} (ids == decode K1's); "
+          f"all {len(inputs)} equal the plain version (values bitwise, ids); "
+          f"launches {launches['topk_select.topk_select']}")
+    union = next(i for i, t in enumerate(tables) if t[0].startswith("simple_hgn"))  # union:paper, layer 0
+    _, r, msk, k = ranks[union]
+    res = {
+        "launches": launches["topk_select.topk_select"],
+        "flat_tables_checked": [t[0] for t in tables],
+        "decode_logits": [b * h, s], "decode_k": k_dec,
+    }
+    res["plain_checked"] = len(inputs)
+    shapes = {
+        "ii": (f"acm union:paper ranks (simple_hgn layer 0) {tuple(r.shape)} k={k}", r, msk, k),
+        "iii": (f"{LM_ARCH} decode step 1 logits, last global layer {tuple(logits.shape)} k={k_dec}",
+                logits, dmask, k_dec),
+    }
+    return res, shapes
+
+
+def pruner_timings(shapes, dev):
+    """Phase 4, the Pruner at three shapes: (i) the reference's own
+    microbenchmark (``benchmarks/kernels_micro.py``: 2048 x 512, k 50, 80 %
+    valid normal scores) and (ii)-(iii) the served scores of phase 3.
+    Kernel (profiler and events), plain, and the library yardstick
+    ``torch.topk(torch.where(mask, s, NEG), k)`` (not used by the port);
+    the bound: T*D*5 bytes read (score and mask) and T*k*8 written, one
+    comparison a slot."""
+    import torch
+
+    from repro_torch.kernels.common import NEG
+    from repro_torch.kernels.topk_select import ops, ref
+
+    gen = torch.Generator(dev).manual_seed(4)
+    s_i = torch.randn((2048, 512), generator=gen, device=dev)
+    m_i = torch.rand((2048, 512), generator=gen, device=dev) < 0.8
+    shapes = dict({"i": ("reference microbenchmark 2048x512 k=50, 80 % valid", s_i, m_i, 50)}, **shapes)
+    out = {}
+    with torch.inference_mode():
+        for key, (desc, s, m, k) in shapes.items():
+            t = {}
+            timed(t, "kernel", lambda: ops.topk_select(s, m, k), 30)
+            t["plain_ms"] = cuda_ms(lambda: ref.topk_select_plain(s, m, k), 2, warmup=1)
+            timed(t, "library", lambda: torch.topk(torch.where(m, s, NEG), k), 30)
+            rows, width = s.shape
+            bound_ms, bound_by, nbytes, nops = bound(rows * width * 5 + rows * k * 8, rows * width)
+            out[key] = dict(t, shape=desc, bound_ms=bound_ms, bound_by=bound_by, bound_bytes=nbytes, bound_ops=nops)
+            print(f"  pruner ({key}) {desc}: device {t['kernel']:.4f} ms, events {t['kernel_event']:.4f}, "
+                  f"plain {t['plain_ms']:.3f}, torch.topk {t['library']:.4f}, bound {bound_ms:.5f} ({nbytes} B)")
+    return out
+
+
 KERNELS = (
     # (LAUNCHES key, TPU kernel body it replaces, library-call timing key)
     ("prune", "kernel.py:219 _grouped_prune_kernel", None),
@@ -1036,6 +1261,7 @@ def main() -> int:
     from repro_torch.core.flows import FlowConfig
     from repro_torch.kernels.fused_prune_aggregate import ops
     from repro_torch.kernels.topk_decode_attention import ops as tda_ops
+    from repro_torch.kernels.topk_select import ops as ts_ops
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -1045,8 +1271,8 @@ def main() -> int:
 
     # phase 1: build, one nvcc per source, all at once
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        builds = list(pool.map(lambda m: m.library()[1], (ops, tda_ops)))
+    with ThreadPoolExecutor(3) as pool:
+        builds = list(pool.map(lambda m: m.library()[1], (ops, tda_ops, ts_ops)))
     build_s = time.perf_counter() - t0
     print(f"phase 1: built {len(builds)} kernel libraries in {build_s:.2f} s")
     for record in builds:
@@ -1069,15 +1295,21 @@ def main() -> int:
     check_flat_tie_and_width(dev)
     err.update(check_decode_kernels(dev))
     check_decode_tie_and_width(dev)
+    err["topk_select"] = check_pruner_kernel(dev)
 
     # phase 3: the main paths
     print(f"phase 3: fused_kernel serving at scale={SCALE}, prune_k={PRUNE_K}")
+    reset_launches(ts_ops)
     results, gpu_tasks = main_path(pipeline, FlowConfig, ops, cpu_tasks, dev)
     model_results, model_tasks = model_paths(pipeline, hetgraph, FlowConfig, ops, dev)
     results.update(model_results)
+    check(ts_ops.LAUNCHES["topk_select"] == 0, "the HGNN forwards launched the Pruner")
     print(f"phase 3: {LM_ARCH} serving, prefill {LM_BATCH}x{LM_PROMPT} + {LM_GEN} decode steps")
-    lm_result, lm, prompts, cache0, tok0 = lm_main_path(dev, ops)
+    lm_result, lm, prompts, cache0, tok0 = lm_main_path(dev, ops, ts_ops)
     lm_result["cpu_check"] = lm_cpu_check(dev)
+    print("phase 3: the Pruner (kernel #3) on the scores of the served paths")
+    decode_in = capture_decode_inputs(lm, cache0, tok0)
+    pruner_result, pruner_shapes = pruner_main_path(model_tasks, FlowConfig, ops, ts_ops, tda_ops, decode_in, dev)
 
     # phase 4: times
     print("phase 4: times (CUDA events)")
@@ -1111,7 +1343,7 @@ def main() -> int:
         if p:
             p = dict(p, top_kernels_ms=p["top_kernels_ms"][:6])
         print(f"  profile {key}: " + (json.dumps(p) if p else "profiler saw no device time: not measured"))
-    t_dec, b_dec, s_dec, lm_prof = decode_timings(lm, prompts, cache0, tok0, dev)
+    t_dec, b_dec, s_dec, lm_prof = decode_timings(lm, prompts, cache0, tok0, decode_in, dev)
     t.update(t_dec)
     bounds.update(b_dec)
     steps = sorted(lm_result["step_ms_events"][1:])
@@ -1126,6 +1358,7 @@ def main() -> int:
           f"({lm_result['tokens_per_s']:.1f} tokens/s at batch {LM_BATCH})")
     print(f"  profile {LM_ARCH} decode step: " + (json.dumps(dict(lm_prof, top_kernels_ms=lm_prof["top_kernels_ms"][:6]))
                                                  if lm_prof else "profiler saw no device time: not measured"))
+    t_ts = pruner_timings(pruner_shapes, dev)
 
     kernels = []
     for key, line, lib in KERNELS:
@@ -1175,10 +1408,34 @@ def main() -> int:
             "shapes": s_dec["inputs"],
             "check": "pass: ids equal, alpha <= 1e-6" if key == "score_prune" else "pass: out <= 1e-5",
         })
+    ts_row = t_ts["iii"]  # the widest and slowest of the shapes phase 3 feeds it
+    kernels.append({
+        "name": "topk_select.topk_select",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/topk_select/csrc/topk_select.cu",
+        "replaces": "src/repro/kernels/topk_select/kernel.py:28 _pruner_kernel (topk_select_pallas, kernel.py:57)",
+        "launches": pruner_result["launches"],
+        "launches_on": "its entry point topk_select on the scores of phase 3 (no serving flow calls it)",
+        "max_abs_err": err["topk_select"],
+        "ms": ts_row["kernel"],
+        "ms_source": ts_row["kernel_source"],
+        "event_ms": ts_row["kernel_event"],
+        "plain_ms": ts_row["plain_ms"],
+        "bound_ms": ts_row["bound_ms"],
+        "bound_by": ts_row["bound_by"],
+        "bound_bytes": ts_row["bound_bytes"],
+        "bound_ops": ts_row["bound_ops"],
+        "library_ms": ts_row["library"],
+        "library_event_ms": ts_row["library_event"],
+        "shapes": ts_row["shape"],
+        "by_shape": {key: {name: v for name, v in r.items() if not name.endswith("_source")} for key, r in t_ts.items()},
+        "check": "pass: values bitwise equal, ids equal",
+    })
     REPORT.parent.mkdir(exist_ok=True)
     REPORT.write_text(json.dumps({
-        "card": card, "results": results, "lm": lm_result, "times_ms": t, "forward_ms": fwd,
-        "forward_latency_ms": latency, "profiles": prof, "kernels": kernels,
+        "card": card, "results": results, "lm": lm_result, "pruner": pruner_result, "times_ms": t,
+        "pruner_times_ms": t_ts, "forward_ms": fwd, "forward_latency_ms": latency, "profiles": prof,
+        "kernels": kernels,
     }, indent=1))
     print(f"  full report: {REPORT.relative_to(ROOT)}; wall time {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -1,7 +1,8 @@
 """ADE-HGNN in PyTorch with hand-written CUDA kernels for Hopper.
 
-A port of the ``repro`` package's pruned HGNN inference path and of its LM
-serving path (prefill + ADE-pruned decode; gemma3-4b so far). The module
+A port of the ``repro`` package's pruned HGNN inference path, of its LM
+serving path (prefill + ADE-pruned decode; gemma3-4b so far) and of its
+standalone Pruner (``kernels/topk_select``). The module
 layout follows ``repro`` one for one (``repro_torch/core/flows.py`` is the
 counterpart of ``repro/core/flows.py``, ``repro_torch/models/lm.py`` of
 ``repro/models/lm.py``); inside, models are ``nn.Module``s and everything

@@ -37,6 +37,9 @@ with ``i = offset_gi + r·len(cycle_gi) + p``; its leaves go to
 ``layers.<i>.<path>`` (``layers.5.attn.wq``). gemma3-4b has two groups, the
 cycle ``L L L L L A`` five times and a remainder ``L L L L`` (layers
 30–33).
+
+The standalone Pruner (``kernels/topk_select``) has no parameters, so
+nothing here converts for it.
 """
 from __future__ import annotations
 

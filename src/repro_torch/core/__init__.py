@@ -4,7 +4,8 @@ inference.
   * ``hetgraph``  — HetG container + Semantic Graph Build (SGB), numpy
   * ``attention`` — decomposed additive attention (Eq. 2), staged NA and
                     the fused NA (scan emulation or the flat kernel pair)
-  * ``pruning``   — the staged_pruned flow's top-K keep-mask
+  * ``pruning``   — the staged_pruned flow's top-K keep-mask and the
+                    streaming top-k (``lax.top_k``'s order)
   * ``flows``     — staged / staged_pruned / fused / fused_kernel flows
   * ``batch``     — ``GraphBatch``: the single model input
   * ``session``   — ``InferenceSession``: the serving entry

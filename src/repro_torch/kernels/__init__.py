@@ -8,6 +8,9 @@ version.
   * ``topk_decode_attention`` — ADE-pruned LM decode attention, K1 score +
     top-K retention + softmax and K2 value gather, as a pair of CUDA C++
     kernels in ``csrc/``.
+  * ``topk_select`` — the standalone Pruner (paper §5.2): streaming top-k
+    of masked (T, D) scores, values and slot ids, as one CUDA C++ kernel
+    in ``csrc/``.
 
 A kernel package holds ``ops.py`` (the public wrapper: the plain version for
 CPU tensors, the CUDA kernel for CUDA tensors, never a fallback between

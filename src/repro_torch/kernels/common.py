@@ -7,7 +7,8 @@ of the retention domain; replace it only if the candidate is STRICTLY
 greater. An incumbent therefore survives a tie with a newcomer, and among
 equal incumbents the lowest slot is evicted first. This is not
 ``lax.top_k``'s rule (lower index wins): for scores ``[1, 1, 2]`` at k=2 the
-kernel keeps slots {1, 2} and ``top_k`` keeps {0, 2}.
+kernel keeps slots {1, 2} and ``top_k`` keeps {0, 2}. :func:`top_k_order`
+is ``top_k``'s order, for the plain versions and flows that follow it.
 """
 from __future__ import annotations
 
@@ -42,6 +43,32 @@ def min_replace(
         r = repl.reshape(repl.shape + (1,) * (aux.dim() - repl.dim()))
         new_aux.append(torch.where(r, cur[:, None], aux))
     return new_vals, new_aux
+
+
+def masked_scores(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``scores`` as float32 where ``mask`` is nonzero, ``NEG`` elsewhere:
+    what every pruner ranks."""
+    s = scores.to(torch.float32)
+    return torch.where(mask != 0, s, torch.full_like(s, NEG))
+
+
+def top_k_order(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """The indices ``jax.lax.top_k(scores, k)`` returns along the last axis.
+
+    ``top_k`` orders float32 values totally, -NaN < -inf < … < -0.0 < +0.0
+    < … < +inf < +NaN, and puts the lower index first among equal values.
+    A float sort does neither (it ties -0.0 with +0.0 and leaves NaN's place
+    open), so the sort here is a stable descending sort of the int32 key
+    ``b ^ ((b >> 31) & 0x7fffffff)`` of the float's bits ``b``, which is
+    monotone in that total order. ``k`` larger than the axis raises
+    ``ValueError``, as ``top_k`` does.
+    """
+    d = scores.shape[-1]
+    if not 0 <= k <= d:
+        raise ValueError(f"top_k needs 0 <= k <= {d} along the last axis, got k={k}")
+    b = scores.to(torch.float32).contiguous().view(torch.int32)
+    key = b ^ ((b >> 31) & 0x7FFFFFFF)
+    return torch.sort(key, dim=-1, descending=True, stable=True).indices[..., :k]
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype, shape, device) -> None:

@@ -38,6 +38,7 @@ def test_no_jax_or_reference_imports(tmp_path):
     for sub in ("core", "data", "kernels", "configs", "layers", "models", "launch"):
         assert port / sub / "__init__.py" in PORT_FILES, sub
     assert port / "kernels" / "topk_decode_attention" / "ops.py" in PORT_FILES
+    assert port / "kernels" / "topk_select" / "ops.py" in PORT_FILES
     probe = tmp_path / "probe.py"
     probe.write_text(
         "import jax.numpy as jnp\nfrom repro.core import flows\n"
