@@ -25,11 +25,16 @@ exits non-zero at the first phase that fails:
    lengths with one below K, the logits [1, 1, 2, 1] tie at k = 2 (keeps
    positions {1, 2}), gemma3-4b's decode shapes in float32 and bfloat16,
    and a K too wide for shared memory, which raises before any launch;
-   the Pruner (kernel #3) on the shapes of the reference's kernel tests,
-   k = 1, all-masked rows, k > D, tie-heavy integer scores, a row of
-   special values (±0.0, ±NaN, ±inf, values in (NEG, NEG/2]) and a wide
-   domain (32 x 3104, k 2048), and a k too wide for shared memory, which
-   raises before any launch. Retained ids equal, alpha within 1e-6,
+   K2 also with one (batch, q-head) whose ids are all -1 and with every
+   third slot -1, at k = 1, k = 77 and rows not a multiple of 16 bytes
+   (dh 12 in bfloat16, dh 5), and a second call on the same inputs must
+   give the same bits; the Pruner (kernel #3) on the shapes of the
+   reference's kernel tests, k = 1, all-masked rows, k > D, tie-heavy
+   integer scores, a row of special values (±0.0, ±NaN, ±inf, values in
+   (NEG, NEG/2]), wide domains (32 x 3104 at k 2048; k 33, 1000, 2047,
+   2049 and 4096 at D 3104-6000; tie-heavy integers and all-equal rows at
+   k 2048), and a k too wide for shared memory, which raises before any
+   launch. Retained ids equal, alpha within 1e-6,
    outputs within 1e-5 (``expf`` and FMA contraction differ from the CPU's
    arithmetic); the Pruner's values equal bit for bit (it only compares
    and copies);
@@ -724,6 +729,12 @@ def decode_cases():
     cases.append(("integer q and keys (tie-heavy logits)", 2, 8, 2, 16, 180, 40, [180, 97], "ints"))
     for dt in ("float32", "bfloat16"):
         cases.append((f"gemma3-4b decode shapes {dt}", 4, 8, 4, 256, 3104, 2048, [3104, 3090, 3073, 3100], dt))
+    # K2's edges: k = 1 with an empty row, k not a multiple of 32 nor of the
+    # 64 parts a (batch, q-head) is split into, rows not a multiple of 16 B
+    cases.append(("k = 1, one row empty", 2, 4, 2, 8, 64, 1, [0, 64], "float32"))
+    cases.append(("k = 77", 1, 8, 2, 16, 200, 77, [190], "float32"))
+    cases.append(("dh 12 bfloat16 (24 B rows)", 2, 4, 2, 12, 100, 33, [100, 60], "bfloat16"))
+    cases.append(("dh 5 (20 B rows)", 1, 4, 1, 5, 90, 40, [90], "float32"))
     return cases
 
 
@@ -749,12 +760,22 @@ def check_decode_kernels(dev):
         o_k = ops.value_gather(a_p, i_p, vc)
         o_p = ref.value_gather_plain(a_p, i_p, vc)
         out = ops.topk_decode_attention(q, kc, vc, lens, k)
+        # K2 on empty slots: one (batch, q-head) all -1, every third slot -1
+        holes = i_p.clone()
+        holes[0, 0] = -1
+        holes[..., ::3] = -1
+        o_h = ops.value_gather(a_p, holes, vc)
+        o_hp = ref.value_gather_plain(a_p, holes, vc)
+        again = (ops.value_gather(a_p, i_p, vc), ops.value_gather(a_p, holes, vc))
         sync(dev)
         if not torch.equal(i_k, i_p):
             bad = int((i_k != i_p).sum())
             raise AssertionError(f"decode {name}: K1 retained ids differ from the plain version in {bad} slots")
+        check(torch.equal(again[0], o_k) and torch.equal(again[1], o_h),
+              f"decode {name}: two K2 calls on the same inputs differ")
+        check(not bool(o_h[0, 0].any()), f"decode {name}: K2 of a (batch, q-head) with no retained row is not 0")
         e_a = float((a_k - a_p).abs().max())
-        e_o = max(float((o_k - o_p).abs().max()), float((out - o_p).abs().max()))
+        e_o = max(float((o_k - o_p).abs().max()), float((out - o_p).abs().max()), float((o_h - o_hp).abs().max()))
         if e_a > TOL_ALPHA or e_o > TOL_OUT:
             raise AssertionError(f"decode {name}: alpha err {e_a:.3g}, out err {e_o:.3g}")
         extra = ""
@@ -771,7 +792,8 @@ def check_decode_kernels(dev):
             extra += f", {int(short.sum())} row(s) below K keep only their valid positions"
         err["score_prune"] = max(err["score_prune"], e_a)
         err["value_gather"] = max(err["value_gather"], e_o)
-        print(f"  kernels == plain  decode {name}: ids equal, alpha err {e_a:.3g}, out err {e_o:.3g}{extra}")
+        print(f"  kernels == plain  decode {name}: ids equal, alpha err {e_a:.3g}, out err {e_o:.3g}{extra}; "
+              "K2 with empty slots equal, bitwise the same on a second call")
     return err
 
 
@@ -1072,6 +1094,12 @@ def pruner_cases():
     for k in (3, 8, 16, 20):
         cases.append((f"special values (+-0, +-NaN, +-inf, NEG band) k={k}", s, m, k))
     cases.append(("wide domain 32x3104 k=2048", *normal(32, 3104, 0.99), 2048))
+    # the winner tree: k not a multiple of 32, one lane holding four groups
+    for k, d in ((33, 3104), (1000, 4000), (2047, 3104), (2049, 5000), (4096, 6000)):
+        cases.append((f"wide domain 16x{d} k={k}", *normal(16, d, 0.97), k))
+    cases.append(("tie-heavy integers 32x3104 k=2048 (equal minima in many groups)",
+                  rng.integers(-2, 3, size=(32, 3104)).astype(np.float32), rng.random((32, 3104)) < 0.97, 2048))
+    cases.append(("all-equal rows 4x4000 k=2048", np.full((4, 4000), 1.5, np.float32), np.ones((4, 4000), bool), 2048))
     return cases
 
 

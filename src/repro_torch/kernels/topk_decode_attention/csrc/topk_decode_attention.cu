@@ -16,19 +16,22 @@
 // rule puts position j in slot j, so the first K positions are placed at
 // once and only the later ones stream through the domain. At the flush,
 // slots at or below NEG/2 are empty (alpha 0, id -1); the rest get a
-// softmax (eps 1e-30). K2 sums alpha * V[id] over the slots in slot order,
-// in float32; an empty slot adds nothing. q and the cache are read as
+// softmax (eps 1e-30). K2 sums alpha * V[id] over the slots in float32,
+// in a fixed order; an empty slot adds nothing. q and the cache are read as
 // stored, float32 or bfloat16, and converted in registers, so no float32
 // copy of the cache is made (the TPU wrapper casts and pads the whole
 // cache first, kernel.py:112 and :158).
 //
 // What bounds it on an H100. K1 must read the valid keys once (at gemma3-4b
 // decode shapes, B 4, Hkv 4, dh 256, S 3104 in bfloat16: 25 MB, 7.6 us at
-// 3.35 TB/s); K2 must read the distinct retained V rows. Neither does
-// enough arithmetic to matter. But K1 has a serial chain: once the domain
-// is full, each insert needs the domain's minimum after the previous one,
-// about K ln(S/K) inserts per (batch, q-head), and there are only B*H such
-// chains. So K1 is bound by that chain's latency, far above its byte bound.
+// 3.35 TB/s); K2 must read the distinct retained V rows (23 MB there).
+// Neither does enough arithmetic to matter. But K1 has a serial chain:
+// once the domain is full, each insert needs the domain's minimum after
+// the previous one, about K ln(S/K) inserts per (batch, q-head), and there
+// are only B*H such chains. So K1 is bound by that chain's latency, far
+// above its byte bound. K2 has no chain, but its B*H sums are few (32 at
+// gemma3-4b) against the card's 132 SMs, and each retained row is a
+// dependent load: what bounds it is how many row loads are in flight.
 //
 // What the design does about it. K1 gives one thread block to each
 // (batch, kv-head), so each key row is read once for all the group's
@@ -43,25 +46,40 @@
 // shuffle reduction on (value, slot)) redone only after an insert. Every
 // product and sum of a logit is one rounding (__fmul_rn / __fadd_rn, no
 // FMA contraction), in an order the plain version (ref.py) repeats, so
-// kernel and plain logits and retained ids are bit-identical. K2 gives
-// each (batch, q-head) one block with a thread per dim; a chunk of slots
-// (alpha, id) is staged in shared memory, and each retained V row is read
-// with one coalesced load, K2_BATCH rows in flight before their sums are
-// taken in slot order. Both kernels launch on the caller's stream,
-// allocate nothing and do not synchronize. Shortening K1's chain (several
-// warps per domain, a domain in registers, a threshold found by selection
-// instead of a stream) is later work.
+// kernel and plain logits and retained ids are bit-identical. Shortening
+// K1's chain (the Pruner's two-level winner tree, topk_select.cu) is later
+// work.
+//
+// K2 splits each (batch, q-head)'s K slots over a thread block cluster of
+// K2_CLUSTER blocks of K2_WARPS warps (8 x 8: 256 blocks and 2048 warps at
+// gemma3-4b), so the card has enough row loads in flight. A warp takes a
+// contiguous run of slots and reads each retained row whole, 16 bytes a
+// lane (a 512 B bfloat16 row of dh 256 is one load a lane; a row whose
+// bytes are not a multiple of 16, or a cache not 16-byte aligned, is read
+// one element a load, and rows narrower than a warp are read several at
+// once), K2_LOADS loads a lane in flight. An empty slot (id -1) loads
+// nothing and adds nothing. Each lane sums its dims over its slots in slot
+// order in float32; the warp's lanes that shared rows combine in a fixed
+// butterfly, the block's warps in warp order through shared memory, and
+// the cluster's blocks in rank order through distributed shared memory.
+// No atomics and a fixed order: the same inputs give the same bits on
+// every run. Both kernels launch on the caller's stream, allocate nothing
+// and do not synchronize.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 #define FULL_MASK 0xffffffffu
 #define NEG (-3.0e38f)
 
 static constexpr int K1_THREADS = 256;
 static constexpr int MAX_G = 8;           // q-heads of a group scored per pass over a key row
-static constexpr int K2_CHUNK = 1024;     // slots staged in shared memory per K2 step
-static constexpr int K2_BATCH = 16;       // V rows a K2 thread has in flight
+static constexpr int K2_CLUSTER = 8;      // K2 blocks of a (batch, q-head): a portable cluster
+static constexpr int K2_WARPS = 8;        // warps of a K2 block
+static constexpr int K2_LOADS = 16;       // row loads a K2 lane has in flight
 static constexpr int MAX_SMEM = 232448;   // dynamic shared memory a block can opt into
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -209,47 +227,155 @@ __global__ void score_prune_kernel(
   }
 }
 
-// K2. grid = B * H blocks, block (b, q-head); dh threads, one per output dim.
-template <typename T>
-__global__ void value_gather_kernel(
-    const float* __restrict__ alpha,  // (B, H, k)
-    const int* __restrict__ ids,      // (B, H, k), -1 = empty
-    const T* __restrict__ vc,         // (B, S, Hkv, dh)
-    float* __restrict__ out,          // out (B, H, dh)
-    int h, int hkv, int s, int dh, int k) {
-  __shared__ float sa[K2_CHUNK];
-  __shared__ int si[K2_CHUNK];
-  const size_t bh = blockIdx.x;
-  const int b = (int)(bh / h);
-  const int kvh = (int)(bh % h) / (h / hkv);
-  const float* a_row = alpha + bh * k;
-  const int* i_row = ids + bh * k;
-  const T* vbase = vc + ((size_t)b * s * hkv + kvh) * dh + threadIdx.x;
-  const size_t row_stride = (size_t)hkv * dh;
-  float acc = 0.f;
-  for (int c0 = 0; c0 < k; c0 += K2_CHUNK) {
-    const int n = min(K2_CHUNK, k - c0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      sa[i] = a_row[c0 + i];
-      si[i] = i_row[c0 + i];
-    }
-    __syncthreads();
-    // K2_BATCH row loads in flight, then their sums in slot order (an
-    // empty slot, or one past the chunk, loads row 0 and adds nothing)
-    for (int i0 = 0; i0 < n; i0 += K2_BATCH) {
-      float v[K2_BATCH];
+// A row of V read VB bytes at a time: E elements of T, as floats.
+template <typename T, int VB> struct RowVec;
+template <> struct RowVec<float, 16> {
+  using raw = uint4;
+  static constexpr int E = 4;
+  __device__ static void to_f32(raw r, float* f) {
+    f[0] = __uint_as_float(r.x);
+    f[1] = __uint_as_float(r.y);
+    f[2] = __uint_as_float(r.z);
+    f[3] = __uint_as_float(r.w);
+  }
+};
+template <> struct RowVec<float, 4> {
+  using raw = unsigned;
+  static constexpr int E = 1;
+  __device__ static void to_f32(raw r, float* f) { f[0] = __uint_as_float(r); }
+};
+// bfloat16 -> float32 is exact: the 16 bits become the high half
+template <> struct RowVec<__nv_bfloat16, 16> {
+  using raw = uint4;
+  static constexpr int E = 8;
+  __device__ static void to_f32(raw r, float* f) {
+    const unsigned w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
-      for (int j = 0; j < K2_BATCH; ++j) {
-        const int id = i0 + j < n ? si[i0 + j] : -1;
-        v[j] = to_f32(vbase[(size_t)(id < 0 ? 0 : id) * row_stride]);
-      }
-#pragma unroll
-      for (int j = 0; j < K2_BATCH; ++j)
-        if (i0 + j < n && si[i0 + j] >= 0) acc = fmaf(sa[i0 + j], v[j], acc);
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
   }
-  out[bh * dh + threadIdx.x] = acc;
+};
+template <> struct RowVec<__nv_bfloat16, 2> {
+  using raw = unsigned short;
+  static constexpr int E = 1;
+  __device__ static void to_f32(raw r, float* f) { f[0] = __uint_as_float((unsigned)r << 16); }
+};
+
+// K2. grid = B * H * K2_CLUSTER blocks in clusters of K2_CLUSTER: cluster
+// (b, q-head), block rank r; K2_WARPS warps a block. Warp w of rank r sums
+// the slots [k p / P, k (p+1) / P) with p = r * K2_WARPS + w of P =
+// K2_CLUSTER * K2_WARPS parts, in slot order. A row of V is nvec = dh / E
+// loads of VB bytes; ts lanes (a power of two, at most 32) share a row,
+// lane m of a team taking loads m, m + ts, ... (NV of them at most), and
+// 32 / ts teams read that many rows at once. Dynamic shared memory:
+// K2_WARPS * dh floats.
+template <typename T, int VB, int NV>
+__global__ void __cluster_dims__(K2_CLUSTER, 1, 1) __launch_bounds__(K2_WARPS * 32)
+value_gather_kernel(const float* __restrict__ alpha,  // (B, H, k)
+                    const int* __restrict__ ids,      // (B, H, k), -1 = empty
+                    const T* __restrict__ vc,         // (B, S, Hkv, dh)
+                    float* __restrict__ out,          // out (B, H, dh)
+                    int h, int hkv, int s, int dh, int k) {
+  using V = RowVec<T, VB>;
+  using raw_t = typename V::raw;
+  constexpr int E = V::E;
+  constexpr int U = NV >= K2_LOADS ? 1 : K2_LOADS / NV;  // row steps in flight
+  extern __shared__ float part[];                        // (K2_WARPS, dh)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const size_t bh = blockIdx.x / K2_CLUSTER;
+  const int b = (int)(bh / h);
+  const int kvh = (int)(bh % h) / (h / hkv);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nvec = dh / E;
+  int ts = 1;
+  while (ts < nvec && ts < 32) ts <<= 1;
+  const int rows = 32 / ts;  // rows the warp reads at once
+  const int team = lane / ts;
+  const int m = lane % ts;
+  constexpr int PARTS = K2_CLUSTER * K2_WARPS;
+  const int p = rank * K2_WARPS + warp;
+  const int lo = (int)((long long)k * p / PARTS);
+  const int hi = (int)((long long)k * (p + 1) / PARTS);
+  const float* a_row = alpha + bh * k;
+  const int* i_row = ids + bh * k;
+  const T* vbase = vc + ((size_t)b * s * hkv + kvh) * dh;
+  const size_t stride = (size_t)hkv * dh;
+
+  float acc[NV][E];
+#pragma unroll
+  for (int v = 0; v < NV; ++v)
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[v][e] = 0.f;
+  for (int c0 = lo; c0 < hi; c0 += 32) {
+    // 32 slots' (alpha, id), one a lane, then shuffled to the teams
+    const int n = min(32, hi - c0);
+    const float a_l = lane < n ? a_row[c0 + lane] : 0.f;
+    const int id_l = lane < n ? i_row[c0 + lane] : -1;
+    for (int r0 = 0; r0 < n; r0 += U * rows) {
+      // U rows' loads in flight, then their sums in slot order; an empty
+      // slot (id -1) loads nothing and adds nothing
+      raw_t r[U][NV];
+      int id[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = r0 + u * rows + team;
+        const int x = __shfl_sync(FULL_MASK, id_l, j & 31);
+        id[u] = j < n ? x : -1;
+        const raw_t* row = reinterpret_cast<const raw_t*>(vbase + (size_t)(id[u] < 0 ? 0 : id[u]) * stride);
+#pragma unroll
+        for (int v = 0; v < NV; ++v)
+          if (id[u] >= 0 && m + v * ts < nvec) r[u][v] = __ldg(row + m + v * ts);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float a = __shfl_sync(FULL_MASK, a_l, (r0 + u * rows + team) & 31);
+        if (id[u] >= 0) {
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+            if (m + v * ts < nvec) {
+              float f[E];
+              V::to_f32(r[u][v], f);
+#pragma unroll
+              for (int e = 0; e < E; ++e) acc[v][e] = fmaf(a, f[e], acc[v][e]);
+            }
+          }
+        }
+      }
+    }
+  }
+  // the teams' sums, in a fixed butterfly order; team 0 writes the warp's
+  for (int off = ts; off < 32; off <<= 1)
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[v][e] += __shfl_xor_sync(FULL_MASK, acc[v][e], off);
+  if (team == 0) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+      if (m + v * ts < nvec)
+#pragma unroll
+        for (int e = 0; e < E; ++e) part[warp * dh + (m + v * ts) * E + e] = acc[v][e];
+  }
+  __syncthreads();
+  // the block's sum, warps in order, into part[0 .. dh)
+  for (int d = threadIdx.x; d < dh; d += blockDim.x) {
+    float sum = part[d];
+    for (int w = 1; w < K2_WARPS; ++w) sum += part[w * dh + d];
+    part[d] = sum;
+  }
+  cluster.sync();
+  // the cluster's sum, ranks in order, read from their shared memory; each
+  // rank writes every K2_CLUSTER-th dim
+  for (int d = rank + K2_CLUSTER * (int)threadIdx.x; d < dh; d += K2_CLUSTER * blockDim.x) {
+    float sum = 0.f;
+    for (int q = 0; q < K2_CLUSTER; ++q) sum += cluster.map_shared_rank(part, q)[d];
+    out[bh * dh + d] = sum;
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
 }
 
 extern "C" int tda_max_k(int group, int dh) {
@@ -285,16 +411,54 @@ extern "C" int tda_score_prune(const void* q, const void* kc, const void* length
                                    scale, (cudaStream_t)stream);
 }
 
+template <typename T, int VB, int NV>
+static int launch_gather(const void* alpha, const void* ids, const void* vc, void* out, int b,
+                         int h, int hkv, int s, int dh, int k, cudaStream_t stream) {
+  value_gather_kernel<T, VB, NV><<<b * h * K2_CLUSTER, K2_WARPS * 32,
+                                   (size_t)K2_WARPS * dh * sizeof(float), stream>>>(
+      (const float*)alpha, (const int*)ids, (const T*)vc, (float*)out, h, hkv, s, dh, k);
+  return (int)cudaGetLastError();
+}
+
+// NV: the loads of a row a lane takes, rounded up to a power of two
+template <typename T, int VB>
+static int launch_gather_nv(int nv, const void* alpha, const void* ids, const void* vc, void* out,
+                            int b, int h, int hkv, int s, int dh, int k, cudaStream_t stream) {
+  switch (nv) {
+    case 1: return launch_gather<T, VB, 1>(alpha, ids, vc, out, b, h, hkv, s, dh, k, stream);
+    case 2: return launch_gather<T, VB, 2>(alpha, ids, vc, out, b, h, hkv, s, dh, k, stream);
+    case 4: return launch_gather<T, VB, 4>(alpha, ids, vc, out, b, h, hkv, s, dh, k, stream);
+    case 8: return launch_gather<T, VB, 8>(alpha, ids, vc, out, b, h, hkv, s, dh, k, stream);
+  }
+  if constexpr (VB == (int)sizeof(T)) {  // one element a load: dh up to 1024 is 32 a lane
+    if (nv == 16) return launch_gather<T, VB, 16>(alpha, ids, vc, out, b, h, hkv, s, dh, k, stream);
+    if (nv == 32) return launch_gather<T, VB, 32>(alpha, ids, vc, out, b, h, hkv, s, dh, k, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+static int launch_value_gather(const void* alpha, const void* ids, const void* vc, void* out,
+                               int b, int h, int hkv, int s, int dh, int k, cudaStream_t stream) {
+  // 16-byte loads when every row starts on 16 bytes, else one element a load
+  const bool wide = ((size_t)dh * sizeof(T)) % 16 == 0 && (size_t)vc % 16 == 0;
+  const int e = wide ? 16 / (int)sizeof(T) : 1;
+  const int nvec = dh / e;
+  const int ts = nvec >= 32 ? 32 : nvec;
+  int nv = 1;
+  while (nv * ts < nvec) nv <<= 1;
+  if (wide)
+    return launch_gather_nv<T, 16>(nv, alpha, ids, vc, out, b, h, hkv, s, dh, k, stream);
+  return launch_gather_nv<T, (int)sizeof(T)>(nv, alpha, ids, vc, out, b, h, hkv, s, dh, k, stream);
+}
+
 extern "C" int tda_value_gather(const void* alpha, const void* ids, const void* vc, void* out,
                                 int b, int h, int hkv, int s, int dh, int k, int bf16,
                                 void* stream) {
   if (b == 0) return 0;
+  if (dh < 1 || dh > 1024 || hkv < 1 || h % hkv) return (int)cudaErrorInvalidValue;
   if (bf16)
-    value_gather_kernel<__nv_bfloat16><<<b * h, dh, 0, (cudaStream_t)stream>>>(
-        (const float*)alpha, (const int*)ids, (const __nv_bfloat16*)vc, (float*)out, h, hkv, s,
-        dh, k);
-  else
-    value_gather_kernel<float><<<b * h, dh, 0, (cudaStream_t)stream>>>(
-        (const float*)alpha, (const int*)ids, (const float*)vc, (float*)out, h, hkv, s, dh, k);
-  return (int)cudaGetLastError();
+    return launch_value_gather<__nv_bfloat16>(alpha, ids, vc, out, b, h, hkv, s, dh, k,
+                                              (cudaStream_t)stream);
+  return launch_value_gather<float>(alpha, ids, vc, out, b, h, hkv, s, dh, k, (cudaStream_t)stream);
 }

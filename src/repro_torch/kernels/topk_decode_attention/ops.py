@@ -120,7 +120,7 @@ def value_gather(alpha: torch.Tensor, ids: torch.Tensor, v_cache: torch.Tensor) 
     if hkv < 1 or h % hkv:
         raise ValueError(f"{h} q-heads do not split over {hkv} kv-heads")
     if not 1 <= dh <= 1024:
-        raise ValueError(f"dh={dh} outside [1, 1024] (one thread per output dim)")
+        raise ValueError(f"dh={dh} outside [1, 1024] (at most 32 dims a lane)")
     if v_cache.dtype not in DTYPES:
         raise TypeError(f"v_cache has dtype {v_cache.dtype}; the kernel reads {DTYPES}")
     check_tensor("alpha", alpha, torch.float32, (b, h, k), dev)

@@ -211,10 +211,20 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# K2's edges on the card: k = 1 (lengths from 0), k = 77 (not a multiple of
+# 32 nor of the 64 parts a (batch, q-head) is split into), and widths whose
+# rows are not a multiple of 16 bytes (dh 12 in bfloat16, dh 5), read one
+# element a load
+K2_EDGES = ((2, 4, 2, 8, 64, 1), (1, 8, 2, 16, 200, 77), (2, 4, 2, 12, 100, 33), (1, 4, 1, 5, 90, 40))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,hkv,dh,s,k", SWEEP + ((4, 8, 4, 256, 3104, 2048),))
+@pytest.mark.parametrize("b,h,hkv,dh,s,k", SWEEP + K2_EDGES + ((4, 8, 4, 256, 3104, 2048),))
 @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
 def test_cuda_kernels_match_plain(cuda_device, b, h, hkv, dh, s, k, dtype):
+    """K1 and K2 against their plain versions; K2 also with one (batch,
+    q-head) whose ids are all -1 and with every third slot -1, and two
+    calls on the same inputs give the same bits."""
     rng = np.random.default_rng(s)
     dt = getattr(torch, dtype)
     q, kc, vc = (torch.from_numpy(a).to(cuda_device, dt) for a in _inputs(rng, b, h, hkv, dh, s))
@@ -223,9 +233,14 @@ def test_cuda_kernels_match_plain(cuda_device, b, h, hkv, dh, s, k, dtype):
     a_p, i_p = tref.score_prune_plain(q, kc, lens, k, dh ** -0.5)
     assert torch.equal(i_k, i_p)
     torch.testing.assert_close(a_k, a_p, atol=1e-6, rtol=0)
-    torch.testing.assert_close(
-        tops.value_gather(a_p, i_p, vc), tref.value_gather_plain(a_p, i_p, vc), atol=1e-5, rtol=0
-    )
+    holes = i_p.clone()
+    holes[0, 0] = -1
+    holes[..., ::3] = -1
+    for ids in (i_p, holes):
+        out = tops.value_gather(a_p, ids, vc)
+        torch.testing.assert_close(out, tref.value_gather_plain(a_p, ids, vc), atol=1e-5, rtol=0)
+        assert torch.equal(out, tops.value_gather(a_p, ids, vc))
+    assert not bool(out[0, 0].any())  # a (batch, q-head) with no retained row
 
 
 @pytest.mark.cuda

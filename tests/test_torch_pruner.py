@@ -212,6 +212,156 @@ def test_plain_pruner_matches_plain_flat_k1():
         assert torch.equal(mapped, ids1), (t, d, k)
 
 
+# --- the CUDA kernel's algorithm, emulated step for step -------------------
+
+NO_KEY = 0xFFFFFFFF
+
+
+def _cmp_key(v):
+    """The key the kernel compares, ``cmp_key(to_key(v))``: an unsigned key
+    in the order of the float values, -0.0 on +0.0's so that the zeros
+    tie."""
+    b = np.asarray(v, np.float32).view(np.uint32).copy()
+    b[(b & 0x7FFFFFFF) == 0] = 0
+    return np.where(b & 0x80000000, ~b, b | 0x80000000).astype(np.uint32)
+
+
+def _from_key(key):
+    """The kernel's ``from_key``: the float of a key."""
+    b = np.uint32(key)
+    return np.array([b & 0x7FFFFFFF if b & 0x80000000 else ~b], np.uint32).view(np.float32)[0]
+
+
+def _first_of(a, b):
+    """The first of two (key, slot) pairs: the lower key, then the lower slot."""
+    return b if (b[0], b[1]) < (a[0], a[1]) else a
+
+
+def _warp_first_min(keys, slots):
+    """The least key over the lanes, then the least slot among the lanes
+    that hold it (the kernel's two ``__reduce_min_sync``)."""
+    mkey = keys.min()
+    return mkey, int(np.where(keys == mkey, slots, NO_KEY).min())
+
+
+def _warp_tree_select(s, m, k):
+    """The CUDA kernel's algorithm for each row, in numpy, step for step:
+    the ballot fill of the empty domain, 32 slots a chunk, up to the chunk
+    where it fills, then the two-level winner tree
+    (32-slot groups; the first minimum of each as (key, slot), lane l
+    holding groups l*GPL .. l*GPL+GPL-1) and the chain: the exact ballot
+    filter, then each survivor in slot order inserted at the root's slot
+    mi; the new root is the first of the candidate at mi, the rest of mi's
+    group (least key, then the lowest lane holding it) and the other
+    groups' winners (least key, then least slot over the lanes)."""
+    t, d = s.shape
+    ng = (k + 31) // 32
+    gpl = 1
+    while gpl < (ng + 31) // 32:
+        gpl *= 2
+    width = -(-d // 32) * 32
+    lanes32 = np.arange(32)
+    out_v, out_i = np.empty((t, k), np.float32), np.empty((t, k), np.int32)
+    for row in range(t):
+        cand = np.full(width + 32, NEG, np.float32)
+        cand[:d] = np.where(m[row], s[row], np.float32(NEG))
+        rv, ri = np.full(k, NEG, np.float32), np.full(k, -1, np.int32)
+
+        filled, c, live = 0, None, []
+        for cc in range(0, d, 32):
+            lanes = np.flatnonzero(cand[cc:cc + 32] > NEG)
+            room = k - filled
+            rv[filled:filled + min(room, len(lanes))] = cand[cc + lanes[:room]]
+            ri[filled:filled + min(room, len(lanes))] = cc + lanes[:room]
+            if len(lanes) < room:
+                filled += len(lanes)
+            else:
+                c, live = cc, list(lanes[room:])
+                break
+        if c is not None:  # full: the winner tree, then the chain
+            wkey = np.full((32, gpl), NO_KEY, np.uint64)
+            wslot = np.full((32, gpl), k, np.int64)
+            for g in range(ng):
+                slots = g * 32 + lanes32
+                keys = np.where(slots < k, _cmp_key(rv[np.minimum(slots, k - 1)]), NO_KEY).astype(np.uint64)
+                wkey[g // gpl, g % gpl], wslot[g // gpl, g % gpl] = _warp_first_min(keys, slots)
+            best = wkey.argmin(axis=1)  # the lane's first group among equal keys
+            mkey, mi = _warp_first_min(wkey[lanes32, best], wslot[lanes32, best])
+            cur = cand[c:c + 32]
+            live = [lane for lane in live if cur[lane] > _from_key(mkey)]
+            while True:
+                while live:
+                    src = live.pop(0)
+                    g = mi >> 5
+                    owner, jj = g // gpl, g % gpl
+                    slots = g * 32 + lanes32
+                    # mi's group without slot mi: least key, lowest lane holding it
+                    xk_l = np.where((slots < k) & (slots != mi), _cmp_key(rv[np.minimum(slots, k - 1)]), NO_KEY)
+                    xk = xk_l.astype(np.uint64).min()
+                    xs = g * 32 + int(np.flatnonzero(xk_l == xk)[0])
+                    # the other groups: each lane's first winner, then over the lanes
+                    others = wkey.copy()
+                    others[owner, jj] = NO_KEY
+                    first = others.argmin(axis=1)
+                    rk, rs = _warp_first_min(others[lanes32, first], wslot[lanes32, first])
+                    if rk == NO_KEY:
+                        rs = k
+                    # the candidate at mi, then the first of the three
+                    rv[mi], ri[mi] = cur[src], c + src
+                    gk, gs = _first_of((int(_cmp_key(cur[src:src + 1])[0]), mi), (int(xk), xs))
+                    wkey[owner, jj], wslot[owner, jj] = gk, gs
+                    mkey, mi = _first_of((gk, gs), (int(rk), rs))
+                    live = [lane for lane in live if cur[lane] > _from_key(mkey)]
+                c += 32
+                if c >= d:
+                    break
+                cur = cand[c:c + 32]
+                live = list(np.flatnonzero(cur > _from_key(mkey)))
+        out_v[row], out_i[row] = rv, np.where(rv <= np.float32(NEG / 2), -1, ri)
+    return out_v, out_i
+
+
+def _special_long(rng, d):
+    """Rows of length d drawn from the special values (±0.0 heavy), every
+    fifth slot of the second row masked."""
+    pool = np.concatenate([SPECIAL, np.array([0.0, -0.0, 1.0, -1.0] * 4, np.float32)])
+    s = rng.choice(pool, size=(2, d)).astype(np.float32)
+    m = np.ones_like(s, bool)
+    m[1, ::5] = False
+    return s, m
+
+
+def _tree_case(case):
+    rng = np.random.default_rng(sum(map(ord, case)))
+    if case == "ties_k2048":  # equal minima in many groups
+        return (*_ints(rng, 3, 3104, 0.97), 2048)
+    if case == "all_equal_k2048":
+        return np.full((2, 4000), 1.5, np.float32), np.ones((2, 4000), bool), 2048
+    if case.startswith("k"):  # k not a multiple of 32, or the small-domain branch
+        k = int(case[1:])
+        return (*_normal(rng, 2, max(3 * k // 2, k + 100), 0.95), k)
+    k = int(case.split("_")[1])
+    return (*_special_long(rng, 160), k)
+
+
+@pytest.mark.parametrize(
+    "case",
+    ("ties_k2048", "all_equal_k2048", "k33", "k1000", "k2047", "k2049", "k64", "k50",
+     "special_20", "special_40"),
+)
+def test_kernel_winner_tree_emulation_matches_plain(case):
+    """The CUDA kernel's first-minimum structure (csrc/topk_select.cu),
+    emulated in numpy step for step, keeps the domain of
+    ``topk_select_plain`` (itself held to ``topk_select_pallas`` above)
+    array for array: on tie-heavy integers at k 2048 (equal minima in many
+    groups), an all-equal row, k not a multiple of 32, the one- and
+    two-group domains (k 50, 64), and rows of special values at k 20 and
+    40 (±0.0 equal, NaN and -inf never entering)."""
+    s, m, k = _tree_case(case)
+    want = tref.topk_select_plain(torch.from_numpy(s), torch.from_numpy(m), k)
+    _assert_same(_warp_tree_select(s, m, k), (want[0].numpy(), want[1].numpy()))
+
+
 # --- the oracle path (use_kernel=False) and the wrapper's contract --------
 
 
@@ -393,9 +543,15 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ("sweep", "ties", "k_above_d", "masked_rows", "special", "wide"))
+@pytest.mark.parametrize(
+    "case",
+    ("sweep", "ties", "k_above_d", "masked_rows", "special", "wide", "k33", "k1000", "k2047", "k2049",
+     "k4096", "wide_ties", "all_equal"),
+)
 def test_cuda_kernel_matches_plain(cuda_device, case):
     rng = np.random.default_rng(7)
+    wide_k = {"k33": (33, 3104), "k1000": (1000, 4000), "k2047": (2047, 3104), "k2049": (2049, 5000),
+              "k4096": (4096, 6000)}
     if case == "sweep":
         (s, m), k = _normal(rng, 2048, 512, 0.8), 50
     elif case == "ties":
@@ -407,8 +563,15 @@ def test_cuda_kernel_matches_plain(cuda_device, case):
         m[[1, 4, 9]] = False
     elif case == "special":
         (s, m), k = _special(), 8
-    else:
+    elif case == "wide":
         (s, m), k = _normal(rng, 32, 3104, 0.99), 2048
+    elif case in wide_k:
+        k, d = wide_k[case]
+        s, m = _normal(rng, 16, d, 0.97)
+    elif case == "wide_ties":  # equal minima in many 32-slot groups
+        (s, m), k = _ints(rng, 32, 3104, 0.97), 2048
+    else:
+        s, m, k = np.full((4, 4000), 1.5, np.float32), np.ones((4, 4000), bool), 2048
     st, mt = torch.from_numpy(s).to(cuda_device), torch.from_numpy(m).to(cuda_device)
     before = tops.LAUNCHES["topk_select"]
     v_k, i_k = tops.topk_select(st, mt, k)
