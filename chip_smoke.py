@@ -16,8 +16,10 @@ exits non-zero at the first phase that fails:
 2. holds each CUDA kernel against its plain PyTorch version on the card:
    the grouped pair on the kernel-test parametrisations (pruned/bypass mix,
    unaligned capacities, one bucket, all-bypass, no pruning, a relation
-   term, an empty bucket, an empty graph), a score tie, and the real DBLP
-   and ACM layouts; the flat pair on the reference's sweep shapes (random
+   term, an empty bucket, an empty graph), a score tie, the real DBLP and
+   ACM layouts, and the widths of the grouped K1's register domain (k_s 1,
+   2, 16, 32, 33 and 256 on tie-heavy integer ranks, pruned and bypass
+   buckets); the flat pair on the reference's sweep shapes (random
    masks with holes), a relation term, k = D, an empty row, a score tie and
    the real ACM ``union:paper`` table; a domain wider than 256 raises
    before any launch; the top-K decode attention pair on the reference's
@@ -25,6 +27,11 @@ exits non-zero at the first phase that fails:
    lengths with one below K, the logits [1, 1, 2, 1] tie at k = 2 (keeps
    positions {1, 2}), gemma3-4b's decode shapes in float32 and bfloat16,
    and a K too wide for shared memory, which raises before any launch;
+   decode K1's tie path and fast path on logits built for them, in float32
+   and bfloat16 (ties at t straddling slot 2048 at K 2048, all-equal rows,
+   -0.0 and +0.0 at t, NaN, -inf and NEG-band logits, lengths 0, below,
+   at and above K): its tie rows must be ``tie_rows_plain``'s, above 0 on
+   the tie cases and 0 on the Gaussian sweep;
    K2 also with one (batch, q-head) whose ids are all -1 and with every
    third slot -1, at k = 1, k = 77 and rows not a multiple of 16 bytes
    (dh 12 in bfloat16, dh 5), and a second call on the same inputs must
@@ -33,11 +40,11 @@ exits non-zero at the first phase that fails:
    integer scores, a row of special values (±0.0, ±NaN, ±inf, values in
    (NEG, NEG/2]), wide domains (32 x 3104 at k 2048; k 33, 1000, 2047,
    2049 and 4096 at D 3104-6000; tie-heavy integers and all-equal rows at
-   k 2048), and a k too wide for shared memory, which raises before any
-   launch. Retained ids equal, alpha within 1e-6,
-   outputs within 1e-5 (``expf`` and FMA contraction differ from the CPU's
-   arithmetic); the Pruner's values equal bit for bit (it only compares
-   and copies);
+   k 2048; k 8000, 16000 and 29056, the widest, at D above k), and a k too
+   wide for shared memory, which raises before any launch. Retained ids
+   equal, alpha within 1e-6, outputs within 1e-5 (``expf`` and FMA
+   contraction differ from the CPU's arithmetic); the Pruner's values equal
+   bit for bit (it only compares and copies);
 3. drives the main paths — ``prepare`` → ``task.compile(FlowConfig(
    "fused_kernel", prune_k=8))`` → ``session(params)`` — at ``scale=1.0``
    with seeded random weights: HAN on DBLP and ACM (bucketed), then RGAT
@@ -59,13 +66,16 @@ exits non-zero at the first phase that fails:
    plain versions; one cycle of depth (6 layers) at full width in float32
    must give the same prefill and decode logits (1e-4) on the card and in
    the port's CPU forward, with a prompt long enough that pruning drops
-   rows. Then the Pruner through its entry point ``topk_select`` on the
-   scores of two served paths (the counters set to 0 just before and read
+   rows. The 32 decode steps are then replayed on the same tokens with
+   decode K1 asked for its tie rows, which are counted. Then the Pruner
+   through its entry point ``topk_select`` on the scores of two served
+   paths (the counters set to 0 just before and read
    just after; no serving flow calls it): the ranks of every table the
    flat K1 prunes in one forward of RGAT and Simple-HGN on ACM, where
    ``nbr[row, ids]`` must equal K1's retained ids slot for slot, and
    gemma3-4b's float32 logits of the last global layer in decode step 1,
-   where the ids must equal decode K1's; on each of these inputs the
+   where the ids, sorted ascending with -1 last, must equal decode K1's
+   (which writes them in that canonical layout); on each of these inputs the
    kernel's values must also equal its plain version's bit for bit, and
    its ids slot for slot;
 4. times each kernel and (for the aggregates) one library call twice: its
@@ -107,6 +117,9 @@ ROUTES = ("bucketed", "loop", "flat")
 FLAT_SWEEP = ((11, 70, 8, 8, 200, 5), (8, 128, 8, 8, 64, 50), (5, 33, 4, 16, 40, 33), (2, 7, 2, 4, 10, 3))
 REPORT = ROOT / "build" / "chip_smoke.json"  # the full report, beside the built kernels
 DECODE_SWEEP = ((2, 8, 2, 16, 200, 12), (3, 4, 4, 8, 128, 5), (1, 16, 4, 32, 300, 50))
+# the grouped K1's register domain: (k_s, bucket capacities, prune_k)
+KS_CASES = ((1, (4, 8, 16), 1), (2, (4, 8, 16), 2), (16, (4, 8, 16, 64), 16), (32, (8, 32, 64), 32),
+            (33, (8, 16, 64), 33), (256, (8, 64, 400), 256))
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "gemma3-4b", 4, 3072, 32
 # the Pruner (kernel #3) in phase 2: the shapes of the reference's kernel
 # tests (tests/test_kernels.py:15-83), and a row of special values (-NaN at
@@ -215,6 +228,13 @@ def kernel_cases(hetgraph, tasks):
     z = [np.zeros((5, 1), np.int32), np.zeros((5, 1), bool), np.zeros((5, 1), np.int32)]
     cases.append(("zero-edge graph", hetgraph.bucketize("z", ("x",), "x", *z, (2,)), 3, 30, 4, 8, 0))
     cases.append(("no buckets", hetgraph.BucketedSemanticGraph("none", ("x",), "x", 5, ()), 3, 30, 4, 8, 0))
+    # the grouped K1's register domain at its widths: one slot a lane up to
+    # k_s 32, two past it, eight at 256; pruned and bypass buckets, tie-heavy
+    # integer ranks and a relation term
+    for k_s, caps, k in KS_CASES:
+        t, n, edges = (20, 600, 4000) if k_s == 256 else (30, 50, 600)
+        sg = random_bucketed(hetgraph, rng, t, max(caps) + 8, n, caps, num_etypes=3, edges=edges)
+        cases.append((f"register domain k_s={k_s} caps={caps} k={k}", sg, k, n, 4, 8, 3))
     for ds, task in tasks.items():
         n = task.batch.total_nodes
         for sg in task.sgs:
@@ -234,6 +254,8 @@ def check_kernels(cases, dev):
     for name, sg, k, n, h, dh, n_rel in cases:
         hp = torch.randn((n, h, dh), generator=gen).to(dev)
         ts = torch.randn((n, h), generator=gen).to(dev)
+        if name.startswith("register domain"):  # small integers: ranks tie everywhere
+            ts = torch.randint(-1, 2, (n, h), generator=gen).float().to(dev)
         td = torch.randn((sg.num_targets, h), generator=gen).to(dev)
         tr = torch.randn((n_rel, h), generator=gen).to(dev) if n_rel else None
         layout = sg.grouped(ops.T_TILE, ops.W_TILE)
@@ -245,6 +267,8 @@ def check_kernels(cases, dev):
             print(f"  kernels == plain  {name}: no grid steps, zeros, no launch")
             continue
         (nbr, msk, ety, rt, perm), (blk, k_s) = ops._layout_device(layout, k, dev)
+        if name.startswith("register domain"):
+            check(f"k_s={k_s} " in name, f"{name}: the layout gives k_s {k_s}")
         ety = ety if tr is not None else None
         a_k, i_k = ops.prune(nbr, msk, ety, ts, tr, td, rt, blk, k_s)
         a_p, i_p = ref.prune_plain(nbr, msk, ety, ts, tr, td, rt, blk, k_s, 0.2)
@@ -747,6 +771,7 @@ def check_decode_kernels(dev):
 
     err = {"score_prune": 0.0, "value_gather": 0.0}
     gen = torch.Generator().manual_seed(2)
+    ties = {}
     for name, b, h, hkv, dh, s, k, lens, dt in decode_cases():
         dtype = torch.float32 if dt == "ints" else getattr(torch, dt)
         q, kc, vc = (torch.randn(shape, generator=gen).to(dev, dtype)
@@ -755,8 +780,9 @@ def check_decode_kernels(dev):
             q, kc = q.round().clamp(-1, 1), kc.round().clamp(-1, 1)
         lens = torch.tensor(np.asarray(lens), dtype=torch.int32, device=dev)
         scale = dh ** -0.5
-        a_k, i_k = ops.score_prune(q, kc, lens, k, scale)
+        a_k, i_k, tie = ops.score_prune(q, kc, lens, k, scale, tie_rows=True)
         a_p, i_p = ref.score_prune_plain(q, kc, lens, k, scale)
+        tie_p = ref.tie_rows_plain(ref.score_logits_plain(q, kc, scale), lens, k)
         o_k = ops.value_gather(a_p, i_p, vc)
         o_p = ref.value_gather_plain(a_p, i_p, vc)
         out = ops.topk_decode_attention(q, kc, vc, lens, k)
@@ -774,6 +800,13 @@ def check_decode_kernels(dev):
         check(torch.equal(again[0], o_k) and torch.equal(again[1], o_h),
               f"decode {name}: two K2 calls on the same inputs differ")
         check(not bool(o_h[0, 0].any()), f"decode {name}: K2 of a (batch, q-head) with no retained row is not 0")
+        check(torch.equal(tie, tie_p), f"decode {name}: K1's tie rows {tie.tolist()} are not {tie_p.tolist()}")
+        n_tie = int(tie.sum())
+        ties[name] = n_tie
+        if name.startswith("sweep"):  # Gaussian logits: no ties at the K-th
+            check(n_tie == 0, f"decode {name}: {n_tie} rows took the tie path")
+        if dt == "ints":
+            check(n_tie > 0, f"decode {name}: no row took the tie path")
         e_a = float((a_k - a_p).abs().max())
         e_o = max(float((o_k - o_p).abs().max()), float((out - o_p).abs().max()), float((o_h - o_hp).abs().max()))
         if e_a > TOL_ALPHA or e_o > TOL_OUT:
@@ -793,8 +826,96 @@ def check_decode_kernels(dev):
         err["score_prune"] = max(err["score_prune"], e_a)
         err["value_gather"] = max(err["value_gather"], e_o)
         print(f"  kernels == plain  decode {name}: ids equal, alpha err {e_a:.3g}, out err {e_o:.3g}{extra}; "
-              "K2 with empty slots equal, bitwise the same on a second call")
-    return err
+              f"K2 with empty slots equal, bitwise the same on a second call; tie-path rows {n_tie} of {b * h}")
+    return err, ties
+
+
+def crafted_decode_inputs(x, scale, dtype, dev):
+    """q and a key cache whose logits are exactly x * scale: a kv-head per
+    q-head, q = e_0 and each key (x, 0, 0, 0), so lane 0's sum is x and the
+    other lanes' are +0.0. x (B, H, S) float32."""
+    import torch
+
+    b, h, s = x.shape
+    q = torch.zeros((b, h, 4))
+    q[..., 0] = 1.0
+    kc = torch.zeros((b, s, h, 4))
+    kc[..., 0] = torch.from_numpy(x).permute(0, 2, 1)
+    return q.to(dev, dtype), kc.to(dev, dtype)
+
+
+def decode_tie_cases():
+    """(name, x (B, H, S), lengths, k, scale, rows expected on the tie path
+    in float32 or None) for decode K1's two paths in phase 2."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    cases = []
+    # 2040 distinct logits above 100 equal ones at 5.0: the ties at t straddle slot 2048
+    x = rng.uniform(-5, 0, size=(1, 2, 3104)).astype(np.float32)
+    for hh, (top, tied) in enumerate(((2040, 100), (2038, 30))):
+        pos = rng.permutation(3104)
+        x[0, hh, pos[:top]] = 20 + rng.permutation(top) / 8
+        x[0, hh, pos[top: top + tied]] = 5.0
+    cases.append(("ties at t straddle slot 2048, K 2048", x, [3104], 2048, 1.0, [[1, 1]]))
+    cases.append(("all-equal rows, K 2048", np.full((2, 2, 3104), 1.5, np.float32), [3104, 3073], 2048, 1.0,
+                  [[1, 1], [1, 1]]))
+    # -0.0 from the final multiply: the least negative denormal times 0.5
+    # rounds to -0.0; every other logit is x / 2
+    neg0 = np.array([0x80000001], np.uint32).view(np.float32)[0]
+    x = -2 * rng.random((1, 4, 64)).astype(np.float32) - 2
+    x[0, :, [3, 9, 20, 31, 40]] = [[20.0], [22.0], [24.0], [26.0], [28.0]]
+    x[0, 0, [5, 7, 50, 60]] = [neg0, 0.0, neg0, 0.0]  # zeros straddle slot 8
+    x[0, 1, [5, 7, 50]] = [neg0, 0.0, 0.0]  # exactly 8 logits >= 0: the fast path keeps -0.0
+    x[0, 2, [5, 7, 50]] = [neg0, neg0, neg0]
+    x[0, 3, [0, 1, 45, 50]] = [neg0, 0.0, 30.0, 0.0]  # the chain keeps -0.0 at 0 over +0.0 at 50
+    cases.append(("-0.0 and +0.0 at t, K 8", x, [64], 8, 0.5, [[1, 0, 0, 1]]))
+    x = rng.normal(size=(1, 4, 120)).astype(np.float32)
+    x[0, 0, [2, 90]] = np.nan
+    x[0, 1, [1, 100]] = -np.inf
+    x[0, 2, [4, 70]] = -2.5e38
+    x[0, 3, [0, 5]] = [-3.0e38, -3.4e38]
+    cases.append(("NaN, -inf and NEG-band logits, K 16", x, [120], 16, 1.0, [[1, 1, 1, 1]]))
+    cases.append(("lengths 0, 30 < K, 64 = K, 100 > K; K 64", rng.normal(size=(4, 2, 100)).astype(np.float32),
+                  [0, 30, 64, 100], 64, 1.0, [[1, 1], [0, 0], [0, 0], [0, 0]]))
+    return cases
+
+
+def check_decode_tie_path(dev):
+    """Phase 2, decode K1 on logits built to take its tie path (and a few
+    rows that take its fast path beside them), in float32 and bfloat16:
+    ids equal the plain version's slot for slot, alpha within 1e-6, the tie
+    rows are ``tie_rows_plain``'s (and, in float32, the rows expected).
+    Returns the largest alpha error and the tie rows by case."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.topk_decode_attention import ops, ref
+
+    err, ties = 0.0, {}
+    for name, x, lens, k, scale, want in decode_tie_cases():
+        for dt in (torch.float32, torch.bfloat16):
+            q, kc = crafted_decode_inputs(x, scale, dt, dev)
+            lens_t = torch.tensor(np.asarray(lens), dtype=torch.int32, device=dev)
+            a_k, i_k, tie = ops.score_prune(q, kc, lens_t, k, scale, tie_rows=True)
+            a_p, i_p = ref.score_prune_plain(q, kc, lens_t, k, scale)
+            tie_p = ref.tie_rows_plain(ref.score_logits_plain(q, kc, scale), lens_t, k)
+            sync(dev)
+            key = f"{name} {str(dt).split('.')[-1]}"
+            if not torch.equal(i_k, i_p):
+                raise AssertionError(f"decode {key}: K1 ids differ from the plain version in {int((i_k != i_p).sum())} slots")
+            e_a = float((a_k - a_p).abs().max())
+            check(e_a <= TOL_ALPHA, f"decode {key}: alpha err {e_a:.3g}")
+            check(torch.equal(tie, tie_p), f"decode {key}: tie rows {tie.tolist()}, plain {tie_p.tolist()}")
+            if dt == torch.float32:
+                check(tie.tolist() == want, f"decode {key}: tie rows {tie.tolist()}, expected {want}")
+            elif sum(map(sum, want)) == len(want) * len(want[0]):
+                check(bool(tie.all()), f"decode {key}: tie rows {tie.tolist()}")
+            err = max(err, e_a)
+            ties[key] = int(tie.sum())
+            print(f"  kernels == plain  decode K1 {key}: ids equal, alpha err {e_a:.3g}, "
+                  f"tie-path rows {tie.tolist()}")
+    return err, ties
 
 
 def check_decode_tie_and_width(dev):
@@ -810,12 +931,13 @@ def check_decode_tie_and_width(dev):
     kc[0, :, 0, 0] = torch.tensor([1.0, 1.0, 2.0, 1.0])
     vc = torch.arange(16.0, device=dev).reshape(1, 4, 1, 4)
     lens = torch.tensor([4], dtype=torch.int32, device=dev)
-    _, i_k = ops.score_prune(q, kc, lens, 2, 1.0)
+    _, i_k, tie = ops.score_prune(q, kc, lens, 2, 1.0, tie_rows=True)
     _, i_p = ref.score_prune_plain(q, kc, lens, 2, 1.0)
     out = ops.topk_decode_attention(q, kc, vc, lens, 2, 1.0)
     want = torch.tensor([6.9241, 7.9241, 8.9241, 9.9241], device=dev)
-    if sorted(i_k[0, 0].tolist()) != [1, 2] or not torch.equal(i_k, i_p) or float((out[0, 0] - want).abs().max()) > 1e-3:
+    if i_k[0, 0].tolist() != [1, 2] or not torch.equal(i_k, i_p) or float((out[0, 0] - want).abs().max()) > 1e-3:
         raise AssertionError(f"decode tie: kernel kept {i_k[0, 0].tolist()}, out {out[0, 0].tolist()}")
+    check(tie.tolist() == [[1]], f"decode tie: the row did not take the tie path ({tie.tolist()})")
     print("  kernels == plain  decode tie [1, 1, 2, 1], k = 2: keeps positions {1, 2}, out "
           + str([round(x, 4) for x in out[0, 0].tolist()]))
     h, hkv, dh = 8, 1, 1024
@@ -909,12 +1031,13 @@ def lm_main_path(dev, hgnn_ops, ts_ops):
     print(f"  main path {LM_ARCH} float32 decode step: kernel vs plain logits {e32:.3g} (max |logit| {top32:.3g})")
 
     # the main path: 32 greedy decode steps
-    step_ms, launches = [], {k: 0 for k in zero}
+    step_ms, launches, tokens = [], {k: 0 for k in zero}, []
     for i in range(LM_GEN):
         pos = LM_PROMPT + i
         for m in (hgnn_ops, ts_ops, ops):
             reset_launches(m)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        tokens.append(tok)
         start.record()
         logits, cache = lm.decode_step(tok, pos, cache)
         end.record()
@@ -935,7 +1058,43 @@ def lm_main_path(dev, hgnn_ops, ts_ops):
         "init_and_cast_s": init_s,
         "step_ms_events": step_ms, "param_count": cfg.param_count(),
     }
+    res["tie_rows"] = lm_tie_rows(lm, cache0, tokens)
+    print(f"  main path {LM_ARCH}: decode K1's tie path took {res['tie_rows']['rows']} of "
+          f"{res['tie_rows']['of']} (batch, q-head) rows over the {LM_GEN} steps (replayed with tie_rows=True)")
     return res, lm, prompts, cache0, tok0
+
+
+def lm_tie_rows(lm, cache0, tokens) -> dict:
+    """The main path's decode steps replayed from the cache after prefill on
+    the same tokens, with decode K1 asked for its tie rows (its keyword of
+    ``score_prune``; no serving entry point has one): the (batch, q-head)
+    rows that took the tie path, over all steps and global layers."""
+    import torch
+
+    from repro_torch.kernels.topk_decode_attention import ops
+    from repro_torch.layers import attention
+    from repro_torch.layers.attention import KVCache
+
+    ties = []
+
+    def counting(q, kc, vc, lens, prune_k, scale):
+        k = min(int(prune_k), kc.shape[1])
+        alpha, ids, tie = ops.score_prune(q.contiguous(), kc.contiguous(), lens.to(torch.int32).contiguous(),
+                                          k, scale, tie_rows=True)
+        ties.append(tie)
+        return ops.value_gather(alpha, ids, vc.contiguous())
+
+    cache = [KVCache(c.k.clone(), c.v.clone()) for c in cache0]
+    saved = attention.topk_decode_attention
+    attention.topk_decode_attention = counting
+    try:
+        with torch.inference_mode():
+            for i, tok in enumerate(tokens):
+                lm.decode_step(tok, LM_PROMPT + i, cache)
+    finally:
+        attention.topk_decode_attention = saved
+    t = torch.stack(ties)
+    return {"rows": int(t.sum()), "of": t.numel(), "by_call": t.sum(dim=(1, 2)).tolist()}
 
 
 def lm_cpu_check(dev):
@@ -1100,6 +1259,9 @@ def pruner_cases():
     cases.append(("tie-heavy integers 32x3104 k=2048 (equal minima in many groups)",
                   rng.integers(-2, 3, size=(32, 3104)).astype(np.float32), rng.random((32, 3104)) < 0.97, 2048))
     cases.append(("all-equal rows 4x4000 k=2048", np.full((4, 4000), 1.5, np.float32), np.ones((4, 4000), bool), 2048))
+    # the widest domains: 8, 16 and 32 groups of 32 slots a lane
+    for k, d in ((8000, 9000), (16000, 17000), (29056, 30000)):
+        cases.append((f"wide domain 4x{d} k={k}", *normal(4, d, 0.97), k))
     return cases
 
 
@@ -1208,11 +1370,15 @@ def pruner_main_path(model_tasks, FlowConfig, fpa_ops, ts_ops, tda_ops, decode_i
         mapped = torch.where(ids3 >= 0, nbr.gather(1, ids3.clamp(min=0).long()), -1)
         if not torch.equal(mapped, k1_ids):
             raise AssertionError(f"pruner vs flat K1 {name}: {int((mapped != k1_ids).sum())} slots differ")
+    # the same retained set: decode K1 writes it in the canonical layout
+    # (positions ascending, -1 last), the Pruner in its domain's slot order
     dec_ids3 = out_dec[1].reshape(b, h, k_dec)
-    if not torch.equal(dec_ids3, dec_ids):
-        raise AssertionError(f"pruner vs decode K1: {int((dec_ids3 != dec_ids).sum())} slots differ")
+    srt = torch.sort(torch.where(dec_ids3 >= 0, dec_ids3, s), dim=-1).values
+    srt = torch.where(srt < s, srt, -1)
+    if not torch.equal(srt, dec_ids):
+        raise AssertionError(f"pruner vs decode K1: {int((srt != dec_ids).sum())} slots of the sorted sets differ")
     print(f"  main path pruner: {len(ranks)} flat K1 tables of RGAT/Simple-HGN ACM (nbr[row, ids] == K1 ids, "
-          f"slot for slot) and {LM_ARCH} decode logits {b * h}x{s} k={k_dec} (ids == decode K1's); "
+          f"slot for slot) and {LM_ARCH} decode logits {b * h}x{s} k={k_dec} (ids sorted == decode K1's); "
           f"all {len(inputs)} equal the plain version (values bitwise, ids); "
           f"launches {launches['topk_select.topk_select']}")
     union = next(i for i, t in enumerate(tables) if t[0].startswith("simple_hgn"))  # union:paper, layer 0
@@ -1321,8 +1487,11 @@ def main() -> int:
         flat_cases(acm_union.batch.sg_by_dst["paper"], acm_union.batch.total_nodes), dev
     ))
     check_flat_tie_and_width(dev)
-    err.update(check_decode_kernels(dev))
+    dec_err, dec_ties = check_decode_kernels(dev)
+    err.update(dec_err)
     check_decode_tie_and_width(dev)
+    e_tie, tie_cases = check_decode_tie_path(dev)
+    err["score_prune"] = max(err["score_prune"], e_tie)
     err["topk_select"] = check_pruner_kernel(dev)
 
     # phase 3: the main paths
@@ -1462,6 +1631,8 @@ def main() -> int:
     REPORT.parent.mkdir(exist_ok=True)
     REPORT.write_text(json.dumps({
         "card": card, "results": results, "lm": lm_result, "pruner": pruner_result, "times_ms": t,
+        "decode_k1_tie_rows": {"phase2_cases": dec_ties, "phase2_tie_cases": tie_cases,
+                               "main_path": lm_result["tie_rows"]},
         "pruner_times_ms": t_ts, "forward_ms": fwd, "forward_latency_ms": latency, "profiles": prof,
         "kernels": kernels,
     }, indent=1))

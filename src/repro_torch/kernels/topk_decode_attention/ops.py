@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
@@ -24,6 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "topk_decode_attention.cu",)
 MAX_SMEM = 232448  # dynamic shared memory a block can opt into on Hopper
 DTYPES = (torch.float32, torch.bfloat16)  # what q and the cache may hold
+MAX_GROUP = 32  # q-heads a kv-head may serve in K1 (its tie mask has a bit each)
 
 # kernel launches, one per launch of each CUDA kernel; the plain versions do
 # not count
@@ -38,7 +39,7 @@ def library():
     build record (see :func:`repro_torch.kernels.build.load`)."""
     lib, record = build.load("topk_decode_attention", SOURCES)
     if not getattr(lib, "_typed", False):
-        lib.tda_score_prune.argtypes = [_ptr] * 6 + [_int] * 6 + [ctypes.c_float, _int, _ptr]
+        lib.tda_score_prune.argtypes = [_ptr] * 7 + [_int] * 6 + [ctypes.c_float, _int, _ptr]
         lib.tda_score_prune.restype = _int
         lib.tda_value_gather.argtypes = [_ptr] * 4 + [_int] * 7 + [_ptr]
         lib.tda_value_gather.restype = _int
@@ -51,9 +52,9 @@ def library():
 
 
 def max_k(group: int, dh: int) -> int:
-    """The widest retention domain K1 holds in shared memory: the group's
-    q (4·group·dh B) and a value and a position per slot and q-head
-    (8·group B a slot) within ``MAX_SMEM``."""
+    """The widest retention domain K1's tie path holds in shared memory:
+    the group's q (4·group·dh B) and a value and a position per slot and
+    q-head (8·group B a slot) within ``MAX_SMEM``."""
     return max(0, (MAX_SMEM - 4 * group * dh) // (8 * group))
 
 
@@ -73,17 +74,24 @@ def score_prune(
     lengths: torch.Tensor,  # (B,) int32
     k: int,
     scale: float,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    tie_rows: bool = False,
+):
     """K1 -> (alpha (B, H, k) float32, retained positions (B, H, k) int32,
-    −1 = empty). See ``ref.score_prune_plain``. CUDA tensors launch the
-    kernel; CPU tensors run the plain version."""
+    −1 = empty), in the canonical layout of ``ref.score_prune_plain``.
+    With ``tie_rows=True`` also a (B, H) int32 tensor, 1 where the row took
+    K1's tie path (``ref.tie_rows_plain``). CUDA tensors launch the kernel;
+    CPU tensors run the plain version."""
     if q.device.type == "cpu":
-        return ref.score_prune_plain(q, k_cache, lengths, k, scale)
+        logits = ref.score_logits_plain(q, k_cache, scale)
+        alpha, ids = ref.prune_logits_plain(logits, lengths, k)
+        return (alpha, ids, ref.tie_rows_plain(logits, lengths, k)) if tie_rows else (alpha, ids)
     dev = cuda_device(q)
     b, h, hkv, s, dh = _shapes(q, k_cache)
     group = h // hkv
     if not 1 <= k <= s:
         raise ValueError(f"k={k} outside [1, S={s}]")
+    if group > MAX_GROUP:
+        raise ValueError(f"{group} q-heads a kv-head; K1 serves at most {MAX_GROUP}")
     if k > max_k(group, dh):
         raise ValueError(
             f"k={k} exceeds the {max_k(group, dh)} retention slots K1 holds in shared "
@@ -97,16 +105,17 @@ def score_prune(
     logits = torch.empty((b, h, s), dtype=torch.float32, device=dev)
     alpha = torch.empty((b, h, k), dtype=torch.float32, device=dev)
     ids = torch.empty((b, h, k), dtype=torch.int32, device=dev)
+    tie = torch.empty((b, h), dtype=torch.int32, device=dev)
     lib, _ = library()
     err = lib.tda_score_prune(
         q.data_ptr(), k_cache.data_ptr(), lengths.data_ptr(), logits.data_ptr(),
-        alpha.data_ptr(), ids.data_ptr(), b, h, hkv, s, dh, k, scale,
+        alpha.data_ptr(), ids.data_ptr(), tie.data_ptr(), b, h, hkv, s, dh, k, scale,
         int(q.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"tda_score_prune launch failed: cudaError {err}")
     LAUNCHES["score_prune"] += 1
-    return alpha, ids
+    return (alpha, ids, tie) if tie_rows else (alpha, ids)
 
 
 def value_gather(alpha: torch.Tensor, ids: torch.Tensor, v_cache: torch.Tensor) -> torch.Tensor:

@@ -14,12 +14,26 @@ result:
     kernel over those logits: positions in stream order, the FIRST minimum
     slot evicted, a candidate inserted only when STRICTLY greater
     (``kernels/common.py`` ``min_replace``), vectorised over (batch,
-    q-head). The first ``K`` positions fill slots ``0..K-1`` in order,
-    which is what that rule does on an empty domain (an empty slot holds
-    ``NEG``, below every logit, and positions past a row's length are never
-    inserted), so they are placed at once and the loop starts at ``K``.
-    The flush: slots at or below ``NEG/2`` are empty (α 0, id −1), softmax
-    over the rest with eps 1e-30.
+    q-head). On an empty domain (every slot ``NEG``) that rule puts the
+    first ``K`` positions whose logit is above ``NEG`` into slots
+    ``0..K-1`` in order (a logit at or below ``NEG``, a NaN and a position
+    past the row's length never enter), so they are placed at once and the
+    loop runs over the rest. The flush: slots at or below ``NEG/2`` are
+    empty (α 0, id −1), softmax over the rest with eps 1e-30.
+
+    Its output is in the **canonical layout**: the retained positions in
+    ascending order, their α alongside, the empty slots (id −1, α 0) at
+    the end. The TPU kernel's slot order is internal to it: it returns only
+    the attention output (``kernel.py:164``), which depends on the retained
+    set and its softmax alone. Where the length is at most ``K`` and no
+    logit is dropped, this is the domain's own order.
+  * :func:`tie_rows_plain` says which (batch, q-head) rows the CUDA K1
+    sends down its tie path, where the domain's chain decides the set:
+    every row but those whose ``min(K, length)``-th largest valid logit
+    ``t`` has exactly ``min(K, length)`` valid logits at or above it, with
+    no valid logit NaN or at or below ``NEG/2``. On the other rows the
+    chain keeps exactly {p : logit_p ≥ t}, which the kernel finds by a
+    radix select instead.
   * :func:`value_gather_plain` (K2) sums ``α · V[id, h // group]`` over the
     slots in float32; an empty slot adds nothing.
 
@@ -69,27 +83,63 @@ def score_prune_plain(
     scale: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 -> alpha (B, H, k) float32 and retained positions (B, H, k)
+    int32, −1 = empty, in the canonical layout."""
+    return prune_logits_plain(score_logits_plain(q, k_cache, scale), lengths, k)
+
+
+def prune_logits_plain(
+    logits: torch.Tensor,  # (B, H, S) float32
+    lengths: torch.Tensor,  # (B,) valid prefix lengths
+    k: int,  # retention slots, at most S
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 after the logits: the retention domain, its flush and the
+    canonical layout -> alpha (B, H, k) float32 and positions (B, H, k)
     int32, −1 = empty."""
-    b, h, _ = q.shape
-    s = k_cache.shape[1]
-    dev = q.device
-    pos = torch.arange(s, device=dev)
-    valid = pos[None, :] < lengths.long()[:, None]  # (B, S)
-    logits = score_logits_plain(q, k_cache, scale)
+    b, h, s = logits.shape
+    dev = logits.device
+    n = lengths.long().clamp(0, s)
+    valid = torch.arange(s, device=dev)[None, :] < n[:, None]  # (B, S)
     logits = torch.where(valid[:, None, :], logits, NEG).reshape(b * h, s)
-    valid = valid[:, None, :].expand(b, h, s).reshape(b * h, s)
-    rd_s = torch.where(valid[:, :k], logits[:, :k], NEG)
-    rd_i = torch.where(valid[:, :k], pos[None, :k].int(), -1).int()
-    for p in range(k, int(lengths.max()) if b else 0):
+    # the fill: the first k positions whose logit is > NEG take slots 0..k-1
+    eligible = logits > NEG  # False past the length, at or below NEG, and for NaN
+    rank = torch.cumsum(eligible, dim=-1) - 1
+    fill = eligible & (rank < k)
+    rows, cols = torch.nonzero(fill, as_tuple=True)
+    slot = rank[rows, cols]
+    rd_s = torch.full((b * h, k), NEG, dtype=torch.float32, device=dev)
+    rd_i = torch.full((b * h, k), -1, dtype=torch.int32, device=dev)
+    rd_s[rows, slot] = logits[rows, cols]
+    rd_i[rows, slot] = cols.int()
+    # the chain: every later position (the k-th eligible one is at p >= k-1)
+    cand = torch.where(fill, NEG, logits)
+    for p in range(k, int(n.max()) if b else 0):
         cur_id = torch.full((b * h,), p, dtype=torch.int32, device=dev)
-        rd_s, (rd_i,) = min_replace(rd_s, [(rd_i, cur_id)], logits[:, p])
+        rd_s, (rd_i,) = min_replace(rd_s, [(rd_i, cur_id)], cand[:, p])
     ok = rd_s > NEG / 2
     lg = torch.where(ok, rd_s, NEG)
     mx = lg.amax(dim=-1, keepdim=True)
     ex = torch.where(ok, torch.exp(lg - mx), 0.0)
     alpha = ex / (ex.sum(dim=-1, keepdim=True) + 1e-30)
-    ids = torch.where(ok, rd_i, -1)
+    # the canonical layout: retained positions ascending, empty slots last
+    key = torch.where(ok, rd_i.long(), s)
+    key, order = torch.sort(key, dim=-1)
+    alpha = torch.gather(alpha, 1, order)
+    ids = torch.where(key < s, key, -1)
     return alpha.reshape(b, h, k), ids.reshape(b, h, k).int()
+
+
+def tie_rows_plain(logits: torch.Tensor, lengths: torch.Tensor, k: int) -> torch.Tensor:
+    """logits (B, H, S) float32, lengths (B,) -> (B, H) int32: 1 where K1
+    takes its tie path (see the module docstring), else 0."""
+    b, h, s = logits.shape
+    n = lengths.long().clamp(0, s)
+    valid = (torch.arange(s, device=logits.device)[None, :] < n[:, None])[:, None, :]
+    kk = torch.minimum(n, torch.tensor(k, device=logits.device))[:, None].expand(b, h)
+    bad = (valid & ~(logits > NEG / 2)).any(dim=-1)  # NaN or at or below NEG/2
+    desc = torch.sort(torch.where(valid, logits, float("-inf")), dim=-1, descending=True).values
+    t = torch.gather(desc, 2, (kk - 1).clamp(min=0)[..., None])
+    at_or_above = (valid & (logits >= t)).sum(dim=-1)
+    return ((kk == 0) | bad | (at_or_above != kk)).int()
 
 
 def value_gather_plain(

@@ -204,6 +204,285 @@ def test_shared_memory_budget():
     assert tops.max_k(2, 256) >= 2048
 
 
+def test_plain_canonical_layout():
+    """``score_prune_plain`` writes the retained positions in ascending
+    order with their α alongside and the empty slots (id −1, α 0) last;
+    α sums to 1 over the retained slots."""
+    rng = np.random.default_rng(6)
+    b, h, hkv, dh, s, k = 3, 4, 2, 8, 90, 20
+    q, kc, _ = _inputs(rng, b, h, hkv, dh, s)
+    lens = np.array([90, 13, 0], np.int32)
+    alpha, ids = (t.numpy() for t in tref.score_prune_plain(
+        torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(lens), k, dh ** -0.5))
+    for bi in range(b):
+        for hi in range(h):
+            n = min(int(lens[bi]), k)
+            kept = ids[bi, hi, :n]
+            assert (np.diff(kept) > 0).all() and (kept >= 0).all() and (ids[bi, hi, n:] == -1).all()
+            assert (alpha[bi, hi, n:] == 0).all()
+            if n:
+                assert abs(alpha[bi, hi].sum() - 1) < 1e-5
+    q, kc, _, lens = _tie_inputs()
+    _, ids = tref.score_prune_plain(torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(lens), 2, 1.0)
+    assert ids[0, 0].tolist() == [1, 2]
+
+
+def test_plain_special_logits_match_pallas():
+    """NaN, -inf and a NEG-band logit among the first K positions: the TPU
+    kernel never inserts a logit at or below NEG or a NaN (they are not
+    greater than an empty slot's NEG), and drops a NEG-band one at the
+    flush; the plain version fills the domain the same way."""
+    s, dh, k = 12, 4, 4
+    q = np.array([[[1.0, 0, 0, 0], [1.0, 0, 0, 0]]], np.float32)  # (1, 2, 4), a kv-head each
+    kc = np.zeros((1, s, 2, dh), np.float32)
+    kc[0, :, 0, 0] = [1, np.nan, 3, -np.inf, -2.5e38, 2, 5, 0.5, 4, 1, 7, 6]
+    kc[0, :, 1, 0] = [-2.5e38, 1, np.nan, 2, -np.inf, 0.5, -1, 3, 0, 0, 0, 0]
+    vc = np.random.default_rng(0).normal(size=(1, s, 2, dh)).astype(np.float32)
+    lens = np.array([s], np.int32)
+    np.testing.assert_allclose(_port(q, kc, vc, lens, k, 1.0), _pallas(q, kc, vc, lens, k, 1.0), atol=ATOL, rtol=0)
+    _, ids = tref.score_prune_plain(torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(lens), k, 1.0)
+    assert ids[0, 0].tolist() == [6, 8, 10, 11]
+    assert ids[0, 1].tolist() == [1, 3, 5, 7]
+
+
+# --- the CUDA K1's two paths, emulated in numpy -----------------------------
+
+CLUSTER = 8  # blocks of a (batch, kv-head) in K1
+NEG32 = np.float32(-3.0e38)
+
+
+def _mono_key(v):
+    """The kernel's radix key: the float's bits made monotone, -0.0 as +0.0."""
+    u = np.ascontiguousarray(v, np.float32).view(np.uint32).copy()
+    u[(u & np.uint32(0x7FFFFFFF)) == 0] = 0
+    return np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000)).astype(np.uint32)
+
+
+def _block_bounds(n):
+    return [(n * r // CLUSTER, n * (r + 1) // CLUSTER) for r in range(CLUSTER)]
+
+
+def _radix_select(keys, bounds, kk):
+    """t (the kk-th largest key), the rank still sought among keys equal
+    to t, and their count: 4 passes of 8 bits, each digit found from the
+    sum of the blocks' histograms, counted from the top."""
+    prefix, rem, eq = 0, kk, 0
+    for p in range(4):
+        shift = 24 - 8 * p
+        hist = np.zeros(256, np.int64)
+        for lo, hi in bounds:
+            kb = keys[lo:hi]
+            if p:
+                kb = kb[(kb >> np.uint32(shift + 8)) == prefix]
+            hist += np.bincount((kb >> np.uint32(shift)) & 255, minlength=256)
+        before = 0
+        for d in range(255, -1, -1):
+            if before < rem <= before + hist[d]:
+                break
+            before += hist[d]
+        prefix, rem, eq = (prefix << 8) | d, rem - before, int(hist[d])
+    return np.uint32(prefix), rem, eq
+
+
+def _fast_path(v, keys, bounds, t, k):
+    """Each block's kept positions (key >= t) in order after the lower
+    ranks'; the softmax's maximum over the blocks' maxima, its sum over the
+    blocks' sums in rank order."""
+    kept = [lo + np.flatnonzero(keys[lo:hi] >= t) for lo, hi in bounds]
+    gmax = max((v[kb].max() for kb in kept if len(kb)), default=NEG32)
+    parts = [np.exp(v[kb] - gmax, dtype=np.float32).sum(dtype=np.float32) for kb in kept]
+    denom = np.float32(0)
+    for part in parts:
+        denom = np.float32(denom + part)
+    denom = np.float32(denom + np.float32(1e-30))
+    pos = np.concatenate(kept)
+    ids = np.full(k, -1, np.int64)
+    alpha = np.zeros(k, np.float32)
+    ids[: len(pos)] = pos
+    alpha[: len(pos)] = np.exp(v[pos] - gmax, dtype=np.float32) / denom
+    return alpha, ids
+
+
+def _first_min(rv):
+    """domain_first_min: the least value, the lowest slot among equals."""
+    i = int(np.argmin(rv))
+    return rv[i], i
+
+
+def _tie_path(v, n, k):
+    """One warp's tie path: a ballot fill of the empty slots by the logits
+    above NEG in position order, the chain chunk by chunk (an exact ballot
+    filter against the minimum, inserts in position order, the first
+    minimum found again after each), the flush, and a bitonic sort of the
+    domain by position into the canonical layout."""
+    rv = np.full(k, NEG32, np.float32)
+    ri = np.full(k, -1, np.int64)
+    filled, chain_from = 0, None
+    for c0 in range(0, n, 32):
+        p = np.arange(c0, min(c0 + 32, n))
+        cand = v[p]
+        fill = p[cand > NEG32]
+        room = k - filled
+        rv[filled: filled + min(room, len(fill))] = v[fill[:room]]
+        ri[filled: filled + min(room, len(fill))] = fill[:room]
+        if len(fill) < room:
+            filled += len(fill)
+        else:
+            chain_from = (c0, set(fill[room:].tolist()))
+            break
+    if chain_from is not None:
+        c0, live0 = chain_from
+        mv, mi = _first_min(rv)
+        for c in range(c0, n, 32):
+            p = np.arange(c, min(c + 32, n))
+            live = [int(j) for j in p if v[j] > mv and (c != c0 or j in live0)]
+            for j in live:
+                if v[j] > mv:
+                    rv[mi], ri[mi] = v[j], j
+                    mv, mi = _first_min(rv)
+    ok = rv > NEG32 / 2
+    mx = rv[ok].max() if ok.any() else NEG32
+    denom = np.float32(np.exp(rv[ok] - mx, dtype=np.float32).sum(dtype=np.float32) + np.float32(1e-30))
+    key = np.where(ok, ri, 0x7FFFFFFF)
+    size, m = 2, 1
+    while m < k:
+        m <<= 1
+    while size <= m:
+        stride = size >> 1
+        while stride:
+            i = np.arange(m >> 1)
+            a = (i // stride) * 2 * stride + i % stride
+            bb = a ^ (size - 1) if stride == size >> 1 else a + stride
+            sel = bb < k
+            a, bb = a[sel], bb[sel]
+            swap = key[bb] < key[a]
+            a, bb = a[swap], bb[swap]
+            key[a], key[bb] = key[bb], key[a].copy()
+            rv[a], rv[bb] = rv[bb], rv[a].copy()
+            stride >>= 1
+        size <<= 1
+    keep = key != 0x7FFFFFFF
+    alpha = np.where(keep, np.exp(rv - mx, dtype=np.float32) / denom, np.float32(0))
+    return alpha.astype(np.float32), np.where(keep, key, -1)
+
+
+def _emulated_k1(logits, lens, k):
+    """The CUDA K1 after its logits, per (batch, q-head): the radix select
+    over the cluster's blocks, the fast-path test, then the fast path or
+    the tie path. Returns alpha, ids and which rows took the tie path."""
+    b, h, s = logits.shape
+    alpha = np.zeros((b, h, k), np.float32)
+    ids = np.full((b, h, k), -1, np.int64)
+    tie = np.zeros((b, h), np.int64)
+    for bi in range(b):
+        n = int(min(max(lens[bi], 0), s))
+        kk = min(k, n)
+        bounds = _block_bounds(n)
+        for hi in range(h):
+            v = logits[bi, hi, :n]
+            fast = False
+            if n:
+                keys = _mono_key(v)
+                t, rem, eq = _radix_select(keys, bounds, kk)
+                bad = bool((~(v > NEG32 / 2)).any())
+                fast = not bad and eq == rem
+            if fast:
+                alpha[bi, hi], ids[bi, hi] = _fast_path(v, keys, bounds, t, k)
+            else:
+                tie[bi, hi] = 1
+                alpha[bi, hi], ids[bi, hi] = _tie_path(logits[bi, hi], n, k)
+    return alpha, ids, tie
+
+
+def _logit_case(case):
+    """(logits (B, H, S) float32, lengths, k) for the emulation tests."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    if case == "gaussian":
+        return rng.normal(size=(2, 3, 300)).astype(np.float32), [300, 170], 64
+    if case == "integers":  # ties at the K-th everywhere
+        return rng.integers(-3, 4, size=(2, 3, 300)).astype(np.float32), [300, 211], 64
+    if case == "all_equal":
+        return np.full((1, 2, 200), 1.5, np.float32), [200], 50
+    if case == "signed_zeros":
+        lg = -rng.random((1, 4, 64)).astype(np.float32) - 1
+        lg[0, :, [3, 9, 20, 31, 40]] = [[10.0], [11.0], [12.0], [13.0], [14.0]]
+        lg[0, 0, [5, 7, 50, 60]] = [-0.0, 0.0, -0.0, 0.0]  # zeros straddle slot 8: tie path
+        lg[0, 1, [5, 7, 50]] = [-0.0, 0.0, 0.0]  # exactly 8 >= t = 0: fast path, -0.0 kept
+        lg[0, 2, [5, 7, 50]] = [-0.0, -0.0, -0.0]
+        # the chain keeps -0.0 at 0 and +0.0 at 1 over +0.0 at 50: -0.0 must
+        # tie +0.0 in the key, or the fast path would keep 50 instead of 0
+        lg[0, 3, [0, 1, 45, 50]] = [-0.0, 0.0, 15.0, 0.0]
+        return lg, [64], 8
+    if case == "special":  # NaN, -inf and the NEG band, early and late
+        lg = rng.normal(size=(1, 4, 120)).astype(np.float32)
+        lg[0, 0, [2, 90]] = np.nan
+        lg[0, 1, [1, 100]] = -np.inf
+        lg[0, 2, [4, 70]] = -2.5e38
+        lg[0, 3, [0, 5]] = [NEG32, -3.4e38]
+        return lg, [120], 16
+    if case == "lengths":  # length 0, below K, equal to K, above K
+        return rng.normal(size=(4, 2, 100)).astype(np.float32), [0, 30, 64, 100], 64
+    if case == "wide_gaussian":  # gemma3-4b's K on its cache width
+        return rng.normal(size=(1, 2, 3104)).astype(np.float32) * 3, [3073], 2048
+    lg = rng.integers(-4, 5, size=(1, 2, 3104)).astype(np.float32)  # wide_integers
+    return lg, [3104], 2048
+
+
+@pytest.mark.parametrize(
+    "case",
+    ("gaussian", "integers", "all_equal", "signed_zeros", "special", "lengths", "wide_gaussian",
+     "wide_integers"),
+)
+def test_kernel_two_paths_emulation_matches_plain(case):
+    """The CUDA K1's selection (csrc/topk_decode_attention.cu), emulated in
+    numpy step for step, equals ``score_prune_plain`` (the chain, itself
+    held to ``topk_decode_attention_pallas`` above): ids slot for slot, α
+    within 1e-6, on whichever path each row takes; the rows it sends down
+    the tie path are ``tie_rows_plain``'s; and the tie path alone gives
+    the same result on the fast rows too, so the fast path's set is the
+    chain's set there."""
+    lg, lens, k = _logit_case(case)
+    lens = np.asarray(lens, np.int32)
+    a_p, i_p = (t.numpy() for t in tref.prune_logits_plain(torch.from_numpy(lg), torch.from_numpy(lens), k))
+    alpha, ids, tie = _emulated_k1(lg, lens, k)
+    np.testing.assert_array_equal(ids, i_p)
+    np.testing.assert_allclose(alpha, a_p, atol=1e-6, rtol=0)
+    want_tie = tref.tie_rows_plain(torch.from_numpy(lg), torch.from_numpy(lens), k).numpy()
+    np.testing.assert_array_equal(tie, want_tie)
+    for bi in range(lg.shape[0]):
+        for hi in range(lg.shape[1]):
+            if not tie[bi, hi]:
+                a_t, i_t = _tie_path(lg[bi, hi], int(lens[bi]), k)
+                np.testing.assert_array_equal(i_t, i_p[bi, hi])
+                np.testing.assert_allclose(a_t, a_p[bi, hi], atol=1e-6, rtol=0)
+    expect = {"gaussian": 0, "wide_gaussian": 0, "all_equal": 2, "wide_integers": 2}
+    if case in expect:
+        assert int(tie.sum()) == expect[case]
+    if case == "integers":
+        assert 0 < int(tie.sum()) < tie.size
+    if case == "signed_zeros":
+        assert tie[0].tolist() == [1, 0, 0, 1]
+    if case == "special":
+        assert tie[0].tolist() == [1, 1, 1, 1]
+    if case == "lengths":  # only the empty row takes the tie path
+        assert tie[:, 0].tolist() == [1, 0, 0, 0]
+
+
+def test_wrapper_returns_tie_rows_on_request():
+    """``score_prune(..., tie_rows=True)`` also returns the (B, H) tie
+    rows; without it the result is the pair alone. CPU tensors count no
+    launch."""
+    q, kc, _, lens = _tie_inputs()
+    args = (torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(lens), 2, 1.0)
+    before = dict(tops.LAUNCHES)
+    alpha, ids = tops.score_prune(*args)
+    a2, i2, tie = tops.score_prune(*args, tie_rows=True)
+    assert torch.equal(alpha, a2) and torch.equal(ids, i2)
+    assert tie.dtype == torch.int32 and tie.tolist() == [[1]]  # k 2: three logits tie at t = 1
+    assert tops.score_prune(*args[:3], 1, 1.0, tie_rows=True)[2].tolist() == [[0]]  # k 1: t = 2 alone
+    assert tops.LAUNCHES == before
+
+
 @pytest.fixture()
 def cuda_device():
     if not torch.cuda.is_available():
@@ -267,3 +546,26 @@ def test_cuda_domain_too_wide_raises_before_launch(cuda_device):
     with pytest.raises(ValueError, match="shared"):
         tops.score_prune(q, kc, lens, k, dh ** -0.5)
     assert tops.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ("gaussian", "integers", "all_equal", "special", "lengths", "wide_integers"))
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_cuda_k1_two_paths_match_plain(cuda_device, case, dtype):
+    """K1 on the emulation's logits (a kv-head per q-head, q = e_0, keys
+    (x, 0, 0, 0), scale 1, so the logits are x): ids slot for slot, α
+    within 1e-6, and the tie rows ``tie_rows_plain``'s."""
+    x, lens, k = _logit_case(case)
+    b, h, s = x.shape
+    dt = getattr(torch, dtype)
+    q = torch.zeros((b, h, 4))
+    q[..., 0] = 1.0
+    kc = torch.zeros((b, s, h, 4))
+    kc[..., 0] = torch.from_numpy(x).permute(0, 2, 1)
+    q, kc = q.to(cuda_device, dt), kc.to(cuda_device, dt)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    a_k, i_k, tie = tops.score_prune(q, kc, lens, k, 1.0, tie_rows=True)
+    a_p, i_p = tref.score_prune_plain(q, kc, lens, k, 1.0)
+    assert torch.equal(i_k, i_p)
+    torch.testing.assert_close(a_k, a_p, atol=1e-6, rtol=0)
+    assert torch.equal(tie, tref.tie_rows_plain(tref.score_logits_plain(q, kc, 1.0), lens, k))

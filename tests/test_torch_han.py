@@ -22,7 +22,7 @@ from repro_torch.core import pipeline as tpipe  # noqa: E402
 from repro_torch.core.flows import FlowConfig  # noqa: E402
 
 SCALE = 0.05
-DATASETS = ("acm", "dblp")
+DATASETS = ("acm", "dblp", "imdb")
 FLOWS = (("staged", None), ("staged_pruned", 4), ("fused_kernel", 4), ("fused_kernel", 8))
 
 
@@ -71,6 +71,29 @@ def test_han_logits_match_reference(port_tasks, ref_tasks, ds, flow, k):
     want = np.asarray(jt.model.apply(jt.params, jt.batch, JFlowConfig(flow, prune_k=k)))
     got = tt.compile(FlowConfig(flow, prune_k=k))(params).numpy()
     assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+# prune_k 1, 2, 16 and 300 (past the default max_degree 256) and
+# max_degree 16, which the cases above do not reach: (dataset, max_degree,
+# prune_k)
+HAN_COVERAGE = (("acm", 256, 1), ("dblp", 256, 2), ("acm", 256, 300), ("acm", 16, 16), ("imdb", 16, 2))
+
+
+@pytest.mark.parametrize("ds,max_degree,k", HAN_COVERAGE)
+def test_han_coverage_matches_reference(ds, max_degree, k):
+    pytest.importorskip("jax")
+    import jax
+    from repro.core import pipeline as jpipe
+    from repro.core.flows import FlowConfig as JFlowConfig
+
+    jt = jpipe.prepare("han", ds, scale=SCALE, seed=0, max_degree=max_degree)
+    tt = tpipe.prepare("han", ds, scale=SCALE, seed=0, device="cpu", max_degree=max_degree)
+    params = params_from_reference(
+        jax.tree_util.tree_map(np.asarray, jt.params), device="cpu", model=tt.model
+    )
+    want = np.asarray(jt.model.apply(jt.params, jt.batch, JFlowConfig("fused_kernel", prune_k=k)))
+    got = tt.compile(FlowConfig("fused_kernel", prune_k=k))(params).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 

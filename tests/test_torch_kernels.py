@@ -283,6 +283,137 @@ def test_wrapper_cpu_only_and_uncounted():
         )
 
 
+# --- the CUDA grouped K1's register domain, emulated in numpy --------------
+
+# (caps, prune_k, k_s the layout gets): pruned and bypass buckets; k_s 8 by a
+# bypass bucket's w-aligned capacity, so the pruned rows park slots 7 and 8
+# at POS; k_s 33 and 256 past a warp's width
+KS_CASES = {
+    1: ((4, 8, 16), 1),
+    8: ((5, 13), 7),
+    32: ((8, 32, 64), 32),
+    33: ((8, 16, 64), 33),
+    256: ((8, 64, 400), 256),
+}
+
+
+def _ks_graph(rng, k_s):
+    """A heavy-tailed random bucketed graph for ``KS_CASES[k_s]``: (graph,
+    prune_k, N); k_s 256 needs rows of degree above 256."""
+    caps, k = KS_CASES[k_s]
+    t, n, edges = (20, 600, 4000) if k_s == 256 else (30, 50, 600)
+    src, dst, ety = _edges(rng, t, n, num_etypes=3, edges=edges)
+    return _bucketed(thg, src, dst, ety, t, max(caps) + 8, caps, num_etypes=3), k, n
+
+
+def _order_key(v):
+    u = np.ascontiguousarray(v, np.float32).view(np.uint32).copy()
+    u[(u & np.uint32(0x7FFFFFFF)) == 0] = 0
+    return np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000)).astype(np.uint32)
+
+
+def _reg_first_min(rk, k_s):
+    """reg_first_min: lane l holds slots l, l+32, ...; each lane's least key
+    (its lowest slot among equals), then __reduce_min_sync over the lanes
+    on the key, then on the slot among lanes holding that key."""
+    key = _order_key(rk)
+    lk, ls = [], []
+    for lane in range(32):
+        slots = np.arange(lane, k_s, 32)
+        if len(slots):
+            j = int(np.argmin(key[slots]))
+            lk.append(int(key[slots[j]]))
+            ls.append(int(slots[j]))
+        else:
+            lk.append(0xFFFFFFFF)
+            ls.append(256)
+    mk = min(lk)
+    mi = min(sl for kl, sl in zip(lk, ls) if kl == mk)
+    return rk[mi], mi
+
+
+def _grouped_k1_emulation(nbr, msk, ety, ts, tr, blk, k_s):
+    """The CUDA grouped K1 for every grouped row, step for step: the
+    register domain (slots >= k_eff parked at POS), the rank as its
+    left-to-right head sum, the bypass copy, the exact ballot filter per
+    D-tile with the first minimum found again only after an insert.
+    Returns the domain's ranks, ids and edge types."""
+    f32 = np.float32
+    _, t_tile, w = nbr.shape
+    n_blocks = blk.shape[1]
+    h = ts.shape[1]
+    rows = n_blocks * t_tile
+    rd_rank = np.zeros((rows, k_s), f32)
+    rd_id = np.full((rows, k_s), -1, np.int64)
+    rd_ety = np.zeros((rows, k_s), np.int64)
+    for b in range(n_blocks):
+        first, n_dt, bypass, k_eff = (int(x) for x in blk[:, b])
+        for y in range(t_tile):
+            rk = np.where(np.arange(k_s) < k_eff, f32(tcommon.NEG), f32(tcommon.POS)).astype(f32)
+            rid = np.full(k_s, -1, np.int64)
+            rety = np.zeros(k_s, np.int64)
+            mv, mi = _reg_first_min(rk, k_s)
+            for dt in range(n_dt):
+                step = first + dt
+                valid = msk[step, y]
+                cid = np.where(valid, nbr[step, y], -1)
+                ce = np.where(valid, ety[step, y], 0) if tr is not None else np.zeros(w, np.int64)
+                cr = np.full(w, f32(tcommon.NEG), f32)
+                for j in np.flatnonzero(valid):
+                    r = f32(0)
+                    for hh in range(h):
+                        t = ts[cid[j], hh] if tr is None else f32(ts[cid[j], hh] + tr[ce[j], hh])
+                        r = t if hh == 0 else f32(r + t)
+                    cr[j] = r
+                if bypass:
+                    rk[dt * w: dt * w + w] = cr
+                    rid[dt * w: dt * w + w] = cid
+                    rety[dt * w: dt * w + w] = ce
+                    continue
+                live = [j for j in range(w) if cr[j] > mv]
+                while live:
+                    j = live.pop(0)
+                    if cr[j] > mv:
+                        rk[mi], rid[mi], rety[mi] = cr[j], cid[j], ce[j]
+                        mv, mi = _reg_first_min(rk, k_s)
+                        live = [i for i in live if cr[i] > mv]
+            rd_rank[b * t_tile + y], rd_id[b * t_tile + y], rd_ety[b * t_tile + y] = rk, rid, rety
+    return rd_rank, rd_id, rd_ety
+
+
+@pytest.mark.parametrize("k_s", sorted(KS_CASES))
+def test_grouped_register_domain_emulation_matches_plain(k_s):
+    """The grouped K1's register domain and ballot filter
+    (csrc/fused_prune_aggregate.cu), emulated in numpy, keep the ids of
+    ``prune_plain`` slot for slot, α within 1e-6, on tie-heavy ranks (small
+    integers, with a relation term) at k_s 1, 8, 32, 33 and 256, on a mix
+    of pruned and bypass buckets with slots parked at POS."""
+    rng = np.random.default_rng(k_s)
+    sg, k, n = _ks_graph(rng, k_s)
+    h = 4
+    ts = rng.integers(-1, 2, size=(n, h)).astype(np.float32)
+    tr = rng.integers(-1, 2, size=(3, h)).astype(np.float32)
+    td = _normal(rng, sg.num_targets, h)
+    layout = sg.grouped(tops.T_TILE, tops.W_TILE)
+    (nbr, msk, ety, rt, _), (blk, got_ks) = tops._layout_device(layout, k, torch.device("cpu"))
+    assert got_ks == k_s
+    bypass = blk[2].numpy()
+    assert bypass.any() == (k_s > 2) and not bypass.all()
+    args = (nbr, msk, ety, torch.from_numpy(ts), torch.from_numpy(tr), torch.from_numpy(td), rt, blk)
+    a_p, i_p = tref.prune_plain(*args, k_s, 0.2)
+    rd_rank, rd_id, rd_ety = _grouped_k1_emulation(
+        nbr.numpy(), msk.numpy(), ety.numpy(), ts, tr, blk.numpy(), k_s
+    )
+    k_row = blk[3].long().repeat_interleave(tops.T_TILE)
+    ok = torch.from_numpy(rd_rank > tcommon.NEG / 2) & (torch.arange(k_s)[None, :] < k_row[:, None])
+    a_e, i_e = tref._flush(
+        ok, torch.from_numpy(rd_id), torch.from_numpy(rd_ety), torch.from_numpy(ts),
+        torch.from_numpy(tr), torch.from_numpy(td)[rt.long()], 0.2,
+    )
+    assert torch.equal(i_e, i_p)
+    torch.testing.assert_close(a_e, a_p, atol=1e-6, rtol=0)
+
+
 FLAT_SWEEP = ((11, 70, 8, 8, 200, 5), (8, 128, 8, 8, 64, 50), (5, 33, 4, 16, 40, 33), (2, 7, 2, 4, 10, 3))
 
 
@@ -460,6 +591,26 @@ def test_cuda_kernels_match_plain(cuda_device, caps, k):
         tops.aggregate(a_p, i_p, hp, blk), tref.aggregate_plain(a_p, i_p, hp, blk),
         atol=1e-5, rtol=0,
     )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_s", (1, 8, 32, 33, 256))
+def test_cuda_register_domain_matches_plain(cuda_device, k_s):
+    """The grouped K1 at the widths of its register domain, on tie-heavy
+    ranks with a relation term, pruned and bypass buckets."""
+    rng = np.random.default_rng(k_s)
+    sg, k, n = _ks_graph(rng, k_s)
+    h = 4
+    layout = sg.grouped(tops.T_TILE, tops.W_TILE)
+    (nbr, msk, ety, rt, _), (blk, got_ks) = tops._layout_device(layout, k, cuda_device)
+    assert got_ks == k_s
+    ts = torch.from_numpy(rng.integers(-1, 2, size=(n, h)).astype(np.float32)).to(cuda_device)
+    tr = torch.from_numpy(rng.integers(-1, 2, size=(3, h)).astype(np.float32)).to(cuda_device)
+    td = torch.from_numpy(_normal(rng, sg.num_targets, h)).to(cuda_device)
+    a_k, i_k = tops.prune(nbr, msk, ety, ts, tr, td, rt, blk, k_s)
+    a_p, i_p = tref.prune_plain(nbr, msk, ety, ts, tr, td, rt, blk, k_s, 0.2)
+    assert torch.equal(i_k, i_p)
+    torch.testing.assert_close(a_k, a_p, atol=1e-6, rtol=0)
 
 
 @pytest.mark.cuda

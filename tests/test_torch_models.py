@@ -77,10 +77,10 @@ def tasks():
 
     cache = {}
 
-    def get(model, ds, flat):
-        key = (model, ds, flat)
+    def get(model, ds, flat, **prep):
+        key = (model, ds, flat, tuple(sorted(prep.items())))
         if key not in cache:
-            kw = {"bucket_sizes": None} if flat else {}
+            kw = dict(prep, bucket_sizes=None) if flat else dict(prep)
             jt = jpipe.prepare(model, ds, scale=SCALE, seed=0, **kw)
             tt = tpipe.prepare(model, ds, scale=SCALE, seed=0, device="cpu", **kw)
             params = params_from_reference(
@@ -100,10 +100,10 @@ def reference():
 
     cache = {}
 
-    def get(tasks, model, ds, flow, k, flat):
-        key = (model, ds, flow, k, flat)
+    def get(tasks, model, ds, flow, k, flat, **prep):
+        key = (model, ds, flow, k, flat, tuple(sorted(prep.items())))
         if key not in cache:
-            jt, _, _ = tasks(model, ds, flat)
+            jt, _, _ = tasks(model, ds, flat, **prep)
             cache[key] = np.asarray(jt.model.apply(jt.params, jt.batch, JFlowConfig(flow, prune_k=k)))
         return cache[key]
 
@@ -123,6 +123,40 @@ def test_logits_match_reference(tasks, reference, model, ds, flow, k, route):
     n_buckets = 0 if flat else sum(len(sg.buckets) for sg in tt.sgs)
     layers = tt.model.num_layers
     assert tflows.DISPATCH["bucket_calls"] - before == (layers * n_buckets if route == "loop" else 0)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+# Configurations the cases above do not reach: prune_k 1, 2, 16 and 300
+# (past the default max_degree 256: every bucket takes the §4.3 bypass),
+# max_degree 16 and None, bucket_sizes (2, 8, 32), and a flat Simple-HGN
+# with max_degree 16; (model, dataset, prepare options, flow, prune_k, route)
+COVERAGE = (
+    ("rgat", "acm", (), "fused_kernel", 1, "single"),
+    ("rgat", "acm", (), "fused_kernel", 2, "loop"),
+    ("rgat", "acm", (), "fused_kernel", 16, "single"),
+    ("rgat", "acm", (), "fused_kernel", 300, "single"),
+    ("rgat", "acm", (), "staged_pruned", 16, "single"),
+    ("simple_hgn", "imdb", (), "fused_kernel", 1, "flat"),
+    ("simple_hgn", "imdb", (), "fused_kernel", 300, "loop"),
+    ("rgat", "acm", (("max_degree", None),), "fused_kernel", 8, "single"),
+    ("rgat", "acm", (("max_degree", None),), "fused_kernel", 8, "loop"),
+    ("rgat", "imdb", (("max_degree", 16),), "fused_kernel", 16, "single"),
+    ("simple_hgn", "imdb", (("bucket_sizes", (2, 8, 32)),), "fused_kernel", 4, "single"),
+    ("simple_hgn", "imdb", (("bucket_sizes", (2, 8, 32)),), "fused", 4, "single"),
+    ("simple_hgn", "acm", (("max_degree", 16),), "fused_kernel", 4, "flat"),
+    ("simple_hgn", "acm", (("max_degree", 16),), "fused_kernel", None, "flat"),
+)
+
+
+@pytest.mark.parametrize("model,ds,prep,flow,k,route", COVERAGE)
+def test_coverage_logits_match_reference(tasks, reference, model, ds, prep, flow, k, route):
+    flat = route == "flat"
+    prep = dict(prep)
+    _, tt, params = tasks(model, ds, flat, **prep)
+    want = reference(tasks, model, ds, flow, k, flat, **prep)
+    cfg = FlowConfig(flow, prune_k=k, bucket_dispatch="loop" if route == "loop" else "single")
+    got = tt.compile(cfg)(params).numpy()
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 

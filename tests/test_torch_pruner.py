@@ -546,12 +546,14 @@ def cuda_device():
 @pytest.mark.parametrize(
     "case",
     ("sweep", "ties", "k_above_d", "masked_rows", "special", "wide", "k33", "k1000", "k2047", "k2049",
-     "k4096", "wide_ties", "all_equal"),
+     "k4096", "k8000", "k16000", "k29056", "wide_ties", "all_equal"),
 )
 def test_cuda_kernel_matches_plain(cuda_device, case):
     rng = np.random.default_rng(7)
+    # k 8000, 16000 and 29056 (``max_k()``): 8, 16 and 32 groups of 32 slots a lane
     wide_k = {"k33": (33, 3104), "k1000": (1000, 4000), "k2047": (2047, 3104), "k2049": (2049, 5000),
-              "k4096": (4096, 6000)}
+              "k4096": (4096, 6000), "k8000": (8000, 9000), "k16000": (16000, 17000),
+              "k29056": (29056, 30000)}
     if case == "sweep":
         (s, m), k = _normal(rng, 2048, 512, 0.8), 50
     elif case == "ties":
