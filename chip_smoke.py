@@ -18,11 +18,15 @@ exits non-zero at the first phase that fails:
    unaligned capacities, one bucket, all-bypass, no pruning, a relation
    term, an empty bucket, an empty graph), a score tie, the real DBLP and
    ACM layouts, and the widths of the grouped K1's register domain (k_s 1,
-   2, 16, 32, 33 and 256 on tie-heavy integer ranks, pruned and bypass
-   buckets); the flat pair on the reference's sweep shapes (random
-   masks with holes), a relation term, k = D, an empty row, a score tie and
-   the real ACM ``union:paper`` table; a domain wider than 256 raises
-   before any launch; the top-K decode attention pair on the reference's
+   2, 16, 32, 33 and 256) and of its shared-memory domain (k_s 257, 300,
+   528 and ``MAX_KS``, the budget of one warp's domain) on tie-heavy
+   integer ranks, pruned and bypass buckets; the flat pair on the
+   reference's sweep shapes (random masks with holes), a relation term,
+   k = D, an empty row, a score tie, the real ACM ``union:paper`` table and
+   tie-heavy tables at k 257, 300, 528 and ``MAX_KS``; a flat domain of 257
+   slots runs and equals its plain version, and a domain one past
+   ``MAX_KS`` (flat and grouped) raises before any launch; the top-K
+   decode attention pair on the reference's
    sweep shapes, k >= length (equal to the dense attention), per-row
    lengths with one below K, the logits [1, 1, 2, 1] tie at k = 2 (keeps
    positions {1, 2}), gemma3-4b's decode shapes in float32 and bfloat16,
@@ -55,7 +59,11 @@ exits non-zero at the first phase that fails:
    within 1e-4 of the same route's forward on the CPU (plain versions; the
    projection sums in another order) and of the other routes, and
    ``session.query`` blocks at capacities 1, 8, 64 bit-identical to the
-   full forward's rows. Then gemma3-4b LM serving at full width and depth
+   full forward's rows. Then the wide path: HAN on ACM at
+   ``max_degree=None`` (metapath PSP 527 wide) on the three routes at
+   ``prune_k=None`` and 300, with the same checks; every route must run a
+   K1 domain wider than 256 (the shared-memory domain). Then gemma3-4b LM
+   serving at full width and depth
    as published (bfloat16 activations, float32 seeded weights,
    ``attn_prune_k=2048``): ``prefill`` of (4, 3072) tokens (no kernel #4
    launch) and 32 greedy ``decode_step``s, the counters set to 0 before
@@ -83,7 +91,9 @@ exits non-zero at the first phase that fails:
    of back-to-back calls, which also holds the host's launch cost when the
    kernel is shorter than that; the plain versions with CUDA events. The
    grouped pair at the DBLP APA shapes, the flat pair at the ACM
-   ``union:paper`` shapes of Simple-HGN's first layer, the decode pair at
+   ``union:paper`` shapes of Simple-HGN's first layer, both K1s on the
+   wide path (HAN ACM PSP at ``prune_k=None``: flat k 527, grouped k_s
+   528), the decode pair at
    the inputs of gemma3-4b's last global layer in the first decode step;
    then every forward, with a profiler breakdown of the ACM forwards; then
    the LM's prefill, its decode step (median of the main path's steps
@@ -117,9 +127,15 @@ ROUTES = ("bucketed", "loop", "flat")
 FLAT_SWEEP = ((11, 70, 8, 8, 200, 5), (8, 128, 8, 8, 64, 50), (5, 33, 4, 16, 40, 33), (2, 7, 2, 4, 10, 3))
 REPORT = ROOT / "build" / "chip_smoke.json"  # the full report, beside the built kernels
 DECODE_SWEEP = ((2, 8, 2, 16, 200, 12), (3, 4, 4, 8, 128, 5), (1, 16, 4, 32, 300, 50))
-# the grouped K1's register domain: (k_s, bucket capacities, prune_k)
-KS_CASES = ((1, (4, 8, 16), 1), (2, (4, 8, 16), 2), (16, (4, 8, 16, 64), 16), (32, (8, 32, 64), 32),
-            (33, (8, 16, 64), 33), (256, (8, 64, 400), 256))
+# the grouped K1's register domain and, past 256, its shared-memory domain:
+# (k_s, bucket capacities, prune_k, targets, sources, edges); the budget
+# case (k_s = MAX_KS) is added in kernel_cases
+KS_CASES = ((1, (4, 8, 16), 1, 30, 50, 600), (2, (4, 8, 16), 2, 30, 50, 600),
+            (16, (4, 8, 16, 64), 16, 30, 50, 600), (32, (8, 32, 64), 32, 30, 50, 600),
+            (33, (8, 16, 64), 33, 30, 50, 600), (256, (8, 64, 400), 256, 20, 600, 4000),
+            (257, (8, 64, 400), 257, 40, 600, 6000), (300, (8, 64, 400), 300, 40, 600, 6000),
+            (528, (8, 300, 600), 528, 20, 600, 6000))
+WIDE_PRUNE_K = (None, 300)  # the wide path: HAN ACM at max_degree=None
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "gemma3-4b", 4, 3072, 32
 # the Pruner (kernel #3) in phase 2: the shapes of the reference's kernel
 # tests (tests/test_kernels.py:15-83), and a row of special values (-NaN at
@@ -162,19 +178,31 @@ def reset_launches(ops) -> None:
         ops.LAUNCHES[key] = 0
 
 
-def expected_launches(sgs, route: str, prune_k: int, layers: int, ops) -> dict:
-    """Kernel launches of one forward, derived from the semantic graphs:
-    per layer and graph, the grouped pair once when its layout has grid
-    steps (bucketed route), the flat pair once per non-empty bucket wider
-    than K (loop route), or once per table wider than K (flat route)."""
-    n = 0
+def k1_widths(sgs, route: str, prune_k, ops) -> list:
+    """The retention-domain width of each K1 launch of one NA layer,
+    derived from the semantic graphs: per graph, the grouped K1 once when
+    its layout has grid steps (bucketed route), the flat K1 once per
+    non-empty bucket wider than K (loop route), or once per table wider
+    than K (flat route); every table is wider than no K
+    (``prune_k=None``)."""
+    widths = []
     for sg in sgs:
         if route == "bucketed":
-            n += sg.grouped(ops.T_TILE, ops.W_TILE).num_steps > 0
+            layout = sg.grouped(ops.T_TILE, ops.W_TILE)
+            if layout.num_steps > 0:
+                widths.append(ops.grouped_meta(layout, prune_k)[2])
         elif route == "loop":
-            n += sum(b.num_targets > 0 and b.capacity > prune_k for b in sg.buckets)
-        else:
-            n += sg.num_targets > 0 and sg.nbr_idx.shape[1] > prune_k
+            widths += [b.capacity if prune_k is None else prune_k for b in sg.buckets
+                       if b.num_targets > 0 and (prune_k is None or b.capacity > prune_k)]
+        elif sg.num_targets > 0 and (prune_k is None or sg.nbr_idx.shape[1] > prune_k):
+            widths.append(sg.nbr_idx.shape[1] if prune_k is None else prune_k)
+    return widths
+
+
+def expected_launches(sgs, route: str, prune_k, layers: int, ops) -> dict:
+    """Kernel launches of one forward: per layer, the route's pair once per
+    K1 launch ``k1_widths`` derives from the semantic graphs."""
+    n = len(k1_widths(sgs, route, prune_k, ops))
     keys = ("prune", "aggregate") if route == "bucketed" else ("flat_prune", "flat_aggregate")
     out = {key: 0 for key in ops.LAUNCHES}
     for key in keys:
@@ -214,6 +242,8 @@ def kernel_cases(hetgraph, tasks):
     """(name, graph, prune_k, N, H, dh, num_rel_types) for phase 2."""
     import numpy as np
 
+    from repro_torch.kernels.fused_prune_aggregate import ops
+
     rng = np.random.default_rng(0)
     cases = []
     for caps, k in (((4, 8, 16), 6), ((5, 13), 7), ((64,), 6), ((4, 8), 100), ((4, 8, 16), None)):
@@ -228,13 +258,15 @@ def kernel_cases(hetgraph, tasks):
     z = [np.zeros((5, 1), np.int32), np.zeros((5, 1), bool), np.zeros((5, 1), np.int32)]
     cases.append(("zero-edge graph", hetgraph.bucketize("z", ("x",), "x", *z, (2,)), 3, 30, 4, 8, 0))
     cases.append(("no buckets", hetgraph.BucketedSemanticGraph("none", ("x",), "x", 5, ()), 3, 30, 4, 8, 0))
-    # the grouped K1's register domain at its widths: one slot a lane up to
-    # k_s 32, two past it, eight at 256; pruned and bypass buckets, tie-heavy
-    # integer ranks and a relation term
-    for k_s, caps, k in KS_CASES:
-        t, n, edges = (20, 600, 4000) if k_s == 256 else (30, 50, 600)
+    # the grouped K1's domain at its widths: in registers one slot a lane up
+    # to k_s 32, two past it, eight at 256; in shared memory past 256, up to
+    # the budget; pruned and bypass buckets, tie-heavy integer ranks and a
+    # relation term
+    budget = (ops.MAX_KS, (8, 64, ops.MAX_KS + 15), ops.MAX_KS, 4, 30000, 40000)
+    for k_s, caps, k, t, n, edges in KS_CASES + (budget,):
         sg = random_bucketed(hetgraph, rng, t, max(caps) + 8, n, caps, num_etypes=3, edges=edges)
-        cases.append((f"register domain k_s={k_s} caps={caps} k={k}", sg, k, n, 4, 8, 3))
+        kind = "register" if k_s <= 256 else "shared-memory"
+        cases.append((f"{kind} domain k_s={k_s} caps={caps} k={k}", sg, k, n, 4, 8, 3))
     for ds, task in tasks.items():
         n = task.batch.total_nodes
         for sg in task.sgs:
@@ -254,7 +286,8 @@ def check_kernels(cases, dev):
     for name, sg, k, n, h, dh, n_rel in cases:
         hp = torch.randn((n, h, dh), generator=gen).to(dev)
         ts = torch.randn((n, h), generator=gen).to(dev)
-        if name.startswith("register domain"):  # small integers: ranks tie everywhere
+        domain_case = name.startswith(("register domain", "shared-memory domain"))
+        if domain_case:  # small integers: ranks tie everywhere
             ts = torch.randint(-1, 2, (n, h), generator=gen).float().to(dev)
         td = torch.randn((sg.num_targets, h), generator=gen).to(dev)
         tr = torch.randn((n_rel, h), generator=gen).to(dev) if n_rel else None
@@ -267,7 +300,7 @@ def check_kernels(cases, dev):
             print(f"  kernels == plain  {name}: no grid steps, zeros, no launch")
             continue
         (nbr, msk, ety, rt, perm), (blk, k_s) = ops._layout_device(layout, k, dev)
-        if name.startswith("register domain"):
+        if domain_case:
             check(f"k_s={k_s} " in name, f"{name}: the layout gives k_s {k_s}")
         ety = ety if tr is not None else None
         a_k, i_k = ops.prune(nbr, msk, ety, ts, tr, td, rt, blk, k_s)
@@ -317,8 +350,11 @@ def check_tie(hetgraph, dev):
 
 def flat_cases(acm_paper_sg, n_acm):
     """(name, nbr, msk, ety, N, H, dh, num_rel_types, k) for the flat pair
-    in phase 2: numpy tables."""
+    in phase 2: numpy tables. Cases named "tie-heavy" rank on small
+    integers."""
     import numpy as np
+
+    from repro_torch.kernels.fused_prune_aggregate import ops
 
     rng = np.random.default_rng(1)
 
@@ -336,6 +372,9 @@ def flat_cases(acm_paper_sg, n_acm):
     idx, msk, _ = table(9, 20, 30, 0.85)
     msk[3] = False
     cases.append(("empty row", idx, msk, None, 30, 4, 8, 0, 6))
+    # the shared-memory domain past 256 slots, up to the budget
+    for t, d, n, k in ((5, 300, 60, 257), (5, 340, 60, 300), (4, 600, 80, 528), (2, ops.MAX_KS + 3000, 30000, ops.MAX_KS)):
+        cases.append((f"tie-heavy wide t={t} d={d} k={k}", *table(t, d, n, 0.9, r=3), n, 4, 8, 3, k))
     sg = acm_paper_sg
     for k in (PRUNE_K, None):
         cases.append((
@@ -359,6 +398,9 @@ def check_flat_kernels(cases, dev):
         ts = torch.randn((n, h), generator=gen).to(dev)
         td = torch.randn((t, h), generator=gen).to(dev)
         tr = torch.randn((n_rel, h), generator=gen).to(dev) if n_rel else None
+        if name.startswith("tie-heavy"):  # small integers: ranks tie everywhere
+            ts = torch.randint(-1, 2, (n, h), generator=gen).float().to(dev)
+            tr = torch.randint(-1, 2, (n_rel, h), generator=gen).float().to(dev)
         nbr = torch.from_numpy(idx).to(dev)
         mk = torch.from_numpy(msk).to(dev)
         et = torch.from_numpy(ety).to(dev) if n_rel else None
@@ -387,7 +429,9 @@ def check_flat_kernels(cases, dev):
 
 def check_flat_tie_and_width(dev):
     """Scores [1, 1, 2] at k = 2 in one flat row: the kernel keeps {b, c}
-    (ids [c, b]); a domain wider than 256 raises before any launch."""
+    (ids [c, b]); a flat domain of 257 slots (past the registers) runs and
+    equals its plain version; a domain one past ``MAX_KS`` raises before any
+    launch, flat and grouped."""
     import torch
 
     from repro_torch.kernels.fused_prune_aggregate import ops, ref
@@ -404,6 +448,16 @@ def check_flat_tie_and_width(dev):
     if got != [2, 1] or not torch.equal(i_k, i_p):
         raise AssertionError(f"flat tie case: kernel kept ids {got}, expected [2, 1]")
     print("  kernels == plain  flat score tie: kernel keeps {b, c} (first-minimum eviction)")
+    gen = torch.Generator().manual_seed(3)
+    nbr = torch.randint(0, 4, (2, 300), generator=gen, dtype=torch.int32).to(dev)
+    msk = (torch.rand((2, 300), generator=gen) < 0.95).to(dev)
+    before = dict(ops.LAUNCHES)
+    a_k, i_k = ops.flat_prune(nbr, msk, None, ts, None, td, 257)
+    a_p, i_p = ref.flat_prune_plain(nbr, msk, None, ts, None, td, 257, 0.2)
+    e_a = float((a_k - a_p).abs().max())
+    check(ops.LAUNCHES["flat_prune"] == before["flat_prune"] + 1, "the k = 257 case did not launch the flat K1")
+    check(torch.equal(i_k, i_p) and e_a <= TOL_ALPHA, f"flat k = 257: ids differ or alpha err {e_a:.3g}")
+    print(f"  kernels == plain  flat k = 257 (shared-memory domain): ids equal, alpha err {e_a:.3g}")
     before = dict(ops.LAUNCHES)
     wide = torch.zeros((2, ops.MAX_KS + 1), dtype=torch.int32, device=dev)
     try:
@@ -411,10 +465,20 @@ def check_flat_tie_and_width(dev):
             torch.zeros((4, 4, 2), device=dev), ts, td, wide, wide.bool(), prune_k=None
         )
     except ValueError as e:
-        check(ops.LAUNCHES == before, "the k > 256 case launched a kernel")
+        check(ops.LAUNCHES == before, f"the k = {ops.MAX_KS + 1} case launched a kernel")
         print(f"  k = {ops.MAX_KS + 1} raises before launch: {e}")
     else:
-        raise AssertionError("a flat domain wider than 256 did not raise")
+        raise AssertionError(f"a flat domain wider than {ops.MAX_KS} did not raise")
+    blk = torch.zeros((4, 1), dtype=torch.int32, device=dev)
+    tiles = torch.zeros((1, 8, 8), dtype=torch.int32, device=dev)
+    try:
+        ops.prune(tiles, tiles.bool(), None, ts, None, td, torch.zeros(8, dtype=torch.int32, device=dev), blk,
+                  ops.MAX_KS + 1)
+    except ValueError as e:
+        check(ops.LAUNCHES == before, f"the k_s = {ops.MAX_KS + 1} case launched a kernel")
+        print(f"  k_s = {ops.MAX_KS + 1} raises before launch: {e}")
+    else:
+        raise AssertionError(f"a grouped domain wider than {ops.MAX_KS} did not raise")
 
 
 def prepare_route(pipeline, hetgraph, model, ds, route, dev):
@@ -479,6 +543,133 @@ def model_paths(pipeline, hetgraph, FlowConfig, ops, dev):
     return results, gpu_tasks
 
 
+def wide_paths(pipeline, hetgraph, FlowConfig, ops, dev):
+    """Phase 3, the wide path: HAN on ACM at ``max_degree=None`` (metapath
+    PSP up to 527 neighbors) on the three routes at each of
+    ``WIDE_PRUNE_K``, with the checks of ``model_paths``; each route must
+    run a K1 domain wider than 256. Returns per-path results and the GPU
+    tasks by route."""
+    import numpy as np
+    import torch
+
+    tasks = {}
+    for route in ROUTES:
+        kw = dict(scale=SCALE, max_degree=None, seed=0, bucket_sizes=None if route == "flat" else hetgraph.DEFAULT_BUCKET_SIZES)
+        tasks[route] = (pipeline.prepare("han", "acm", device=dev, **kw), pipeline.prepare("han", "acm", device="cpu", **kw))
+    results = {}
+    for pk in WIDE_PRUNE_K:
+        logits_by_route = {}
+        for route in ROUTES:
+            key = f"han/acm/max_degree=None/prune_k={pk}/{route}"
+            task, cpu_task = tasks[route]
+            flow = FlowConfig("fused_kernel", prune_k=pk, bucket_dispatch="loop" if route == "loop" else "single")
+            sess = task.compile(flow)
+            want = expected_launches(task.sgs, route, pk, 1, ops)
+            widths = k1_widths(task.sgs, route, pk, ops)
+            check(max(widths) > 256, f"{key}: no K1 domain wider than 256 ({widths})")
+            reset_launches(ops)
+            logits = sess(task.params)
+            sync(dev)
+            launches = dict(ops.LAUNCHES)
+            if launches != want:
+                raise AssertionError(f"{key}: launches {launches}, expected {want}")
+            if tuple(logits.shape) != sess.out_shape or not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"{key}: logits shape {tuple(logits.shape)} or non-finite values")
+            err = float((logits.cpu() - cpu_task.compile(flow)(cpu_task.params)).abs().max())
+            if err > TOL_LOGITS:
+                raise AssertionError(f"{key}: GPU logits differ from the CPU forward by {err:.3g}")
+            rng = np.random.default_rng(0)
+            for cap in (1, 8, 64):
+                idx = rng.integers(0, logits.shape[0], size=cap)
+                rows = sess.query(task.params, idx)
+                if not torch.equal(rows, sess(task.params)[torch.from_numpy(idx).to(dev)]):
+                    raise AssertionError(f"{key}: query block (capacity {cap}) differs from the full rows")
+            logits_by_route[route] = logits
+            results[key] = {
+                "launches": launches, "k1_widths": widths, "wide_launches": sum(w > 256 for w in widths),
+                "logits_shape": list(logits.shape), "max_abs_err_vs_cpu": err, "query_blocks_bit_identical": 3,
+            }
+            print(f"  wide path {key}: launches {launches}, K1 widths {widths}, logits "
+                  f"{tuple(logits.shape)} finite, |gpu-cpu| {err:.3g}, 3 query blocks bit-identical")
+        for route in ROUTES[1:]:
+            d = float((logits_by_route[route] - logits_by_route[ROUTES[0]]).abs().max())
+            if d > TOL_LOGITS:
+                raise AssertionError(f"wide path prune_k={pk}: route {route} differs from {ROUTES[0]} by {d:.3g}")
+            results[f"han/acm/max_degree=None/prune_k={pk}/{route}"]["max_abs_diff_vs_bucketed"] = d
+        print(f"  routes agree wide path prune_k={pk}: " + ", ".join(
+            f"{r} {results[f'han/acm/max_degree=None/prune_k={pk}/{r}']['max_abs_diff_vs_bucketed']:.3g}"
+            for r in ROUTES[1:]))
+    return results, {route: gpu for route, (gpu, _) in tasks.items()}
+
+
+def k1_bound(msk, nbr, ety, theta_src, theta_rel, theta_dst, alpha, ids, table_bytes: int = 0):
+    """A K1's bound from this run's inputs: the bytes of every slot's mask,
+    the ids (and edge types) of the valid slots, the theta_src rows they
+    reference, theta_rel, theta_dst, the row tables and the outputs; the
+    operations of a head sum (two adds a head with theta_rel) and a compare
+    a valid slot, and six an output alpha. Returns (bound, valid slots,
+    distinct source rows)."""
+    import torch
+
+    valid = int(msk.sum())
+    src_rows = int(torch.unique(nbr[msk]).numel())
+    heads = theta_src.shape[1]
+    rel = theta_rel is not None
+    nbytes = msk.numel() * msk.element_size() + valid * (nbr.element_size() + (ety.element_size() if rel else 0)) \
+        + (src_rows * heads + (theta_rel.numel() if rel else 0) + theta_dst.numel()) * 4 + table_bytes \
+        + (alpha.numel() + ids.numel()) * 4
+    nops = valid * ((2 if rel else 1) * heads + 1) + alpha.numel() * 6
+    return bound(nbytes, nops), valid, src_rows
+
+
+def wide_timings(tasks, dev):
+    """Phase 4, both K1s on the wide path at HAN ACM PSP, ``prune_k=None``
+    (real projected features and weights): the flat K1 on the flat route's
+    table (k 527) and the grouped K1 on the bucketed route's layout (k_s
+    528, every bucket a bypass). Kernel and plain times, the largest alpha
+    difference from the plain version, and the bounds."""
+    import torch
+
+    from repro_torch.core import attention, flows
+    from repro_torch.core.projection import project_features
+    from repro_torch.kernels.fused_prune_aggregate import ops, ref
+
+    t, bounds, shapes, err = {}, {}, {}, {}
+    with torch.inference_mode():
+        for route, key in (("flat", "flat_prune_wide"), ("bucketed", "prune_wide")):
+            task = tasks[route]
+            p, batch, model = task.params, task.batch, task.model
+            sg = next(g for g in task.sgs if g.name == "PSP")
+            h = project_features(p, batch.features, batch.node_types, model.heads, model.dh)
+            dst = slice(batch.dst_offset, batch.dst_offset + batch.num_targets)
+            sc = attention.decompose_scores(h, p[f"attn.{sg.name}.a_src"], p[f"attn.{sg.name}.a_dst"], dst)
+            if route == "flat":
+                nbr, msk, _ = flows._flat_tables(sg, False, dev)
+                k = nbr.shape[1]
+                args = (nbr, msk, None, sc.theta_src, None, sc.theta_dst, k)
+                run, plain, table_bytes = ops.flat_prune, ref.flat_prune_plain, 0
+                shapes[key] = f"han acm {sg.name} flat table {tuple(nbr.shape)}, k={k}, prune_k=None"
+            else:
+                layout = sg.grouped(ops.T_TILE, ops.W_TILE)
+                (nbr, msk, _, rt, _), (blk, k) = ops._layout_device(layout, None, dev)
+                args = (nbr, msk, None, sc.theta_src, None, sc.theta_dst, rt, blk, k)
+                run, plain, table_bytes = ops.prune, ref.prune_plain, (rt.numel() + blk.numel()) * 4
+                shapes[key] = (f"han acm {sg.name} grouped, {layout.num_rows} rows, {layout.num_steps} grid steps, "
+                               f"k_s={k}, prune_k=None")
+            alpha, ids = run(*args)
+            a_p, i_p = plain(*args, 0.2)
+            sync(dev)
+            check(torch.equal(ids, i_p), f"wide {key}: ids differ from the plain version")
+            err[key] = float((alpha - a_p).abs().max())
+            check(err[key] <= TOL_ALPHA, f"wide {key}: alpha err {err[key]:.3g}")
+            t[f"{key}_plain"] = cuda_ms(lambda: plain(*args, 0.2), 1, warmup=1)
+            timed(t, key, lambda: run(*args), 50)
+            bounds[key], valid, _ = k1_bound(msk, nbr, None, sc.theta_src, None, sc.theta_dst, alpha, ids, table_bytes)
+            print(f"  wide {key} ({shapes[key]}, {valid} valid slots): device {t[key]:.4f} ms, events "
+                  f"{t[f'{key}_event']:.4f}, plain {t[f'{key}_plain']:.1f}, bound {bounds[key][0]:.5f} ms")
+    return t, bounds, shapes, err
+
+
 def flat_timings(task, dev):
     """Phase 4, flat pair, at the ACM union:paper shapes of Simple-HGN's
     first layer (real projected features and weights, the relation term
@@ -515,20 +706,14 @@ def flat_timings(task, dev):
         timed(t, "flat_aggregate_library", lib_fn, 200)
         torch.cuda.synchronize()
         rows, k, _ = alpha.shape
-        # bytes this run's data needs: every slot's mask (1 B), the ids and
-        # edge types of valid slots, the theta_src rows they reference,
-        # theta_rel, theta_dst, and the outputs
-        valid = int(msk.sum())
-        src_rows = int(torch.unique(nbr[msk]).numel())
+        # bytes this run's data needs: K1's (k1_bound), then K2's: alpha,
+        # ids, each distinct retained h' row once, and the output
+        k1, valid, src_rows = k1_bound(msk, nbr, ety, sc.theta_src, sc.theta_rel, sc.theta_dst, alpha, ids)
         retained = ids[ids >= 0]
         distinct = int(torch.unique(retained).numel())
-        k1_bytes = msk.numel() + valid * (nbr.element_size() + ety.element_size()) \
-            + (src_rows * heads + sc.theta_rel.numel() + sc.theta_dst.numel()) * 4 \
-            + alpha.numel() * 4 + ids.numel() * 4
-        k1_ops = valid * (2 * heads + 1) + rows * k * heads * 6
         k2_bytes = (alpha.numel() + ids.numel()) * 4 + distinct * heads * dh * 4 + out.numel() * 4
         k2_ops = 2 * int(retained.numel()) * heads * dh
-    bounds = {"flat_prune": bound(k1_bytes, k1_ops), "flat_aggregate": bound(k2_bytes, k2_ops)}
+    bounds = {"flat_prune": k1, "flat_aggregate": bound(k2_bytes, k2_ops)}
     shapes = {
         "graph": f"acm {sg.name} (simple_hgn layer 0)", "rows": rows, "width": int(nbr.shape[1]), "k": k,
         "edge_types": int(sc.theta_rel.shape[0]), "valid_edge_slots": valid,
@@ -649,21 +834,17 @@ def grouped_timings(task, dev):
         torch.cuda.synchronize()
         rows, _, heads = alpha.shape
         dh = h.shape[2]
-        # bytes this run's data needs: every slot's mask (1 B), the ids of
-        # valid slots, the theta_src rows they reference (as K2 counts the
-        # h' rows its retained ids reference), theta_dst, the row tables
-        valid = int(msk.sum())
-        src_rows = int(torch.unique(nbr[msk]).numel())
+        # bytes this run's data needs: K1's (k1_bound, with the row tables),
+        # then K2's: alpha, ids, the block table, each distinct retained h'
+        # row once, and the output
+        k1, valid, src_rows = k1_bound(msk, nbr, None, sc.theta_src, None, sc.theta_dst, alpha, ids,
+                                       (rt.numel() + blk.numel()) * 4)
         retained = ids[ids >= 0]
         distinct = int(torch.unique(retained).numel())
         n_blocks = blk.shape[1]
-        k1_bytes = msk.numel() * msk.element_size() + valid * nbr.element_size() \
-            + (src_rows * heads + sc.theta_dst.numel()) * 4 + (rt.numel() + blk.numel()) * 4 \
-            + alpha.numel() * 4 + ids.numel() * 4
-        k1_ops = valid * (heads + 1) + rows * k_s * heads * 6
         k2_bytes = (alpha.numel() + ids.numel() + 4 * n_blocks) * 4 + distinct * heads * dh * 4 + out.numel() * 4
         k2_ops = 2 * int((ids >= 0).sum()) * heads * dh
-    bounds = {"prune": bound(k1_bytes, k1_ops), "aggregate": bound(k2_bytes, k2_ops)}
+    bounds = {"prune": k1, "aggregate": bound(k2_bytes, k2_ops)}
     shapes = {
         "graph": f"dblp {sg.name}", "grid_steps": layout.num_steps, "rows": rows, "k_s": k_s,
         "valid_edge_slots": valid, "distinct_source_rows": src_rows,
@@ -1500,6 +1681,7 @@ def main() -> int:
     results, gpu_tasks = main_path(pipeline, FlowConfig, ops, cpu_tasks, dev)
     model_results, model_tasks = model_paths(pipeline, hetgraph, FlowConfig, ops, dev)
     results.update(model_results)
+    wide_results, wide_tasks = wide_paths(pipeline, hetgraph, FlowConfig, ops, dev)
     check(ts_ops.LAUNCHES["topk_select"] == 0, "the HGNN forwards launched the Pruner")
     print(f"phase 3: {LM_ARCH} serving, prefill {LM_BATCH}x{LM_PROMPT} + {LM_GEN} decode steps")
     lm_result, lm, prompts, cache0, tok0 = lm_main_path(dev, ops, ts_ops)
@@ -1514,6 +1696,9 @@ def main() -> int:
     t_flat, b_flat, s_flat = flat_timings(model_tasks["simple_hgn/acm/flat"], dev)
     t.update(t_flat)
     bounds.update(b_flat)
+    t_wide, b_wide, s_wide, e_wide = wide_timings(wide_tasks, dev)
+    t.update(t_wide)
+    bounds.update(b_wide)
     fwd, latency, prof = {}, {}, {}
     sessions = {f"han/{ds}/bucketed": (task, FlowConfig("fused_kernel", prune_k=PRUNE_K))
                 for ds, task in gpu_tasks.items()}
@@ -1582,6 +1767,34 @@ def main() -> int:
             "shapes": (shapes if key in ("prune", "aggregate") else s_flat)["graph"],
             "check": "pass: ids equal, alpha <= 1e-6" if key.endswith("prune") else "pass: out <= 1e-5",
         })
+    for key, base, line in (("prune_wide", "prune", KERNELS[0][1]), ("flat_prune_wide", "flat_prune", KERNELS[2][1])):
+        bound_ms, bound_by, nbytes, nops = bounds[key]
+        per_fwd = {path: r["launches"][base] for path, r in wide_results.items() if r["launches"][base]}
+        wide = {path: r["wide_launches"] for path, r in wide_results.items() if r["launches"][base]}
+        kernels.append({
+            "name": f"fused_prune_aggregate.{key}",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/fused_prune_aggregate/csrc/fused_prune_aggregate.cu",
+            "replaces": f"src/repro/kernels/fused_prune_aggregate/{line}",
+            "launches": sum(per_fwd.values()),
+            "launches_on": "the wide path (HAN ACM, max_degree=None), all widths; wider than 256 by path in "
+                           "wide_launches_per_forward",
+            "launches_per_forward": per_fwd,
+            "wide_launches_per_forward": wide,
+            "max_abs_err": e_wide[key],
+            "ms": t[key],
+            "ms_source": t[f"{key}_source"],
+            "event_ms": t[f"{key}_event"],
+            "plain_ms": t[f"{key}_plain"],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "bound_bytes": nbytes,
+            "bound_ops": nops,
+            "library_ms": None,
+            "library_event_ms": None,
+            "shapes": s_wide[key],
+            "check": "pass: ids equal, alpha <= 1e-6",
+        })
     for key, line, lib in DECODE_KERNELS:
         bound_ms, bound_by, nbytes, nops = bounds[key]
         kernels.append({
@@ -1630,7 +1843,7 @@ def main() -> int:
     })
     REPORT.parent.mkdir(exist_ok=True)
     REPORT.write_text(json.dumps({
-        "card": card, "results": results, "lm": lm_result, "pruner": pruner_result, "times_ms": t,
+        "card": card, "results": results, "wide_path": wide_results, "lm": lm_result, "pruner": pruner_result, "times_ms": t,
         "decode_k1_tie_rows": {"phase2_cases": dec_ties, "phase2_tie_cases": tie_cases,
                                "main_path": lm_result["tie_rows"]},
         "pruner_times_ms": t_ts, "forward_ms": fwd, "forward_latency_ms": latency, "profiles": prof,

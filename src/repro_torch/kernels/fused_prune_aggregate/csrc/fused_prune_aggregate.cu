@@ -17,14 +17,15 @@
 // the row's candidates in slot order, ranks each by the left-to-right head
 // sum of theta_src[id] (+ theta_rel[ety]), and keeps a K_s-slot retention
 // domain: the candidate replaces the FIRST minimum slot only if it is
-// STRICTLY greater (slots >= the row's k_eff are parked at POS and never
-// chosen). Rows of a bypass bucket (capacity <= K, paper §4.3) copy
-// candidate j of D-tile dt straight into slot dt*w + j. After the last
-// D-tile, K1 applies LeakyReLU(theta + theta_dst, slope) and a masked
-// softmax over the retained slots (eps 1e-30) and writes alpha
-// (rows, K_s, H) and the retained global ids (rows, K_s), -1 = empty. K2
-// accumulates alpha[slot, h] * h'[id, h, :] over the row's own k_eff slots,
-// in slot order (an empty slot reads id 0 with alpha 0).
+// STRICTLY greater (slots >= the row's k_eff are parked at POS; they are
+// chosen only when every live slot holds a rank above POS). Rows of a
+// bypass bucket (capacity <= K, paper §4.3) copy candidate j of D-tile dt
+// straight into slot dt*w + j. After the last D-tile, K1 applies
+// LeakyReLU(theta + theta_dst, slope) and a masked softmax over the
+// retained slots (eps 1e-30) and writes alpha (rows, K_s, H) and the
+// retained global ids (rows, K_s), -1 = empty. K2 accumulates
+// alpha[slot, h] * h'[id, h, :] over the row's own k_eff slots, in slot
+// order (an empty slot reads id 0 with alpha 0).
 //
 // What the flat pair computes. The same function over one (T, D)
 // padded-CSC table: every row streams its D slots in slot order through a
@@ -34,7 +35,8 @@
 // (T, D, H) theta tensor into device memory first; this K1 gathers
 // theta_src and theta_rel per valid slot itself, which is the same
 // function with less traffic. The TPU kernel pads T to 8 and D to 128;
-// here the table is read unpadded.
+// here the table is read unpadded. Both TPU K1s size their domain by K,
+// so both K1s here take any width up to MAX_KS.
 //
 // What bounds them on an H100. Neither pair does enough arithmetic to
 // matter (K1: H adds per candidate plus a compare; K2: one FMA per loaded
@@ -44,30 +46,50 @@
 // K1, where each candidate needs the domain's minimum after the previous
 // insert.
 //
-// What the design does about it. Each K1 gives each row one warp and a
-// group of rows one thread block, so the card runs thousands of
-// independent rows at once to hide gather latency. A lane loads one
-// candidate (grouped: one of the w <= 32 of a tile; flat: one of 32
-// consecutive slots), so a step costs one coalesced load per array; the
-// per-head theta of a retained slot is re-read from theta_src (+
-// theta_rel) at the flush instead of being kept. Both K1s filter each
-// tile or 32-slot chunk exactly: the domain's minimum only rises, so a
-// candidate at or below it can never be inserted, and a __ballot_sync
-// leaves only the others for the serial insert, which finds the first
-// minimum again only after an insert.
-//  * The grouped K1 (bound at DBLP APA, k_s 8, by 0.77 us of bytes) holds
-//    the row's domain (rank, id, edge type) in registers, SPL slots a lane
-//    (slot lane + 32 i in element i; SPL 1, 2, 4 or 8 from k_s <= 256). Its
-//    first minimum is two __reduce_min_sync: the least order-preserving key
-//    of the ranks (-0.0 as +0.0, which compare equal), then the least slot
-//    among the lanes that hold it, so the lowest slot among equal minima is
-//    evicted, as the rule says; slots past k_s do not take part. The ids of
-//    D-tile dt + 2 and the theta gathers of dt + 1 are issued before dt's
-//    inserts, so a row's dependent loads overlap its chain. A bypass row
-//    moves candidate j of tile dt to slot dt*w + j's lane by shuffles.
-//  * The flat K1 keeps the domain in shared memory, 12 bytes a slot, and
-//    finds the first minimum by a per-lane scan of strided slots plus a
-//    five-step shuffle reduction on (value, slot).
+// What the design does about it. Each K1 gives each row one warp, so the
+// card runs thousands of independent rows at once to hide gather latency.
+// A lane loads one candidate at a time (grouped: one of the w <= 32 of a
+// tile; flat: one of 32 compacted valid slots), so a step costs one
+// coalesced load per array; the per-head theta of a retained slot is
+// re-read from theta_src (+ theta_rel) at the flush instead of being kept.
+// Both K1s filter each batch of candidates exactly: once the domain is
+// full its minimum only rises, so a candidate at or below it can never be
+// inserted, and a __ballot_sync leaves only the others for the serial
+// insert, which finds the first minimum again only after an insert.
+//  * The domain. Up to 256 slots it lives in registers, SPL slots a lane
+//    (slot lane + 32 i in element i; SPL 1, 2, 4 or 8). Its first minimum
+//    is two __reduce_min_sync: the least order-preserving key of the ranks
+//    (-0.0 as +0.0, which compare equal), then the least slot among the
+//    lanes that hold it, so the lowest slot among equal minima is evicted,
+//    as the rule says; slots past k_s do not take part. A wider domain
+//    (up to MAX_KS slots, the shared memory one warp can hold beside its
+//    compaction list) lives in dynamic shared memory, 12 bytes a slot (rank,
+//    id, edge type), one domain a warp. Slot s is read and written only by
+//    lane s % 32, which keeps the least (key, slot) of its own slots and
+//    rescans them only after an insert into one of them; the same two
+//    reductions give the first minimum. Its flush walks the domain in
+//    32-slot chunks, eight heads at a time: maximum, then sum, then write.
+//  * The grouped K1 issues the ids of D-tile dt + 2 and the theta gathers
+//    of dt + 1 before dt's inserts, so a row's dependent loads overlap its
+//    chain. A bypass row moves candidate j of tile dt to slot dt*w + j by
+//    shuffles. On the shared-memory path it fills an empty domain without
+//    a chain (insert_batch, below), and launches a row block's t_tile rows
+//    as t_tile / wpb blocks of wpb warps when a block of t_tile domains
+//    would not fit in 227 KB.
+//  * The flat K1 first issues the mask loads of SEG slots together and
+//    compacts the valid ones, in slot order, into a per-warp list in
+//    shared memory (__ballot_sync and __popc prefix counts): a row of ACM
+//    union:paper holds ~10 valid slots of 256, and the chain never sees
+//    the rest. It then takes the listed candidates 32 at a time, with the
+//    theta gathers of the next batch and the id gathers of the one after
+//    in flight. While the domain has empty slots, the first candidates
+//    ranked above NEG fill them in order with no chain (insert_batch):
+//    that is what the chain does on empty slots, since nothing at or below
+//    NEG, nor NaN, is greater than an empty slot. A row with at most k
+//    such candidates runs no chain. Its register flush takes eight values
+//    a lane a step (8 / SPL heads), so their gathers and reductions overlap.
+//  * A slot's heads leave a flush together where they can, as 16-byte
+//    stores (store_heads).
 // K2 gives each row one block with a thread per (head, dh) output, so every
 // retained h' row is read with one coalesced load of H*dh floats and
 // accumulated in a register. All kernels launch on the caller's stream,
@@ -80,10 +102,20 @@
 
 #define NEG (-3.0e38f)
 #define POS (3.0e38f)
-static constexpr int MAX_KS = 256;               // default max_degree
-static constexpr int SLOTS_PER_LANE = MAX_KS / 32;
-static constexpr int PREFETCH_H = 8;             // heads whose theta the grouped K1 gathers ahead
+static constexpr int REG_KS = 256;              // widest domain held in registers (SPL 8)
+static constexpr int MAX_SMEM = 232448;         // dynamic shared memory a block can opt into
+static constexpr int DEFAULT_SMEM = 48 * 1024;  // above it a kernel must opt in
+static constexpr int SLOT_BYTES = 12;           // a shared-memory domain slot: rank, id, edge type
+static constexpr int SEG = 256;                 // slots of a flat row compacted at once
+static constexpr int LIST_BYTES = SEG * 4;      // a flat warp's compaction list
+// the widest domain either K1 takes: one warp's, beside its list
+static constexpr int MAX_KS = (MAX_SMEM - LIST_BYTES) / SLOT_BYTES;
+static constexpr int FLAT_ROWS_PER_BLOCK = 8;
+static constexpr int PREFETCH_H = 8;             // heads whose theta a K1 gathers ahead
 static constexpr unsigned NO_KEY = 0xffffffffu;  // above the key of every rank
+
+// Heads a flat K1's register flush takes a step: eight values a lane.
+__host__ __device__ constexpr int flat_heads(int spl) { return spl >= 8 ? 1 : 8 / spl; }
 
 __device__ __forceinline__ float theta_of(const float* __restrict__ theta_src,
                                           const float* __restrict__ theta_rel,
@@ -91,97 +123,6 @@ __device__ __forceinline__ float theta_of(const float* __restrict__ theta_src,
   float t = theta_src[(size_t)id * h + hh];
   if (theta_rel != nullptr) t = t + theta_rel[(size_t)ety * h + hh];
   return t;
-}
-
-// The domain's first minimum (lowest slot among equal minima), on every
-// lane of the warp.
-__device__ __forceinline__ void domain_first_min(const float* rk, int k_s, int lane,
-                                                 float& mv, int& mi) {
-  mv = __int_as_float(0x7f800000);  // +inf, above POS
-  mi = k_s;
-  for (int s = lane; s < k_s; s += 32) {
-    const float v = rk[s];
-    if (v < mv) { mv = v; mi = s; }
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(FULL_MASK, mv, off);
-    const int oi = __shfl_xor_sync(FULL_MASK, mi, off);
-    if (ov < mv || (ov == mv && oi < mi)) { mv = ov; mi = oi; }
-  }
-}
-
-// A row's domain in shared memory (the flat K1's) or in registers, SPL
-// slots a lane (the grouped K1's): slot lane + 32 i is element i of a lane.
-struct SmemDomain {
-  const float* rk;
-  const int* rid;
-  const int* rety;
-  int lane;
-  __device__ float rank(int i) const { return rk[lane + 32 * i]; }
-  __device__ int id(int i) const { return rid[lane + 32 * i]; }
-  __device__ int ety(int i) const { return rety[lane + 32 * i]; }
-};
-template <int SPL>
-struct RegDomain {
-  const float (&rk)[SPL];
-  const int (&rid)[SPL];
-  const int (&rety)[SPL];
-  __device__ float rank(int i) const { return rk[i]; }
-  __device__ int id(int i) const { return rid[i]; }
-  __device__ int ety(int i) const { return rety[i]; }
-};
-
-// K1's flush for one row (one warp): LeakyReLU + masked softmax over the
-// retained slots s < k_eff, per head; writes alpha_row (k_s, H) and
-// ids_row (k_s), 0 and -1 on empty slots. A slot is read only below k_s.
-template <int SPL, typename Domain>
-__device__ __forceinline__ void flush_row(
-    const Domain& dom, int k_s, int k_eff,
-    const float* __restrict__ theta_src, const float* __restrict__ theta_rel,
-    const float* __restrict__ tdst, int h, float slope, float* __restrict__ alpha_row,
-    int* __restrict__ ids_row, int lane) {
-  bool ok[SPL];
-#pragma unroll
-  for (int i = 0; i < SPL; ++i) {
-    const int s = lane + 32 * i;
-    ok[i] = s < k_s && s < k_eff && dom.rank(i) > NEG * 0.5f;
-  }
-  for (int hh = 0; hh < h; ++hh) {
-    const float td = tdst[hh];
-    float tv[SPL];
-    float mx = NEG;
-#pragma unroll
-    for (int i = 0; i < SPL; ++i) {
-      tv[i] = 0.f;
-      if (ok[i]) {
-        float t = theta_of(theta_src, theta_rel, dom.id(i), dom.ety(i), h, hh) + td;
-        t = t >= 0.f ? t : slope * t;
-        tv[i] = t;
-        mx = fmaxf(mx, t);
-      }
-    }
-    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, off));
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < SPL; ++i) {
-      if (ok[i]) {
-        tv[i] = expf(tv[i] - mx);
-        sum += tv[i];
-      }
-    }
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(FULL_MASK, sum, off);
-    const float denom = sum + 1e-30f;
-#pragma unroll
-    for (int i = 0; i < SPL; ++i) {
-      const int s = lane + 32 * i;
-      if (s < k_s) alpha_row[(size_t)s * h + hh] = ok[i] ? tv[i] / denom : 0.f;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < SPL; ++i) {
-    const int s = lane + 32 * i;
-    if (s < k_s) ids_row[s] = ok[i] ? dom.id(i) : -1;
-  }
 }
 
 // A rank as an unsigned key in its order, -0.0 as +0.0 (they compare
@@ -196,37 +137,349 @@ __device__ __forceinline__ float from_order_key(unsigned key) {
   return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
 }
 
-// The first minimum (lowest slot among equal minima) of a domain held SPL
-// slots a lane, on every lane: the least key over the warp, then the least
-// slot among the lanes holding it. Slots past k_s do not exist; slots
-// parked at POS compare by their value, above every rank.
-template <int SPL>
-__device__ __forceinline__ void reg_first_min(const float (&rk)[SPL], int k_s, int lane,
-                                              float& mv, int& mi) {
-  unsigned lk = NO_KEY;
-  int ls = MAX_KS;
-#pragma unroll
-  for (int i = 0; i < SPL; ++i) {
-    const int s = lane + 32 * i;
-    const unsigned key = s < k_s ? order_key(rk[i]) : NO_KEY;
-    if (key < lk) {  // a lane's slots rise with i: the first among equals stays
-      lk = key;
-      ls = s;
-    }
-  }
+// The first minimum (lowest slot among equal minima) on every lane, from
+// each lane's least key and its slot: the least key over the warp, then
+// the least slot among the lanes holding it.
+__device__ __forceinline__ void warp_first_min(unsigned lk, int ls, float& mv, int& mi) {
   const unsigned mk = __reduce_min_sync(FULL_MASK, lk);
   mi = (int)__reduce_min_sync(FULL_MASK, lk == mk ? (unsigned)ls : NO_KEY);
   mv = from_order_key(mk);
 }
 
-// One D-tile's candidate on a lane (lane < w): its global id, edge type and
-// mask, and the theta of its first PREFETCH_H heads, gathered ahead.
+// The position of the n-th (from 0) set bit of m; n < __popc(m).
+__device__ __forceinline__ int nth_set_bit(unsigned m, int n) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const unsigned low = (1u << w) - 1u;
+    const int c = __popc(m & low);
+    if (n >= c) {
+      n -= c;
+      m >>= w;
+      pos += w;
+    } else {
+      m &= low;
+    }
+  }
+  return pos;
+}
+
+// Heads h0 .. h0 + n - 1 (n <= N) of one slot of an alpha row, at p: as
+// 16-byte stores where all N lie in the row and p is aligned to them (a
+// slot's heads then leave in whole 32-byte sectors, not a sector a float),
+// else one by one.
+template <int N>
+__device__ __forceinline__ void store_heads(float* __restrict__ p, const float (&v)[N], int n) {
+  if (N % 4 == 0 && n == N && ((size_t)p & 15) == 0) {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q)
+      reinterpret_cast<float4*>(p)[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (j < n) p[j] = v[j];
+  }
+}
+
+// n floats at p set to 0 by the warp: consecutive lanes on consecutive 16
+// bytes where aligned (p is 4-byte aligned), one float at a time at the
+// ends.
+__device__ __forceinline__ void zero_floats(float* __restrict__ p, size_t n, int lane) {
+  const size_t head = min(n, (size_t)(((16 - ((size_t)p & 15)) & 15) / 4));
+  const size_t n4 = (n - head) / 4;
+  for (size_t i = lane; i < head; i += 32) p[i] = 0.f;
+  float4* q = reinterpret_cast<float4*>(p + head);
+  for (size_t i = lane; i < n4; i += 32) q[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (size_t i = head + 4 * n4 + lane; i < n; i += 32) p[i] = 0.f;
+}
+
+// A row's retention domain of k_s slots, held by its warp. Both kinds give
+// the same interface, all lanes calling:
+//   init(k_eff)      slots < k_eff empty (NEG), the rest parked (POS);
+//   refresh()        bring the first minimum up to date after take();
+//   first_min(v, s)  the first minimum's value and slot, on every lane;
+//   put(s, ...)      write slot s (first_min is current after it);
+//   take(lo, hi, src, ...)  slots [lo, hi) take the candidate of lane
+//                    src(slot);
+//   flush(...)       LeakyReLU + masked softmax over the retained slots
+//                    s < k_eff -> alpha_row (k_s, H) and ids_row (k_s), 0
+//                    and -1 on empty slots.
+// kShared says which kind it is.
+
+// In registers: SPL slots a lane, slot lane + 32 i in element i. Its flush
+// takes HB heads a step: their theta gathers and warp reductions are in
+// flight together, each head's arithmetic the same as one at a time.
+template <int SPL, int HB>
+struct RegDomain {
+  static constexpr bool kShared = false;
+  float rk[SPL];
+  int rid[SPL], rety[SPL];
+  int lane, k_s;
+
+  __device__ __forceinline__ RegDomain(int lane_, int k_s_) : lane(lane_), k_s(k_s_) {}
+
+  __device__ __forceinline__ void init(int k_eff) {
+#pragma unroll
+    for (int i = 0; i < SPL; ++i) {
+      rk[i] = lane + 32 * i < k_eff ? NEG : POS;
+      rid[i] = -1;
+      rety[i] = 0;
+    }
+  }
+
+  __device__ __forceinline__ void refresh() {}
+
+  // slots past k_s do not exist; slots parked at POS compare by their
+  // value, above every rank
+  __device__ __forceinline__ void first_min(float& mv, int& mi) const {
+    unsigned lk = NO_KEY;
+    int ls = REG_KS;
+#pragma unroll
+    for (int i = 0; i < SPL; ++i) {
+      const int s = lane + 32 * i;
+      const unsigned key = s < k_s ? order_key(rk[i]) : NO_KEY;
+      if (key < lk) {  // a lane's slots rise with i: the first among equals stays
+        lk = key;
+        ls = s;
+      }
+    }
+    warp_first_min(lk, ls, mv, mi);
+  }
+
+  __device__ __forceinline__ void put(int slot, float v, int id, int e) {
+#pragma unroll
+    for (int i = 0; i < SPL; ++i) {
+      if (lane + 32 * i == slot) {
+        rk[i] = v;
+        rid[i] = id;
+        rety[i] = e;
+      }
+    }
+  }
+
+  template <class Src>
+  __device__ __forceinline__ void take(int lo, int hi, Src src, float cr, int cid, int ce) {
+#pragma unroll
+    for (int i = 0; i < SPL; ++i) {
+      if (32 * i + 32 <= lo || 32 * i >= hi) continue;  // the same on every lane
+      const int s = lane + 32 * i;
+      const bool in = s >= lo && s < hi;
+      const int j = in ? src(s) : 0;
+      const float v = __shfl_sync(FULL_MASK, cr, j);
+      const int id = __shfl_sync(FULL_MASK, cid, j);
+      const int e = __shfl_sync(FULL_MASK, ce, j);
+      if (in) {
+        rk[i] = v;
+        rid[i] = id;
+        rety[i] = e;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void flush(int k_eff, const float* __restrict__ theta_src,
+                                        const float* __restrict__ theta_rel,
+                                        const float* __restrict__ tdst, int h, float slope,
+                                        float* __restrict__ alpha_row,
+                                        int* __restrict__ ids_row) const {
+    bool ok[SPL];
+#pragma unroll
+    for (int i = 0; i < SPL; ++i) {
+      const int s = lane + 32 * i;
+      ok[i] = s < k_s && s < k_eff && rk[i] > NEG * 0.5f;
+    }
+    for (int h0 = 0; h0 < h; h0 += HB) {
+      float tv[HB][SPL], mx[HB], sum[HB];
+#pragma unroll
+      for (int j = 0; j < HB; ++j) {
+        const int hh = h0 + j;
+        const float td = hh < h ? tdst[hh] : 0.f;
+        mx[j] = NEG;
+#pragma unroll
+        for (int i = 0; i < SPL; ++i) {
+          tv[j][i] = 0.f;
+          if (hh < h && ok[i]) {
+            float t = theta_of(theta_src, theta_rel, rid[i], rety[i], h, hh) + td;
+            t = t >= 0.f ? t : slope * t;
+            tv[j][i] = t;
+            mx[j] = fmaxf(mx[j], t);
+          }
+        }
+      }
+      for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+        for (int j = 0; j < HB; ++j) mx[j] = fmaxf(mx[j], __shfl_xor_sync(FULL_MASK, mx[j], off));
+      }
+#pragma unroll
+      for (int j = 0; j < HB; ++j) {
+        sum[j] = 0.f;
+#pragma unroll
+        for (int i = 0; i < SPL; ++i) {
+          if (ok[i]) {
+            tv[j][i] = expf(tv[j][i] - mx[j]);
+            sum[j] += tv[j][i];
+          }
+        }
+      }
+      for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+        for (int j = 0; j < HB; ++j) sum[j] += __shfl_xor_sync(FULL_MASK, sum[j], off);
+      }
+#pragma unroll
+      for (int i = 0; i < SPL; ++i) {
+        const int s = lane + 32 * i;
+        if (s < k_s) {
+          float a[HB];
+#pragma unroll
+          for (int j = 0; j < HB; ++j) a[j] = ok[i] ? tv[j][i] / (sum[j] + 1e-30f) : 0.f;
+          store_heads(alpha_row + (size_t)s * h + h0, a, min(HB, h - h0));
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < SPL; ++i) {
+      const int s = lane + 32 * i;
+      if (s < k_s) ids_row[s] = ok[i] ? rid[i] : -1;
+    }
+  }
+};
+
+// In shared memory: k_s ranks, then k_s ids, then k_s edge types. Slot s
+// is read and written only by lane s % 32, which keeps the least (key,
+// slot) of its own slots (lk, ls), so no slot is shared between lanes.
+struct SmemDomain {
+  static constexpr bool kShared = true;
+  float* rk;
+  int* rid;
+  int* rety;
+  int lane, k_s;
+  unsigned lk;
+  int ls;
+
+  __device__ __forceinline__ SmemDomain(float* base, int lane_, int k_s_)
+      : rk(base), rid(reinterpret_cast<int*>(base + k_s_)),
+        rety(reinterpret_cast<int*>(base + 2 * k_s_)), lane(lane_), k_s(k_s_), lk(NO_KEY), ls(0) {}
+
+  __device__ __forceinline__ void init(int k_eff) {
+    for (int s = lane; s < k_s; s += 32) {
+      rk[s] = s < k_eff ? NEG : POS;
+      rid[s] = -1;
+      rety[s] = 0;
+    }
+  }
+
+  __device__ __forceinline__ void refresh() {
+    lk = NO_KEY;
+    ls = 0;
+    for (int s = lane; s < k_s; s += 32) {
+      const unsigned key = order_key(rk[s]);
+      if (key < lk) {  // a lane's slots rise: the first among equals stays
+        lk = key;
+        ls = s;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void first_min(float& mv, int& mi) const {
+    warp_first_min(lk, ls, mv, mi);
+  }
+
+  __device__ __forceinline__ void put(int slot, float v, int id, int e) {
+    if ((slot & 31) == lane) {
+      rk[slot] = v;
+      rid[slot] = id;
+      rety[slot] = e;
+      refresh();
+    }
+  }
+
+  template <class Src>
+  __device__ __forceinline__ void take(int lo, int hi, Src src, float cr, int cid, int ce) {
+    hi = min(hi, k_s);
+    for (int c = lo >> 5; 32 * c < hi; ++c) {  // the same bounds on every lane
+      const int s = 32 * c + lane;
+      const bool in = s >= lo && s < hi;
+      const int j = in ? src(s) : 0;
+      const float v = __shfl_sync(FULL_MASK, cr, j);
+      const int id = __shfl_sync(FULL_MASK, cid, j);
+      const int e = __shfl_sync(FULL_MASK, ce, j);
+      if (in) {
+        rk[s] = v;
+        rid[s] = id;
+        rety[s] = e;
+      }
+    }
+  }
+
+  // The register flush's arithmetic, PREFETCH_H heads at a time, in three
+  // walks over a lane's slots below k_eff (the maximum, the sum of exp,
+  // the alpha rows; the slots past k_eff then get zeros, as one run), each
+  // recomputing the same logits from theta (an L1 hit after the first); a
+  // head's maximum and sum are taken in the same order as one head at a
+  // time. A slot that is not retained gets id -1 first.
+  __device__ __forceinline__ void flush(int k_eff, const float* __restrict__ theta_src,
+                                        const float* __restrict__ theta_rel,
+                                        const float* __restrict__ tdst, int h, float slope,
+                                        float* __restrict__ alpha_row,
+                                        int* __restrict__ ids_row) {
+    const int live = min(k_eff, k_s);
+    for (int s = lane; s < live; s += 32)
+      if (!(rk[s] > NEG * 0.5f)) rid[s] = -1;
+    for (int h0 = 0; h0 < h; h0 += PREFETCH_H) {
+      float td[PREFETCH_H], mx[PREFETCH_H], sum[PREFETCH_H];
+#pragma unroll
+      for (int j = 0; j < PREFETCH_H; ++j) {
+        td[j] = h0 + j < h ? tdst[h0 + j] : 0.f;
+        mx[j] = NEG;
+        sum[j] = 0.f;
+      }
+      auto logit = [&](int s, int j) {
+        const float t = theta_of(theta_src, theta_rel, rid[s], rety[s], h, h0 + j) + td[j];
+        return t >= 0.f ? t : slope * t;
+      };
+      for (int s = lane; s < live; s += 32) {
+        if (rid[s] < 0) continue;
+#pragma unroll
+        for (int j = 0; j < PREFETCH_H; ++j)
+          if (h0 + j < h) mx[j] = fmaxf(mx[j], logit(s, j));
+      }
+      for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+        for (int j = 0; j < PREFETCH_H; ++j) mx[j] = fmaxf(mx[j], __shfl_xor_sync(FULL_MASK, mx[j], off));
+      }
+      for (int s = lane; s < live; s += 32) {
+        if (rid[s] < 0) continue;
+#pragma unroll
+        for (int j = 0; j < PREFETCH_H; ++j)
+          if (h0 + j < h) sum[j] += expf(logit(s, j) - mx[j]);
+      }
+      for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+        for (int j = 0; j < PREFETCH_H; ++j) sum[j] += __shfl_xor_sync(FULL_MASK, sum[j], off);
+      }
+      for (int s = lane; s < live; s += 32) {
+        float a[PREFETCH_H] = {};
+        if (rid[s] >= 0) {
+#pragma unroll
+          for (int j = 0; j < PREFETCH_H; ++j)
+            if (h0 + j < h) a[j] = expf(logit(s, j) - mx[j]) / (sum[j] + 1e-30f);
+        }
+        store_heads(alpha_row + (size_t)s * h + h0, a, min(PREFETCH_H, h - h0));
+      }
+    }
+    zero_floats(alpha_row + (size_t)live * h, (size_t)(k_s - live) * h, lane);
+    for (int s = lane; s < k_s; s += 32) ids_row[s] = s < live ? rid[s] : -1;
+  }
+};
+
+// One candidate a lane: its global id, edge type and validity, and the
+// theta of its first PREFETCH_H heads, gathered ahead.
 struct Cand {
   int id, e;
   bool v;
   float ts[PREFETCH_H], tr[PREFETCH_H];
 };
 
+// Candidate lane of a grouped D-tile (lane < w).
 __device__ __forceinline__ void load_ids(Cand& c, const int* __restrict__ nbr,
                                          const unsigned char* __restrict__ msk,
                                          const int* __restrict__ ety, size_t base, bool live,
@@ -234,6 +487,16 @@ __device__ __forceinline__ void load_ids(Cand& c, const int* __restrict__ nbr,
   c.v = live && lane < w && msk[base + lane];
   c.id = c.v ? nbr[base + lane] : -1;
   c.e = c.v && ety != nullptr ? ety[base + lane] : 0;
+}
+
+// Candidate q + lane of a flat row's compacted list of n valid slots.
+__device__ __forceinline__ void load_listed(Cand& c, const int* list, int q, int n,
+                                            const int* __restrict__ nbr,
+                                            const int* __restrict__ ety, size_t base, int lane) {
+  c.v = q + lane < n;
+  const int j = c.v ? list[q + lane] : 0;
+  c.id = c.v ? nbr[base + j] : -1;
+  c.e = c.v && ety != nullptr ? ety[base + j] : 0;
 }
 
 __device__ __forceinline__ void load_theta(Cand& c, const float* __restrict__ theta_src,
@@ -250,7 +513,7 @@ __device__ __forceinline__ void load_theta(Cand& c, const float* __restrict__ th
 }
 
 // The candidate's rank: the left-to-right head sum of theta_src[id]
-// (+ theta_rel[ety]), as theta_of sums it; NEG when masked.
+// (+ theta_rel[ety]), as theta_of sums it; NEG when it is not valid.
 __device__ __forceinline__ float cand_rank(const Cand& c, const float* __restrict__ theta_src,
                                            const float* __restrict__ theta_rel, int h) {
   if (!c.v) return NEG;
@@ -266,9 +529,103 @@ __device__ __forceinline__ float cand_rank(const Cand& c, const float* __restric
   return r;
 }
 
-// K1. grid = n_blocks row blocks, block = (32, t_tile): warp y owns grouped
-// row blockIdx.x * t_tile + y. The row's domain lives in registers, SPL
-// slots a lane (slot lane + 32 i in element i), SPL * 32 >= k_s.
+// The insert chain over the lanes in `live`, in lane (slot) order, with
+// the exact filter: the minimum only rises, so a candidate at or below it
+// now is never inserted.
+template <class Dom>
+__device__ __forceinline__ void chain(Dom& dom, unsigned live, float cr, int cid, int ce,
+                                      float& mv, int& mi) {
+  live &= __ballot_sync(FULL_MASK, cr > mv);
+  while (live) {
+    const int src = __ffs(live) - 1;
+    live &= live - 1u;
+    const float v = __shfl_sync(FULL_MASK, cr, src);
+    const int id = __shfl_sync(FULL_MASK, cid, src);
+    const int e = __shfl_sync(FULL_MASK, ce, src);
+    if (v > mv) {
+      dom.put(mi, v, id, e);
+      dom.first_min(mv, mi);
+      live &= __ballot_sync(FULL_MASK, cr > mv);
+    }
+  }
+}
+
+// 32 candidates (one a lane) into a domain whose slots [filled, k) are
+// empty (NEG; any slot past k is parked at POS): the first ranked above
+// NEG fill those slots in lane order, the rest go through the chain. This
+// is what the chain alone does: nothing at or below NEG, nor NaN, is
+// greater than an empty slot, and while a slot is empty the first minimum
+// is the lowest empty slot (every held or parked rank is above NEG).
+template <class Dom>
+__device__ __forceinline__ void insert_batch(Dom& dom, int k, int& filled, float& mv, int& mi,
+                                             float cr, int cid, int ce) {
+  unsigned ins = __ballot_sync(FULL_MASK, cr > NEG);
+  if (filled < k && ins) {
+    const int cnt = __popc(ins);
+    const int fit = min(cnt, k - filled);
+    const int lo = filled;
+    dom.take(lo, lo + fit, [&](int s) { return nth_set_bit(ins, s - lo); }, cr, cid, ce);
+    ins = fit == cnt ? 0u : ins & ~((2u << nth_set_bit(ins, fit - 1)) - 1u);
+    filled += fit;
+    if (filled == k) {
+      dom.refresh();
+      dom.first_min(mv, mi);
+    }
+  }
+  if (ins) chain(dom, ins, cr, cid, ce, mv, mi);
+}
+
+// One grouped row (one warp): its D-tiles through the domain, then the
+// flush into row `row` of alpha and ids. The ids of D-tile dt + 2 and the
+// theta of dt + 1 are in flight while dt's candidates go in.
+template <class Dom>
+__device__ __forceinline__ void grouped_row(
+    Dom& dom, const int* __restrict__ nbr, const unsigned char* __restrict__ msk,
+    const int* __restrict__ ety, const float* __restrict__ theta_src,
+    const float* __restrict__ theta_rel, const float* __restrict__ theta_dst,
+    const int* __restrict__ row_targets, float* __restrict__ alpha, int* __restrict__ ids,
+    size_t row, int first, int n_dt, int bypass, int k_eff, int t_tile, int sub, int w, int h,
+    int k_s, float slope, int lane) {
+  auto tile_base = [&](int dt) { return ((size_t)(first + dt) * t_tile + sub) * w; };
+  dom.init(k_eff);
+  float mv = NEG;
+  int mi = 0;
+  // The shared-memory path fills the empty domain first (slots 0 .. filled
+  // - 1 hold a candidate), as the flat K1 does: there the chain would
+  // rescan a lane's slots after every insert. In registers an insert costs
+  // two reductions, and the chain runs from the start.
+  int filled = 0;
+  if (!bypass && !Dom::kShared) dom.first_min(mv, mi);
+  Cand cur, nxt;
+  load_ids(cur, nbr, msk, ety, tile_base(0), n_dt > 0, lane, w);
+  load_theta(cur, theta_src, theta_rel, h);
+  load_ids(nxt, nbr, msk, ety, tile_base(1), n_dt > 1, lane, w);
+  for (int dt = 0; dt < n_dt; ++dt) {
+    load_theta(nxt, theta_src, theta_rel, h);
+    Cand after;
+    load_ids(after, nbr, msk, ety, tile_base(dt + 2), dt + 2 < n_dt, lane, w);
+    const float cr = cand_rank(cur, theta_src, theta_rel, h);
+    if (bypass) {
+      // §4.3: capacity <= K, candidate j of D-tile dt is kept in slot dt*w + j
+      const int lo = dt * w;
+      dom.take(lo, lo + w, [&](int s) { return s - lo; }, cr, cur.id, cur.e);
+    } else if constexpr (Dom::kShared) {
+      insert_batch(dom, k_eff, filled, mv, mi, cr, cur.id, cur.e);
+    } else {
+      chain(dom, FULL_MASK, cr, cur.id, cur.e, mv, mi);
+    }
+    cur = nxt;
+    nxt = after;
+  }
+  dom.flush(k_eff, theta_src, theta_rel, theta_dst + (size_t)row_targets[row] * h, h, slope,
+            alpha + row * k_s * h, ids + row * k_s);
+}
+
+// K1. grid = n_blocks * (t_tile / wpb), block = (32, wpb): warp y of launch
+// block x owns grouped row (x / parts) * t_tile + (x % parts) * wpb + y,
+// parts = t_tile / wpb (wpb = t_tile on the register path). SPL 1-8: the
+// domain in registers, SPL * 32 >= k_s; SPL 0: in dynamic shared memory,
+// wpb * k_s * 12 B.
 template <int SPL>
 __global__ void grouped_prune_kernel(
     const int* __restrict__ nbr,          // (G, t_tile, w) global source ids
@@ -283,83 +640,24 @@ __global__ void grouped_prune_kernel(
     int* __restrict__ ids,                // out (rows, k_s)
     int n_blocks, int t_tile, int w, int h, int k_s, float slope) {
   const int lane = threadIdx.x;
-  const int warp = threadIdx.y;
-  const int b = blockIdx.x;
+  const int parts = t_tile / blockDim.y;
+  const int b = blockIdx.x / parts;
+  const int sub = (blockIdx.x % parts) * blockDim.y + threadIdx.y;
   const int first = blk[b];
   const int n_dt = blk[n_blocks + b];
   const int bypass = blk[2 * n_blocks + b];
   const int k_eff = blk[3 * n_blocks + b];
-  const size_t row = (size_t)b * t_tile + warp;
-  auto tile_base = [&](int dt) { return ((size_t)(first + dt) * t_tile + warp) * w; };
-
-  float rk[SPL];
-  int rid[SPL], rety[SPL];
-#pragma unroll
-  for (int i = 0; i < SPL; ++i) {
-    rk[i] = lane + 32 * i < k_eff ? NEG : POS;
-    rid[i] = -1;
-    rety[i] = 0;
+  const size_t row = (size_t)b * t_tile + sub;
+  if constexpr (SPL > 0) {
+    RegDomain<SPL, 1> dom(lane, k_s);
+    grouped_row(dom, nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets, alpha, ids, row,
+                first, n_dt, bypass, k_eff, t_tile, sub, w, h, k_s, slope, lane);
+  } else {
+    extern __shared__ float grouped_smem[];
+    SmemDomain dom(grouped_smem + (size_t)threadIdx.y * 3 * k_s, lane, k_s);
+    grouped_row(dom, nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets, alpha, ids, row,
+                first, n_dt, bypass, k_eff, t_tile, sub, w, h, k_s, slope, lane);
   }
-  float mv = NEG;
-  int mi = 0;
-  if (!bypass) reg_first_min(rk, k_s, lane, mv, mi);
-
-  // two tiles ahead: the ids of D-tile dt + 2 and the theta of dt + 1 are
-  // in flight while dt's candidates go in
-  Cand cur, nxt;
-  load_ids(cur, nbr, msk, ety, tile_base(0), n_dt > 0, lane, w);
-  load_theta(cur, theta_src, theta_rel, h);
-  load_ids(nxt, nbr, msk, ety, tile_base(1), n_dt > 1, lane, w);
-  for (int dt = 0; dt < n_dt; ++dt) {
-    load_theta(nxt, theta_src, theta_rel, h);
-    Cand after;
-    load_ids(after, nbr, msk, ety, tile_base(dt + 2), dt + 2 < n_dt, lane, w);
-    const float cr = cand_rank(cur, theta_src, theta_rel, h);
-    if (bypass) {
-      // §4.3: capacity <= K, candidate j of D-tile dt is kept in slot dt*w + j
-#pragma unroll
-      for (int i = 0; i < SPL; ++i) {
-        const int j = lane + 32 * i - dt * w;
-        const float v = __shfl_sync(FULL_MASK, cr, j & 31);
-        const int id = __shfl_sync(FULL_MASK, cur.id, j & 31);
-        const int e = __shfl_sync(FULL_MASK, cur.e, j & 31);
-        if (j >= 0 && j < w) {
-          rk[i] = v;
-          rid[i] = id;
-          rety[i] = e;
-        }
-      }
-    } else {
-      // exact filter: the minimum only rises, so a candidate at or below
-      // it now is never inserted; the rest go in slot order
-      unsigned live = __ballot_sync(FULL_MASK, cr > mv);
-      while (live) {
-        const int src = __ffs(live) - 1;
-        live &= live - 1u;
-        const float v = __shfl_sync(FULL_MASK, cr, src);
-        const int id = __shfl_sync(FULL_MASK, cur.id, src);
-        const int e = __shfl_sync(FULL_MASK, cur.e, src);
-        if (v > mv) {
-#pragma unroll
-          for (int i = 0; i < SPL; ++i) {
-            if (lane + 32 * i == mi) {
-              rk[i] = v;
-              rid[i] = id;
-              rety[i] = e;
-            }
-          }
-          reg_first_min(rk, k_s, lane, mv, mi);
-          live &= __ballot_sync(FULL_MASK, cr > mv);
-        }
-      }
-    }
-    cur = nxt;
-    nxt = after;
-  }
-
-  flush_row<SPL>(RegDomain<SPL>{rk, rid, rety}, k_s, k_eff, theta_src, theta_rel,
-                 theta_dst + (size_t)row_targets[row] * h, h, slope, alpha + row * k_s * h,
-                 ids + row * k_s, lane);
 }
 
 // K2 body: thread t of a row's block accumulates output (head t / dh,
@@ -396,9 +694,62 @@ __global__ void grouped_aggregate_kernel(
       gather_row(alpha + row * k_s * h, ids + row * k_s, hp, h, dh, k_eff);
 }
 
-// Flat K1. grid = ceil(T / rows_per_block), block = (32, rows_per_block):
-// warp y owns row blockIdx.x * rows_per_block + y. Dynamic shared memory:
-// rows_per_block * k * 12 B.
+// One flat row (one warp) through its k-slot domain, then the flush.
+// Segment by segment (SEG slots): every mask load in flight at once, the
+// valid slots compacted in slot order into `list`, then the listed
+// candidates 32 at a time (insert_batch), the next batch's theta and the
+// one after's ids gathered ahead.
+template <class Dom>
+__device__ __forceinline__ void flat_row(
+    Dom& dom, int* list, const int* __restrict__ nbr, const unsigned char* __restrict__ msk,
+    const int* __restrict__ ety, const float* __restrict__ theta_src,
+    const float* __restrict__ theta_rel, const float* __restrict__ theta_dst,
+    float* __restrict__ alpha, int* __restrict__ ids, int row, int d, int k, int h, float slope,
+    int lane) {
+  const size_t base = (size_t)row * d;
+  dom.init(k);
+  int filled = 0;  // slots 0 .. filled - 1 hold a candidate (the same on every lane)
+  float mv = NEG;
+  int mi = 0;
+  const unsigned below = (1u << lane) - 1u;
+  for (int seg = 0; seg < d; seg += SEG) {
+    bool m[SEG / 32];
+#pragma unroll
+    for (int c = 0; c < SEG / 32; ++c) {
+      const int j = seg + 32 * c + lane;
+      m[c] = j < d && msk[base + j];
+    }
+    int n = 0;
+#pragma unroll
+    for (int c = 0; c < SEG / 32; ++c) {
+      const unsigned b = __ballot_sync(FULL_MASK, m[c]);
+      if (m[c]) list[n + __popc(b & below)] = seg + 32 * c + lane;
+      n += __popc(b);
+    }
+    __syncwarp();
+    Cand cur, nxt;
+    load_listed(cur, list, 0, n, nbr, ety, base, lane);
+    load_theta(cur, theta_src, theta_rel, h);
+    load_listed(nxt, list, 32, n, nbr, ety, base, lane);
+    for (int q = 0; q < n; q += 32) {
+      load_theta(nxt, theta_src, theta_rel, h);
+      Cand after;
+      load_listed(after, list, q + 64, n, nbr, ety, base, lane);
+      insert_batch(dom, k, filled, mv, mi, cand_rank(cur, theta_src, theta_rel, h), cur.id, cur.e);
+      cur = nxt;
+      nxt = after;
+    }
+    __syncwarp();  // the next segment rewrites the list
+  }
+  // slots past `filled` are empty: the flush computes only below it
+  dom.flush(filled, theta_src, theta_rel, theta_dst + (size_t)row * h, h, slope,
+            alpha + (size_t)row * k * h, ids + (size_t)row * k);
+}
+
+// Flat K1. grid = ceil(T / rpb), block = (32, rpb): warp y owns row
+// blockIdx.x * rpb + y. Dynamic shared memory: rpb compaction lists of SEG
+// ints, then (SPL 0) rpb domains of k * 12 B.
+template <int SPL>
 __global__ void flat_prune_kernel(
     const int* __restrict__ nbr,            // (T, D) global source ids
     const unsigned char* __restrict__ msk,  // (T, D) bool
@@ -409,66 +760,23 @@ __global__ void flat_prune_kernel(
     float* __restrict__ alpha,              // out (T, k, H)
     int* __restrict__ ids,                  // out (T, k)
     int t, int d, int h, int k, float slope) {
-  extern __shared__ unsigned char smem[];
+  extern __shared__ int flat_smem[];
   const int lane = threadIdx.x;
   const int warp = threadIdx.y;
   const int rpb = blockDim.y;
   const int row = blockIdx.x * rpb + warp;
   if (row >= t) return;  // the whole warp leaves together
-
-  float* rk = reinterpret_cast<float*>(smem) + (size_t)warp * k;
-  int* rid = reinterpret_cast<int*>(smem) + (size_t)rpb * k + (size_t)warp * k;
-  int* rety = reinterpret_cast<int*>(smem) + (size_t)2 * rpb * k + (size_t)warp * k;
-
-  for (int s = lane; s < k; s += 32) {
-    rk[s] = NEG;
-    rid[s] = -1;
-    rety[s] = 0;
+  int* list = flat_smem + (size_t)warp * SEG;
+  if constexpr (SPL > 0) {
+    RegDomain<SPL, flat_heads(SPL)> dom(lane, k);
+    flat_row(dom, list, nbr, msk, ety, theta_src, theta_rel, theta_dst, alpha, ids, row, d, k, h,
+             slope, lane);
+  } else {
+    float* dbase = reinterpret_cast<float*>(flat_smem + (size_t)rpb * SEG) + (size_t)warp * 3 * k;
+    SmemDomain dom(dbase, lane, k);
+    flat_row(dom, list, nbr, msk, ety, theta_src, theta_rel, theta_dst, alpha, ids, row, d, k, h,
+             slope, lane);
   }
-  __syncwarp();
-  float mv;
-  int mi;
-  domain_first_min(rk, k, lane, mv, mi);
-
-  const size_t base = (size_t)row * d;
-  for (int c = 0; c < d; c += 32) {
-    const int j = c + lane;
-    const bool valid = j < d && msk[base + j];
-    float cr = NEG;
-    int cid = -1;
-    int ce = 0;
-    if (valid) {
-      cid = nbr[base + j];
-      ce = ety != nullptr ? ety[base + j] : 0;
-      float r = theta_of(theta_src, theta_rel, cid, ce, h, 0);
-      for (int hh = 1; hh < h; ++hh) r = r + theta_of(theta_src, theta_rel, cid, ce, h, hh);
-      cr = r;
-    }
-    // exact filter: the minimum only rises, so a candidate at or below it
-    // now is never inserted; the rest go in slot order
-    unsigned live = __ballot_sync(FULL_MASK, valid && cr > mv);
-    while (live) {
-      const int src = __ffs(live) - 1;
-      live &= live - 1;
-      const float cur = __shfl_sync(FULL_MASK, cr, src);
-      const int cur_id = __shfl_sync(FULL_MASK, cid, src);
-      const int cur_e = __shfl_sync(FULL_MASK, ce, src);
-      if (cur > mv) {
-        __syncwarp();
-        if (lane == 0) {
-          rk[mi] = cur;
-          rid[mi] = cur_id;
-          rety[mi] = cur_e;
-        }
-        __syncwarp();
-        domain_first_min(rk, k, lane, mv, mi);
-      }
-    }
-  }
-
-  flush_row<SLOTS_PER_LANE>(SmemDomain{rk, rid, rety, lane}, k, k, theta_src, theta_rel,
-                            theta_dst + (size_t)row * h, h, slope, alpha + (size_t)row * k * h,
-                            ids + (size_t)row * k, lane);
 }
 
 // Flat K2. grid = T rows, block = H * dh threads, one per output.
@@ -484,13 +792,29 @@ __global__ void flat_aggregate_kernel(
 
 extern "C" int fpa_max_ks() { return MAX_KS; }
 
+// Opt a kernel into `bytes` of dynamic shared memory where that is above
+// the default 48 KB.
+static int allow_smem(const void* fn, size_t bytes) {
+  if (bytes <= (size_t)DEFAULT_SMEM) return 0;
+  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// The domain's slots a lane on the register path (1, 2, 4, 8), or 0 for
+// the shared-memory path.
+static int slots_per_lane(int k) {
+  return k <= 32 ? 1 : k <= 64 ? 2 : k <= 128 ? 4 : k <= REG_KS ? 8 : 0;
+}
+
 template <int SPL>
 static int launch_grouped_prune(const void* nbr, const void* msk, const void* ety,
                                 const void* theta_src, const void* theta_rel,
                                 const void* theta_dst, const void* row_targets, const void* blk,
-                                void* alpha, void* ids, int n_blocks, int t_tile, int w, int h,
-                                int k_s, float slope, cudaStream_t stream) {
-  grouped_prune_kernel<SPL><<<n_blocks, dim3(32, t_tile), 0, stream>>>(
+                                void* alpha, void* ids, int n_blocks, int t_tile, int wpb, int w,
+                                int h, int k_s, float slope, cudaStream_t stream) {
+  const size_t shmem = SPL > 0 ? 0 : (size_t)wpb * k_s * SLOT_BYTES;
+  const int err = allow_smem((const void*)grouped_prune_kernel<SPL>, shmem);
+  if (err) return err;
+  grouped_prune_kernel<SPL><<<n_blocks * (t_tile / wpb), dim3(32, wpb), shmem, stream>>>(
       (const int*)nbr, (const unsigned char*)msk, (const int*)ety, (const float*)theta_src,
       (const float*)theta_rel, (const float*)theta_dst, (const int*)row_targets,
       (const int*)blk, (float*)alpha, (int*)ids, n_blocks, t_tile, w, h, k_s, slope);
@@ -503,20 +827,33 @@ extern "C" int fpa_grouped_prune(
     const void* blk, void* alpha, void* ids, int n_blocks, int t_tile, int w,
     int h, int k_s, float slope, void* stream) {
   if (n_blocks == 0) return 0;
-  if (k_s < 1 || k_s > MAX_KS || w < 1 || w > 32) return (int)cudaErrorInvalidValue;
+  if (k_s < 1 || k_s > MAX_KS || w < 1 || w > 32 || t_tile < 1 || t_tile > 32)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  // the domain's slots a lane, a power of two
-  if (k_s <= 32)
-    return launch_grouped_prune<1>(nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets,
-                                   blk, alpha, ids, n_blocks, t_tile, w, h, k_s, slope, st);
-  if (k_s <= 64)
-    return launch_grouped_prune<2>(nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets,
-                                   blk, alpha, ids, n_blocks, t_tile, w, h, k_s, slope, st);
-  if (k_s <= 128)
-    return launch_grouped_prune<4>(nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets,
-                                   blk, alpha, ids, n_blocks, t_tile, w, h, k_s, slope, st);
-  return launch_grouped_prune<8>(nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets,
-                                 blk, alpha, ids, n_blocks, t_tile, w, h, k_s, slope, st);
+  switch (slots_per_lane(k_s)) {
+    case 1:
+      return launch_grouped_prune<1>(nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets,
+                                     blk, alpha, ids, n_blocks, t_tile, t_tile, w, h, k_s, slope,
+                                     st);
+    case 2:
+      return launch_grouped_prune<2>(nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets,
+                                     blk, alpha, ids, n_blocks, t_tile, t_tile, w, h, k_s, slope,
+                                     st);
+    case 4:
+      return launch_grouped_prune<4>(nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets,
+                                     blk, alpha, ids, n_blocks, t_tile, t_tile, w, h, k_s, slope,
+                                     st);
+    case 8:
+      return launch_grouped_prune<8>(nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets,
+                                     blk, alpha, ids, n_blocks, t_tile, t_tile, w, h, k_s, slope,
+                                     st);
+  }
+  // warps a launch block: the widest divisor of t_tile whose domains fit
+  // in one block (one domain of MAX_KS slots always does)
+  int wpb = t_tile;
+  while ((size_t)wpb * k_s * SLOT_BYTES > (size_t)MAX_SMEM || t_tile % wpb) --wpb;
+  return launch_grouped_prune<0>(nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets, blk,
+                                 alpha, ids, n_blocks, t_tile, wpb, w, h, k_s, slope, st);
 }
 
 extern "C" int fpa_grouped_aggregate(
@@ -530,20 +867,47 @@ extern "C" int fpa_grouped_aggregate(
   return (int)cudaGetLastError();
 }
 
-static constexpr int FLAT_ROWS_PER_BLOCK = 8;
+template <int SPL>
+static int launch_flat_prune(const void* nbr, const void* msk, const void* ety,
+                             const void* theta_src, const void* theta_rel, const void* theta_dst,
+                             void* alpha, void* ids, int t, int d, int h, int k, float slope,
+                             cudaStream_t stream) {
+  const size_t per_row = (size_t)LIST_BYTES + (SPL > 0 ? 0 : (size_t)k * SLOT_BYTES);
+  int rpb = FLAT_ROWS_PER_BLOCK;
+  while (rpb > 1 && rpb * per_row > (size_t)MAX_SMEM) rpb >>= 1;
+  const size_t shmem = rpb * per_row;
+  const int err = allow_smem((const void*)flat_prune_kernel<SPL>, shmem);
+  if (err) return err;
+  flat_prune_kernel<SPL><<<(t + rpb - 1) / rpb, dim3(32, rpb), shmem, stream>>>(
+      (const int*)nbr, (const unsigned char*)msk, (const int*)ety, (const float*)theta_src,
+      (const float*)theta_rel, (const float*)theta_dst, (float*)alpha, (int*)ids, t, d, h, k,
+      slope);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int fpa_flat_prune(
     const void* nbr, const void* msk, const void* ety, const void* theta_src,
     const void* theta_rel, const void* theta_dst, void* alpha, void* ids, int t, int d,
     int h, int k, float slope, void* stream) {
   if (t == 0) return 0;
-  const size_t shmem = (size_t)FLAT_ROWS_PER_BLOCK * k * 12;
-  const int grid = (t + FLAT_ROWS_PER_BLOCK - 1) / FLAT_ROWS_PER_BLOCK;
-  flat_prune_kernel<<<grid, dim3(32, FLAT_ROWS_PER_BLOCK), shmem, (cudaStream_t)stream>>>(
-      (const int*)nbr, (const unsigned char*)msk, (const int*)ety, (const float*)theta_src,
-      (const float*)theta_rel, (const float*)theta_dst, (float*)alpha, (int*)ids, t, d, h, k,
-      slope);
-  return (int)cudaGetLastError();
+  if (k < 1 || k > MAX_KS || d < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (slots_per_lane(k)) {
+    case 1:
+      return launch_flat_prune<1>(nbr, msk, ety, theta_src, theta_rel, theta_dst, alpha, ids, t, d,
+                                  h, k, slope, st);
+    case 2:
+      return launch_flat_prune<2>(nbr, msk, ety, theta_src, theta_rel, theta_dst, alpha, ids, t, d,
+                                  h, k, slope, st);
+    case 4:
+      return launch_flat_prune<4>(nbr, msk, ety, theta_src, theta_rel, theta_dst, alpha, ids, t, d,
+                                  h, k, slope, st);
+    case 8:
+      return launch_flat_prune<8>(nbr, msk, ety, theta_src, theta_rel, theta_dst, alpha, ids, t, d,
+                                  h, k, slope, st);
+  }
+  return launch_flat_prune<0>(nbr, msk, ety, theta_src, theta_rel, theta_dst, alpha, ids, t, d, h,
+                              k, slope, st);
 }
 
 extern "C" int fpa_flat_aggregate(const void* alpha, const void* ids, const void* hp, void* out,

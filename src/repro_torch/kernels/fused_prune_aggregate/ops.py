@@ -33,7 +33,12 @@ W_TILE = 8  # candidates per D-tile
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "fused_prune_aggregate.cu",)
-MAX_KS = 256  # retention-domain width the CUDA K1 supports (default max_degree)
+MAX_SMEM = 232448  # dynamic shared memory a block can opt into on Hopper
+SLOT_BYTES = 12  # a shared-memory domain slot: rank, id, edge type
+LIST_BYTES = 256 * 4  # a flat K1 warp's compaction list
+# the widest retention domain the CUDA K1s take: one warp's domain in shared
+# memory beside its list (up to 256 slots the domain lives in registers)
+MAX_KS = (MAX_SMEM - LIST_BYTES) // SLOT_BYTES
 
 # kernel launches, one per launch of each CUDA kernel; the plain versions do
 # not count
@@ -157,7 +162,10 @@ def prune(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 over a grouped layout -> (alpha (rows, k_s, H) f32, ids (rows,
     k_s) int32). See ``ref.prune_plain`` for the arguments. CUDA tensors
-    launch the kernel; CPU tensors run the plain version."""
+    launch the kernel (``k_s`` at most ``MAX_KS``, 19,285: one warp's
+    domain in shared memory, 12 B a slot; above 256 slots a row block's
+    warps may be launched as several blocks), or raise ``ValueError``
+    before any launch; CPU tensors run the plain version."""
     if theta_src.device.type == "cpu":
         return ref.prune_plain(
             nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets, blk,
@@ -169,7 +177,10 @@ def prune(
     n_blocks = blk.shape[1]
     rows = n_blocks * t_tile
     if not 1 <= k_s <= MAX_KS:
-        raise ValueError(f"k_s={k_s} outside [1, {MAX_KS}] (the CUDA K1's domain width)")
+        raise ValueError(
+            f"k_s={k_s} outside [1, {MAX_KS}] (the CUDA K1's domain width: one warp's "
+            "domain in shared memory)"
+        )
     if not 1 <= w <= 32:
         raise ValueError(f"tile width w={w} outside [1, 32] (one candidate per lane)")
     if not 1 <= t_tile <= 32:
@@ -282,7 +293,9 @@ def flat_prune(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flat K1 over a (T, D) table -> (alpha (T, k, H) f32, ids (T, k)
     int32). See ``ref.flat_prune_plain`` for the arguments. CUDA tensors
-    launch the kernel (``k`` at most ``MAX_KS``); CPU tensors run the plain
+    launch the kernel (``k`` at most ``MAX_KS``, 19,285: one warp's domain
+    in shared memory, 12 B a slot, beside its 1 KB compaction list), or
+    raise ``ValueError`` before any launch; CPU tensors run the plain
     version."""
     if theta_src.device.type == "cpu":
         return ref.flat_prune_plain(
@@ -292,7 +305,10 @@ def flat_prune(
     t, d = nbr.shape
     n, h = theta_src.shape
     if not 1 <= k <= MAX_KS:
-        raise ValueError(f"k={k} outside [1, {MAX_KS}] (the CUDA K1's domain width)")
+        raise ValueError(
+            f"k={k} outside [1, {MAX_KS}] (the CUDA K1's domain width: one warp's "
+            "domain in shared memory)"
+        )
     if h < 1:
         raise ValueError("theta_src has no heads")
     i32, f32 = torch.int32, torch.float32

@@ -283,25 +283,29 @@ def test_wrapper_cpu_only_and_uncounted():
         )
 
 
-# --- the CUDA grouped K1's register domain, emulated in numpy --------------
+# --- the CUDA K1s' retention domains, emulated in numpy --------------------
 
-# (caps, prune_k, k_s the layout gets): pruned and bypass buckets; k_s 8 by a
-# bypass bucket's w-aligned capacity, so the pruned rows park slots 7 and 8
-# at POS; k_s 33 and 256 past a warp's width
+# k_s the layout gets: (caps, prune_k, targets, sources, edges); pruned and
+# bypass buckets; k_s 8 by a bypass bucket's w-aligned capacity, so the
+# pruned rows park slots 7 and 8 at POS; k_s 33 and 256 past a warp's width
+# (registers); 257, 300 and 528 past 256 (shared memory), 528 with a bypass
+# bucket of capacity 300 in it
 KS_CASES = {
-    1: ((4, 8, 16), 1),
-    8: ((5, 13), 7),
-    32: ((8, 32, 64), 32),
-    33: ((8, 16, 64), 33),
-    256: ((8, 64, 400), 256),
+    1: ((4, 8, 16), 1, 30, 50, 600),
+    8: ((5, 13), 7, 30, 50, 600),
+    32: ((8, 32, 64), 32, 30, 50, 600),
+    33: ((8, 16, 64), 33, 30, 50, 600),
+    256: ((8, 64, 400), 256, 20, 600, 4000),
+    257: ((8, 64, 400), 257, 40, 600, 6000),
+    300: ((8, 64, 400), 300, 40, 600, 6000),
+    528: ((8, 300, 600), 528, 20, 600, 6000),
 }
 
 
 def _ks_graph(rng, k_s):
     """A heavy-tailed random bucketed graph for ``KS_CASES[k_s]``: (graph,
-    prune_k, N); k_s 256 needs rows of degree above 256."""
-    caps, k = KS_CASES[k_s]
-    t, n, edges = (20, 600, 4000) if k_s == 256 else (30, 50, 600)
+    prune_k, N); k_s 256 and above need rows of degree above 256."""
+    caps, k, t, n, edges = KS_CASES[k_s]
     src, dst, ety = _edges(rng, t, n, num_etypes=3, edges=edges)
     return _bucketed(thg, src, dst, ety, t, max(caps) + 8, caps, num_etypes=3), k, n
 
@@ -313,9 +317,10 @@ def _order_key(v):
 
 
 def _reg_first_min(rk, k_s):
-    """reg_first_min: lane l holds slots l, l+32, ...; each lane's least key
-    (its lowest slot among equals), then __reduce_min_sync over the lanes
-    on the key, then on the slot among lanes holding that key."""
+    """The domain's first minimum, in registers or in shared memory alike:
+    lane l holds slots l, l+32, ...; each lane's least key (its lowest slot
+    among equals), then __reduce_min_sync over the lanes on the key, then on
+    the slot among lanes holding that key."""
     key = _order_key(rk)
     lk, ls = [], []
     for lane in range(32):
@@ -326,68 +331,109 @@ def _reg_first_min(rk, k_s):
             ls.append(int(slots[j]))
         else:
             lk.append(0xFFFFFFFF)
-            ls.append(256)
+            ls.append(k_s)
     mk = min(lk)
     mi = min(sl for kl, sl in zip(lk, ls) if kl == mk)
     return rk[mi], mi
 
 
+def _rank(ts, tr, i, e):
+    """A candidate's rank: the left-to-right float32 head sum of θ_u*[i]
+    (+ θ_rel[e])."""
+    r = np.float32(0)
+    for hh in range(ts.shape[1]):
+        x = ts[i, hh] if tr is None else np.float32(ts[i, hh] + tr[e, hh])
+        r = x if hh == 0 else np.float32(r + x)
+    return r
+
+
+def _nth_set_bit(m, n):
+    return [i for i in range(32) if m >> i & 1][n]
+
+
+class _Domain:
+    """One warp's retention domain as the CUDA K1s keep it: k_s ranks, ids
+    and edge types, slots >= k_eff parked at POS. ``fill`` is the flat K1's
+    and the grouped shared-memory path's insert_batch (the first
+    candidates ranked above NEG fill the empty slots in lane order); without
+    it every candidate goes through the chain, as on the grouped register
+    path."""
+
+    def __init__(self, k_s, k_eff, fill):
+        f32 = np.float32
+        self.k_s, self.k_eff = k_s, k_eff
+        self.rk = np.where(np.arange(k_s) < k_eff, f32(tcommon.NEG), f32(tcommon.POS)).astype(f32)
+        self.rid = np.full(k_s, -1, np.int64)
+        self.rety = np.zeros(k_s, np.int64)
+        self.filled = 0 if fill else k_eff
+        self.mv, self.mi = (f32(tcommon.NEG), 0) if fill else _reg_first_min(self.rk, k_s)
+
+    def put(self, s, r, i, e):
+        self.rk[s], self.rid[s], self.rety[s] = r, i, e
+
+    def insert(self, cr, cid, ce):
+        """One batch of candidates, one a lane (lane order = slot order)."""
+        ins = [lane for lane in range(len(cr)) if cr[lane] > tcommon.NEG]
+        if self.filled < self.k_eff and ins:
+            fit = min(len(ins), self.k_eff - self.filled)
+            ballot = sum(1 << lane for lane in ins)
+            for s in range(self.filled, self.filled + fit):
+                src = _nth_set_bit(ballot, s - self.filled)
+                self.put(s, cr[src], cid[src], ce[src])
+            ins = ins[fit:]
+            self.filled += fit
+            if self.filled == self.k_eff:
+                self.mv, self.mi = _reg_first_min(self.rk, self.k_s)
+        live = [lane for lane in ins if cr[lane] > self.mv]  # the ballot filter
+        while live:
+            lane = live.pop(0)
+            if cr[lane] > self.mv:
+                self.put(self.mi, cr[lane], cid[lane], ce[lane])
+                self.mv, self.mi = _reg_first_min(self.rk, self.k_s)
+                live = [x for x in live if cr[x] > self.mv]
+
+
 def _grouped_k1_emulation(nbr, msk, ety, ts, tr, blk, k_s):
     """The CUDA grouped K1 for every grouped row, step for step: the
-    register domain (slots >= k_eff parked at POS), the rank as its
+    register domain (k_s <= 256, the chain from the start) or the
+    shared-memory domain (the fill, then the chain), both finding the first
+    minimum the same way; slots >= k_eff parked at POS, the rank as its
     left-to-right head sum, the bypass copy, the exact ballot filter per
     D-tile with the first minimum found again only after an insert.
     Returns the domain's ranks, ids and edge types."""
-    f32 = np.float32
     _, t_tile, w = nbr.shape
     n_blocks = blk.shape[1]
-    h = ts.shape[1]
     rows = n_blocks * t_tile
-    rd_rank = np.zeros((rows, k_s), f32)
+    rd_rank = np.zeros((rows, k_s), np.float32)
     rd_id = np.full((rows, k_s), -1, np.int64)
     rd_ety = np.zeros((rows, k_s), np.int64)
     for b in range(n_blocks):
         first, n_dt, bypass, k_eff = (int(x) for x in blk[:, b])
         for y in range(t_tile):
-            rk = np.where(np.arange(k_s) < k_eff, f32(tcommon.NEG), f32(tcommon.POS)).astype(f32)
-            rid = np.full(k_s, -1, np.int64)
-            rety = np.zeros(k_s, np.int64)
-            mv, mi = _reg_first_min(rk, k_s)
+            dom = _Domain(k_s, k_eff, fill=k_s > 256)
             for dt in range(n_dt):
                 step = first + dt
                 valid = msk[step, y]
                 cid = np.where(valid, nbr[step, y], -1)
                 ce = np.where(valid, ety[step, y], 0) if tr is not None else np.zeros(w, np.int64)
-                cr = np.full(w, f32(tcommon.NEG), f32)
-                for j in np.flatnonzero(valid):
-                    r = f32(0)
-                    for hh in range(h):
-                        t = ts[cid[j], hh] if tr is None else f32(ts[cid[j], hh] + tr[ce[j], hh])
-                        r = t if hh == 0 else f32(r + t)
-                    cr[j] = r
+                cr = [_rank(ts, tr, cid[j], ce[j]) if valid[j] else np.float32(tcommon.NEG) for j in range(w)]
                 if bypass:
-                    rk[dt * w: dt * w + w] = cr
-                    rid[dt * w: dt * w + w] = cid
-                    rety[dt * w: dt * w + w] = ce
-                    continue
-                live = [j for j in range(w) if cr[j] > mv]
-                while live:
-                    j = live.pop(0)
-                    if cr[j] > mv:
-                        rk[mi], rid[mi], rety[mi] = cr[j], cid[j], ce[j]
-                        mv, mi = _reg_first_min(rk, k_s)
-                        live = [i for i in live if cr[i] > mv]
-            rd_rank[b * t_tile + y], rd_id[b * t_tile + y], rd_ety[b * t_tile + y] = rk, rid, rety
+                    for j in range(w):
+                        dom.put(dt * w + j, cr[j], cid[j], ce[j])
+                else:
+                    dom.insert(cr, cid, ce)
+            rd_rank[b * t_tile + y], rd_id[b * t_tile + y], rd_ety[b * t_tile + y] = dom.rk, dom.rid, dom.rety
     return rd_rank, rd_id, rd_ety
 
 
 @pytest.mark.parametrize("k_s", sorted(KS_CASES))
 def test_grouped_register_domain_emulation_matches_plain(k_s):
-    """The grouped K1's register domain and ballot filter
+    """The grouped K1's domain and ballot filter
     (csrc/fused_prune_aggregate.cu), emulated in numpy, keep the ids of
     ``prune_plain`` slot for slot, α within 1e-6, on tie-heavy ranks (small
-    integers, with a relation term) at k_s 1, 8, 32, 33 and 256, on a mix
-    of pruned and bypass buckets with slots parked at POS."""
+    integers, with a relation term) at k_s 1, 8, 32, 33 and 256 (the
+    register domain) and 257, 300 and 528 (the shared-memory domain), on a
+    mix of pruned and bypass buckets with slots parked at POS."""
     rng = np.random.default_rng(k_s)
     sg, k, n = _ks_graph(rng, k_s)
     h = 4
@@ -412,6 +458,108 @@ def test_grouped_register_domain_emulation_matches_plain(k_s):
     )
     assert torch.equal(i_e, i_p)
     torch.testing.assert_close(a_e, a_p, atol=1e-6, rtol=0)
+
+
+SEG = 256  # slots of a flat row the CUDA flat K1 compacts at once
+
+
+def _warp_sum(part):
+    """A float32 sum over the 32 lanes as the kernels take it: five
+    __shfl_xor_sync butterfly steps (each lane adds its partner's)."""
+    part = list(part)
+    for off in (16, 8, 4, 2, 1):
+        part = [np.float32(part[lane] + part[lane ^ off]) for lane in range(32)]
+    return part[0]
+
+
+def _flat_k1_emulation(nbr, msk, ety, ts, tr, td, k, slope=0.2):
+    """The CUDA flat K1 for every row, step for step: segments of SEG slots,
+    the valid slots compacted in slot order (ballot + prefix counts), the
+    listed candidates 32 at a time with the rank as its left-to-right head
+    sum; while the domain has empty slots the candidates ranked above NEG
+    fill them in lane order, then the ballot filter and the chain (first
+    minimum found again only after an insert); then the flush per head:
+    LeakyReLU, maximum, each lane's sum of exp over its slots in order, the
+    butterfly sum, alpha. Returns alpha (T, k, H) and ids (T, k)."""
+    f32 = np.float32
+    t, d = nbr.shape
+    h = ts.shape[1]
+    neg, slope = f32(tcommon.NEG), f32(slope)
+    alpha = np.zeros((t, k, h), f32)
+    ids = np.full((t, k), -1, np.int32)
+    for row in range(t):
+        dom = _Domain(k, k, fill=True)
+        for seg in range(0, d, SEG):
+            listed = []
+            for c in range(SEG // 32):  # one ballot a chunk, prefix counts
+                chunk = [seg + 32 * c + lane for lane in range(32)]
+                listed += [j for j in chunk if j < d and msk[row, j]]
+            for q in range(0, len(listed), 32):
+                batch = listed[q:q + 32]
+                cid = [int(nbr[row, j]) for j in batch]
+                ce = [int(ety[row, j]) if tr is not None else 0 for j in batch]
+                dom.insert([_rank(ts, tr, i, e) for i, e in zip(cid, ce)], cid, ce)
+        rk, rid, rety = dom.rk, dom.rid, dom.rety
+        ok = rk > neg * f32(0.5)
+        for hh in range(h):
+            logit = np.zeros(k, f32)
+            for s in np.flatnonzero(ok):
+                x = ts[rid[s], hh] if tr is None else f32(ts[rid[s], hh] + tr[rety[s], hh])
+                x = f32(x + td[row, hh])
+                logit[s] = x if x >= 0 else f32(slope * x)
+            mx = max([neg] + [logit[s] for s in np.flatnonzero(ok)])
+            ex = np.exp(np.where(ok, logit - mx, f32(0)), dtype=f32)
+            part = [f32(0)] * 32
+            for lane in range(32):
+                for s in range(lane, k, 32):
+                    if ok[s]:
+                        part[lane] = f32(part[lane] + ex[s])
+            alpha[row, :, hh] = np.where(ok, ex / f32(_warp_sum(part) + f32(1e-30)), f32(0))
+        ids[row] = np.where(ok, rid, -1)
+    return alpha, ids
+
+
+def _special_theta(rng, n, h):
+    """Tie-heavy integer θ_u* with rows ranking NaN, -inf, in the NEG band
+    (-2.5e38: it takes a slot but is flushed as empty), -0.0, +0.0 and
+    below NEG."""
+    ts = rng.integers(-1, 2, size=(n, h)).astype(np.float32)
+    ts[0] = np.nan
+    ts[1] = -np.inf
+    ts[2] = 0.0
+    ts[2, 0] = -2.5e38
+    ts[3] = -0.0
+    ts[4] = 0.0
+    ts[5] = 0.0
+    ts[5, 0] = -3.4e38
+    return ts
+
+
+@pytest.mark.parametrize("k", (1, 8, 32, 33, 256, 257, 300, 528))
+def test_flat_k1_emulation_matches_plain(k):
+    """The flat K1 (csrc/fused_prune_aggregate.cu: compaction, fill, ballot
+    filter and chain, flush), emulated in numpy, keeps the ids of
+    ``flat_prune_plain`` slot for slot, α within 1e-6, on tie-heavy
+    integer ranks with a relation term and rows whose candidates rank NaN,
+    -inf, in the NEG band, ±0.0 and below NEG; with an empty row, a row of
+    fewer valid slots than k and rows that run the chain, over more than
+    one SEG segment, in registers (k <= 256) and in shared memory."""
+    rng = np.random.default_rng(100 + k)
+    t, d, n, h, r = 6, max(k + 60, SEG + 44), 40, 4, 3
+    nbr = rng.integers(0, n, size=(t, d)).astype(np.int32)
+    msk = rng.random((t, d)) < 0.85
+    msk[1] = False
+    msk[2, k // 2:] = False
+    ety = rng.integers(0, r, size=(t, d)).astype(np.int32)
+    ts, tr = _special_theta(rng, n, h), rng.integers(-1, 2, size=(r, h)).astype(np.float32)
+    td = _normal(rng, t, h)
+    a_e, i_e = _flat_k1_emulation(nbr, msk, ety, ts, tr, td, k)
+    a_p, i_p = tref.flat_prune_plain(
+        *(torch.from_numpy(x) for x in (nbr, msk, ety, ts, tr, td)), k, 0.2
+    )
+    np.testing.assert_array_equal(i_e, i_p.numpy())
+    np.testing.assert_allclose(a_e, a_p.numpy(), atol=1e-6, rtol=0)
+    assert (i_e[1] == -1).all() and (i_e[2] >= 0).sum() <= k // 2
 
 
 FLAT_SWEEP = ((11, 70, 8, 8, 200, 5), (8, 128, 8, 8, 64, 50), (5, 33, 4, 16, 40, 33), (2, 7, 2, 4, 10, 3))
@@ -458,6 +606,31 @@ def test_flat_matches_reference_kernel(t, d, h, dh, n, k):
     rng = np.random.default_rng(10 + t)
     out_j, out_t = _flat_both(*_flat_inputs(rng, t, d, h, dh, n), k)
     assert out_t.shape == (t, h, dh)
+    np.testing.assert_allclose(out_t, out_j, atol=ATOL)
+
+
+@pytest.mark.parametrize("k", (257, 300))
+def test_flat_wide_domain_matches_reference_kernel(k):
+    """Domains past the CUDA K1's 256 register slots: the flat op against
+    the flat Pallas kernel, whose scratch is sized by K."""
+    pytest.importorskip("jax")
+    rng = np.random.default_rng(k)
+    out_j, out_t = _flat_both(*_flat_inputs(rng, 5, 340, 4, 8, 300, r=3), k)
+    np.testing.assert_allclose(out_t, out_j, atol=ATOL)
+
+
+@pytest.mark.parametrize("k_s", (257, 300))
+def test_grouped_wide_domain_matches_reference_kernel(k_s):
+    """The grouped op against the grouped Pallas kernel at k_s 257 and 300
+    (a pruned bucket of capacity 400 beside a bypass bucket), past the CUDA
+    K1's 256 register slots."""
+    pytest.importorskip("jax")
+    caps, k, t, n, edges = KS_CASES[k_s]
+    rng = np.random.default_rng(k_s)
+    sg_j, sg_t = _both(rng, t, max(caps) + 8, n, caps, edges=edges)
+    assert tops.grouped_meta(sg_t.grouped(tops.T_TILE, tops.W_TILE), k)[2] == k_s
+    hp, ts, td = _normal(rng, n, 4, 8), _normal(rng, n, 4), _normal(rng, t, 4)
+    out_j, out_t = _run_both(sg_j, sg_t, hp, ts, td, k)
     np.testing.assert_allclose(out_t, out_j, atol=ATOL)
 
 
@@ -594,10 +767,11 @@ def test_cuda_kernels_match_plain(cuda_device, caps, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k_s", (1, 8, 32, 33, 256))
+@pytest.mark.parametrize("k_s", (1, 8, 32, 33, 256, 257, 300, 528))
 def test_cuda_register_domain_matches_plain(cuda_device, k_s):
-    """The grouped K1 at the widths of its register domain, on tie-heavy
-    ranks with a relation term, pruned and bypass buckets."""
+    """The grouped K1 at the widths of its register domain and, past 256,
+    its shared-memory domain, on tie-heavy ranks with a relation term,
+    pruned and bypass buckets."""
     rng = np.random.default_rng(k_s)
     sg, k, n = _ks_graph(rng, k_s)
     h = 4
@@ -613,8 +787,13 @@ def test_cuda_register_domain_matches_plain(cuda_device, k_s):
     torch.testing.assert_close(a_k, a_p, atol=1e-6, rtol=0)
 
 
+# past 256 slots the domain is in shared memory; the last at the budget
+FLAT_WIDE = ((9, 300, 8, 8, 50, 256), (5, 300, 4, 8, 60, 257), (5, 340, 8, 8, 60, 300),
+             (4, 600, 4, 8, 80, 528), (2, tops.MAX_KS + 3000, 4, 8, 30000, tops.MAX_KS))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("t,d,h,dh,n,k", FLAT_SWEEP + ((9, 300, 8, 8, 50, 256),))
+@pytest.mark.parametrize("t,d,h,dh,n,k", FLAT_SWEEP + FLAT_WIDE)
 def test_cuda_flat_kernels_match_plain(cuda_device, t, d, h, dh, n, k):
     rng = np.random.default_rng(t)
     hp, ts, td, idx, msk, tr, ety = (
