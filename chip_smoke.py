@@ -23,10 +23,14 @@ exits non-zero at the first phase that fails:
    integer ranks, pruned and bypass buckets; the flat pair on the
    reference's sweep shapes (random masks with holes), a relation term,
    k = D, an empty row, a score tie, the real ACM ``union:paper`` table and
-   tie-heavy tables at k 257, 300, 528 and ``MAX_KS``; a flat domain of 257
-   slots runs and equals its plain version, and a domain one past
-   ``MAX_KS`` (flat and grouped) raises before any launch; the top-K
-   decode attention pair on the reference's
+   tie-heavy tables at k 257, 300, 528 and ``MAX_KS``; on every case of
+   both pairs the fused launch (``prune_aggregate`` /
+   ``flat_prune_aggregate``: K1, then K2's aggregation in the same warp)
+   must return the pair's output, alpha and ids bit for bit, with and
+   without ``keep``, in exactly one launch; a flat domain of 257 slots runs
+   and equals its plain version, and a domain one past ``MAX_KS`` or an
+   H * dh of 1025 (flat and grouped, pair and fused) raises before any
+   launch; the top-K decode attention pair on the reference's
    sweep shapes, k >= length (equal to the dense attention), per-row
    lengths with one below K, the logits [1, 1, 2, 1] tie at k = 2 (keeps
    positions {1, 2}), gemma3-4b's decode shapes in float32 and bfloat16,
@@ -55,7 +59,8 @@ exits non-zero at the first phase that fails:
    and Simple-HGN on ACM and IMDB on three routes each (the bucketed single
    dispatch, the per-bucket loop and the flat SGB). The launch counters are
    set to 0 just before each forward and read just after; every count must
-   equal the count derived from the semantic graphs. Logits must be finite,
+   equal the count derived from the semantic graphs: one fused launch per
+   NA call, and no launch of a K1 or K2 step wrapper. Logits must be finite,
    within 1e-4 of the same route's forward on the CPU (plain versions; the
    projection sums in another order) and of the other routes, and
    ``session.query`` blocks at capacities 1, 8, 64 bit-identical to the
@@ -80,7 +85,9 @@ exits non-zero at the first phase that fails:
    paths (the counters set to 0 just before and read
    just after; no serving flow calls it): the ranks of every table the
    flat K1 prunes in one forward of RGAT and Simple-HGN on ACM, where
-   ``nbr[row, ids]`` must equal K1's retained ids slot for slot, and
+   ``nbr[row, ids]`` must equal, slot for slot, the ids of a ``keep=True``
+   fused launch on each served launch's inputs (its output equal to the
+   served one bit for bit), and
    gemma3-4b's float32 logits of the last global layer in decode step 1,
    where the ids, sorted ascending with -1 last, must equal decode K1's
    (which writes them in that canonical layout); on each of these inputs the
@@ -90,10 +97,11 @@ exits non-zero at the first phase that fails:
    device time per call from the profiler (CUPTI), and the CUDA-event time
    of back-to-back calls, which also holds the host's launch cost when the
    kernel is shorter than that; the plain versions with CUDA events. The
-   grouped pair at the DBLP APA shapes, the flat pair at the ACM
-   ``union:paper`` shapes of Simple-HGN's first layer, both K1s on the
-   wide path (HAN ACM PSP at ``prune_k=None``: flat k 527, grouped k_s
-   528), the decode pair at
+   grouped pair and its fused launch at the DBLP APA shapes, the flat pair
+   and its fused launch at the ACM ``union:paper`` shapes of Simple-HGN's
+   first layer, both pairs and fused launches on the wide path (HAN ACM PSP
+   at ``prune_k=None``: flat k 527, grouped k_s 528; and at
+   ``prune_k=300``), the decode pair at
    the inputs of gemma3-4b's last global layer in the first decode step;
    then every forward, with a profiler breakdown of the ACM forwards; then
    the LM's prefill, its decode step (median of the main path's steps
@@ -200,14 +208,36 @@ def k1_widths(sgs, route: str, prune_k, ops) -> list:
 
 
 def expected_launches(sgs, route: str, prune_k, layers: int, ops) -> dict:
-    """Kernel launches of one forward: per layer, the route's pair once per
-    K1 launch ``k1_widths`` derives from the semantic graphs."""
+    """Kernel launches of one forward: per layer, the route's fused launch
+    once per NA call ``k1_widths`` derives from the semantic graphs, and no
+    launch of a K1 or K2 step wrapper."""
     n = len(k1_widths(sgs, route, prune_k, ops))
-    keys = ("prune", "aggregate") if route == "bucketed" else ("flat_prune", "flat_aggregate")
     out = {key: 0 for key in ops.LAUNCHES}
-    for key in keys:
-        out[key] = layers * n
+    out["prune_aggregate" if route == "bucketed" else "flat_prune_aggregate"] = layers * n
     return out
+
+
+def same_bits(got, want) -> bool:
+    """Equal tensors bit for bit (equal NaNs too)."""
+    import torch
+
+    bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x  # noqa: E731
+    return all(g.shape == w.shape and torch.equal(bits(g), bits(w)) for g, w in zip(got, want))
+
+
+def check_fused(name, run, pair, launch_key, ops):
+    """The fused launch ``run(keep)`` against its kernel pair's (out,
+    alpha, ids), bit for bit, with ``keep=True`` and (out alone, the serving
+    call) without; exactly one launch under ``launch_key`` each. Returns the
+    fused output."""
+    before = dict(ops.LAUNCHES)
+    kept = run(True)
+    served = run(False)
+    launched = {key: n - before[key] for key, n in ops.LAUNCHES.items() if n != before[key]}
+    check(launched == {launch_key: 2}, f"{name}: two fused calls launched {launched}")
+    check(same_bits(kept, pair), f"{name}: the fused launch (keep=True) differs from the K1 -> K2 pair")
+    check(same_bits((served,), pair[:1]), f"{name}: the fused launch's output differs from the pair's")
+    return served
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -281,7 +311,7 @@ def check_kernels(cases, dev):
 
     from repro_torch.kernels.fused_prune_aggregate import ops, ref
 
-    err = {"prune": 0.0, "aggregate": 0.0}
+    err = {"prune": 0.0, "aggregate": 0.0, "prune_aggregate": 0.0}
     gen = torch.Generator().manual_seed(0)
     for name, sg, k, n, h, dh, n_rel in cases:
         hp = torch.randn((n, h, dh), generator=gen).to(dev)
@@ -307,6 +337,10 @@ def check_kernels(cases, dev):
         a_p, i_p = ref.prune_plain(nbr, msk, ety, ts, tr, td, rt, blk, k_s, 0.2)
         o_k = ops.aggregate(a_p, i_p, hp, blk)
         o_p = ref.aggregate_plain(a_p, i_p, hp, blk)
+        o_f = check_fused(name, lambda keep: ops.prune_aggregate(nbr, msk, ety, ts, tr, td, rt, blk, k_s, hp,
+                                                                  keep=keep),
+                          (ops.aggregate(a_k, i_k, hp, blk), a_k, i_k), "prune_aggregate", ops)
+        check(same_bits((out,), (o_f[perm],)), f"{name}: the grouped op differs from its fused launch")
         sync(dev)
         if not torch.equal(i_k, i_p):
             bad = int((i_k != i_p).sum())
@@ -317,9 +351,10 @@ def check_kernels(cases, dev):
         if e_a > TOL_ALPHA or e_o > TOL_OUT or e_op > TOL_OUT:
             raise AssertionError(f"{name}: alpha err {e_a:.3g}, K2 err {e_o:.3g}, op err {e_op:.3g}")
         err["prune"] = max(err["prune"], e_a)
-        err["aggregate"] = max(err["aggregate"], e_o, e_op)
+        err["aggregate"] = max(err["aggregate"], e_o)
+        err["prune_aggregate"] = max(err["prune_aggregate"], e_op)
         print(f"  kernels == plain  {name}: k_s={k_s} steps={layout.num_steps} "
-              f"ids equal, alpha err {e_a:.3g}, out err {max(e_o, e_op):.3g}")
+              f"ids equal, alpha err {e_a:.3g}, out err {max(e_o, e_op):.3g}; fused == pair bitwise")
     return err
 
 
@@ -390,7 +425,7 @@ def check_flat_kernels(cases, dev):
 
     from repro_torch.kernels.fused_prune_aggregate import ops, ref
 
-    err = {"flat_prune": 0.0, "flat_aggregate": 0.0}
+    err = {"flat_prune": 0.0, "flat_aggregate": 0.0, "flat_prune_aggregate": 0.0}
     gen = torch.Generator().manual_seed(1)
     for name, idx, msk, ety, n, h, dh, n_rel, k in cases:
         t = idx.shape[0]
@@ -409,21 +444,27 @@ def check_flat_kernels(cases, dev):
         o_k = ops.flat_aggregate(a_p, i_p, hp)
         o_p = ref.flat_aggregate_plain(a_p, i_p, hp)
         out = ops.fused_prune_aggregate(hp, ts, td, nbr, mk, theta_rel=tr, edge_type=et, prune_k=k)
+        o_f = check_fused(f"flat {name}", lambda keep: ops.flat_prune_aggregate(nbr, mk, et, ts, tr, td, hp, k,
+                                                                                keep=keep),
+                          (ops.flat_aggregate(a_k, i_k, hp), a_k, i_k), "flat_prune_aggregate", ops)
+        check(same_bits((out,), (o_f,)), f"flat {name}: the flat op differs from its fused launch")
         sync(dev)
         if not torch.equal(i_k, i_p):
             bad = int((i_k != i_p).sum())
             raise AssertionError(f"flat {name}: K1 retained ids differ from the plain version in {bad} slots")
         e_a = float((a_k - a_p).abs().max())
-        e_o = max(float((o_k - o_p).abs().max()), float((out - o_p).abs().max()))
+        e_f = float((out - o_p).abs().max())
+        e_o = max(float((o_k - o_p).abs().max()), e_f)
         if e_a > TOL_ALPHA or e_o > TOL_OUT:
             raise AssertionError(f"flat {name}: alpha err {e_a:.3g}, out err {e_o:.3g}")
         empty = ~mk.any(dim=1)
         check(bool((i_k[empty] == -1).all()) and not bool(out[empty].any()),
               f"flat {name}: a row with no valid slot kept something")
         err["flat_prune"] = max(err["flat_prune"], e_a)
-        err["flat_aggregate"] = max(err["flat_aggregate"], e_o)
+        err["flat_aggregate"] = max(err["flat_aggregate"], float((o_k - o_p).abs().max()))
+        err["flat_prune_aggregate"] = max(err["flat_prune_aggregate"], e_f)
         print(f"  kernels == plain  flat {name}: ids equal, alpha err {e_a:.3g}, out err {e_o:.3g}"
-              + (f", {int(empty.sum())} empty rows zero" if bool(empty.any()) else ""))
+              + (f", {int(empty.sum())} empty rows zero" if bool(empty.any()) else "") + "; fused == pair bitwise")
     return err
 
 
@@ -479,6 +520,24 @@ def check_flat_tie_and_width(dev):
         print(f"  k_s = {ops.MAX_KS + 1} raises before launch: {e}")
     else:
         raise AssertionError(f"a grouped domain wider than {ops.MAX_KS} did not raise")
+    # the fused launches: the same widths, and an output row of H * dh 1025
+    hp_wide, hp = torch.zeros((4, 1, 1025), device=dev), torch.zeros((4, 4, 2), device=dev)
+    flat_idx = torch.zeros((2, 4), dtype=torch.int32, device=dev)
+    one_head = (ts[:, :1].contiguous(), td[:, :1].contiguous())
+    for what, h_p, k, (theta, t_dst) in (("k = MAX_KS + 1", hp, ops.MAX_KS + 1, (ts, td)),
+                                         ("H * dh = 1025", hp_wide, 2, one_head)):
+        for kind, call in (
+            ("flat", lambda: ops.flat_prune_aggregate(flat_idx, flat_idx.bool(), None, theta, None, t_dst, h_p, k)),
+            ("grouped", lambda: ops.prune_aggregate(tiles, tiles.bool(), None, theta, None, t_dst,
+                                                    torch.zeros(8, dtype=torch.int32, device=dev), blk, k, h_p)),
+        ):
+            try:
+                call()
+            except ValueError as e:
+                check(ops.LAUNCHES == before, f"the fused {kind} launch at {what} launched a kernel")
+                print(f"  fused {kind} at {what} raises before launch: {e}")
+            else:
+                raise AssertionError(f"the fused {kind} launch at {what} did not raise")
 
 
 def prepare_route(pipeline, hetgraph, model, ds, route, dev):
@@ -622,12 +681,45 @@ def k1_bound(msk, nbr, ety, theta_src, theta_rel, theta_dst, alpha, ids, table_b
     return bound(nbytes, nops), valid, src_rows
 
 
+def k2_bound(alpha, ids, h_proj, out, table_bytes: int = 0):
+    """A K2's bound from this run's inputs: alpha, ids, the row tables, each
+    distinct retained h' row once and the output; an FMA a retained slot and
+    output. Returns (bound, retained slots, distinct retained rows)."""
+    import torch
+
+    retained = ids[ids >= 0]
+    distinct = int(torch.unique(retained).numel())
+    hdim = h_proj.shape[1] * h_proj.shape[2]
+    nbytes = (alpha.numel() + ids.numel()) * 4 + table_bytes + distinct * hdim * 4 + out.numel() * 4
+    return bound(nbytes, 2 * int(retained.numel()) * hdim), int(retained.numel()), distinct
+
+
+def fused_bound(k1, alpha, ids, h_proj, out):
+    """A fused launch's bound: its K1's bytes and operations (``k1``, from
+    ``k1_bound``) less the alpha and ids writes and the six operations an
+    output alpha, which it need not make, plus six operations a retained
+    slot and head (its softmax runs on retained slots only), each distinct
+    retained h' row once, the output, and an FMA a retained slot and
+    output."""
+    import torch
+
+    _, _, nbytes, nops = k1
+    retained = ids[ids >= 0]
+    heads, hdim = h_proj.shape[1], h_proj.shape[1] * h_proj.shape[2]
+    nbytes += -(alpha.numel() + ids.numel()) * 4 + int(torch.unique(retained).numel()) * hdim * 4 + out.numel() * 4
+    nops += (int(retained.numel()) * heads - alpha.numel()) * 6 + 2 * int(retained.numel()) * hdim
+    return bound(nbytes, nops)
+
+
 def wide_timings(tasks, dev):
-    """Phase 4, both K1s on the wide path at HAN ACM PSP, ``prune_k=None``
-    (real projected features and weights): the flat K1 on the flat route's
-    table (k 527) and the grouped K1 on the bucketed route's layout (k_s
-    528, every bucket a bypass). Kernel and plain times, the largest alpha
-    difference from the plain version, and the bounds."""
+    """Phase 4, the wide path at HAN ACM PSP (real projected features and
+    weights) on the flat route's table (k 527 at ``prune_k=None``, 300 at
+    300) and the bucketed route's layout (k_s 528 at ``prune_k=None``, every
+    bucket a bypass; pruned buckets beside bypass ones at 300): K1, K2 and
+    the fused launch, which must equal the pair bit for bit. Kernel and
+    plain times, the largest differences from the plain versions, and the
+    bounds; keys ``<step>_wide`` at ``prune_k=None``, ``<step>_wide300`` at
+    300."""
     import torch
 
     from repro_torch.core import attention, flows
@@ -636,37 +728,62 @@ def wide_timings(tasks, dev):
 
     t, bounds, shapes, err = {}, {}, {}, {}
     with torch.inference_mode():
-        for route, key in (("flat", "flat_prune_wide"), ("bucketed", "prune_wide")):
+        for route, base in (("flat", "flat_"), ("bucketed", "")):
             task = tasks[route]
             p, batch, model = task.params, task.batch, task.model
             sg = next(g for g in task.sgs if g.name == "PSP")
             h = project_features(p, batch.features, batch.node_types, model.heads, model.dh)
             dst = slice(batch.dst_offset, batch.dst_offset + batch.num_targets)
             sc = attention.decompose_scores(h, p[f"attn.{sg.name}.a_src"], p[f"attn.{sg.name}.a_dst"], dst)
-            if route == "flat":
-                nbr, msk, _ = flows._flat_tables(sg, False, dev)
-                k = nbr.shape[1]
-                args = (nbr, msk, None, sc.theta_src, None, sc.theta_dst, k)
-                run, plain, table_bytes = ops.flat_prune, ref.flat_prune_plain, 0
-                shapes[key] = f"han acm {sg.name} flat table {tuple(nbr.shape)}, k={k}, prune_k=None"
-            else:
-                layout = sg.grouped(ops.T_TILE, ops.W_TILE)
-                (nbr, msk, _, rt, _), (blk, k) = ops._layout_device(layout, None, dev)
-                args = (nbr, msk, None, sc.theta_src, None, sc.theta_dst, rt, blk, k)
-                run, plain, table_bytes = ops.prune, ref.prune_plain, (rt.numel() + blk.numel()) * 4
-                shapes[key] = (f"han acm {sg.name} grouped, {layout.num_rows} rows, {layout.num_steps} grid steps, "
-                               f"k_s={k}, prune_k=None")
-            alpha, ids = run(*args)
-            a_p, i_p = plain(*args, 0.2)
-            sync(dev)
-            check(torch.equal(ids, i_p), f"wide {key}: ids differ from the plain version")
-            err[key] = float((alpha - a_p).abs().max())
-            check(err[key] <= TOL_ALPHA, f"wide {key}: alpha err {err[key]:.3g}")
-            t[f"{key}_plain"] = cuda_ms(lambda: plain(*args, 0.2), 1, warmup=1)
-            timed(t, key, lambda: run(*args), 50)
-            bounds[key], valid, _ = k1_bound(msk, nbr, None, sc.theta_src, None, sc.theta_dst, alpha, ids, table_bytes)
-            print(f"  wide {key} ({shapes[key]}, {valid} valid slots): device {t[key]:.4f} ms, events "
-                  f"{t[f'{key}_event']:.4f}, plain {t[f'{key}_plain']:.1f}, bound {bounds[key][0]:.5f} ms")
+            for pk, tag in ((None, "_wide"), (300, "_wide300")):
+                if route == "flat":
+                    nbr, msk, _ = flows._flat_tables(sg, False, dev)
+                    k = nbr.shape[1] if pk is None else min(pk, nbr.shape[1])
+                    k1_args = (nbr, msk, None, sc.theta_src, None, sc.theta_dst)
+                    prune, plain_prune = (lambda: ops.flat_prune(*k1_args, k)), (lambda: ref.flat_prune_plain(*k1_args, k, 0.2))
+                    agg = lambda a, i: ops.flat_aggregate(a, i, h)  # noqa: E731
+                    fused = lambda keep: ops.flat_prune_aggregate(*k1_args, h, k, keep=keep)  # noqa: E731
+                    plain_fused = lambda: ref.flat_prune_aggregate_plain(*k1_args, h, k, 0.2)  # noqa: E731
+                    table_bytes = k2_table = 0
+                    desc = f"han acm {sg.name} flat table {tuple(nbr.shape)}, k={k}, prune_k={pk}"
+                else:
+                    layout = sg.grouped(ops.T_TILE, ops.W_TILE)
+                    (nbr, msk, _, rt, _), (blk, k) = ops._layout_device(layout, pk, dev)
+                    k1_args = (nbr, msk, None, sc.theta_src, None, sc.theta_dst, rt, blk, k)
+                    prune, plain_prune = (lambda: ops.prune(*k1_args)), (lambda: ref.prune_plain(*k1_args, 0.2))
+                    agg = lambda a, i: ops.aggregate(a, i, h, blk)  # noqa: E731
+                    fused = lambda keep: ops.prune_aggregate(*k1_args, h, keep=keep)  # noqa: E731
+                    plain_fused = lambda: ref.prune_aggregate_plain(*k1_args, h, 0.2)  # noqa: E731
+                    table_bytes, k2_table = (rt.numel() + blk.numel()) * 4, blk.numel() * 4
+                    desc = (f"han acm {sg.name} grouped, {layout.num_rows} rows, {layout.num_steps} grid steps, "
+                            f"k_s={k}, prune_k={pk}")
+                k1_key, k2_key, f_key = (f"{base}{step}{tag}" for step in ("prune", "aggregate", "prune_aggregate"))
+                alpha, ids = prune()
+                out = agg(alpha, ids)
+                o_p, a_p, i_p = plain_fused()
+                sync(dev)
+                check(torch.equal(ids, i_p), f"wide {k1_key}: ids differ from the plain version")
+                o_f = check_fused(f"wide {f_key}", fused, (out, alpha, ids),
+                                  "flat_prune_aggregate" if route == "flat" else "prune_aggregate", ops)
+                err[k1_key] = float((alpha - a_p).abs().max())
+                err[f_key] = float((o_f - o_p).abs().max())
+                check(err[k1_key] <= TOL_ALPHA and err[f_key] <= TOL_OUT,
+                      f"wide {f_key}: alpha err {err[k1_key]:.3g}, out err {err[f_key]:.3g}")
+                t[f"{k1_key}_plain"] = cuda_ms(plain_prune, 1, warmup=1)
+                t[f"{f_key}_plain"] = cuda_ms(plain_fused, 1, warmup=1)
+                timed(t, k1_key, prune, 50)
+                timed(t, k2_key, lambda: agg(alpha, ids), 50)
+                timed(t, f_key, lambda: fused(False), 50)
+                k1, valid, _ = k1_bound(msk, nbr, None, sc.theta_src, None, sc.theta_dst, alpha, ids, table_bytes)
+                bounds[k1_key] = k1
+                bounds[k2_key] = k2_bound(alpha, ids, h, out, k2_table)[0]
+                bounds[f_key] = fused_bound(k1, alpha, ids, h, out)
+                for key in (k1_key, k2_key, f_key):
+                    shapes[key] = desc
+                print(f"  wide {desc} ({valid} valid slots): K1 {t[k1_key]:.4f} ms (bound {k1[0]:.5f}), "
+                      f"K2 {t[k2_key]:.4f} ms, fused {t[f_key]:.4f} ms (events {t[f'{f_key}_event']:.4f}, "
+                      f"bound {bounds[f_key][0]:.5f}), plain K1 {t[f'{k1_key}_plain']:.1f} ms, "
+                      f"plain fused {t[f'{f_key}_plain']:.1f} ms; fused == pair bitwise")
     return t, bounds, shapes, err
 
 
@@ -699,26 +816,27 @@ def flat_timings(task, dev):
             "flat_prune_plain": cuda_ms(lambda: ref.flat_prune_plain(*args, 0.2), 5, warmup=1),
             "flat_aggregate_plain": cuda_ms(lambda: ref.flat_aggregate_plain(alpha, ids, h), 20),
         }
+        fused = lambda keep: ops.flat_prune_aggregate(*args[:6], h, PRUNE_K, keep=keep)  # noqa: E731
+        check_fused("flat timing shapes", fused, (out, alpha, ids), "flat_prune_aggregate", ops)
+        t["flat_prune_aggregate_plain"] = cuda_ms(lambda: ref.flat_prune_aggregate_plain(*args[:6], h, PRUNE_K, 0.2),
+                                                  5, warmup=1)
         timed(t, "flat_prune", lambda: ops.flat_prune(*args), 200)
         timed(t, "flat_aggregate", lambda: ops.flat_aggregate(alpha, ids, h), 200)
+        timed(t, "flat_prune_aggregate", lambda: fused(False), 200)
         lib_fn, lib_err = library_aggregate(alpha, ids, h, out)
         check(lib_err <= TOL_OUT, f"library flat K2 differs from the kernel by {lib_err:.3g}")
         timed(t, "flat_aggregate_library", lib_fn, 200)
         torch.cuda.synchronize()
         rows, k, _ = alpha.shape
-        # bytes this run's data needs: K1's (k1_bound), then K2's: alpha,
-        # ids, each distinct retained h' row once, and the output
+        # bytes this run's data needs: K1's (k1_bound), K2's (k2_bound), and
+        # the fused launch's (fused_bound)
         k1, valid, src_rows = k1_bound(msk, nbr, ety, sc.theta_src, sc.theta_rel, sc.theta_dst, alpha, ids)
-        retained = ids[ids >= 0]
-        distinct = int(torch.unique(retained).numel())
-        k2_bytes = (alpha.numel() + ids.numel()) * 4 + distinct * heads * dh * 4 + out.numel() * 4
-        k2_ops = 2 * int(retained.numel()) * heads * dh
-    bounds = {"flat_prune": k1, "flat_aggregate": bound(k2_bytes, k2_ops)}
+        k2, retained, distinct = k2_bound(alpha, ids, h, out)
+    bounds = {"flat_prune": k1, "flat_aggregate": k2, "flat_prune_aggregate": fused_bound(k1, alpha, ids, h, out)}
     shapes = {
         "graph": f"acm {sg.name} (simple_hgn layer 0)", "rows": rows, "width": int(nbr.shape[1]), "k": k,
         "edge_types": int(sc.theta_rel.shape[0]), "valid_edge_slots": valid,
-        "distinct_source_rows": src_rows, "retained_slots": int(retained.numel()),
-        "distinct_retained_rows": distinct,
+        "distinct_source_rows": src_rows, "retained_slots": retained, "distinct_retained_rows": distinct,
     }
     return t, bounds, shapes
 
@@ -740,7 +858,7 @@ def main_path(pipeline, FlowConfig, ops, cpu_tasks, dev):
         sess = task.compile(flow)
         n_sg = len(task.sgs)
         want = expected_launches(task.sgs, "bucketed", PRUNE_K, 1, ops)
-        check(want["prune"] == n_sg, f"{ds}: a semantic graph has no grid steps")
+        check(want["prune_aggregate"] == n_sg, f"{ds}: a semantic graph has no grid steps")
         reset_launches(ops)
         logits = sess(task.params)
         sync(dev)
@@ -826,29 +944,27 @@ def grouped_timings(task, dev):
             "prune_plain": cuda_ms(lambda: ref.prune_plain(*args, 0.2), 5, warmup=1),
             "aggregate_plain": cuda_ms(lambda: ref.aggregate_plain(alpha, ids, h, blk), 20),
         }
+        fused = lambda keep: ops.prune_aggregate(*args, h, keep=keep)  # noqa: E731
+        check_fused("grouped timing shapes", fused, (out, alpha, ids), "prune_aggregate", ops)
+        t["prune_aggregate_plain"] = cuda_ms(lambda: ref.prune_aggregate_plain(*args, h, 0.2), 5, warmup=1)
         timed(t, "prune", lambda: ops.prune(*args), 200)
         timed(t, "aggregate", lambda: ops.aggregate(alpha, ids, h, blk), 200)
+        timed(t, "prune_aggregate", lambda: fused(False), 200)
         lib_fn, lib_err = library_aggregate(alpha, ids, h, out)
         check(lib_err <= TOL_OUT, f"library K2 differs from the kernel by {lib_err:.3g}")
         timed(t, "aggregate_library", lib_fn, 200)
         torch.cuda.synchronize()
-        rows, _, heads = alpha.shape
-        dh = h.shape[2]
+        rows = alpha.shape[0]
         # bytes this run's data needs: K1's (k1_bound, with the row tables),
-        # then K2's: alpha, ids, the block table, each distinct retained h'
-        # row once, and the output
+        # K2's (k2_bound, with the block table) and the fused launch's
         k1, valid, src_rows = k1_bound(msk, nbr, None, sc.theta_src, None, sc.theta_dst, alpha, ids,
                                        (rt.numel() + blk.numel()) * 4)
-        retained = ids[ids >= 0]
-        distinct = int(torch.unique(retained).numel())
-        n_blocks = blk.shape[1]
-        k2_bytes = (alpha.numel() + ids.numel() + 4 * n_blocks) * 4 + distinct * heads * dh * 4 + out.numel() * 4
-        k2_ops = 2 * int((ids >= 0).sum()) * heads * dh
-    bounds = {"prune": k1, "aggregate": bound(k2_bytes, k2_ops)}
+        k2, retained, distinct = k2_bound(alpha, ids, h, out, blk.numel() * 4)
+    bounds = {"prune": k1, "aggregate": k2, "prune_aggregate": fused_bound(k1, alpha, ids, h, out)}
     shapes = {
         "graph": f"dblp {sg.name}", "grid_steps": layout.num_steps, "rows": rows, "k_s": k_s,
         "valid_edge_slots": valid, "distinct_source_rows": src_rows,
-        "retained_slots": int(retained.numel()), "distinct_retained_rows": distinct,
+        "retained_slots": retained, "distinct_retained_rows": distinct,
     }
     return t, bounds, shapes
 
@@ -1494,7 +1610,9 @@ def pruner_main_path(model_tasks, FlowConfig, fpa_ops, ts_ops, tda_ops, decode_i
     scores of two served paths, each a cross-check between two kernels
     that keep the same rule: (a) the ranks of every table the flat K1
     prunes in one forward of RGAT and of Simple-HGN on ACM (flat route),
-    where ``nbr[row, ids]`` must equal K1's retained ids; (b) the float32
+    where ``nbr[row, ids]`` must equal the ids of a ``keep=True`` fused
+    launch on each served launch's inputs, whose output must equal the
+    served one bit for bit; (b) the float32
     logits of gemma3-4b's last global layer in decode step 1
     (``score_logits_plain``, bit-identical to decode K1's), where the ids
     must equal decode K1's. The counters are set to 0 just before the
@@ -1506,20 +1624,29 @@ def pruner_main_path(model_tasks, FlowConfig, fpa_ops, ts_ops, tda_ops, decode_i
 
     from repro_torch.kernels.topk_decode_attention import ref as tda_ref
 
-    tables, real = [], fpa_ops.flat_prune
+    served, real = [], fpa_ops.flat_prune_aggregate
 
-    def record(nbr, msk, ety, ts, tr, td, k, slope=0.2):
-        alpha, ids = real(nbr, msk, ety, ts, tr, td, k, slope)
-        tables.append((f"{key} table {len(tables)} {tuple(nbr.shape)}", nbr, msk, ety, ts, tr, k, ids))
-        return alpha, ids
+    def record(nbr, msk, ety, ts, tr, td, hp, k, slope=0.2, keep=False):
+        res = real(nbr, msk, ety, ts, tr, td, hp, k, slope, keep=keep)
+        served.append((f"{key} table {len(served)} {tuple(nbr.shape)}", (nbr, msk, ety, ts, tr, td, hp, k, slope),
+                       res[0] if keep else res))
+        return res
 
-    fpa_ops.flat_prune = record
+    fpa_ops.flat_prune_aggregate = record
     try:
         for key in ("rgat/acm/flat", "simple_hgn/acm/flat"):
             task = model_tasks[key]
             task.compile(route_flow(FlowConfig, "flat"))(task.params)
     finally:
-        fpa_ops.flat_prune = real
+        fpa_ops.flat_prune_aggregate = real
+    # the served launches write no ids: a keep=True launch on each served
+    # input gives them, its output held to the served one bit for bit
+    tables = []
+    for name, args, out in served:
+        kept, _, ids = real(*args, keep=True)
+        check(same_bits((kept,), (out,)), f"pruner main path {name}: the keep=True launch differs from the served one")
+        nbr, msk, ety, ts, tr, _, _, k, _ = args
+        tables.append((name, nbr, msk, ety, ts, tr, k, ids))
     ranks = [(name, flat_ranks(nbr, ety, ts, tr), msk, k) for name, nbr, msk, ety, ts, tr, k, _ in tables]
     q, kc, _, lens, prune_k, scale = decode_in
     b, h, _ = q.shape
@@ -1550,7 +1677,7 @@ def pruner_main_path(model_tasks, FlowConfig, fpa_ops, ts_ops, tda_ops, decode_i
     for (name, nbr, msk, *_, k1_ids), (_, ids3) in zip(tables, outs):
         mapped = torch.where(ids3 >= 0, nbr.gather(1, ids3.clamp(min=0).long()), -1)
         if not torch.equal(mapped, k1_ids):
-            raise AssertionError(f"pruner vs flat K1 {name}: {int((mapped != k1_ids).sum())} slots differ")
+            raise AssertionError(f"pruner vs the served flat launch {name}: {int((mapped != k1_ids).sum())} slots differ")
     # the same retained set: decode K1 writes it in the canonical layout
     # (positions ascending, -1 last), the Pruner in its domain's slot order
     dec_ids3 = out_dec[1].reshape(b, h, k_dec)
@@ -1558,7 +1685,8 @@ def pruner_main_path(model_tasks, FlowConfig, fpa_ops, ts_ops, tda_ops, decode_i
     srt = torch.where(srt < s, srt, -1)
     if not torch.equal(srt, dec_ids):
         raise AssertionError(f"pruner vs decode K1: {int((srt != dec_ids).sum())} slots of the sorted sets differ")
-    print(f"  main path pruner: {len(ranks)} flat K1 tables of RGAT/Simple-HGN ACM (nbr[row, ids] == K1 ids, "
+    print(f"  main path pruner: {len(ranks)} flat K1 tables of RGAT/Simple-HGN ACM (nbr[row, ids] == the ids of a "
+          "keep=True launch on the served inputs, its output == the served one bitwise, "
           f"slot for slot) and {LM_ARCH} decode logits {b * h}x{s} k={k_dec} (ids sorted == decode K1's); "
           f"all {len(inputs)} equal the plain version (values bitwise, ids); "
           f"launches {launches['topk_select.topk_select']}")
@@ -1611,13 +1739,22 @@ def pruner_timings(shapes, dev):
 
 
 KERNELS = (
-    # (LAUNCHES key, TPU kernel body it replaces, library-call timing key)
+    # (LAUNCHES key, TPU kernel bodies it replaces, library-call timing key)
     ("prune", "kernel.py:219 _grouped_prune_kernel", None),
     ("aggregate", "kernel.py:137 _grouped_aggregate_kernel", "aggregate_library"),
+    ("prune_aggregate", "kernel.py:219 _grouped_prune_kernel + kernel.py:137 _grouped_aggregate_kernel "
+     "(fused_prune_aggregate_grouped_pallas, kernel.py:304)", None),
     ("flat_prune", "kernel.py:69 _prune_kernel (fused_prune_aggregate_pallas, kernel.py:153)", None),
     ("flat_aggregate", "kernel.py:124 _aggregate_kernel (fused_prune_aggregate_pallas, kernel.py:153)",
      "flat_aggregate_library"),
+    ("flat_prune_aggregate", "kernel.py:69 _prune_kernel + kernel.py:124 _aggregate_kernel "
+     "(fused_prune_aggregate_pallas, kernel.py:153)", None),
 )
+CHECKS = {
+    "prune": "pass: ids equal, alpha <= 1e-6",
+    "aggregate": "pass: out <= 1e-5",
+    "prune_aggregate": "pass: out, alpha and ids bitwise equal to the K1 -> K2 pair's; out <= 1e-5 vs plain",
+}
 DECODE_KERNELS = (
     ("score_prune", "kernel.py:31 _score_prune_kernel (topk_decode_attention_pallas, kernel.py:97)", None),
     ("value_gather", "kernel.py:83 _value_gather_kernel (topk_decode_attention_pallas, kernel.py:97)",
@@ -1764,10 +1901,13 @@ def main() -> int:
             "bound_ops": nops,
             "library_ms": t[lib] if lib else None,
             "library_event_ms": t[f"{lib}_event"] if lib else None,
-            "shapes": (shapes if key in ("prune", "aggregate") else s_flat)["graph"],
-            "check": "pass: ids equal, alpha <= 1e-6" if key.endswith("prune") else "pass: out <= 1e-5",
+            "shapes": (s_flat if key.startswith("flat_") else shapes)["graph"],
+            "check": CHECKS[key.removeprefix("flat_")],
         })
-    for key, base, line in (("prune_wide", "prune", KERNELS[0][1]), ("flat_prune_wide", "flat_prune", KERNELS[2][1])):
+    wide_rows = (("prune_wide", "prune", KERNELS[0][1]), ("prune_aggregate_wide", "prune_aggregate", KERNELS[2][1]),
+                 ("flat_prune_wide", "flat_prune", KERNELS[3][1]),
+                 ("flat_prune_aggregate_wide", "flat_prune_aggregate", KERNELS[5][1]))
+    for key, base, line in wide_rows:
         bound_ms, bound_by, nbytes, nops = bounds[key]
         per_fwd = {path: r["launches"][base] for path, r in wide_results.items() if r["launches"][base]}
         wide = {path: r["wide_launches"] for path, r in wide_results.items() if r["launches"][base]}
@@ -1793,7 +1933,7 @@ def main() -> int:
             "library_ms": None,
             "library_event_ms": None,
             "shapes": s_wide[key],
-            "check": "pass: ids equal, alpha <= 1e-6",
+            "check": CHECKS[base.removeprefix("flat_")],
         })
     for key, line, lib in DECODE_KERNELS:
         bound_ms, bound_by, nbytes, nops = bounds[key]

@@ -92,9 +92,44 @@
 //    stores (store_heads).
 // K2 gives each row one block with a thread per (head, dh) output, so every
 // retained h' row is read with one coalesced load of H*dh floats and
-// accumulated in a register. All kernels launch on the caller's stream,
-// allocate nothing and do not synchronize. Fusing K1 into K2, staging h' in
-// shared memory and CUDA graphs across the forward are later work.
+// accumulated in a register.
+//
+// The fused launch: K1, then K2's aggregation in the same warp. Both K1
+// bodies (grouped_launch_row, flat_launch_row) take a template flag AGG;
+// the K1 kernels run them with it off (the step wrappers prune and
+// flat_prune launch those, and the standalone K2s stay beside them), and
+// grouped_prune_aggregate_kernel and flat_prune_aggregate_kernel with it
+// on. Then the warp that flushed row `row` computes out[row, hd] = sum over
+// s < k_row of alpha[row, s, hd / dh] * h'[id_s, hd] (k_row = k_eff for the
+// grouped kernel, k for the flat one) with gather_row's arithmetic: one
+// chain of acc += a * b from 0 in slot order for each output, an empty slot
+// adding alpha 0 times h'[0], so the output equals K2's on K1's alpha and
+// ids bit for bit (aggregate_row). Lane l owns outputs hd0 + l + 32 j, so
+// each slot's h' row is read coalesced; the ids come 32 at a time in one
+// load, and the loads of AGG_SLOTS slots are issued before their FMAs. A
+// fused block holds at most 8 warps, and with one domain slot a lane the
+// kernel keeps to 64 registers (__launch_bounds__), as K1 does: at 72 an
+// SM held 3 blocks instead of 4, and DBLP APA's 509 row blocks took two
+// waves on 132 SMs instead of one.
+// Where the row's alpha and ids come from:
+//  * on the register path (k <= 256), when the caller keeps neither and one
+//    warp's staging (k * (H + 1) floats) fits in shared memory beside a
+//    flat list, the flush writes them into the warp's staging in dynamic
+//    shared memory: the serving path writes no alpha and no ids to device
+//    memory;
+//  * otherwise (the shared-memory domain past 256 slots, whose budget the
+//    domain takes, a staging too large, or a caller that asked for them)
+//    the flush writes them to device memory (the caller's buffers or a
+//    scratch the wrapper allocates), and the warp reads them back after
+//    __syncwarp(). The read-back goes through ordinary loads of the pointer
+//    the kernel wrote (never __ldg nor a const __restrict__ pointer, whose
+//    non-coherent path could return lines from before the write).
+// fpa_fused_needs_buffers says which of the two a launch takes. No atomics:
+// two calls give the same bits.
+//
+// All kernels launch on the caller's stream, allocate nothing and do not
+// synchronize. Staging h' in shared memory and CUDA graphs across the
+// forward are later work.
 
 #include <cuda_runtime.h>
 
@@ -113,9 +148,24 @@ static constexpr int MAX_KS = (MAX_SMEM - LIST_BYTES) / SLOT_BYTES;
 static constexpr int FLAT_ROWS_PER_BLOCK = 8;
 static constexpr int PREFETCH_H = 8;             // heads whose theta a K1 gathers ahead
 static constexpr unsigned NO_KEY = 0xffffffffu;  // above the key of every rank
+static constexpr int MAX_HD = 1024;              // widest H * dh an aggregation takes
+static constexpr int AGG_SLOTS = 8;              // slots whose h' loads a lane issues together
+static constexpr int AGG_OUT = 2;                // outputs a lane accumulates in one pass
+static constexpr int FUSED_THREADS = 256;        // a fused launch's widest block: 8 warps
+
+// Blocks of FUSED_THREADS a fused launch asks each SM to hold: 4 (at most
+// 64 registers a thread, as K1's own launch takes) where the domain is one
+// slot a lane, so the fusion costs no occupancy on the serving path (k 8).
+__host__ __device__ constexpr int fused_min_blocks(int spl) { return spl == 1 ? 4 : 1; }
 
 // Heads a flat K1's register flush takes a step: eight values a lane.
 __host__ __device__ constexpr int flat_heads(int spl) { return spl >= 8 ? 1 : 8 / spl; }
+
+// Floats of one warp's staging of a row in shared memory: alpha (k, H),
+// then ids (k), rounded up to 16 bytes.
+__host__ __device__ constexpr size_t stage_floats(int k, int h) {
+  return ((size_t)k * (h + 1) + 3) & ~(size_t)3;
+}
 
 __device__ __forceinline__ float theta_of(const float* __restrict__ theta_src,
                                           const float* __restrict__ theta_rel,
@@ -576,16 +626,16 @@ __device__ __forceinline__ void insert_batch(Dom& dom, int k, int& filled, float
 }
 
 // One grouped row (one warp): its D-tiles through the domain, then the
-// flush into row `row` of alpha and ids. The ids of D-tile dt + 2 and the
+// flush into the row's alpha (k_s, H) and ids (k_s). The ids of D-tile dt + 2 and the
 // theta of dt + 1 are in flight while dt's candidates go in.
 template <class Dom>
 __device__ __forceinline__ void grouped_row(
     Dom& dom, const int* __restrict__ nbr, const unsigned char* __restrict__ msk,
     const int* __restrict__ ety, const float* __restrict__ theta_src,
     const float* __restrict__ theta_rel, const float* __restrict__ theta_dst,
-    const int* __restrict__ row_targets, float* __restrict__ alpha, int* __restrict__ ids,
+    const int* __restrict__ row_targets, float* __restrict__ alpha_row, int* __restrict__ ids_row,
     size_t row, int first, int n_dt, int bypass, int k_eff, int t_tile, int sub, int w, int h,
-    int k_s, float slope, int lane) {
+    float slope, int lane) {
   auto tile_base = [&](int dt) { return ((size_t)(first + dt) * t_tile + sub) * w; };
   dom.init(k_eff);
   float mv = NEG;
@@ -618,14 +668,123 @@ __device__ __forceinline__ void grouped_row(
     nxt = after;
   }
   dom.flush(k_eff, theta_src, theta_rel, theta_dst + (size_t)row_targets[row] * h, h, slope,
-            alpha + row * k_s * h, ids + row * k_s);
+            alpha_row, ids_row);
 }
 
-// K1. grid = n_blocks * (t_tile / wpb), block = (32, wpb): warp y of launch
-// block x owns grouped row (x / parts) * t_tile + (x % parts) * wpb + y,
-// parts = t_tile / wpb (wpb = t_tile on the register path). SPL 1-8: the
-// domain in registers, SPL * 32 >= k_s; SPL 0: in dynamic shared memory,
-// wpb * k_s * 12 B.
+// The aggregation stage of a fused launch, one warp a row: out_row[hd] =
+// sum over s < k of a_row[s * H + hd / dh] * hp[id_s, hd], gather_row's
+// arithmetic (one chain of acc += a * b from 0 in slot order an output; an
+// empty slot, id -1, adds alpha 0 times h'[0]). Lane l owns outputs hd0 + l
+// + 32 j, j < AGG_OUT, in passes of 32 * AGG_OUT outputs. The ids come 32
+// slots at a time, one coalesced load a lane (the next 32 in flight), and
+// reach the lanes by shuffles; the h' and alpha loads of AGG_SLOTS slots
+// are issued before their FMAs. An empty slot loads nothing: the flush
+// wrote its alpha as +0.0, and h'[0]'s outputs are held in registers, so it
+// adds what K2 adds. a_row and i_row are what this warp's flush wrote, in
+// shared or device memory, read after __syncwarp() with ordinary loads (no
+// __restrict__: see the header).
+__device__ __forceinline__ void aggregate_row(const float* a_row, const int* i_row, int k,
+                                              const float* __restrict__ hp, int h, int dh,
+                                              float* __restrict__ out_row, int lane) {
+  const int hdim = h * dh;
+  for (int hd0 = 0; hd0 < hdim; hd0 += 32 * AGG_OUT) {
+    int hd[AGG_OUT], hh[AGG_OUT];
+    bool on[AGG_OUT];
+    float acc[AGG_OUT], x0[AGG_OUT];
+#pragma unroll
+    for (int j = 0; j < AGG_OUT; ++j) {
+      hd[j] = hd0 + lane + 32 * j;
+      on[j] = hd[j] < hdim;
+      hh[j] = on[j] ? hd[j] / dh : 0;
+      x0[j] = on[j] ? hp[hd[j]] : 0.f;  // h'[0]: what an empty slot reads
+      acc[j] = 0.f;
+    }
+    int lid = lane < k ? i_row[lane] : -1;
+    for (int c0 = 0; c0 < k; c0 += 32) {
+      const int next = c0 + 32 + lane < k ? i_row[c0 + 32 + lane] : -1;
+      const int n = min(32, k - c0);
+      for (int b0 = 0; b0 < n; b0 += AGG_SLOTS) {
+        float a[AGG_SLOTS][AGG_OUT], x[AGG_SLOTS][AGG_OUT];
+#pragma unroll
+        for (int b = 0; b < AGG_SLOTS; ++b) {
+          const int id = __shfl_sync(FULL_MASK, lid, b0 + b);
+          const int s = c0 + b0 + b;
+#pragma unroll
+          for (int j = 0; j < AGG_OUT; ++j) {
+            a[b][j] = 0.f;
+            x[b][j] = x0[j];
+            if (id >= 0 && on[j]) {
+              a[b][j] = a_row[s * h + hh[j]];
+              x[b][j] = hp[(size_t)id * hdim + hd[j]];
+            }
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < AGG_SLOTS; ++b) {
+          if (b0 + b < n) {
+#pragma unroll
+            for (int j = 0; j < AGG_OUT; ++j) acc[j] += a[b][j] * x[b][j];
+          }
+        }
+      }
+      lid = next;
+    }
+#pragma unroll
+    for (int j = 0; j < AGG_OUT; ++j)
+      if (on[j]) out_row[hd[j]] = acc[j];
+  }
+}
+
+// The launch of a grouped K1 (and with AGG of the fused launch): grid =
+// n_blocks * (t_tile / wpb), block = (32, wpb): warp y of launch block x
+// owns grouped row (x / parts) * t_tile + (x % parts) * wpb + y, parts =
+// t_tile / wpb. SPL 1-8: the domain in registers, SPL * 32 >= k_s; SPL 0: in
+// dynamic shared memory, k_s * 12 B a warp. With AGG and no alpha buffer
+// (register path only), each warp stages its row's alpha and ids in dynamic
+// shared memory, stage_floats a warp; otherwise the flush writes rows of
+// alpha and ids.
+template <int SPL, bool AGG>
+__device__ __forceinline__ void grouped_launch_row(
+    const int* __restrict__ nbr, const unsigned char* __restrict__ msk,
+    const int* __restrict__ ety, const float* __restrict__ theta_src,
+    const float* __restrict__ theta_rel, const float* __restrict__ theta_dst,
+    const int* __restrict__ row_targets, const int* __restrict__ blk, float* __restrict__ alpha,
+    int* __restrict__ ids, const float* __restrict__ hp, float* __restrict__ out,
+    float* grouped_smem, int n_blocks, int t_tile, int w, int h, int dh, int k_s, float slope) {
+  const int lane = threadIdx.x;
+  const int parts = t_tile / blockDim.y;
+  const int b = blockIdx.x / parts;
+  const int sub = (blockIdx.x % parts) * blockDim.y + threadIdx.y;
+  const int first = blk[b];
+  const int n_dt = blk[n_blocks + b];
+  const int bypass = blk[2 * n_blocks + b];
+  const int k_eff = blk[3 * n_blocks + b];
+  const size_t row = (size_t)b * t_tile + sub;
+  float* a_row;
+  int* i_row;
+  if (!AGG || alpha != nullptr) {
+    a_row = alpha + row * k_s * h;
+    i_row = ids + row * k_s;
+  } else {
+    a_row = grouped_smem + threadIdx.y * stage_floats(k_s, h);
+    i_row = reinterpret_cast<int*>(a_row + (size_t)k_s * h);
+  }
+  if constexpr (SPL > 0) {
+    RegDomain<SPL, 1> dom(lane, k_s);
+    grouped_row(dom, nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets, a_row, i_row,
+                row, first, n_dt, bypass, k_eff, t_tile, sub, w, h, slope, lane);
+  } else {
+    SmemDomain dom(grouped_smem + (size_t)threadIdx.y * 3 * k_s, lane, k_s);
+    grouped_row(dom, nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets, a_row, i_row,
+                row, first, n_dt, bypass, k_eff, t_tile, sub, w, h, slope, lane);
+  }
+  if constexpr (AGG) {
+    __syncwarp();
+    aggregate_row(a_row, i_row, k_eff, hp, h, dh, out + row * h * dh, lane);
+  }
+}
+
+// K1.
 template <int SPL>
 __global__ void grouped_prune_kernel(
     const int* __restrict__ nbr,          // (G, t_tile, w) global source ids
@@ -639,25 +798,30 @@ __global__ void grouped_prune_kernel(
     float* __restrict__ alpha,            // out (rows, k_s, H)
     int* __restrict__ ids,                // out (rows, k_s)
     int n_blocks, int t_tile, int w, int h, int k_s, float slope) {
-  const int lane = threadIdx.x;
-  const int parts = t_tile / blockDim.y;
-  const int b = blockIdx.x / parts;
-  const int sub = (blockIdx.x % parts) * blockDim.y + threadIdx.y;
-  const int first = blk[b];
-  const int n_dt = blk[n_blocks + b];
-  const int bypass = blk[2 * n_blocks + b];
-  const int k_eff = blk[3 * n_blocks + b];
-  const size_t row = (size_t)b * t_tile + sub;
-  if constexpr (SPL > 0) {
-    RegDomain<SPL, 1> dom(lane, k_s);
-    grouped_row(dom, nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets, alpha, ids, row,
-                first, n_dt, bypass, k_eff, t_tile, sub, w, h, k_s, slope, lane);
-  } else {
-    extern __shared__ float grouped_smem[];
-    SmemDomain dom(grouped_smem + (size_t)threadIdx.y * 3 * k_s, lane, k_s);
-    grouped_row(dom, nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets, alpha, ids, row,
-                first, n_dt, bypass, k_eff, t_tile, sub, w, h, k_s, slope, lane);
-  }
+  extern __shared__ float grouped_smem[];
+  grouped_launch_row<SPL, false>(nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets, blk,
+                                 alpha, ids, nullptr, nullptr, grouped_smem, n_blocks, t_tile, w,
+                                 h, 0, k_s, slope);
+}
+
+// The fused grouped launch: K1, then each warp aggregates its row. At most
+// FUSED_THREADS a block, so that the register path keeps the occupancy of
+// K1's launch (fused_min_blocks).
+template <int SPL>
+__global__ void __launch_bounds__(FUSED_THREADS, fused_min_blocks(SPL)) grouped_prune_aggregate_kernel(
+    const int* __restrict__ nbr, const unsigned char* __restrict__ msk,
+    const int* __restrict__ ety, const float* __restrict__ theta_src,
+    const float* __restrict__ theta_rel, const float* __restrict__ theta_dst,
+    const int* __restrict__ row_targets, const int* __restrict__ blk,
+    float* __restrict__ alpha,            // out (rows, k_s, H), or null to stage
+    int* __restrict__ ids,                // out (rows, k_s), or null to stage
+    const float* __restrict__ hp,         // (N, H, dh)
+    float* __restrict__ out,              // out (rows, H, dh)
+    int n_blocks, int t_tile, int w, int h, int dh, int k_s, float slope) {
+  extern __shared__ float grouped_smem[];
+  grouped_launch_row<SPL, true>(nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets, blk,
+                                alpha, ids, hp, out, grouped_smem, n_blocks, t_tile, w, h, dh, k_s,
+                                slope);
 }
 
 // K2 body: thread t of a row's block accumulates output (head t / dh,
@@ -704,8 +868,8 @@ __device__ __forceinline__ void flat_row(
     Dom& dom, int* list, const int* __restrict__ nbr, const unsigned char* __restrict__ msk,
     const int* __restrict__ ety, const float* __restrict__ theta_src,
     const float* __restrict__ theta_rel, const float* __restrict__ theta_dst,
-    float* __restrict__ alpha, int* __restrict__ ids, int row, int d, int k, int h, float slope,
-    int lane) {
+    float* __restrict__ alpha_row, int* __restrict__ ids_row, int row, int d, int k, int h,
+    float slope, int lane) {
   const size_t base = (size_t)row * d;
   dom.init(k);
   int filled = 0;  // slots 0 .. filled - 1 hold a candidate (the same on every lane)
@@ -742,13 +906,54 @@ __device__ __forceinline__ void flat_row(
     __syncwarp();  // the next segment rewrites the list
   }
   // slots past `filled` are empty: the flush computes only below it
-  dom.flush(filled, theta_src, theta_rel, theta_dst + (size_t)row * h, h, slope,
-            alpha + (size_t)row * k * h, ids + (size_t)row * k);
+  dom.flush(filled, theta_src, theta_rel, theta_dst + (size_t)row * h, h, slope, alpha_row,
+            ids_row);
 }
 
-// Flat K1. grid = ceil(T / rpb), block = (32, rpb): warp y owns row
-// blockIdx.x * rpb + y. Dynamic shared memory: rpb compaction lists of SEG
-// ints, then (SPL 0) rpb domains of k * 12 B.
+// The launch of a flat K1 (and with AGG of the fused launch): grid =
+// ceil(T / rpb), block = (32, rpb): warp y owns row blockIdx.x * rpb + y.
+// Dynamic shared memory: rpb compaction lists of SEG ints, then rpb warp
+// regions: the domain of k * 12 B (SPL 0), or with AGG and no alpha buffer
+// (register path only) the row's staging of alpha and ids (stage_floats).
+template <int SPL, bool AGG>
+__device__ __forceinline__ void flat_launch_row(
+    const int* __restrict__ nbr, const unsigned char* __restrict__ msk,
+    const int* __restrict__ ety, const float* __restrict__ theta_src,
+    const float* __restrict__ theta_rel, const float* __restrict__ theta_dst,
+    float* __restrict__ alpha, int* __restrict__ ids, const float* __restrict__ hp,
+    float* __restrict__ out, int* flat_smem, int t, int d, int h, int dh, int k, float slope) {
+  const int lane = threadIdx.x;
+  const int warp = threadIdx.y;
+  const int rpb = blockDim.y;
+  const int row = blockIdx.x * rpb + warp;
+  if (row >= t) return;  // the whole warp leaves together
+  int* list = flat_smem + (size_t)warp * SEG;
+  float* region = reinterpret_cast<float*>(flat_smem + (size_t)rpb * SEG);
+  float* a_row;
+  int* i_row;
+  if (!AGG || alpha != nullptr) {
+    a_row = alpha + (size_t)row * k * h;
+    i_row = ids + (size_t)row * k;
+  } else {
+    a_row = region + warp * stage_floats(k, h);
+    i_row = reinterpret_cast<int*>(a_row + (size_t)k * h);
+  }
+  if constexpr (SPL > 0) {
+    RegDomain<SPL, flat_heads(SPL)> dom(lane, k);
+    flat_row(dom, list, nbr, msk, ety, theta_src, theta_rel, theta_dst, a_row, i_row, row, d, k,
+             h, slope, lane);
+  } else {
+    SmemDomain dom(region + (size_t)warp * 3 * k, lane, k);
+    flat_row(dom, list, nbr, msk, ety, theta_src, theta_rel, theta_dst, a_row, i_row, row, d, k,
+             h, slope, lane);
+  }
+  if constexpr (AGG) {
+    __syncwarp();
+    aggregate_row(a_row, i_row, k, hp, h, dh, out + (size_t)row * h * dh, lane);
+  }
+}
+
+// Flat K1.
 template <int SPL>
 __global__ void flat_prune_kernel(
     const int* __restrict__ nbr,            // (T, D) global source ids
@@ -761,22 +966,24 @@ __global__ void flat_prune_kernel(
     int* __restrict__ ids,                  // out (T, k)
     int t, int d, int h, int k, float slope) {
   extern __shared__ int flat_smem[];
-  const int lane = threadIdx.x;
-  const int warp = threadIdx.y;
-  const int rpb = blockDim.y;
-  const int row = blockIdx.x * rpb + warp;
-  if (row >= t) return;  // the whole warp leaves together
-  int* list = flat_smem + (size_t)warp * SEG;
-  if constexpr (SPL > 0) {
-    RegDomain<SPL, flat_heads(SPL)> dom(lane, k);
-    flat_row(dom, list, nbr, msk, ety, theta_src, theta_rel, theta_dst, alpha, ids, row, d, k, h,
-             slope, lane);
-  } else {
-    float* dbase = reinterpret_cast<float*>(flat_smem + (size_t)rpb * SEG) + (size_t)warp * 3 * k;
-    SmemDomain dom(dbase, lane, k);
-    flat_row(dom, list, nbr, msk, ety, theta_src, theta_rel, theta_dst, alpha, ids, row, d, k, h,
-             slope, lane);
-  }
+  flat_launch_row<SPL, false>(nbr, msk, ety, theta_src, theta_rel, theta_dst, alpha, ids, nullptr,
+                              nullptr, flat_smem, t, d, h, 0, k, slope);
+}
+
+// The fused flat launch: flat K1, then each warp aggregates its row.
+template <int SPL>
+__global__ void __launch_bounds__(FUSED_THREADS, fused_min_blocks(SPL)) flat_prune_aggregate_kernel(
+    const int* __restrict__ nbr, const unsigned char* __restrict__ msk,
+    const int* __restrict__ ety, const float* __restrict__ theta_src,
+    const float* __restrict__ theta_rel, const float* __restrict__ theta_dst,
+    float* __restrict__ alpha,              // out (T, k, H), or null to stage
+    int* __restrict__ ids,                  // out (T, k), or null to stage
+    const float* __restrict__ hp,           // (N, H, dh)
+    float* __restrict__ out,                // out (T, H, dh)
+    int t, int d, int h, int dh, int k, float slope) {
+  extern __shared__ int flat_smem[];
+  flat_launch_row<SPL, true>(nbr, msk, ety, theta_src, theta_rel, theta_dst, alpha, ids, hp, out,
+                             flat_smem, t, d, h, dh, k, slope);
 }
 
 // Flat K2. grid = T rows, block = H * dh threads, one per output.
@@ -805,20 +1012,81 @@ static int slots_per_lane(int k) {
   return k <= 32 ? 1 : k <= 64 ? 2 : k <= 128 ? 4 : k <= REG_KS ? 8 : 0;
 }
 
-template <int SPL>
-static int launch_grouped_prune(const void* nbr, const void* msk, const void* ety,
-                                const void* theta_src, const void* theta_rel,
-                                const void* theta_dst, const void* row_targets, const void* blk,
-                                void* alpha, void* ids, int n_blocks, int t_tile, int wpb, int w,
-                                int h, int k_s, float slope, cudaStream_t stream) {
-  const size_t shmem = SPL > 0 ? 0 : (size_t)wpb * k_s * SLOT_BYTES;
-  const int err = allow_smem((const void*)grouped_prune_kernel<SPL>, shmem);
-  if (err) return err;
-  grouped_prune_kernel<SPL><<<n_blocks * (t_tile / wpb), dim3(32, wpb), shmem, stream>>>(
-      (const int*)nbr, (const unsigned char*)msk, (const int*)ety, (const float*)theta_src,
-      (const float*)theta_rel, (const float*)theta_dst, (const int*)row_targets,
-      (const int*)blk, (float*)alpha, (int*)ids, n_blocks, t_tile, w, h, k_s, slope);
+// Whether a fused launch of a k-slot domain over h heads stages each row's
+// alpha and ids in its warp's shared memory (the register path, one warp's
+// staging beside a flat list fitting); if not, it needs buffers for them in
+// device memory.
+static bool stages_in_smem(int k, int h) {
+  return slots_per_lane(k) > 0 && (size_t)LIST_BYTES + stage_floats(k, h) * 4 <= (size_t)MAX_SMEM;
+}
+
+extern "C" int fpa_fused_needs_buffers(int k, int h) { return stages_in_smem(k, h) ? 0 : 1; }
+
+// The arguments of a fused launch that K1 does not take, checked: H * dh
+// in [1, MAX_HD]; alpha and ids both given, or both null where the launch
+// stages them.
+static bool fused_args_ok(const void* alpha, const void* ids, int k, int h, int dh) {
+  if (dh < 1 || (long long)h * dh > MAX_HD || (alpha == nullptr) != (ids == nullptr)) return false;
+  return alpha != nullptr || stages_in_smem(k, h);
+}
+
+template <int SPL, bool AGG>
+static int launch_grouped(const void* nbr, const void* msk, const void* ety, const void* theta_src,
+                          const void* theta_rel, const void* theta_dst, const void* row_targets,
+                          const void* blk, const void* hp, void* alpha, void* ids, void* out,
+                          int n_blocks, int t_tile, int w, int h, int dh, int k_s, float slope,
+                          cudaStream_t stream) {
+  const size_t per_warp = SPL == 0 ? (size_t)k_s * SLOT_BYTES
+                          : AGG && alpha == nullptr ? stage_floats(k_s, h) * 4
+                                                    : 0;
+  // warps a launch block: the widest divisor of t_tile whose regions fit in
+  // one block (one region always does)
+  const int most = AGG ? FUSED_THREADS / 32 : t_tile;
+  int wpb = t_tile;
+  while ((size_t)wpb * per_warp > (size_t)MAX_SMEM || t_tile % wpb || wpb > most) --wpb;
+  const size_t shmem = wpb * per_warp;
+  const dim3 grid(n_blocks * (t_tile / wpb)), block(32, wpb);
+  if constexpr (AGG) {
+    const int err = allow_smem((const void*)grouped_prune_aggregate_kernel<SPL>, shmem);
+    if (err) return err;
+    grouped_prune_aggregate_kernel<SPL><<<grid, block, shmem, stream>>>(
+        (const int*)nbr, (const unsigned char*)msk, (const int*)ety, (const float*)theta_src,
+        (const float*)theta_rel, (const float*)theta_dst, (const int*)row_targets,
+        (const int*)blk, (float*)alpha, (int*)ids, (const float*)hp, (float*)out, n_blocks,
+        t_tile, w, h, dh, k_s, slope);
+  } else {
+    const int err = allow_smem((const void*)grouped_prune_kernel<SPL>, shmem);
+    if (err) return err;
+    grouped_prune_kernel<SPL><<<grid, block, shmem, stream>>>(
+        (const int*)nbr, (const unsigned char*)msk, (const int*)ety, (const float*)theta_src,
+        (const float*)theta_rel, (const float*)theta_dst, (const int*)row_targets,
+        (const int*)blk, (float*)alpha, (int*)ids, n_blocks, t_tile, w, h, k_s, slope);
+  }
   return (int)cudaGetLastError();
+}
+
+template <bool AGG>
+static int grouped(const void* nbr, const void* msk, const void* ety, const void* theta_src,
+                   const void* theta_rel, const void* theta_dst, const void* row_targets,
+                   const void* blk, const void* hp, void* alpha, void* ids, void* out,
+                   int n_blocks, int t_tile, int w, int h, int dh, int k_s, float slope,
+                   void* stream) {
+  if (n_blocks == 0) return 0;
+  if (k_s < 1 || k_s > MAX_KS || w < 1 || w > 32 || t_tile < 1 || t_tile > 32)
+    return (int)cudaErrorInvalidValue;
+  if (AGG && !fused_args_ok(alpha, ids, k_s, h, dh)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+#define FPA_GROUPED(SPL)                                                                        \
+  launch_grouped<SPL, AGG>(nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets, blk, hp, \
+                           alpha, ids, out, n_blocks, t_tile, w, h, dh, k_s, slope, st)
+  switch (slots_per_lane(k_s)) {
+    case 1: return FPA_GROUPED(1);
+    case 2: return FPA_GROUPED(2);
+    case 4: return FPA_GROUPED(4);
+    case 8: return FPA_GROUPED(8);
+  }
+  return FPA_GROUPED(0);
+#undef FPA_GROUPED
 }
 
 extern "C" int fpa_grouped_prune(
@@ -826,34 +1094,21 @@ extern "C" int fpa_grouped_prune(
     const void* theta_rel, const void* theta_dst, const void* row_targets,
     const void* blk, void* alpha, void* ids, int n_blocks, int t_tile, int w,
     int h, int k_s, float slope, void* stream) {
-  if (n_blocks == 0) return 0;
-  if (k_s < 1 || k_s > MAX_KS || w < 1 || w > 32 || t_tile < 1 || t_tile > 32)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (slots_per_lane(k_s)) {
-    case 1:
-      return launch_grouped_prune<1>(nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets,
-                                     blk, alpha, ids, n_blocks, t_tile, t_tile, w, h, k_s, slope,
-                                     st);
-    case 2:
-      return launch_grouped_prune<2>(nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets,
-                                     blk, alpha, ids, n_blocks, t_tile, t_tile, w, h, k_s, slope,
-                                     st);
-    case 4:
-      return launch_grouped_prune<4>(nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets,
-                                     blk, alpha, ids, n_blocks, t_tile, t_tile, w, h, k_s, slope,
-                                     st);
-    case 8:
-      return launch_grouped_prune<8>(nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets,
-                                     blk, alpha, ids, n_blocks, t_tile, t_tile, w, h, k_s, slope,
-                                     st);
-  }
-  // warps a launch block: the widest divisor of t_tile whose domains fit
-  // in one block (one domain of MAX_KS slots always does)
-  int wpb = t_tile;
-  while ((size_t)wpb * k_s * SLOT_BYTES > (size_t)MAX_SMEM || t_tile % wpb) --wpb;
-  return launch_grouped_prune<0>(nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets, blk,
-                                 alpha, ids, n_blocks, t_tile, wpb, w, h, k_s, slope, st);
+  return grouped<false>(nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets, blk, nullptr,
+                        alpha, ids, nullptr, n_blocks, t_tile, w, h, 0, k_s, slope, stream);
+}
+
+// The fused grouped launch: K1, then the aggregation of each row's k_eff
+// slots into out (rows, H, dh). alpha and ids: buffers (rows, k_s, H) and
+// (rows, k_s) the flush writes, or both null to stage them in shared
+// memory where fpa_fused_needs_buffers(k_s, h) is 0.
+extern "C" int fpa_grouped_prune_aggregate(
+    const void* nbr, const void* msk, const void* ety, const void* theta_src,
+    const void* theta_rel, const void* theta_dst, const void* row_targets,
+    const void* blk, const void* hp, void* alpha, void* ids, void* out, int n_blocks,
+    int t_tile, int w, int h, int dh, int k_s, float slope, void* stream) {
+  return grouped<true>(nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets, blk, hp,
+                       alpha, ids, out, n_blocks, t_tile, w, h, dh, k_s, slope, stream);
 }
 
 extern "C" int fpa_grouped_aggregate(
@@ -867,47 +1122,77 @@ extern "C" int fpa_grouped_aggregate(
   return (int)cudaGetLastError();
 }
 
-template <int SPL>
-static int launch_flat_prune(const void* nbr, const void* msk, const void* ety,
-                             const void* theta_src, const void* theta_rel, const void* theta_dst,
-                             void* alpha, void* ids, int t, int d, int h, int k, float slope,
-                             cudaStream_t stream) {
-  const size_t per_row = (size_t)LIST_BYTES + (SPL > 0 ? 0 : (size_t)k * SLOT_BYTES);
+template <int SPL, bool AGG>
+static int launch_flat(const void* nbr, const void* msk, const void* ety, const void* theta_src,
+                       const void* theta_rel, const void* theta_dst, const void* hp, void* alpha,
+                       void* ids, void* out, int t, int d, int h, int dh, int k, float slope,
+                       cudaStream_t stream) {
+  const size_t region = SPL == 0 ? (size_t)k * SLOT_BYTES
+                        : AGG && alpha == nullptr ? stage_floats(k, h) * 4
+                                                  : 0;
+  const size_t per_row = (size_t)LIST_BYTES + region;
   int rpb = FLAT_ROWS_PER_BLOCK;
   while (rpb > 1 && rpb * per_row > (size_t)MAX_SMEM) rpb >>= 1;
   const size_t shmem = rpb * per_row;
-  const int err = allow_smem((const void*)flat_prune_kernel<SPL>, shmem);
-  if (err) return err;
-  flat_prune_kernel<SPL><<<(t + rpb - 1) / rpb, dim3(32, rpb), shmem, stream>>>(
-      (const int*)nbr, (const unsigned char*)msk, (const int*)ety, (const float*)theta_src,
-      (const float*)theta_rel, (const float*)theta_dst, (float*)alpha, (int*)ids, t, d, h, k,
-      slope);
+  const dim3 grid((t + rpb - 1) / rpb), block(32, rpb);
+  if constexpr (AGG) {
+    const int err = allow_smem((const void*)flat_prune_aggregate_kernel<SPL>, shmem);
+    if (err) return err;
+    flat_prune_aggregate_kernel<SPL><<<grid, block, shmem, stream>>>(
+        (const int*)nbr, (const unsigned char*)msk, (const int*)ety, (const float*)theta_src,
+        (const float*)theta_rel, (const float*)theta_dst, (float*)alpha, (int*)ids,
+        (const float*)hp, (float*)out, t, d, h, dh, k, slope);
+  } else {
+    const int err = allow_smem((const void*)flat_prune_kernel<SPL>, shmem);
+    if (err) return err;
+    flat_prune_kernel<SPL><<<grid, block, shmem, stream>>>(
+        (const int*)nbr, (const unsigned char*)msk, (const int*)ety, (const float*)theta_src,
+        (const float*)theta_rel, (const float*)theta_dst, (float*)alpha, (int*)ids, t, d, h, k,
+        slope);
+  }
   return (int)cudaGetLastError();
+}
+
+template <bool AGG>
+static int flat(const void* nbr, const void* msk, const void* ety, const void* theta_src,
+                const void* theta_rel, const void* theta_dst, const void* hp, void* alpha,
+                void* ids, void* out, int t, int d, int h, int dh, int k, float slope,
+                void* stream) {
+  if (t == 0) return 0;
+  if (k < 1 || k > MAX_KS || d < 1) return (int)cudaErrorInvalidValue;
+  if (AGG && !fused_args_ok(alpha, ids, k, h, dh)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+#define FPA_FLAT(SPL)                                                                        \
+  launch_flat<SPL, AGG>(nbr, msk, ety, theta_src, theta_rel, theta_dst, hp, alpha, ids, out, t, \
+                        d, h, dh, k, slope, st)
+  switch (slots_per_lane(k)) {
+    case 1: return FPA_FLAT(1);
+    case 2: return FPA_FLAT(2);
+    case 4: return FPA_FLAT(4);
+    case 8: return FPA_FLAT(8);
+  }
+  return FPA_FLAT(0);
+#undef FPA_FLAT
 }
 
 extern "C" int fpa_flat_prune(
     const void* nbr, const void* msk, const void* ety, const void* theta_src,
     const void* theta_rel, const void* theta_dst, void* alpha, void* ids, int t, int d,
     int h, int k, float slope, void* stream) {
-  if (t == 0) return 0;
-  if (k < 1 || k > MAX_KS || d < 1) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (slots_per_lane(k)) {
-    case 1:
-      return launch_flat_prune<1>(nbr, msk, ety, theta_src, theta_rel, theta_dst, alpha, ids, t, d,
-                                  h, k, slope, st);
-    case 2:
-      return launch_flat_prune<2>(nbr, msk, ety, theta_src, theta_rel, theta_dst, alpha, ids, t, d,
-                                  h, k, slope, st);
-    case 4:
-      return launch_flat_prune<4>(nbr, msk, ety, theta_src, theta_rel, theta_dst, alpha, ids, t, d,
-                                  h, k, slope, st);
-    case 8:
-      return launch_flat_prune<8>(nbr, msk, ety, theta_src, theta_rel, theta_dst, alpha, ids, t, d,
-                                  h, k, slope, st);
-  }
-  return launch_flat_prune<0>(nbr, msk, ety, theta_src, theta_rel, theta_dst, alpha, ids, t, d, h,
-                              k, slope, st);
+  return flat<false>(nbr, msk, ety, theta_src, theta_rel, theta_dst, nullptr, alpha, ids, nullptr,
+                     t, d, h, 0, k, slope, stream);
+}
+
+// The fused flat launch: K1, then the aggregation of each row's k slots
+// into out (T, H, dh). alpha and ids: buffers (T, k, H) and (T, k) the
+// flush writes, or both null to stage them in shared memory where
+// fpa_fused_needs_buffers(k, h) is 0.
+extern "C" int fpa_flat_prune_aggregate(
+    const void* nbr, const void* msk, const void* ety, const void* theta_src,
+    const void* theta_rel, const void* theta_dst, const void* hp, void* alpha, void* ids,
+    void* out, int t, int d, int h, int dh, int k, float slope, void* stream) {
+  return flat<true>(nbr, msk, ety, theta_src, theta_rel, theta_dst, hp, alpha, ids, out, t, d, h,
+                    dh, k, slope, stream);
 }
 
 extern "C" int fpa_flat_aggregate(const void* alpha, const void* ids, const void* hp, void* out,

@@ -1,14 +1,17 @@
-"""Public wrappers of the fused prune+aggregate kernel pairs.
+"""Public wrappers of the fused prune+aggregate kernels.
 
 :func:`fused_prune_aggregate_grouped` runs NA over every degree bucket of a
-``BucketedSemanticGraph`` as ONE launch of each grouped kernel: K1
-:func:`prune` then K2 :func:`aggregate`, then one ``perm`` gather back to
+``BucketedSemanticGraph`` as ONE launch, :func:`prune_aggregate` (K1 and,
+in the same warp, K2's aggregation), then one ``perm`` gather back to
 target order. :func:`fused_prune_aggregate` runs NA over one flat ``(T,
-D)`` padded-CSC table (a flat graph, or one bucket of the per-bucket loop):
-K1 :func:`flat_prune` then K2 :func:`flat_aggregate`. For CUDA tensors the
-four step wrappers launch the CUDA kernels of ``csrc/`` (built at first
-use) or raise; for CPU tensors they run the plain versions of ``ref.py``.
-There is no fallback from one to the other.
+D)`` padded-CSC table (a flat graph, or one bucket of the per-bucket loop)
+as one launch of :func:`flat_prune_aggregate`. The step wrappers of each
+pair, K1 :func:`prune` / :func:`flat_prune` and K2 :func:`aggregate` /
+:func:`flat_aggregate`, launch the two bodies apart; a fused launch's
+output, alpha and ids equal theirs bit for bit. For CUDA tensors the six
+step wrappers launch the CUDA kernels of ``csrc/`` (built at first use) or
+raise; for CPU tensors they run the plain versions of ``ref.py``. There is
+no fallback from one to the other.
 
 Device mirrors of a layout's tile stack and its per-``prune_k`` block table
 are cached on the ``GroupedBucketLayout``, keyed by device and ``prune_k``,
@@ -40,12 +43,21 @@ LIST_BYTES = 256 * 4  # a flat K1 warp's compaction list
 # memory beside its list (up to 256 slots the domain lives in registers)
 MAX_KS = (MAX_SMEM - LIST_BYTES) // SLOT_BYTES
 
+MAX_HD = 1024  # the widest H * dh an aggregation takes
+
 # kernel launches, one per launch of each CUDA kernel; the plain versions do
 # not count
-LAUNCHES = {"prune": 0, "aggregate": 0, "flat_prune": 0, "flat_aggregate": 0}
+LAUNCHES = {
+    "prune": 0, "aggregate": 0, "flat_prune": 0, "flat_aggregate": 0,
+    "prune_aggregate": 0, "flat_prune_aggregate": 0,
+}
 
 _ptr = ctypes.c_void_p
 _int = ctypes.c_int
+
+
+def _ptr_of(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def library():
@@ -61,6 +73,12 @@ def library():
         lib.fpa_flat_prune.restype = _int
         lib.fpa_flat_aggregate.argtypes = [_ptr] * 4 + [_int] * 4 + [_ptr]
         lib.fpa_flat_aggregate.restype = _int
+        lib.fpa_grouped_prune_aggregate.argtypes = [_ptr] * 12 + [_int] * 6 + [ctypes.c_float, _ptr]
+        lib.fpa_grouped_prune_aggregate.restype = _int
+        lib.fpa_flat_prune_aggregate.argtypes = [_ptr] * 10 + [_int] * 5 + [ctypes.c_float, _ptr]
+        lib.fpa_flat_prune_aggregate.restype = _int
+        lib.fpa_fused_needs_buffers.argtypes = [_int, _int]
+        lib.fpa_fused_needs_buffers.restype = _int
         lib.fpa_max_ks.argtypes = []
         lib.fpa_max_ks.restype = _int
         if lib.fpa_max_ks() != MAX_KS:
@@ -171,6 +189,28 @@ def prune(
             nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets, blk,
             k_s, slope,
         )
+    dev, ety, n_blocks, t_tile, w, h = _grouped_k1_args(
+        nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets, blk, k_s
+    )
+    rows = n_blocks * t_tile
+    alpha = torch.empty((rows, k_s, h), dtype=torch.float32, device=dev)
+    ids = torch.empty((rows, k_s), dtype=torch.int32, device=dev)
+    lib, _ = library()
+    err = lib.fpa_grouped_prune(
+        _ptr_of(nbr), _ptr_of(msk), _ptr_of(ety), _ptr_of(theta_src), _ptr_of(theta_rel),
+        _ptr_of(theta_dst), _ptr_of(row_targets), _ptr_of(blk), _ptr_of(alpha), _ptr_of(ids),
+        n_blocks, t_tile, w, h, k_s, slope,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fpa_grouped_prune launch failed: cudaError {err}")
+    LAUNCHES["prune"] += 1
+    return alpha, ids
+
+
+def _grouped_k1_args(nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets, blk, k_s):
+    """The grouped K1's checks, raising before any launch -> (device, ety or
+    None without a rel term, n_blocks, t_tile, w, H)."""
     dev = _cuda_device(theta_src)
     g, t_tile, w = nbr.shape
     n, h = theta_src.shape
@@ -201,20 +241,17 @@ def prune(
         _check("ety", ety, i32, (g, t_tile, w), dev)
     else:
         ety = None  # the kernel reads edge types only with a rel term
-    alpha = torch.empty((rows, k_s, h), dtype=f32, device=dev)
-    ids = torch.empty((rows, k_s), dtype=i32, device=dev)
-    lib, _ = library()
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = lib.fpa_grouped_prune(
-        ptr(nbr), ptr(msk), ptr(ety), ptr(theta_src), ptr(theta_rel),
-        ptr(theta_dst), ptr(row_targets), ptr(blk), ptr(alpha), ptr(ids),
-        n_blocks, t_tile, w, h, k_s, slope,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"fpa_grouped_prune launch failed: cudaError {err}")
-    LAUNCHES["prune"] += 1
-    return alpha, ids
+    return dev, ety, n_blocks, t_tile, w, h
+
+
+def _h_proj_dh(h_proj: torch.Tensor, h: int, dev) -> int:
+    """An aggregation's check of h' (N, H, dh) f32, raising before any
+    launch -> dh."""
+    n, _, dh = h_proj.shape
+    if not 1 <= h * dh <= MAX_HD:
+        raise ValueError(f"H*dh={h * dh} outside [1, {MAX_HD}] (one thread per output)")
+    _check("h_proj", h_proj, torch.float32, (n, h, dh), dev)
+    return dh
 
 
 def aggregate(
@@ -230,15 +267,12 @@ def aggregate(
         return ref.aggregate_plain(alpha, ids, h_proj, blk)
     dev = _cuda_device(h_proj)
     rows, k_s, h = alpha.shape
-    n, _, dh = h_proj.shape
     n_blocks = blk.shape[1]
     if n_blocks == 0 or rows % n_blocks:
         raise ValueError(f"{rows} rows do not split into {n_blocks} row blocks")
-    if not 1 <= h * dh <= 1024:
-        raise ValueError(f"H*dh={h * dh} outside [1, 1024] (one thread per output)")
+    dh = _h_proj_dh(h_proj, h, dev)
     _check("alpha", alpha, torch.float32, (rows, k_s, h), dev)
     _check("ids", ids, torch.int32, (rows, k_s), dev)
-    _check("h_proj", h_proj, torch.float32, (n, h, dh), dev)
     _check("blk", blk, torch.int32, (4, n_blocks), dev)
     out = torch.empty((rows, h, dh), dtype=torch.float32, device=dev)
     lib, _ = library()
@@ -253,6 +287,67 @@ def aggregate(
     return out
 
 
+def prune_aggregate(
+    nbr: torch.Tensor,
+    msk: torch.Tensor,
+    ety: Optional[torch.Tensor],
+    theta_src: torch.Tensor,
+    theta_rel: Optional[torch.Tensor],
+    theta_dst: torch.Tensor,
+    row_targets: torch.Tensor,
+    blk: torch.Tensor,
+    k_s: int,
+    h_proj: torch.Tensor,
+    slope: float = 0.2,
+    keep: bool = False,
+):
+    """K1 and K2 over a grouped layout in ONE launch: the warp that flushes
+    a row aggregates it -> out (rows, H, dh) f32 in grouped-row order, or
+    ``(out, alpha, ids)`` with ``keep=True``; bit for bit
+    ``aggregate(*prune(...), h_proj, blk)`` and ``prune``'s alpha and ids.
+    The checks of :func:`prune` and :func:`aggregate` raise before any
+    launch. CUDA tensors launch the fused kernel; CPU tensors run
+    ``ref.prune_aggregate_plain``."""
+    if theta_src.device.type == "cpu":
+        out, alpha, ids = ref.prune_aggregate_plain(
+            nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets, blk,
+            k_s, h_proj, slope,
+        )
+        return (out, alpha, ids) if keep else out
+    dev, ety, n_blocks, t_tile, w, h = _grouped_k1_args(
+        nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets, blk, k_s
+    )
+    if n_blocks == 0:
+        raise ValueError("0 row blocks: nothing to aggregate")
+    rows = n_blocks * t_tile
+    dh = _h_proj_dh(h_proj, h, dev)
+    lib, _ = library()
+    alpha, ids = _fused_buffers(lib, keep, (rows, k_s), h, dev)
+    out = torch.empty((rows, h, dh), dtype=torch.float32, device=dev)
+    err = lib.fpa_grouped_prune_aggregate(
+        _ptr_of(nbr), _ptr_of(msk), _ptr_of(ety), _ptr_of(theta_src), _ptr_of(theta_rel),
+        _ptr_of(theta_dst), _ptr_of(row_targets), _ptr_of(blk), _ptr_of(h_proj),
+        _ptr_of(alpha), _ptr_of(ids), _ptr_of(out), n_blocks, t_tile, w, h, dh, k_s, slope,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fpa_grouped_prune_aggregate launch failed: cudaError {err}")
+    LAUNCHES["prune_aggregate"] += 1
+    return (out, alpha, ids) if keep else out
+
+
+def _fused_buffers(lib, keep: bool, shape, h: int, dev):
+    """alpha (*shape, H) and ids (*shape) for a fused launch where the caller
+    keeps them or the kernel cannot stage them in shared memory (a domain
+    past 256 slots, or a staging too large); else ``(None, None)``."""
+    if not keep and not lib.fpa_fused_needs_buffers(shape[-1], h):
+        return None, None
+    return (
+        torch.empty((*shape, h), dtype=torch.float32, device=dev),
+        torch.empty(shape, dtype=torch.int32, device=dev),
+    )
+
+
 def fused_prune_aggregate_grouped(
     h_proj: torch.Tensor,  # (N, H, dh) f32
     theta_src: torch.Tensor,  # (N, H)
@@ -262,7 +357,7 @@ def fused_prune_aggregate_grouped(
     prune_k: Optional[int] = None,
     slope: float = 0.2,
 ) -> torch.Tensor:
-    """NA over ALL buckets of ``sg`` as one launch of each kernel.
+    """NA over ALL buckets of ``sg`` as one fused launch.
 
     Returns ``(sg.num_targets, H, dh)`` float32 in target order; zeros for
     a graph whose layout has no grid steps.
@@ -274,11 +369,11 @@ def fused_prune_aggregate_grouped(
     (nbr, msk, ety, row_targets, perm), (blk, k_s) = _layout_device(
         layout, prune_k, h_proj.device
     )
-    alpha, ids = prune(
+    out = prune_aggregate(
         nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets, blk, k_s,
-        slope,
+        h_proj, slope,
     )
-    return aggregate(alpha, ids, h_proj, blk).index_select(0, perm)
+    return out.index_select(0, perm)
 
 
 def flat_prune(
@@ -301,6 +396,26 @@ def flat_prune(
         return ref.flat_prune_plain(
             nbr, msk, ety, theta_src, theta_rel, theta_dst, k, slope
         )
+    dev, ety, t, d, h = _flat_k1_args(nbr, msk, ety, theta_src, theta_rel, theta_dst, k)
+    alpha = torch.empty((t, k, h), dtype=torch.float32, device=dev)
+    ids = torch.empty((t, k), dtype=torch.int32, device=dev)
+    if t == 0:
+        return alpha, ids
+    lib, _ = library()
+    err = lib.fpa_flat_prune(
+        _ptr_of(nbr), _ptr_of(msk), _ptr_of(ety), _ptr_of(theta_src), _ptr_of(theta_rel),
+        _ptr_of(theta_dst), _ptr_of(alpha), _ptr_of(ids), t, d, h, k, slope,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fpa_flat_prune launch failed: cudaError {err}")
+    LAUNCHES["flat_prune"] += 1
+    return alpha, ids
+
+
+def _flat_k1_args(nbr, msk, ety, theta_src, theta_rel, theta_dst, k):
+    """The flat K1's checks, raising before any launch -> (device, ety or
+    None without a rel term, T, D, H)."""
     dev = _cuda_device(theta_src)
     t, d = nbr.shape
     n, h = theta_src.shape
@@ -323,21 +438,7 @@ def flat_prune(
         _check("ety", ety, i32, (t, d), dev)
     else:
         ety = None  # the kernel reads edge types only with a rel term
-    alpha = torch.empty((t, k, h), dtype=f32, device=dev)
-    ids = torch.empty((t, k), dtype=i32, device=dev)
-    if t == 0:
-        return alpha, ids
-    lib, _ = library()
-    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    err = lib.fpa_flat_prune(
-        ptr(nbr), ptr(msk), ptr(ety), ptr(theta_src), ptr(theta_rel),
-        ptr(theta_dst), ptr(alpha), ptr(ids), t, d, h, k, slope,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"fpa_flat_prune launch failed: cudaError {err}")
-    LAUNCHES["flat_prune"] += 1
-    return alpha, ids
+    return dev, ety, t, d, h
 
 
 def flat_aggregate(
@@ -351,12 +452,9 @@ def flat_aggregate(
         return ref.flat_aggregate_plain(alpha, ids, h_proj)
     dev = _cuda_device(h_proj)
     t, k, h = alpha.shape
-    n, _, dh = h_proj.shape
-    if not 1 <= h * dh <= 1024:
-        raise ValueError(f"H*dh={h * dh} outside [1, 1024] (one thread per output)")
+    dh = _h_proj_dh(h_proj, h, dev)
     _check("alpha", alpha, torch.float32, (t, k, h), dev)
     _check("ids", ids, torch.int32, (t, k), dev)
-    _check("h_proj", h_proj, torch.float32, (n, h, dh), dev)
     out = torch.empty((t, h, dh), dtype=torch.float32, device=dev)
     if t == 0:
         return out
@@ -371,6 +469,50 @@ def flat_aggregate(
     return out
 
 
+def flat_prune_aggregate(
+    nbr: torch.Tensor,
+    msk: torch.Tensor,
+    ety: Optional[torch.Tensor],
+    theta_src: torch.Tensor,
+    theta_rel: Optional[torch.Tensor],
+    theta_dst: torch.Tensor,
+    h_proj: torch.Tensor,
+    k: int,
+    slope: float = 0.2,
+    keep: bool = False,
+):
+    """Flat K1 and K2 over a (T, D) table in ONE launch: the warp that
+    flushes a row aggregates it -> out (T, H, dh) f32, or ``(out, alpha,
+    ids)`` with ``keep=True``; bit for bit ``flat_aggregate(*flat_prune(...),
+    h_proj)`` and ``flat_prune``'s alpha and ids. The checks of
+    :func:`flat_prune` and :func:`flat_aggregate` raise before any launch.
+    CUDA tensors launch the fused kernel; CPU tensors run
+    ``ref.flat_prune_aggregate_plain``."""
+    if theta_src.device.type == "cpu":
+        out, alpha, ids = ref.flat_prune_aggregate_plain(
+            nbr, msk, ety, theta_src, theta_rel, theta_dst, h_proj, k, slope
+        )
+        return (out, alpha, ids) if keep else out
+    dev, ety, t, d, h = _flat_k1_args(nbr, msk, ety, theta_src, theta_rel, theta_dst, k)
+    dh = _h_proj_dh(h_proj, h, dev)
+    out = torch.empty((t, h, dh), dtype=torch.float32, device=dev)
+    if t == 0:
+        empty = (torch.empty((0, k, h), dtype=torch.float32, device=dev),
+                 torch.empty((0, k), dtype=torch.int32, device=dev))
+        return (out, *empty) if keep else out
+    lib, _ = library()
+    alpha, ids = _fused_buffers(lib, keep, (t, k), h, dev)
+    err = lib.fpa_flat_prune_aggregate(
+        _ptr_of(nbr), _ptr_of(msk), _ptr_of(ety), _ptr_of(theta_src), _ptr_of(theta_rel),
+        _ptr_of(theta_dst), _ptr_of(h_proj), _ptr_of(alpha), _ptr_of(ids), _ptr_of(out),
+        t, d, h, dh, k, slope, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fpa_flat_prune_aggregate launch failed: cudaError {err}")
+    LAUNCHES["flat_prune_aggregate"] += 1
+    return (out, alpha, ids) if keep else out
+
+
 def fused_prune_aggregate(
     h_proj: torch.Tensor,  # (N, H, dh) f32
     theta_src: torch.Tensor,  # (N, H)
@@ -383,7 +525,8 @@ def fused_prune_aggregate(
     slope: float = 0.2,
 ) -> torch.Tensor:
     """NA over one flat padded-CSC table with a k-slot retention domain,
-    k = min(prune_k, D) (k = D without pruning) -> (T, H, dh) float32.
+    k = min(prune_k, D) (k = D without pruning) -> (T, H, dh) float32, as
+    one fused launch.
 
     The rel term enters only with both ``theta_rel`` and ``edge_type``, as
     in the reference's wrapper. A table with no rows launches nothing.
@@ -393,10 +536,9 @@ def fused_prune_aggregate(
     if k < 1:
         raise ValueError(f"prune_k={prune_k} leaves no retention slot")
     use_rel = theta_rel is not None and edge_type is not None
-    alpha, ids = flat_prune(
+    return flat_prune_aggregate(
         nbr_idx.to(torch.int32).contiguous(), nbr_mask.to(torch.bool).contiguous(),
         edge_type.to(torch.int32).contiguous() if use_rel else None,
         theta_src.contiguous(), theta_rel.contiguous() if use_rel else None,
-        theta_dst.contiguous(), k, slope,
+        theta_dst.contiguous(), h_proj.contiguous(), k, slope,
     )
-    return flat_aggregate(alpha, ids, h_proj.contiguous())

@@ -14,6 +14,9 @@ They walk the same layouts with the same rule as the kernels:
   * :func:`flat_prune_plain` and :func:`flat_aggregate_plain` are the same
     two steps over one flat ``(T, D)`` padded-CSC table with one domain
     width ``k`` for every row and no bypass.
+  * :func:`prune_aggregate_plain` and :func:`flat_prune_aggregate_plain`,
+    the plain versions of the fused launches, run the two steps in
+    sequence.
 
 The wrapper in ``ops.py`` uses these for CPU tensors; ``chip_smoke.py``
 holds the kernels against them on the card. They take tensors of any
@@ -177,3 +180,26 @@ def flat_aggregate_plain(
     for s in range(k):
         out = out + alpha[:, s, :, None] * h_proj[safe[:, s]]
     return out
+
+
+def prune_aggregate_plain(
+    nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets, blk, k_s: int,
+    h_proj: torch.Tensor, slope: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused grouped launch: :func:`prune_plain`, then
+    :func:`aggregate_plain` on its alpha and ids -> (out (rows, H, dh),
+    alpha, ids)."""
+    alpha, ids = prune_plain(
+        nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets, blk, k_s, slope
+    )
+    return aggregate_plain(alpha, ids, h_proj, blk), alpha, ids
+
+
+def flat_prune_aggregate_plain(
+    nbr, msk, ety, theta_src, theta_rel, theta_dst, h_proj: torch.Tensor, k: int,
+    slope: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused flat launch: :func:`flat_prune_plain`, then
+    :func:`flat_aggregate_plain` -> (out (T, H, dh), alpha, ids)."""
+    alpha, ids = flat_prune_plain(nbr, msk, ety, theta_src, theta_rel, theta_dst, k, slope)
+    return flat_aggregate_plain(alpha, ids, h_proj), alpha, ids

@@ -13,8 +13,13 @@ minimum slot and insert only on a strictly greater score, which is not
 kernel, its ``staged_pruned`` path ``top_k``, and its ``fused`` scan
 emulation ``top_k`` over [domain, tile] as the reference's does.
 
-The tests marked ``cuda`` hold the CUDA kernels against the plain versions
-on a card; they skip without one.
+The fused step wrappers ``prune_aggregate`` and ``flat_prune_aggregate``
+(one launch: K1, then K2's aggregation in the same warp) must return what
+their pair of step wrappers returns, bit for bit.
+
+The tests marked ``cuda`` hold the CUDA kernels against the plain versions,
+and each fused launch against its kernel pair, on a card; they skip without
+one.
 """
 import gc
 import sys
@@ -737,6 +742,94 @@ def test_fused_emulation_ties_follow_reference(tile):
     assert np.abs(kernel_rule - got).max() > 1e-2, "the kernel rule should differ on ties"
 
 
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """A tensor's bits, so that equal NaNs compare equal."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _same_bits(got, want) -> bool:
+    return all(g.shape == w.shape and torch.equal(_bits(g), _bits(w)) for g, w in zip(got, want))
+
+
+def _flat_step_inputs(rng, k, rel, device="cpu"):
+    """A flat table for the fused step at width k: tie-heavy integer ranks
+    with NaN, -inf, NEG-band and ±0.0 rows, an empty row, a row of fewer
+    valid slots than k, more than one SEG segment."""
+    t, d, n, h, dh, r = 6, max(k + 60, SEG + 44), 40, 4, 8, 3
+    nbr = rng.integers(0, n, size=(t, d)).astype(np.int32)
+    msk = rng.random((t, d)) < 0.85
+    msk[1] = False
+    msk[2, k // 2:] = False
+    ety = rng.integers(0, r, size=(t, d)).astype(np.int32)
+    ts, tr = _special_theta(rng, n, h), rng.integers(-1, 2, size=(r, h)).astype(np.float32)
+    arrays = (nbr, msk, ety if rel else None, ts, tr if rel else None, _normal(rng, t, h), _normal(rng, n, h, dh))
+    return tuple(None if a is None else torch.from_numpy(a).to(device) for a in arrays)
+
+
+@pytest.mark.parametrize("rel", (False, True))
+@pytest.mark.parametrize("k", (1, 8, 33, 257, 528))
+def test_flat_prune_aggregate_is_the_pair(k, rel):
+    """On CPU tensors ``flat_prune_aggregate`` returns exactly
+    ``flat_aggregate(*flat_prune(...))`` with ``flat_prune``'s alpha and ids
+    (``keep=True``), and that output alone without it; no launch is
+    counted under any key."""
+    nbr, msk, ety, ts, tr, td, hp = _flat_step_inputs(np.random.default_rng(200 + k), k, rel)
+    before = dict(tops.LAUNCHES)
+    out, alpha, ids = tops.flat_prune_aggregate(nbr, msk, ety, ts, tr, td, hp, k, keep=True)
+    a_pair, i_pair = tops.flat_prune(nbr, msk, ety, ts, tr, td, k)
+    o_pair = tops.flat_aggregate(a_pair, i_pair, hp)
+    assert _same_bits((out, alpha, ids), (o_pair, a_pair, i_pair))
+    assert _same_bits((tops.flat_prune_aggregate(nbr, msk, ety, ts, tr, td, hp, k),), (o_pair,))
+    assert tops.LAUNCHES == before and len(before) == 6
+    assert (ids[1] == -1).all() and not out[1].any()
+
+
+@pytest.mark.parametrize("k_s", sorted(KS_CASES))
+def test_prune_aggregate_is_the_pair(k_s):
+    """On CPU tensors ``prune_aggregate`` returns exactly
+    ``aggregate(*prune(...))`` with ``prune``'s alpha and ids, at the
+    grouped K1's widths (register and shared-memory domains), on pruned and
+    bypass buckets with a relation term; no launch is counted."""
+    rng = np.random.default_rng(300 + k_s)
+    sg, k, n = _ks_graph(rng, k_s)
+    h, dh = 4, 8
+    layout = sg.grouped(tops.T_TILE, tops.W_TILE)
+    (nbr, msk, ety, rt, _), (blk, got_ks) = tops._layout_device(layout, k, torch.device("cpu"))
+    assert got_ks == k_s
+    ts = torch.from_numpy(rng.integers(-1, 2, size=(n, h)).astype(np.float32))
+    tr = torch.from_numpy(rng.integers(-1, 2, size=(3, h)).astype(np.float32))
+    td = torch.from_numpy(_normal(rng, sg.num_targets, h))
+    hp = torch.from_numpy(_normal(rng, n, h, dh))
+    args = (nbr, msk, ety, ts, tr, td, rt, blk, k_s)
+    before = dict(tops.LAUNCHES)
+    got = tops.prune_aggregate(*args, hp, keep=True)
+    a_pair, i_pair = tops.prune(*args)
+    o_pair = tops.aggregate(a_pair, i_pair, hp, blk)
+    assert _same_bits(got, (o_pair, a_pair, i_pair))
+    assert _same_bits((tops.prune_aggregate(*args, hp),), (o_pair,))
+    assert tops.LAUNCHES == before
+
+
+def test_na_ops_run_one_fused_step(monkeypatch):
+    """``fused_prune_aggregate_grouped`` and ``fused_prune_aggregate`` each
+    run their fused step wrapper once and no K1 or K2 step wrapper."""
+    calls = []
+    for name in ("prune", "aggregate", "flat_prune", "flat_aggregate", "prune_aggregate",
+                 "flat_prune_aggregate"):
+        real = getattr(tops, name)
+        monkeypatch.setattr(tops, name, lambda *a, _n=name, _f=real, **kw: calls.append(_n) or _f(*a, **kw))
+    rng = np.random.default_rng(15)
+    src, dst, ety = _edges(rng, 20, 30)
+    sg = _bucketed(thg, src, dst, ety, 20, 24, (4, 8))
+    hp, ts, td = (torch.from_numpy(a) for a in (_normal(rng, 30, 4, 8), _normal(rng, 30, 4), _normal(rng, 20, 4)))
+    out = tops.fused_prune_aggregate_grouped(hp, ts, td, sg, prune_k=3)
+    assert calls == ["prune_aggregate"] and out.shape == (20, 4, 8)
+    calls.clear()
+    idx = torch.from_numpy(rng.integers(0, 30, size=(20, 12)).astype(np.int32))
+    out = tops.fused_prune_aggregate(hp, ts, td, idx, torch.ones((20, 12), dtype=torch.bool), prune_k=3)
+    assert calls == ["flat_prune_aggregate"] and out.shape == (20, 4, 8)
+
+
 @pytest.fixture()
 def cuda_device():
     if not torch.cuda.is_available():
@@ -810,3 +903,79 @@ def test_cuda_flat_kernels_match_plain(cuda_device, t, d, h, dh, n, k):
     )
     with pytest.raises(ValueError, match="domain width"):
         tops.flat_prune(idx, msk, ety, ts, tr, td, tops.MAX_KS + 1)
+
+
+def _launches_of(fn):
+    """``fn()``'s result and the launches it counted, by key."""
+    before = dict(tops.LAUNCHES)
+    got = fn()
+    torch.cuda.synchronize()
+    return got, {key: n - before[key] for key, n in tops.LAUNCHES.items() if n != before[key]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d,h,dh,n,k", FLAT_SWEEP + FLAT_WIDE)
+def test_cuda_flat_prune_aggregate_is_the_pair(cuda_device, t, d, h, dh, n, k):
+    """The fused flat launch against the kernel pair on the same inputs,
+    bit for bit: out, alpha and ids with ``keep=True``, and out alone (the
+    serving call) without; one launch under ``flat_prune_aggregate`` and
+    none under the step keys. h'[0] holds an inf, which empty slots must
+    carry into the output as K2 does."""
+    rng = np.random.default_rng(t)
+    hp, ts, td, idx, msk, tr, ety = (
+        None if a is None else torch.from_numpy(a).to(cuda_device)
+        for a in _flat_inputs(rng, t, d, h, dh, n, r=3)
+    )
+    hp[0, 0, 0] = float("inf")
+    a_pair, i_pair = tops.flat_prune(idx, msk, ety, ts, tr, td, k)
+    o_pair = tops.flat_aggregate(a_pair, i_pair, hp)
+    got, n_kept = _launches_of(lambda: tops.flat_prune_aggregate(idx, msk, ety, ts, tr, td, hp, k, keep=True))
+    out, n_served = _launches_of(lambda: tops.flat_prune_aggregate(idx, msk, ety, ts, tr, td, hp, k))
+    assert n_kept == n_served == {"flat_prune_aggregate": 1}
+    assert _same_bits(got, (o_pair, a_pair, i_pair)) and _same_bits((out,), (o_pair,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_s", sorted(KS_CASES))
+def test_cuda_prune_aggregate_is_the_pair(cuda_device, k_s):
+    """The fused grouped launch against the kernel pair, bit for bit, at
+    the grouped K1's widths, pruned and bypass buckets, a relation term;
+    one launch under ``prune_aggregate`` and none under the step keys."""
+    rng = np.random.default_rng(k_s)
+    sg, k, n = _ks_graph(rng, k_s)
+    h, dh = 4, 8
+    layout = sg.grouped(tops.T_TILE, tops.W_TILE)
+    (nbr, msk, ety, rt, _), (blk, got_ks) = tops._layout_device(layout, k, cuda_device)
+    assert got_ks == k_s
+    ts = torch.from_numpy(rng.integers(-1, 2, size=(n, h)).astype(np.float32)).to(cuda_device)
+    tr = torch.from_numpy(rng.integers(-1, 2, size=(3, h)).astype(np.float32)).to(cuda_device)
+    td = torch.from_numpy(_normal(rng, sg.num_targets, h)).to(cuda_device)
+    hp = torch.from_numpy(_normal(rng, n, h, dh)).to(cuda_device)
+    hp[0, 1, 2] = float("nan")
+    args = (nbr, msk, ety, ts, tr, td, rt, blk, k_s)
+    a_pair, i_pair = tops.prune(*args)
+    o_pair = tops.aggregate(a_pair, i_pair, hp, blk)
+    got, n_kept = _launches_of(lambda: tops.prune_aggregate(*args, hp, keep=True))
+    out, n_served = _launches_of(lambda: tops.prune_aggregate(*args, hp))
+    assert n_kept == n_served == {"prune_aggregate": 1}
+    assert _same_bits(got, (o_pair, a_pair, i_pair)) and _same_bits((out,), (o_pair,))
+
+
+@pytest.mark.cuda
+def test_cuda_fused_steps_raise_before_launch(cuda_device):
+    """H * dh = 1025 and a domain one past ``MAX_KS`` raise ``ValueError``
+    before any launch, grouped and flat."""
+    dev = cuda_device
+    ts, td = torch.zeros((4, 1), device=dev), torch.zeros((8, 1), device=dev)
+    wide_row = torch.zeros((4, 1, 1025), device=dev)
+    narrow = torch.zeros((4, 1, 8), device=dev)
+    idx = torch.zeros((8, 4), dtype=torch.int32, device=dev)
+    tiles = torch.zeros((1, 8, 8), dtype=torch.int32, device=dev)
+    rt, blk = torch.zeros(8, dtype=torch.int32, device=dev), torch.zeros((4, 1), dtype=torch.int32, device=dev)
+    before = dict(tops.LAUNCHES)
+    for hp, k in ((wide_row, 2), (narrow, tops.MAX_KS + 1)):
+        with pytest.raises(ValueError):
+            tops.flat_prune_aggregate(idx, idx.bool(), None, ts, None, td, hp, k)
+        with pytest.raises(ValueError):
+            tops.prune_aggregate(tiles, tiles.bool(), None, ts, None, td, rt, blk, k, hp)
+    assert tops.LAUNCHES == before
