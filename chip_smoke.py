@@ -57,10 +57,14 @@ exits non-zero at the first phase that fails:
    "fused_kernel", prune_k=8))`` → ``session(params)`` — at ``scale=1.0``
    with seeded random weights: HAN on DBLP and ACM (bucketed), then RGAT
    and Simple-HGN on ACM and IMDB on three routes each (the bucketed single
-   dispatch, the per-bucket loop and the flat SGB). The launch counters are
-   set to 0 just before each forward and read just after; every count must
-   equal the count derived from the semantic graphs: one fused launch per
-   NA call, and no launch of a K1 or K2 step wrapper. Logits must be finite,
+   dispatch, the per-bucket loop and the flat SGB). Each path runs the
+   eager ``model.apply`` once, the counters set to 0 just before and read
+   just after: every count must equal the count derived from the semantic
+   graphs (one fused launch per NA call, and no launch of a K1 or K2 step
+   wrapper). Then ``task.compile`` must capture the forward as a CUDA graph
+   (its warm-up and capture launch each kernel twice that count), and three
+   replays must tick no launch or dispatch counter and equal the eager
+   forward bit for bit. Logits must be finite,
    within 1e-4 of the same route's forward on the CPU (plain versions; the
    projection sums in another order) and of the other routes, and
    ``session.query`` blocks at capacities 1, 8, 64 bit-identical to the
@@ -71,9 +75,13 @@ exits non-zero at the first phase that fails:
    serving at full width and depth
    as published (bfloat16 activations, float32 seeded weights,
    ``attn_prune_k=2048``): ``prefill`` of (4, 3072) tokens (no kernel #4
-   launch) and 32 greedy ``decode_step``s, the counters set to 0 before
-   each step and read after it: exactly one launch of each kernel of the
-   decode pair per global layer whose cache is wider than K (5 a step).
+   launch) and 32 greedy eager ``decode_step``s, the counters set to 0
+   before each step and read after it: exactly one launch of each kernel of
+   the decode pair per global layer whose cache is wider than K (5 a step);
+   then the same 32 steps through ``LM.compile_decode`` (one CUDA graph,
+   captured at the first step, which counts each launch twice; replays
+   count none), whose tokens, float32 logits and final cache must be the
+   eager loop's bit for bit.
    One decode step of a float32 copy of the config, on the same weights
    and cache, must give logits within 1e-4 with the kernels and with their
    plain versions; one cycle of depth (6 layers) at full width in float32
@@ -103,10 +111,14 @@ exits non-zero at the first phase that fails:
    at ``prune_k=None``: flat k 527, grouped k_s 528; and at
    ``prune_k=300``), the decode pair at
    the inputs of gemma3-4b's last global layer in the first decode step;
-   then every forward, with a profiler breakdown of the ACM forwards; then
-   the LM's prefill, its decode step (median of the main path's steps
-   after the first) and tokens/s, and the decode pair's share of a decode
-   step's device time; then the Pruner at three shapes (the reference's
+   then every forward, eager and captured side by side (back to back,
+   the median latency of a synchronized call, and on ACM the device's busy
+   time from the profiler; where the profiler sees no kernel inside a
+   replay, the run says so and the captured busy time is not measured);
+   then the LM's prefill, its decode step eager and captured (medians of
+   the main path's steps after the first, and back to back at one
+   position) and tokens/s, and the decode pair's share of a decode step's
+   device time; then the Pruner at three shapes (the reference's
    microbenchmark 2048 x 512 k 50, the ACM ``union:paper`` ranks and the
    gemma3-4b logits of phase 3) beside ``torch.topk`` as a yardstick; its
    row of the ``kernels`` line takes the times of the gemma3-4b logits,
@@ -238,6 +250,40 @@ def check_fused(name, run, pair, launch_key, ops):
     check(same_bits(kept, pair), f"{name}: the fused launch (keep=True) differs from the K1 -> K2 pair")
     check(same_bits((served,), pair[:1]), f"{name}: the fused launch's output differs from the pair's")
     return served
+
+
+def captured_session(task, flow, want: dict, key: str, ops, dev):
+    """One HGNN path served as its user calls it: the eager ``model.apply``
+    once, whose launches must be ``want`` (the launches per forward); then
+    ``task.compile(flow)``, which must capture the forward (its warm-up and
+    capture launch each kernel twice as often); then three replays, which
+    must tick no launch or dispatch counter and each equal the eager
+    forward bit for bit. Returns the session, its logits and the eager
+    forward's launches."""
+    import torch
+
+    from repro_torch.core import flows
+
+    reset_launches(ops)
+    with torch.inference_mode():
+        eager = task.model.apply(task.params, task.batch, flow)
+    sync(dev)
+    launches = dict(ops.LAUNCHES)
+    check(launches == want, f"{key}: eager forward launches {launches}, expected {want}")
+    reset_launches(ops)
+    sess = task.compile(flow)
+    sync(dev)
+    built = dict(ops.LAUNCHES)
+    check(sess.captured, f"{key}: the session is not a captured graph")
+    check(built == {k: 2 * n for k, n in want.items()}, f"{key}: warm-up and capture launched {built}")
+    reset_launches(ops)
+    dispatch = dict(flows.DISPATCH)
+    outs = [sess(task.params) for _ in range(3)]
+    sync(dev)
+    check(all(n == 0 for n in ops.LAUNCHES.values()) and flows.DISPATCH == dispatch,
+          f"{key}: replays ticked launches {ops.LAUNCHES} or dispatch {flows.DISPATCH} (was {dispatch})")
+    check(same_bits(outs, [eager] * 3), f"{key}: a captured forward differs from the eager forward")
+    return sess, outs[0], launches
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -565,14 +611,8 @@ def model_paths(pipeline, hetgraph, FlowConfig, ops, dev):
                 cpu_task = prepare_route(pipeline, hetgraph, model, ds, route, torch.device("cpu"))
                 gpu_tasks[key] = task
                 flow = route_flow(FlowConfig, route)
-                sess = task.compile(flow)
                 want = expected_launches(task.sgs, route, PRUNE_K, task.model.num_layers, ops)
-                reset_launches(ops)
-                logits = sess(task.params)
-                sync(dev)
-                launches = dict(ops.LAUNCHES)
-                if launches != want:
-                    raise AssertionError(f"{key}: launches {launches}, expected {want}")
+                sess, logits, launches = captured_session(task, flow, want, key, ops, dev)
                 if tuple(logits.shape) != sess.out_shape or not bool(torch.isfinite(logits).all()):
                     raise AssertionError(f"{key}: logits shape {tuple(logits.shape)} or non-finite values")
                 err = float((logits.cpu() - cpu_task.compile(flow)(cpu_task.params)).abs().max())
@@ -587,11 +627,12 @@ def model_paths(pipeline, hetgraph, FlowConfig, ops, dev):
                 logits_by_route[route] = logits
                 results[key] = {
                     "launches": launches, "logits_shape": list(logits.shape),
-                    "max_abs_err_vs_cpu": err, "query_blocks_bit_identical": 3,
+                    "max_abs_err_vs_cpu": err, "query_blocks_bit_identical": 3, "captured_bitwise_eager": 3,
                 }
                 print(f"  main path {key}: launches "
-                      f"{ {k: v for k, v in launches.items() if v} }, logits {tuple(logits.shape)} "
-                      f"finite, |gpu-cpu| {err:.3g}, 3 query blocks bit-identical")
+                      f"{ {k: v for k, v in launches.items() if v} } a forward, captured (3 replays == eager "
+                      f"bitwise, no counter ticked), logits {tuple(logits.shape)} finite, |gpu-cpu| {err:.3g}, "
+                      "3 query blocks bit-identical")
             for route in ROUTES[1:]:
                 d = float((logits_by_route[route] - logits_by_route[ROUTES[0]]).abs().max())
                 if d > TOL_LOGITS:
@@ -622,16 +663,10 @@ def wide_paths(pipeline, hetgraph, FlowConfig, ops, dev):
             key = f"han/acm/max_degree=None/prune_k={pk}/{route}"
             task, cpu_task = tasks[route]
             flow = FlowConfig("fused_kernel", prune_k=pk, bucket_dispatch="loop" if route == "loop" else "single")
-            sess = task.compile(flow)
             want = expected_launches(task.sgs, route, pk, 1, ops)
             widths = k1_widths(task.sgs, route, pk, ops)
             check(max(widths) > 256, f"{key}: no K1 domain wider than 256 ({widths})")
-            reset_launches(ops)
-            logits = sess(task.params)
-            sync(dev)
-            launches = dict(ops.LAUNCHES)
-            if launches != want:
-                raise AssertionError(f"{key}: launches {launches}, expected {want}")
+            sess, logits, launches = captured_session(task, flow, want, key, ops, dev)
             if tuple(logits.shape) != sess.out_shape or not bool(torch.isfinite(logits).all()):
                 raise AssertionError(f"{key}: logits shape {tuple(logits.shape)} or non-finite values")
             err = float((logits.cpu() - cpu_task.compile(flow)(cpu_task.params)).abs().max())
@@ -647,9 +682,11 @@ def wide_paths(pipeline, hetgraph, FlowConfig, ops, dev):
             results[key] = {
                 "launches": launches, "k1_widths": widths, "wide_launches": sum(w > 256 for w in widths),
                 "logits_shape": list(logits.shape), "max_abs_err_vs_cpu": err, "query_blocks_bit_identical": 3,
+                "captured_bitwise_eager": 3,
             }
-            print(f"  wide path {key}: launches {launches}, K1 widths {widths}, logits "
-                  f"{tuple(logits.shape)} finite, |gpu-cpu| {err:.3g}, 3 query blocks bit-identical")
+            print(f"  wide path {key}: launches {launches} a forward, K1 widths {widths}, captured (3 replays "
+                  f"== eager bitwise, no counter ticked), logits {tuple(logits.shape)} finite, |gpu-cpu| {err:.3g}, "
+                  "3 query blocks bit-identical")
         for route in ROUTES[1:]:
             d = float((logits_by_route[route] - logits_by_route[ROUTES[0]]).abs().max())
             if d > TOL_LOGITS:
@@ -855,16 +892,10 @@ def main_path(pipeline, FlowConfig, ops, cpu_tasks, dev):
         gpu_tasks[ds] = task
         for name, p in task.params.items():
             check(torch.equal(p.cpu(), cpu_task.params[name]), f"{ds}: weights differ on {name}")
-        sess = task.compile(flow)
         n_sg = len(task.sgs)
         want = expected_launches(task.sgs, "bucketed", PRUNE_K, 1, ops)
         check(want["prune_aggregate"] == n_sg, f"{ds}: a semantic graph has no grid steps")
-        reset_launches(ops)
-        logits = sess(task.params)
-        sync(dev)
-        launches = dict(ops.LAUNCHES)
-        if launches != want:
-            raise AssertionError(f"{ds}: launches {launches}, expected {want}")
+        sess, logits, launches = captured_session(task, flow, want, f"han/{ds}", ops, dev)
         if tuple(logits.shape) != sess.out_shape or not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"{ds}: logits shape {tuple(logits.shape)} or non-finite values")
         cpu_logits = cpu_task.compile(flow)(cpu_task.params)
@@ -884,11 +915,11 @@ def main_path(pipeline, FlowConfig, ops, cpu_tasks, dev):
         results[f"han/{ds}"] = {
             "semantic_graphs": [sg.name for sg in task.sgs], "launches": launches,
             "logits_shape": list(logits.shape), "max_abs_err_vs_cpu": err,
-            "query_blocks_bit_identical": n_blocks, "prepare_s": prep_s,
+            "query_blocks_bit_identical": n_blocks, "prepare_s": prep_s, "captured_bitwise_eager": 3,
         }
-        print(f"  main path han/{ds}: {n_sg} semantic graphs, launches {launches}, "
-              f"logits {tuple(logits.shape)} finite, |gpu-cpu| {err:.3g}, "
-              f"{n_blocks} query blocks bit-identical")
+        print(f"  main path han/{ds}: {n_sg} semantic graphs, launches {launches} a forward, captured "
+              f"(3 replays == eager bitwise, no counter ticked), logits {tuple(logits.shape)} finite, "
+              f"|gpu-cpu| {err:.3g}, {n_blocks} query blocks bit-identical")
     return results, gpu_tasks
 
 
@@ -1020,11 +1051,11 @@ def timed(t: dict, key: str, fn, iters: int) -> None:
     t[f"{key}_source"] = "profiler" if dev > 0 else "events"
 
 
-def forward_profile(sess, params, forward_ms: float, reps: int = 5):
-    """Device time per forward by kernel name and the device's busy share
-    of the event-timed forward. ``None`` when the profiler sees no device
-    time."""
-    per_kernel = device_times(lambda: sess(params), reps)
+def forward_profile(fn, forward_ms: float, reps: int = 5):
+    """Device time per forward ``fn()`` by kernel name and the device's busy
+    share of the event-timed forward. ``None`` when the profiler sees no
+    device time (it may not see the kernels inside a graph replay)."""
+    per_kernel = device_times(fn, reps)
     busy = sum(per_kernel.values())
     if busy == 0:
         return None
@@ -1327,8 +1358,10 @@ def lm_main_path(dev, hgnn_ops, ts_ops):
     del lm32, outs
     print(f"  main path {LM_ARCH} float32 decode step: kernel vs plain logits {e32:.3g} (max |logit| {top32:.3g})")
 
-    # the main path: 32 greedy decode steps
-    step_ms, launches, tokens = [], {k: 0 for k in zero}, []
+    # 32 greedy eager decode steps from a copy of the cache: the launches a
+    # step, and the tokens, logits and cache the compiled step must give
+    step_ms, launches, tokens, eager_logits = [], {k: 0 for k in zero}, [], []
+    eager_cache = [KVCache(c.k.clone(), c.v.clone()) for c in cache0]
     for i in range(LM_GEN):
         pos = LM_PROMPT + i
         for m in (hgnn_ops, ts_ops, ops):
@@ -1336,7 +1369,7 @@ def lm_main_path(dev, hgnn_ops, ts_ops):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         tokens.append(tok)
         start.record()
-        logits, cache = lm.decode_step(tok, pos, cache)
+        logits, eager_cache = lm.decode_step(tok, pos, eager_cache)
         end.record()
         end.synchronize()
         got = all_launches(hgnn_ops, ts_ops, ops)
@@ -1345,15 +1378,42 @@ def lm_main_path(dev, hgnn_ops, ts_ops):
         for key, n in got.items():
             launches[key] += n
         step_ms.append(start.elapsed_time(end))
+        eager_logits.append(logits)
         tok = logits.argmax(-1)[:, None]
-    print(f"  main path {LM_ARCH}: prefill {LM_BATCH}x{LM_PROMPT}, {LM_GEN} decode steps, "
-          f"{per_step} + {per_step} decode-pair launches each step, logits finite, "
-          f"sample tokens {tok[:, 0].tolist()}")
+    # the main path, as the serving launcher runs it: the same 32 steps
+    # through the compiled step on the prefill's cache. The first call warms
+    # up and captures (each kernel twice a global layer); replays launch
+    # nothing from Python. Tokens, float32 logits and cache: the eager loop's,
+    # bit for bit
+    step = lm.compile_decode(cache)
+    captured_ms, tok = [], tok0
+    twice = {key: 2 * n for key, n in want_step.items()}
+    for i in range(LM_GEN):
+        check(torch.equal(tok, tokens[i]), f"captured decode step {i}: input token differs from the eager loop's")
+        for m in (hgnn_ops, ts_ops, ops):
+            reset_launches(m)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits = step(tok, LM_PROMPT + i)
+        end.record()
+        end.synchronize()
+        got = all_launches(hgnn_ops, ts_ops, ops)
+        check(got == (dict(zero, **twice) if i == 0 else zero), f"captured decode step {i}: launches {got}")
+        check(same_bits((logits,), (eager_logits[i],)), f"captured decode step {i}: logits differ from the eager step's")
+        captured_ms.append(start.elapsed_time(end))
+        tok = logits.argmax(-1)[:, None]
+    check(all(torch.equal(a.k, b.k) and torch.equal(a.v, b.v) for a, b in zip(cache, eager_cache)),
+          "the captured steps' cache differs from the eager loop's")
+    del eager_cache, eager_logits
+    print(f"  main path {LM_ARCH}: prefill {LM_BATCH}x{LM_PROMPT}, {LM_GEN} eager decode steps, "
+          f"{per_step} + {per_step} decode-pair launches each step, logits finite; the same {LM_GEN} steps "
+          "captured: tokens, float32 logits and cache bit for bit the eager loop's, no launch counted "
+          f"on a replay; sample tokens {tok[:, 0].tolist()}")
     res = {
         "launches": launches, "launches_per_decode_step": per_step, "decode_steps": LM_GEN,
         "prefill_launches": 0, "float32_kernel_vs_plain_logits": e32, "float32_max_abs_logit": top32,
-        "init_and_cast_s": init_s,
-        "step_ms_events": step_ms, "param_count": cfg.param_count(),
+        "init_and_cast_s": init_s, "captured_steps_bitwise_eager": LM_GEN,
+        "step_ms_events": step_ms, "captured_step_ms_events": captured_ms, "param_count": cfg.param_count(),
     }
     res["tie_rows"] = lm_tie_rows(lm, cache0, tokens)
     print(f"  main path {LM_ARCH}: decode K1's tie path took {res['tie_rows']['rows']} of "
@@ -1499,20 +1559,27 @@ def decode_timings(lm, prompts, cache0, tok0, decode_in, dev):
         retained = int(keep.sum())
         k2_bytes = distinct * dh * el + (alpha.numel() + ids.numel()) * 4 + out.numel() * 4
         k2_ops = 2 * retained * dh
-        # the LM: prefill, and the decode pair's share of a decode step
-        fresh = [KVCache(c.k.clone(), c.v.clone()) for c in cache0]
+        # the LM: prefill, and a decode step at one position (it writes the
+        # same cache slot each time), eager and captured: its time, the
+        # device's busy time and the decode pair's share of it
         t["lm_prefill_ms"] = cuda_ms(lambda: lm.prefill(prompts, max_len=LM_PROMPT + LM_GEN), 2, warmup=1)
-        step_ms = cuda_ms(lambda: lm.decode_step(tok0, LM_PROMPT, fresh), 5, warmup=1)
-        per_kernel = device_times(lambda: lm.decode_step(tok0, LM_PROMPT, fresh), 3)
-        n_ops = host_ops(lambda: lm.decode_step(tok0, LM_PROMPT, fresh))
-    busy = sum(per_kernel.values())
-    pair = sum(ms for name, ms in per_kernel.items() if "score_prune_kernel" in name or "value_gather_kernel" in name)
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-    prof = None if busy == 0 else {
-        "device_busy_ms": busy, "step_ms_events": step_ms, "busy_share": busy / step_ms,
-        "decode_pair_ms": pair, "decode_pair_share_of_device": pair / busy,
-        "host_ops_per_step": n_ops, "top_kernels_ms": [[name[:80], ms] for name, ms in top],
-    }
+        fresh = [KVCache(c.k.clone(), c.v.clone()) for c in cache0]
+        step = lm.compile_decode([KVCache(c.k.clone(), c.v.clone()) for c in cache0])
+        prof = {}
+        for mode, fn in (("eager", lambda: lm.decode_step(tok0, LM_PROMPT, fresh)),
+                         ("captured", lambda: step(tok0, LM_PROMPT))):
+            step_ms = cuda_ms(fn, 5, warmup=1)
+            t["lm_step_ms" if mode == "eager" else "lm_captured_step_ms"] = step_ms
+            per_kernel = device_times(fn, 3)
+            busy = sum(per_kernel.values())
+            pair = sum(ms for name, ms in per_kernel.items()
+                       if "score_prune_kernel" in name or "value_gather_kernel" in name)
+            top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+            prof[mode] = None if busy == 0 else {
+                "device_busy_ms": busy, "step_ms_events": step_ms, "busy_share": busy / step_ms,
+                "decode_pair_ms": pair, "decode_pair_share_of_device": pair / busy,
+                "host_ops_per_step": host_ops(fn), "top_kernels_ms": [[name[:80], ms] for name, ms in top],
+            }
     bounds = {"score_prune": bound(k1_bytes, k1_ops), "value_gather": bound(k2_bytes, k2_ops)}
     shapes = {
         "inputs": f"{LM_ARCH} decode step 1, last global layer", "q": list(q.shape), "cache": list(kc.shape),
@@ -1635,8 +1702,11 @@ def pruner_main_path(model_tasks, FlowConfig, fpa_ops, ts_ops, tda_ops, decode_i
     fpa_ops.flat_prune_aggregate = record
     try:
         for key in ("rgat/acm/flat", "simple_hgn/acm/flat"):
+            # the eager forward: a replay of the session runs no wrapper, and
+            # its launches equal the eager ones bit for bit (phase 3)
             task = model_tasks[key]
-            task.compile(route_flow(FlowConfig, "flat"))(task.params)
+            with torch.inference_mode():
+                task.model.apply(task.params, task.batch, route_flow(FlowConfig, "flat"))
     finally:
         fpa_ops.flat_prune_aggregate = real
     # the served launches write no ids: a keep=True launch on each served
@@ -1836,32 +1906,50 @@ def main() -> int:
     t_wide, b_wide, s_wide, e_wide = wide_timings(wide_tasks, dev)
     t.update(t_wide)
     bounds.update(b_wide)
-    fwd, latency, prof = {}, {}, {}
+    modes = ("eager", "captured")
+    fwd, latency, prof = ({mode: {} for mode in modes} for _ in range(3))
     sessions = {f"han/{ds}/bucketed": (task, FlowConfig("fused_kernel", prune_k=PRUNE_K))
                 for ds, task in gpu_tasks.items()}
     for key, task in model_tasks.items():
         sessions[key] = (task, route_flow(FlowConfig, key.rsplit("/", 1)[1]))
     for key, (task, flow) in sessions.items():
         sess = task.compile(flow)
-        fwd[key] = cuda_ms(lambda: sess(task.params), 20)
-        lat = []
-        for _ in range(20):  # one forward at a time: host clock around a synchronized call
-            t0 = time.perf_counter()
-            sess(task.params)
-            torch.cuda.synchronize()
-            lat.append((time.perf_counter() - t0) * 1e3)
-        latency[key] = sorted(lat)[len(lat) // 2]
-        if "/acm/" in key:
-            prof[key] = forward_profile(sess, task.params, fwd[key])
+
+        def eager(task=task, flow=flow):
+            with torch.inference_mode():
+                return task.model.apply(task.params, task.batch, flow)
+
+        for mode, fn in (("eager", eager), ("captured", lambda: sess(task.params))):
+            fwd[mode][key] = cuda_ms(fn, 20)
+            lat = []
+            for _ in range(20):  # one forward at a time: host clock around a synchronized call
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t0) * 1e3)
+            latency[mode][key] = sorted(lat)[len(lat) // 2]
+            if "/acm/" in key:
+                prof[mode][key] = forward_profile(fn, fwd[mode][key])
     print("  shapes, grouped pair: " + json.dumps(shapes))
     print("  shapes, flat pair: " + json.dumps(s_flat))
     print("  times_ms: " + json.dumps(t))
     print("  forward_ms (back to back, CUDA events): " + json.dumps(fwd))
     print("  forward_latency_ms (median, host clock, synchronized): " + json.dumps(latency))
-    for key, p in prof.items():
-        if p:
-            p = dict(p, top_kernels_ms=p["top_kernels_ms"][:6])
-        print(f"  profile {key}: " + (json.dumps(p) if p else "profiler saw no device time: not measured"))
+    for key in sessions:
+        busy = {mode: (prof[mode].get(key) or {}).get("device_busy_ms") for mode in modes}
+        line = (f"  forward {key}, eager / captured: back to back {fwd['eager'][key]:.4f} / "
+                f"{fwd['captured'][key]:.4f} ms, latency {latency['eager'][key]:.4f} / {latency['captured'][key]:.4f} ms")
+        if key in prof["eager"]:
+            line += ", device busy " + " / ".join("not measured" if busy[m] is None else f"{busy[m]:.4f} ms"
+                                                  for m in modes)
+            if busy["captured"] is None:
+                line += " (the profiler saw no kernel inside a replay: the captured forward's busy time is not measured)"
+        print(line)
+    for mode in modes:
+        for key, p in prof[mode].items():
+            if p:
+                p = dict(p, top_kernels_ms=p["top_kernels_ms"][:6])
+            print(f"  profile {key} {mode}: " + (json.dumps(p) if p else "profiler saw no device time: not measured"))
     t_dec, b_dec, s_dec, lm_prof = decode_timings(lm, prompts, cache0, tok0, decode_in, dev)
     t.update(t_dec)
     bounds.update(b_dec)
@@ -1872,11 +1960,18 @@ def main() -> int:
     lm_result["profile"] = lm_prof
     print("  shapes, decode pair: " + json.dumps(s_dec))
     print("  times_ms, decode pair: " + json.dumps({k: v for k, v in t_dec.items() if not k.startswith("lm_")}))
+    steps = sorted(lm_result["captured_step_ms_events"][1:])
+    lm_result["captured_decode_step_ms_median"] = steps[len(steps) // 2]
+    lm_result["captured_tokens_per_s"] = LM_BATCH / (lm_result["captured_decode_step_ms_median"] / 1e3)
     print(f"  {LM_ARCH}: prefill {LM_BATCH}x{LM_PROMPT} {lm_result['prefill_ms']:.1f} ms (CUDA events), "
-          f"decode step {lm_result['decode_step_ms_median']:.2f} ms median of steps 2-{LM_GEN} "
-          f"({lm_result['tokens_per_s']:.1f} tokens/s at batch {LM_BATCH})")
-    print(f"  profile {LM_ARCH} decode step: " + (json.dumps(dict(lm_prof, top_kernels_ms=lm_prof["top_kernels_ms"][:6]))
-                                                 if lm_prof else "profiler saw no device time: not measured"))
+          f"decode step eager / captured {lm_result['decode_step_ms_median']:.2f} / "
+          f"{lm_result['captured_decode_step_ms_median']:.2f} ms median of steps 2-{LM_GEN} "
+          f"({lm_result['tokens_per_s']:.1f} / {lm_result['captured_tokens_per_s']:.1f} tokens/s at batch {LM_BATCH}); "
+          f"back to back at one position {t_dec['lm_step_ms']:.2f} / {t_dec['lm_captured_step_ms']:.2f} ms")
+    for mode, p in lm_prof.items():
+        print(f"  profile {LM_ARCH} decode step {mode}: "
+              + (json.dumps(dict(p, top_kernels_ms=p["top_kernels_ms"][:6])) if p
+                 else "profiler saw no device time: not measured"))
     t_ts = pruner_timings(pruner_shapes, dev)
 
     kernels = []

@@ -4,7 +4,7 @@
 (``repro_torch.core.models.MODELS``): each architecture names its SGB kind
 and factory. The returned ``HGNNTask`` serves inference through
 ``task.compile(flow)``, an :class:`~repro_torch.core.session.InferenceSession`
-cached per flow.
+cached per flow, device and parameter names, shapes and dtypes.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from repro_torch.core import hetgraph
 from repro_torch.core.batch import GraphBatch, ModelSpec
 from repro_torch.core.flows import FlowConfig
 from repro_torch.core.models import get_entry
-from repro_torch.core.session import InferenceSession
+from repro_torch.core.session import InferenceSession, param_spec
 from repro_torch.data import datasets
 
 
@@ -38,12 +38,22 @@ class HGNNTask:
     device: torch.device
     _sessions: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
-    def compile(self, flow: FlowConfig = FlowConfig()) -> InferenceSession:
-        """The serving entry: one session per flow, cached on the task."""
-        sess = self._sessions.get(flow)
+    def compile(self, flow: FlowConfig = FlowConfig(), params=None) -> InferenceSession:
+        """The serving entry: one session per (flow, device, parameter
+        names with their shapes and dtypes), cached on the task, so repeated
+        calls (``accuracy`` over splits, a serving loop) share one program.
+        ``params`` only gives the example the session is built against
+        (default: the task's own). The reference also keys on the mesh,
+        which is not ported yet (ROADMAP §1 item 7), and takes
+        ``donate_params``, which waits for ``serve/`` (§1 item 4), its only
+        caller there."""
+        if params is None:
+            params = self.params
+        key = (flow, self.device, param_spec(params))
+        sess = self._sessions.get(key)
         if sess is None:
-            sess = InferenceSession(self.model, self.batch, flow)
-            self._sessions[flow] = sess
+            sess = InferenceSession(self.model, self.batch, flow, params=params)
+            self._sessions[key] = sess
         return sess
 
 

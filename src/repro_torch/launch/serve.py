@@ -7,7 +7,9 @@
 
 Weights are seeded random (``--seed``), drawn on the device; prompts come
 from a ``torch.Generator`` (they do not match the reference launcher's
-``jax.random`` prompts). Runs on the GPU unless ``--device cpu``.
+``jax.random`` prompts). Runs on the GPU unless ``--device cpu``. On the GPU
+the decode steps replay one captured CUDA graph (``LM.compile_decode``,
+captured at the first step); on the CPU they run eagerly.
 """
 from __future__ import annotations
 
@@ -56,11 +58,14 @@ def main(argv=None):
     sync(dev)
     t_prefill = time.perf_counter() - t0
 
+    # one captured program per step on the card, eager on the CPU; argmax
+    # stays outside the step, as in the reference
+    step = model.compile_decode(cache)
     tok = logits.argmax(-1)[:, None]
     out = [tok]
     t0 = time.perf_counter()
     for pos in range(t, max_len):
-        logits, cache = model.decode_step(tok, pos, cache)
+        logits = step(tok, pos)
         tok = logits.argmax(-1)[:, None]
         out.append(tok)
     sync(dev)

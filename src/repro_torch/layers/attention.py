@@ -77,8 +77,20 @@ def init_kv_cache(cfg, batch: int, max_len: int, kind: str, device) -> KVCache:
     )
 
 
-def attention_decode(cfg, params, x, pos: int, cache: KVCache, kind: str = "A"):
+def position_tensor(pos, device) -> torch.Tensor:
+    """A decode position as the 0-dim int64 tensor on ``device`` that
+    ``attention_decode`` takes: an ``int`` is filled in on the device (no
+    host-to-device copy), a tensor is returned as it is."""
+    if isinstance(pos, torch.Tensor):
+        return pos
+    return torch.full((), int(pos), dtype=torch.int64, device=device)
+
+
+def attention_decode(cfg, params, x, pos, cache: KVCache, kind: str = "A"):
     """Single-token decode with an in-place cache update.
+
+    ``pos`` is an ``int`` or a 0-dim int64 tensor on ``x``'s device (what a
+    captured decode step replays with); both give the same bits.
 
     Global layers ('A') with ``cfg.attn_prune_k`` below the cache width run
     ADE top-K retention per query head over the q·k logits before softmax·V
@@ -93,25 +105,26 @@ def attention_decode(cfg, params, x, pos: int, cache: KVCache, kind: str = "A"):
     """
     b = x.shape[0]
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    pos = position_tensor(pos, x.device)
     q, k, v = _project_qkv(cfg, params, x)
     rot = int(cfg.hd * cfg.rope_fraction)
-    posv = torch.full((b, 1), pos, device=x.device)
-    cos, sin = rope_angles(posv, rot, _rope_base(cfg, kind))
+    cos, sin = rope_angles(pos.expand(b, 1), rot, _rope_base(cfg, kind))
     q = apply_rope(q, cos, sin, cfg.rope_fraction)
     k = apply_rope(k, cos, sin, cfg.rope_fraction)
 
     ck, cv = cache
     c = ck.shape[1]
-    slot = pos % c  # ring for local; c >= max_len for global so pos % c = pos
-    ck[:, slot] = k[:, 0].to(ck.dtype)
-    cv[:, slot] = v[:, 0].to(cv.dtype)
+    # ring for local; c >= max_len for global so pos % c = pos
+    slot = torch.remainder(pos, c).reshape(1)
+    ck.index_copy_(1, slot, k.to(ck.dtype))
+    cv.index_copy_(1, slot, v.to(cv.dtype))
 
     scale = hd ** -0.5
     g = h // hkv
     prune_k = cfg.attn_prune_k if kind == "A" else None
     if prune_k is not None and prune_k < c:
         # a global cache holds positions 0..pos in slots 0..pos
-        lengths = torch.full((b,), min(pos + 1, c), dtype=torch.int32, device=x.device)
+        lengths = torch.clamp(pos + 1, max=c).to(torch.int32).expand(b)
         o = topk_decode_attention(q.reshape(b, h, hd), ck, cv, lengths, prune_k, scale)
         o = o.to(cv.dtype)
     else:

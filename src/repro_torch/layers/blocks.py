@@ -61,8 +61,9 @@ def init_block_cache(cfg, kind: str, batch: int, max_len: int, device):
     return attn.init_kv_cache(cfg, batch, max_len, kind, device)
 
 
-def apply_block_decode(cfg, kind: str, params, x, pos: int, cache):
-    """Single-token step. Returns (x, cache), the cache updated in place."""
+def apply_block_decode(cfg, kind: str, params, x, pos, cache):
+    """Single-token step at ``pos`` (an ``int`` or a 0-dim int64 tensor on
+    ``x``'s device). Returns (x, cache), the cache updated in place."""
     _check_kind(kind)
     h, cache = attn.attention_decode(
         cfg, params["attn"], apply_norm(cfg, params["ln1"], x), pos, cache, kind=kind

@@ -20,6 +20,11 @@ stay float32, as the reference reads them.
 
 Caches are a list of ``KVCache`` per layer, updated in place by
 ``decode_step`` (the same list comes back).
+
+``LM.compile_decode(cache)`` is the counterpart of the reference's
+``jax.jit(model.decode_step)``: a :class:`DecodeStep` bound to one cache,
+which on the card replays one CUDA graph of the whole step for every
+position. Prefill stays eager, as the reference does not jit it.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.projection import glorot_
 from repro_torch.layers import blocks
-from repro_torch.layers.attention import KVCache
+from repro_torch.layers.attention import KVCache, position_tensor
 from repro_torch.layers.norms import apply_norm, norm_shapes
 
 
@@ -164,14 +169,22 @@ class LM(nn.Module):
             for kind in self.cfg.pattern()
         ]
 
-    def decode_step(self, token: torch.Tensor, pos: int, cache: List[KVCache]):
-        """One decode step: ``token`` (B, 1) at position ``pos`` -> (logits
-        (B, V) float32, cache), the cache updated in place."""
+    def decode_step(self, token: torch.Tensor, pos, cache: List[KVCache]):
+        """One decode step: ``token`` (B, 1) at position ``pos`` (an ``int``
+        or a 0-dim int64 tensor on the model's device; both give the same
+        bits) -> (logits (B, V) float32, cache), the cache updated in
+        place."""
         cfg, params = self.cfg, self.compute_params()
         x = self._embed(params, token)
+        pos = position_tensor(pos, token.device)
         for i, kind in enumerate(cfg.pattern()):
             x, cache[i] = blocks.apply_block_decode(cfg, kind, params["layers"][i], x, pos, cache[i])
         return self._logits(params, x)[:, 0], cache
+
+    def compile_decode(self, cache: List[KVCache]) -> "DecodeStep":
+        """The decode step as one program, bound to ``cache`` and to the
+        model's current weights (see :class:`DecodeStep`)."""
+        return DecodeStep(self, cache)
 
     # ------------------------------------------------------------ prefill
     def prefill(self, tokens: torch.Tensor, max_len: int) -> Tuple[torch.Tensor, List[KVCache]]:
@@ -210,6 +223,68 @@ class LM(nn.Module):
             z[:, slots] = t[:, s - w:]
             out.append(z)
         return KVCache(k=out[0], v=out[1])
+
+
+class DecodeStep:
+    """``decode_step`` compiled once for every position, bound to one cache:
+    ``step(token, pos)`` -> logits (B, V) float32, the cache updated in
+    place, bit for bit an eager ``decode_step``.
+
+    On the card the first call captures the step as a CUDA graph, with
+    static ``token`` (B, 1) and ``pos`` tensors: one eager warm-up step on
+    a side stream (it fills the lazy state and builds the kernels), then
+    the capture. A step writes only the KV slot of its position, from its
+    token and the other slots, so the warm-up and the replay write the same
+    bits and the cache is left exactly as one eager step leaves it. Every
+    call (the first included) copies the token and position into the
+    static inputs and replays; the launch counters tick at the warm-up and
+    the capture, never on a replay. The returned logits are the graph's
+    static output, overwritten by the next call: read them (an ``argmax``)
+    before calling again. A step that cannot be captured raises; loading
+    new weights into the model makes the step raise too (build a new one).
+    On the CPU every call is an eager ``decode_step``.
+    """
+
+    def __init__(self, lm: LM, cache: List[KVCache]):
+        self.lm, self.cache = lm, cache
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+
+    def _capture(self, token: torch.Tensor, pos) -> None:
+        lm, dev = self.lm, self.lm.device
+        self._params = lm.compute_params()
+        self._token = token.detach().clone()
+        self._pos = position_tensor(pos, dev).clone()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side), torch.inference_mode():
+            lm.decode_step(self._token, self._pos, self.cache)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.inference_mode(), torch.cuda.graph(graph):
+            self._logits, _ = lm.decode_step(self._token, self._pos, self.cache)
+        self._graph = graph
+
+    def __call__(self, token: torch.Tensor, pos) -> torch.Tensor:
+        if self.lm.device.type != "cuda":
+            with torch.inference_mode():
+                return self.lm.decode_step(token, pos, self.cache)[0]
+        if self._graph is None:
+            self._capture(token, pos)
+        elif self.lm._compute is not self._params:
+            raise RuntimeError("the model's weights changed since the step was captured; compile a new step")
+        if token.shape != self._token.shape:
+            raise ValueError(
+                f"token has shape {tuple(token.shape)}; the step was captured for "
+                f"{tuple(self._token.shape)}"
+            )
+        with torch.inference_mode():
+            self._token.copy_(token)
+            if isinstance(pos, torch.Tensor):
+                self._pos.copy_(pos)
+            else:
+                self._pos.fill_(int(pos))
+            self._graph.replay()
+        return self._logits
 
 
 def build_model(

@@ -192,6 +192,72 @@ def test_attention_decode_matches_reference(kind, pos):
     np.testing.assert_allclose(gc_.v.numpy(), _np(wc.v), atol=ATOL_LAYER, rtol=0)
 
 
+@pytest.mark.parametrize("kind,pos", (("L", 37), ("L", 5), ("A", 29)))
+def test_attention_decode_tensor_pos_is_int_pos(kind, pos):
+    """``pos`` as a 0-dim int64 tensor (what a captured decode step replays
+    with) gives the ``int`` position's output and cache bit for bit: a ring
+    cache of window 16 at pos 37 (wrapped twice) and at pos 5 (not yet
+    full), and a global cache of 32 rows whose pruned branch runs kernel
+    #4's plain version."""
+    _, tcfg = _cfgs()
+    rng = np.random.default_rng(6)
+    p = {n: torch.from_numpy((rng.normal(size=s) * 0.2).astype(np.float32))
+         for n, s in tattn.attention_shapes(tcfg).items()}
+    c = 16 if kind == "L" else 32
+    ck, cv = (torch.from_numpy(rng.normal(size=(2, c, 2, 16)).astype(np.float32)) for _ in range(2))
+    x = torch.from_numpy(rng.normal(size=(2, 1, 64)).astype(np.float32))
+    outs = []
+    for p_arg in (pos, torch.tensor(pos)):
+        cache = tattn.KVCache(ck.clone(), cv.clone())
+        outs.append(tattn.attention_decode(tcfg, p, x, p_arg, cache, kind=kind))
+    (o_i, c_i), (o_t, c_t) = outs
+    assert torch.equal(o_t, o_i)
+    assert torch.equal(c_t.k, c_i.k) and torch.equal(c_t.v, c_i.v)
+    assert not torch.equal(c_i.k, ck)  # the step wrote its slot
+
+
+def test_decode_step_tensor_pos_is_int_pos():
+    """The smoke LM (layers L A L, window 16, prune_k 8): 10 decode steps
+    from one prefill, with ``int`` and with tensor positions, past the
+    ring's wrap, give the same logits and caches bit for bit; so does the
+    compiled step, which runs eagerly on the CPU."""
+    _, tcfg = _cfgs()
+    tm = tbuild(tcfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    toks = torch.from_numpy(np.random.default_rng(7).integers(0, tcfg.vocab_size, size=(2, 30)))
+    _, cache = tm.prefill(toks[:, :20], max_len=30)
+    caches = [[tattn.KVCache(c.k.clone(), c.v.clone()) for c in cache] for _ in range(3)]
+    step = tm.compile_decode(caches[2])
+    for pos in range(20, 30):
+        tok = toks[:, pos:pos + 1]
+        l_i, caches[0] = tm.decode_step(tok, pos, caches[0])
+        l_t, caches[1] = tm.decode_step(tok, torch.tensor(pos), caches[1])
+        l_c = step(tok, torch.tensor(pos) if pos % 2 else pos)
+        assert torch.equal(l_t, l_i) and torch.equal(l_c, l_i), pos
+    for a, b, c in zip(*caches):
+        assert torch.equal(a.k, b.k) and torch.equal(a.v, b.v)
+        assert torch.equal(a.k, c.k) and torch.equal(a.v, c.v)
+
+
+@pytest.mark.parametrize("softcap", (None, 30.0))
+def test_compiled_decode_matches_reference(softcap):
+    """8 steps of the compiled decode step (eager on the CPU) with tensor
+    positions, after the reference's prefill state, within 1e-4 of the
+    reference's ``decode_step``."""
+    import jax.numpy as jnp
+
+    jcfg, tcfg = _cfgs(logit_softcap=softcap)
+    jm, params, tree = _reference_lm(jcfg)
+    tm = tbuild(tcfg, device="cpu", params=convert.lm_params_from_reference(tcfg, tree, device="cpu"))
+    toks = np.random.default_rng(8).integers(0, tcfg.vocab_size, size=(2, 32))
+    _, cj = jm.prefill(params, jnp.asarray(toks[:, :24]), max_len=32)
+    _, ct = tm.prefill(torch.from_numpy(toks[:, :24]), max_len=32)
+    step = tm.compile_decode(ct)
+    for pos in range(24, 32):
+        lj, cj = jm.decode_step(params, jnp.asarray(toks[:, pos:pos + 1]), pos, cj)
+        lt = step(torch.from_numpy(toks[:, pos:pos + 1]), torch.tensor(pos))
+        np.testing.assert_allclose(lt.numpy(), _np(lj), atol=ATOL_LOGITS, rtol=0)
+
+
 def _reference_lm(jcfg, seed=0):
     import jax
     from repro.models import build_model as jbuild
