@@ -123,8 +123,26 @@ exits non-zero at the first phase that fails:
    gemma3-4b logits of phase 3) beside ``torch.topk`` as a yardstick; its
    row of the ``kernels`` line takes the times of the gemma3-4b logits,
    the widest shape phase 3 gives it, and lists all three by shape;
-5. prints the card line, then the ``{"kernels": [...]}`` line, then
-   ``{"ok": true, "device": {...}}`` as the last line.
+5. trains HAN, RGAT and Simple-HGN on ACM at ``scale=1.0`` (``prepare``'s
+   defaults) on the GPU tasks phase 3 served, so training follows a
+   session that filled the SGB's device caches under inference mode: the
+   captured step (``task._train_step``: forward, backward, clip and AdamW
+   in one CUDA graph) must give the CPU's first 3 losses (1e-5), 20
+   captured steps the eager steps' losses (1e-5) and params (1e-4), and
+   bit for bit so under deterministic algorithms; 200 captured steps must
+   keep the loss finite and falling; then ``train_hgnn`` (200 steps) and
+   ``benchmarks/fig9_accuracy.py``'s sweep on its params: the ``staged``
+   accuracy, and at K = 2, 5, 10, 20, 50 a captured ``fused_kernel``
+   session (checked as phase 3 checks one: kernel #1's launches a forward
+   derived from the SGB, replays bit for bit the eager forward) whose
+   accuracy must equal the ``fused`` flow's and whose logits must agree
+   with it within 1e-4 on every row no tie at the K-th rank reaches (tie
+   rows are counted and printed); a ``fig9_<model>_acm_K<k>`` line each;
+   then the step's times (captured and eager, the CUDA-event median; the
+   first step, warm-up and capture included; the device's busy share);
+6. prints a ``train {...}`` line with the step times, the card line, then
+   the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}``
+   as the last line.
 """
 from __future__ import annotations
 
@@ -170,6 +188,12 @@ SPECIAL_ROW = (-0.0, 0.0, 1.0, float("nan"), 2.0, float("nan"), float("inf"), fl
 # vs CPU (6 layers) differ by the matmuls' sum order, TF32 off.
 TOL_LM = 1e-4
 CPU_CHECK_PROMPT = 2100  # > K = 2048: the global layer's retention domain drops rows
+# HGNN training (phase 5): train_hgnn's defaults and fig9's thresholds
+# (benchmarks/fig9_accuracy.py); card vs CPU and captured vs eager
+# tolerances: the index backward adds with atomics on the card
+TRAIN_STEPS, TRAIN_LR, TRAIN_CHECK_STEPS, TRAIN_TIMED = 200, 5e-3, 20, 20
+FIG9_KS = (2, 5, 10, 20, 50)
+TOL_TRAIN_LOSS, TOL_TRAIN_PARAMS = 1e-5, 1e-4
 
 
 def check(cond, msg: str) -> None:
@@ -252,10 +276,11 @@ def check_fused(name, run, pair, launch_key, ops):
     return served
 
 
-def captured_session(task, flow, want: dict, key: str, ops, dev):
-    """One HGNN path served as its user calls it: the eager ``model.apply``
-    once, whose launches must be ``want`` (the launches per forward); then
-    ``task.compile(flow)``, which must capture the forward (its warm-up and
+def captured_session(task, flow, want: dict, key: str, ops, dev, params=None):
+    """One HGNN path served as its user calls it, on ``params`` (default:
+    the task's): the eager ``model.apply`` once, whose launches must be
+    ``want`` (the launches per forward); then ``task.compile(flow,
+    params=params)``, which must capture the forward (its warm-up and
     capture launch each kernel twice as often); then three replays, which
     must tick no launch or dispatch counter and each equal the eager
     forward bit for bit. Returns the session, its logits and the eager
@@ -264,21 +289,22 @@ def captured_session(task, flow, want: dict, key: str, ops, dev):
 
     from repro_torch.core import flows
 
+    params = task.params if params is None else params
     reset_launches(ops)
     with torch.inference_mode():
-        eager = task.model.apply(task.params, task.batch, flow)
+        eager = task.model.apply(params, task.batch, flow)
     sync(dev)
     launches = dict(ops.LAUNCHES)
     check(launches == want, f"{key}: eager forward launches {launches}, expected {want}")
     reset_launches(ops)
-    sess = task.compile(flow)
+    sess = task.compile(flow, params=params)
     sync(dev)
     built = dict(ops.LAUNCHES)
     check(sess.captured, f"{key}: the session is not a captured graph")
     check(built == {k: 2 * n for k, n in want.items()}, f"{key}: warm-up and capture launched {built}")
     reset_launches(ops)
     dispatch = dict(flows.DISPATCH)
-    outs = [sess(task.params) for _ in range(3)]
+    outs = [sess(params) for _ in range(3)]
     sync(dev)
     check(all(n == 0 for n in ops.LAUNCHES.values()) and flows.DISPATCH == dispatch,
           f"{key}: replays ticked launches {ops.LAUNCHES} or dispatch {flows.DISPATCH} (was {dispatch})")
@@ -1832,6 +1858,237 @@ DECODE_KERNELS = (
 )
 
 
+def event_median_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Median device time of one call of ``fn``: CUDA events around each
+    of ``iters`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in pairs:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    ms = sorted(start.elapsed_time(end) for start, end in pairs)
+    return ms[len(ms) // 2]
+
+
+def record_na(task, params, flow) -> list:
+    """One eager forward of ``flow``, recording each NA call's scores and
+    semantic graph, by layer: ``[[(scores, sg), ...], ...]``."""
+    import torch
+
+    from repro_torch.core import flows
+    from repro_torch.core.models import han, rgat, simple_hgn
+
+    calls, mods = [], (han, rgat, simple_hgn)
+
+    def record(cfg, h, scores, sg):
+        calls.append((scores, sg))
+        return flows.run_aggregate_graph(cfg, h, scores, sg)
+
+    for m in mods:
+        m.run_aggregate_graph = record
+    layers = []
+    try:
+        with torch.inference_mode():
+            carry = dict(task.batch.features)
+            for step in task.model.layer_steps(params, task.batch, flow):
+                h = step.project(carry)
+                first = len(calls)
+                zs = {name: fn(h) for name, fn in step.na}
+                layers.append(calls[first:])
+                carry = step.fuse(carry, h, zs)
+    finally:
+        for m in mods:
+            m.run_aggregate_graph = flows.run_aggregate_graph
+    return layers
+
+
+def tie_rows(task, params, k: int, FlowConfig):
+    """Where ``fused`` (``top_k``'s rule) and ``fused_kernel`` (first-minimum
+    eviction, strict ``>``) may keep different neighbors at ``prune_k=k``:
+    an NA row whose K-th and (K+1)-th ranked slots (the kernels' head sum
+    of theta_src[nbr] + theta_rel[ety]) lie within 1e-6 of each other,
+    relatively, and hold different (source, edge type) pairs (two slots of
+    one source give the same message whichever is kept). Such a row moves
+    its target's output, and through it every row of a later layer that
+    has the target as a neighbor or as itself. Returns the tie rows over
+    all NA calls and a bool vector over the logits' rows that they reach.
+    (HAN's semantic attention averages over all targets, so a tie there
+    also moves every row a little; none is counted for it.)"""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import hetgraph
+
+    batch, dev = task.batch, task.batch.device
+    reached = torch.zeros(batch.total_nodes, dtype=torch.bool, device=dev)
+    n_ties = 0
+    for layer in record_na(task, params, FlowConfig("fused", prune_k=k)):
+        now = reached.clone()
+        for scores, sg in layer:
+            off = batch.offsets[sg.dst_type]
+            if isinstance(sg, hetgraph.BucketedSemanticGraph):
+                tables = [(b.targets, b.nbr_idx, b.nbr_mask, b.edge_type) for b in sg.buckets if b.num_targets]
+            else:
+                tables = [(np.arange(sg.num_targets), sg.nbr_idx, sg.nbr_mask, sg.edge_type)]
+            for targets, nbr, msk, ety in tables:
+                nbr, msk, ety = (torch.from_numpy(a).to(dev) for a in (nbr.astype(np.int64), msk, ety.astype(np.int64)))
+                tg = torch.from_numpy(targets.astype(np.int64)).to(dev) + off
+                hit = reached[tg] | (reached[nbr] & msk).any(dim=1)
+                if nbr.shape[1] > k:
+                    rank = flat_ranks(nbr, ety, scores.theta_src, scores.theta_rel)
+                    rank = torch.where(msk, rank, torch.full_like(rank, -float("inf")))
+                    val, slot = rank.sort(dim=1, descending=True, stable=True)
+                    a, b = val[:, k - 1], val[:, k]
+                    src = nbr.gather(1, slot[:, k - 1:k + 1])
+                    et = ety.gather(1, slot[:, k - 1:k + 1])
+                    same = (src[:, 0] == src[:, 1]) & (et[:, 0] == et[:, 1])
+                    tie = torch.isfinite(b) & (a - b <= 1e-6 * a.abs()) & ~same
+                    n_ties += int(tie.sum())
+                    hit |= tie
+                now[tg[hit]] = True
+        reached = now
+    return n_ties, reached[batch.dst_offset: batch.dst_offset + batch.num_targets]
+
+
+def captured_vs_eager(step, params):
+    """``TRAIN_CHECK_STEPS`` captured steps, then as many eager ones, each
+    run from ``params``: the largest loss and parameter differences."""
+    import torch
+
+    runs = []
+    for call in (step, step.eager):
+        step.reset(params)
+        runs.append((torch.stack([call().clone() for _ in range(TRAIN_CHECK_STEPS)]), step.params()))
+    (l_c, p_c), (l_e, p_e) = runs
+    return float((l_c - l_e).abs().max()), max(float((p_c[n] - p).abs().max()) for n, p in p_e.items())
+
+
+def train_phase(pipeline, FlowConfig, ops, gpu_tasks, dev):
+    """Phase 5, HGNN training, as ``benchmarks/fig9_accuracy.py`` runs it,
+    at ``scale=1.0`` with ``prepare``'s defaults (``max_degree=256``,
+    bucketed SGB), on the GPU tasks phase 3 served (their device caches
+    were filled under ``torch.inference_mode()``). Per model: the captured
+    step's first 3 losses against the same steps eagerly on the CPU
+    (1e-5); 20 captured steps against 20 eager ones from the same params
+    (losses 1e-5, params 1e-4: the index backward adds with atomics), and
+    bit for bit for a step captured under
+    ``torch.use_deterministic_algorithms``; 200 captured steps (loss finite and
+    falling), then ``train_hgnn``'s 200 and the fig9 sweep on its params:
+    the full ``staged`` accuracy, then at each K a captured
+    ``fused_kernel`` session (kernel #1's launches a forward as phase 3
+    derives them; replays bit for bit the eager forward) whose accuracy
+    must equal a captured ``fused`` session's, and whose logits must agree
+    with it within 1e-4 on every row no tie at the K-th rank reaches; then
+    the step's times. Returns per-model results."""
+    import numpy as np
+    import torch
+
+    from repro_torch.optim import adamw
+
+    results = {}
+    for model, task in gpu_tasks.items():
+        cpu_task = pipeline.prepare(model, "acm", scale=SCALE, seed=0, device="cpu")
+        for name, p in task.params.items():
+            check(torch.equal(p.cpu(), cpu_task.params[name]), f"train {model}: weights differ on {name}")
+        flow = FlowConfig()
+        sync(dev)
+        t0 = time.perf_counter()
+        step = task._train_step(flow, TRAIN_LR)
+        float(step())
+        first_ms = (time.perf_counter() - t0) * 1e3
+        check(step.captured, f"train {model}: the step is not a captured graph")
+
+        # the card against the CPU: the first 3 steps from the same params
+        step.reset(task.params)
+        card = [float(step()) for _ in range(3)]
+        cpu = [float(loss) for loss in (cpu_task._train_step(flow, TRAIN_LR)() for _ in range(3))]
+        err_cpu = max(abs(a - b) for a, b in zip(card, cpu))
+        check(err_cpu <= TOL_TRAIN_LOSS, f"train {model}: card losses {card} differ from the CPU's {cpu} by {err_cpu:.3g}")
+
+        # captured against eager: 20 steps each from the same params; the
+        # index backward adds with atomics, so within a tolerance, and bit
+        # for bit under deterministic algorithms (a step captured under them)
+        err_loss, err_par = captured_vs_eager(step, task.params)
+        check(err_loss <= TOL_TRAIN_LOSS and err_par <= TOL_TRAIN_PARAMS,
+              f"train {model}: captured vs eager losses {err_loss:.3g}, params {err_par:.3g}")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            det = pipeline.TrainStep(task, flow, adamw(lr=TRAIN_LR, weight_decay=1e-4))
+            det_err = captured_vs_eager(det, task.params)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        check(det_err == (0.0, 0.0), f"train {model}: under deterministic algorithms captured vs eager {det_err}")
+
+        # the full run: 200 captured steps, then train_hgnn's
+        step.reset(task.params)
+        losses = torch.stack([step().clone() for _ in range(TRAIN_STEPS)]).tolist()
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"train {model}: losses not finite and falling ({losses[0]} -> {losses[-1]})")
+        sync(dev)
+        t0 = time.perf_counter()
+        trained = pipeline.train_hgnn(task, steps=TRAIN_STEPS, lr=TRAIN_LR)
+        sync(dev)
+        train_s = time.perf_counter() - t0
+        print(f"  train {model}/acm: first step (warm-up, capture, replay) {first_ms:.1f} ms; losses card vs CPU "
+              f"{err_cpu:.3g} over 3 steps; captured vs eager {err_loss:.3g} (params {err_par:.3g}) over "
+              f"{TRAIN_CHECK_STEPS} steps, bit for bit under deterministic algorithms; {TRAIN_STEPS} steps "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}; "
+              f"train_hgnn {TRAIN_STEPS} steps {train_s:.3f} s")
+
+        # the fig9 sweep on the trained params
+        acc_full = pipeline.accuracy(task, trained, FlowConfig("staged"))
+        degs = np.concatenate([sg.degrees() for sg in task.sgs])
+        layers = getattr(task.model, "num_layers", 1)
+        sweep = {}
+        for k in FIG9_KS:
+            fk = FlowConfig("fused_kernel", prune_k=k)
+            want = expected_launches(task.sgs, "bucketed", k, layers, ops)
+            sess, lg_k, launches = captured_session(task, fk, want, f"train {model}/acm K={k}", ops, dev, trained)
+            acc_k = pipeline.accuracy(task, trained, fk)
+            fused = FlowConfig("fused", prune_k=k)
+            lg_f = task.compile(fused, params=trained)(trained)
+            acc_f = pipeline.accuracy(task, trained, fused)
+            check(acc_k == acc_f, f"train {model} K={k}: fused_kernel accuracy {acc_k} != fused {acc_f}")
+            n_ties, reached = tie_rows(task, trained, k, FlowConfig)
+            diff = (lg_k - lg_f).abs().amax(dim=1)
+            err = float(diff[~reached].max()) if bool((~reached).any()) else 0.0
+            check(err <= TOL_LOGITS, f"train {model} K={k}: fused_kernel vs fused logits differ by {err:.3g} "
+                                     f"on rows no tie reaches")
+            red = 1 - np.minimum(degs, k).sum() / max(degs.sum(), 1)
+            sweep[k] = {
+                "compute_reduction": float(red), "acc_full": acc_full, "acc_pruned": acc_k,
+                "acc_loss": acc_full - acc_k, "acc_fused": acc_f, "launches": launches,
+                "tie_rows": n_ties, "rows_reached_by_ties": int(reached.sum()),
+                "max_abs_diff_vs_fused": err, "max_abs_diff_vs_fused_all_rows": float(diff.max()),
+            }
+            print(f"  fig9_{model}_acm_K{k}: compute_reduction={red:.2%};acc_full={acc_full:.4f};"
+                  f"acc_pruned={acc_k:.4f};acc_loss={(acc_full - acc_k):.4f} | kernel #1 launches "
+                  f"{launches['prune_aggregate']} a forward, captured (3 replays == eager bitwise), accuracy == "
+                  f"fused, |fused_kernel-fused| {err:.3g}, tie rows {n_ties} reaching {int(reached.sum())} rows")
+
+        # times: one step, captured (a replay) and eager, and the device's share
+        cap_ms = event_median_ms(step, TRAIN_TIMED)
+        eager_ms = event_median_ms(step.eager, TRAIN_TIMED)
+        prof = forward_profile(step, cuda_ms(step, TRAIN_TIMED))
+        results[model] = {
+            "first_step_ms": first_ms, "step_ms_captured": cap_ms, "step_ms_eager": eager_ms,
+            "device_busy_share": prof["busy_share"] if prof else None, "profile": prof,
+            "loss_err_vs_cpu": err_cpu, "loss_err_captured_vs_eager": err_loss,
+            "param_err_captured_vs_eager": err_par, "captured_vs_eager_deterministic": list(det_err),
+            "loss_first": losses[0], "loss_last": losses[-1], "train_hgnn_s": train_s, "num_edges": task.num_edges, "sweep": sweep,
+        }
+        print(f"  train {model}/acm step: captured {cap_ms:.4f} ms, eager {eager_ms:.4f} ms (median of "
+              f"{TRAIN_TIMED}, CUDA events); device busy "
+              + ("not measured (the profiler saw no device time)" if prof is None else
+                 f"{prof['device_busy_ms']:.4f} ms of {prof['forward_ms']:.4f} ({prof['busy_share']:.1%})"))
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -1974,6 +2231,14 @@ def main() -> int:
                  else "profiler saw no device time: not measured"))
     t_ts = pruner_timings(pruner_shapes, dev)
 
+    # phase 5: HGNN training and the fig9 sweep
+    print(f"phase 5: HGNN training on ACM at scale={SCALE} ({TRAIN_STEPS} steps, lr {TRAIN_LR}) and the fig9 "
+          f"sweep K={list(FIG9_KS)}")
+    train = train_phase(pipeline, FlowConfig, ops, {
+        "han": gpu_tasks["acm"], "rgat": model_tasks["rgat/acm/bucketed"],
+        "simple_hgn": model_tasks["simple_hgn/acm/bucketed"],
+    }, dev)
+
     kernels = []
     for key, line, lib in KERNELS:
         bound_ms, bound_by, nbytes, nops = bounds[key]
@@ -2082,9 +2347,12 @@ def main() -> int:
         "decode_k1_tie_rows": {"phase2_cases": dec_ties, "phase2_tie_cases": tie_cases,
                                "main_path": lm_result["tie_rows"]},
         "pruner_times_ms": t_ts, "forward_ms": fwd, "forward_latency_ms": latency, "profiles": prof,
-        "kernels": kernels,
+        "train": train, "kernels": kernels,
     }, indent=1))
     print(f"  full report: {REPORT.relative_to(ROOT)}; wall time {time.perf_counter() - t_start:.1f} s")
+    print("train " + json.dumps({model: {
+        key: r[key] for key in ("step_ms_captured", "step_ms_eager", "first_step_ms", "device_busy_share")
+    } for model, r in train.items()}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

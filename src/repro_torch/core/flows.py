@@ -28,7 +28,9 @@ table's padded width is ≤ ``prune_k``, ``fused_kernel`` takes the paper's
 §4.3 pruner bypass: the plain aggregation, no retention domain.
 
 Device mirrors of a graph's tables are cached on the graph per device, so
-repeated forwards copy nothing from the host.
+repeated forwards copy nothing from the host. They are built as normal
+tensors even when the first forward runs under ``torch.inference_mode()``
+(a session's), so a later forward on the same graph can be differentiated.
 """
 from __future__ import annotations
 
@@ -111,7 +113,8 @@ def _flat_tables(sg: SemanticGraph, use_ety: bool, device: torch.device):
     device."""
     key = ("tables", use_ety, device)
     if key not in sg._device:
-        sg._device[key] = _table(sg.nbr_idx, sg.nbr_mask, sg.edge_type, use_ety, device)
+        with torch.inference_mode(False):
+            sg._device[key] = _table(sg.nbr_idx, sg.nbr_mask, sg.edge_type, use_ety, device)
     return sg._device[key]
 
 
@@ -119,11 +122,12 @@ def _bucket_loop_tables(sg: BucketedSemanticGraph, use_ety: bool, device: torch.
     """Per bucket: device targets and table, cached on the graph."""
     key = ("loop", use_ety, device)
     if key not in sg._device:
-        sg._device[key] = tuple(
-            (_put(b.targets.astype("int64"), device),)
-            + _table(b.nbr_idx, b.nbr_mask, b.edge_type, use_ety, device)
-            for b in sg.buckets
-        )
+        with torch.inference_mode(False):
+            sg._device[key] = tuple(
+                (_put(b.targets.astype("int64"), device),)
+                + _table(b.nbr_idx, b.nbr_mask, b.edge_type, use_ety, device)
+                for b in sg.buckets
+            )
     return sg._device[key]
 
 
@@ -132,16 +136,17 @@ def _device_tables(sg: BucketedSemanticGraph, use_ety: bool, device: torch.devic
     cached on the graph per device."""
     key = ("tables", use_ety, device)
     if key not in sg._device:
-        tables = tuple(
-            _table(b.nbr_idx, b.nbr_mask, b.edge_type, use_ety, device)
-            for b in sg.buckets
-            if b.num_targets > 0
-        )
-        sg._device[key] = (
-            tables,
-            _put(sg.concat_targets().astype("int64"), device),
-            _put(sg.target_perm().astype("int64"), device),
-        )
+        with torch.inference_mode(False):
+            tables = tuple(
+                _table(b.nbr_idx, b.nbr_mask, b.edge_type, use_ety, device)
+                for b in sg.buckets
+                if b.num_targets > 0
+            )
+            sg._device[key] = (
+                tables,
+                _put(sg.concat_targets().astype("int64"), device),
+                _put(sg.target_perm().astype("int64"), device),
+            )
     return sg._device[key]
 
 

@@ -158,6 +158,17 @@ class SemanticGraph:
     def num_targets(self) -> int:
         return self.nbr_idx.shape[0]
 
+    @property
+    def num_edges(self) -> int:
+        return int(self.nbr_mask.sum())
+
+    def degrees(self) -> np.ndarray:
+        return self.nbr_mask.sum(axis=1)
+
+    def padded_slots(self) -> int:
+        """Total NA slots the flat layout pays for (T × D_max)."""
+        return int(self.nbr_idx.size)
+
 
 @dataclasses.dataclass
 class DegreeBucket:
@@ -316,6 +327,24 @@ class BucketedSemanticGraph:
     @property
     def bucket_capacities(self) -> Tuple[int, ...]:
         return tuple(b.capacity for b in self.buckets)
+
+    @property
+    def max_degree(self) -> int:
+        return max((b.capacity for b in self.buckets), default=1)
+
+    @property
+    def num_edges(self) -> int:
+        return int(sum(b.nbr_mask.sum() for b in self.buckets))
+
+    def degrees(self) -> np.ndarray:
+        out = np.zeros(self.num_targets, dtype=np.int64)
+        for b in self.buckets:
+            out[b.targets] = b.nbr_mask.sum(axis=1)
+        return out
+
+    def padded_slots(self) -> int:
+        """Total NA slots the bucketed layout pays for (Σ_b T_b × D_b)."""
+        return int(sum(b.nbr_idx.size for b in self.buckets))
 
     def concat_targets(self) -> np.ndarray:
         """Target ids in bucket-concatenation order (NA's output order

@@ -4,12 +4,15 @@
 (``repro_torch.core.models.MODELS``): each architecture names its SGB kind
 and factory. The returned ``HGNNTask`` serves inference through
 ``task.compile(flow)``, an :class:`~repro_torch.core.session.InferenceSession`
-cached per flow, device and parameter names, shapes and dtypes.
+cached per flow, device and parameter names, shapes and dtypes, and trains
+through ``train_hgnn``: full-batch cross-entropy on the train split and
+AdamW, one :class:`TrainStep` cached per (flow, lr, weight decay), which on
+a CUDA task is one captured CUDA graph (the reference's jitted step).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -21,6 +24,7 @@ from repro_torch.core.flows import FlowConfig
 from repro_torch.core.models import get_entry
 from repro_torch.core.session import InferenceSession, param_spec
 from repro_torch.data import datasets
+from repro_torch.optim import Optimizer, adamw
 
 
 @dataclasses.dataclass
@@ -37,6 +41,11 @@ class HGNNTask:
     sgs: list  # semantic graphs driving NA
     device: torch.device
     _sessions: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+    _steps: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+
+    @property
+    def num_edges(self) -> int:
+        return int(sum(sg.num_edges for sg in self.sgs))
 
     def compile(self, flow: FlowConfig = FlowConfig(), params=None) -> InferenceSession:
         """The serving entry: one session per (flow, device, parameter
@@ -55,6 +64,123 @@ class HGNNTask:
             sess = InferenceSession(self.model, self.batch, flow, params=params)
             self._sessions[key] = sess
         return sess
+
+    def _train_step(self, flow: FlowConfig, lr: float, weight_decay: float = 1e-4) -> "TrainStep":
+        """The training step for (flow, lr, weight_decay), built once and
+        cached on the task, so repeated ``train_hgnn`` calls (a longer
+        schedule, a re-run) reuse one program. ``fused_kernel`` raises
+        ``ValueError``: its CUDA kernels have no backward, in either
+        package."""
+        if flow.flow == "fused_kernel":
+            raise ValueError(
+                "flow 'fused_kernel' cannot train: its kernels have no backward; "
+                "train under 'staged', 'staged_pruned' or 'fused'"
+            )
+        key = (flow, float(lr), float(weight_decay))
+        step = self._steps.get(key)
+        if step is None:
+            step = TrainStep(self, flow, adamw(lr=lr, weight_decay=weight_decay))
+            self._steps[key] = step
+        return step
+
+
+def _state_tensors(params, state) -> list:
+    """A training step's state as one list: the params, the moments and
+    the step counter, in the params' name order."""
+    names = list(params)
+    return (
+        [params[n] for n in names] + [state.mu[n] for n in names]
+        + [state.nu[n] for n in names] + [state.step]
+    )
+
+
+class TrainStep:
+    """One full-batch training step of a task under one flow: the mean
+    negative log-softmax of the train split's rows, its gradients by
+    ``torch.autograd.grad`` (zeros for a parameter the loss does not use,
+    as JAX gives), then ``opt.update``.
+
+    The step holds the parameters it trains and their optimizer state,
+    the step counter a 0-d device tensor, and updates them in place. On a
+    CUDA task the whole step (forward, backward, clip and AdamW) is one
+    CUDA graph, captured at construction into a pool of its own after one
+    eager step on a side stream (which fills every lazy device cache); a
+    call replays it and returns the static loss tensor, valid until the
+    next call. A capture that fails raises; the step never gives way to
+    the eager one. On the CPU a call runs the step eagerly.
+
+    ``reset(params)`` loads parameters and zeroes the optimizer state;
+    ``params()`` returns copies of the parameters as they stand.
+    """
+
+    def __init__(self, task: HGNNTask, flow: FlowConfig, opt: Optimizer):
+        self._task, self._flow, self._opt = task, flow, opt
+        self._rows = torch.from_numpy(task.splits["train"].astype(np.int64)).to(task.device)
+        self._labels = task.labels[self._rows][:, None]
+        with torch.no_grad():
+            self._params = {n: t.detach().clone().requires_grad_() for n, t in task.params.items()}
+        self._state = opt.init(self._params)
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        if task.device.type == "cuda":
+            self._capture()
+        self.reset(task.params)
+
+    def _loss(self) -> torch.Tensor:
+        logits = self._task.model.apply(self._params, self._task.batch, self._flow)[self._rows]
+        return -torch.log_softmax(logits, dim=-1).gather(1, self._labels).mean()
+
+    def eager(self) -> torch.Tensor:
+        """One step run eagerly, operator by operator, on the held state:
+        what a call runs on the CPU, and the yardstick of the captured
+        step on a card. Returns the loss."""
+        names = list(self._params)
+        loss = self._loss()
+        grads = torch.autograd.grad(
+            loss, [self._params[n] for n in names], allow_unused=True, materialize_grads=True
+        )
+        with torch.no_grad():
+            params, state = self._opt.update(dict(zip(names, grads)), self._state, self._params)
+            torch._foreach_copy_(_state_tensors(self._params, self._state), _state_tensors(params, state))
+        return loss.detach()
+
+    def _capture(self) -> None:
+        dev = self._task.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.eager()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            loss = self.eager()
+        self._graph, self._loss_out = graph, loss
+
+    def reset(self, params: Mapping[str, torch.Tensor]) -> None:
+        """Load ``params`` (the names the step was built with) and zero the
+        moments and the step counter."""
+        with torch.no_grad():
+            held = _state_tensors(self._params, self._state)
+            n = len(self._params)
+            torch._foreach_copy_(held[:n], [params[name] for name in self._params])
+            torch._foreach_zero_(held[n:])
+
+    def __call__(self) -> torch.Tensor:
+        """One step; the 0-d loss of the parameters it started from."""
+        if self._graph is None:
+            return self.eager()
+        self._graph.replay()
+        return self._loss_out
+
+    @property
+    def captured(self) -> bool:
+        """Whether calls replay a captured CUDA graph (a CUDA task)."""
+        return self._graph is not None
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        """Copies of the parameters as they stand: plain tensors that no
+        later step changes."""
+        with torch.no_grad():
+            return {n: t.detach().clone() for n, t in self._params.items()}
 
 
 def _splits(n: int, seed: int = 0):
@@ -135,8 +261,33 @@ def prepare(
     )
 
 
+def train_hgnn(
+    task: HGNNTask,
+    steps: int = 200,
+    lr: float = 5e-3,
+    flow: FlowConfig = FlowConfig(),
+    log_every: int = 0,
+) -> Dict[str, torch.Tensor]:
+    """Full-batch node-classification training, as the reference's: AdamW
+    (weight decay 1e-4, gradients clipped to global norm 1) from
+    ``task.params``, which it never writes to. Returns the trained
+    parameters as a fresh mapping of plain tensors, which
+    ``task.compile(flow, params=...)`` and ``accuracy`` take. The step is
+    cached on the task per (flow, lr), so a second call reuses its
+    program. With ``log_every`` it prints the reference's ``step … loss …``
+    lines (the only time it reads the loss back)."""
+    step = task._train_step(flow, lr)
+    step.reset(task.params)
+    for i in range(steps):
+        loss = step()
+        if log_every and (i % log_every == 0 or i == steps - 1):
+            print(f"  step {i:4d} loss {float(loss):.4f}")
+    return step.params()
+
+
 def accuracy(task: HGNNTask, params, flow: FlowConfig = FlowConfig(), split="test") -> float:
-    """Split accuracy through the task's cached session."""
+    """Split accuracy through the task's cached session for ``params``
+    (one session per flow and parameter names, shapes and dtypes)."""
     idx = torch.from_numpy(task.splits[split].astype(np.int64)).to(task.device)
-    pred = task.compile(flow)(params)[idx].argmax(-1)
+    pred = task.compile(flow, params=params)(params)[idx].argmax(-1)
     return float((pred == task.labels[idx]).float().mean())

@@ -28,7 +28,8 @@ dtypes: a params mapping that differs in any of them raises
     never changes an earlier call's result;
   * ``session.query(params, idx)`` — the logits rows of one padded query
     block: the forward, then an ``index_select`` on the device, so the rows
-    are bit-identical to ``session(params)[idx]``;
+    are bit-identical to ``session(params)[idx]``; an id outside
+    ``[0, num_targets)`` raises ``IndexError`` before any launch;
   * ``session.batch(params_list)`` — one forward per parameter set, each
     result its own tensor;
   * ``compile_query(capacity)`` / ``prewarm(capacities)`` record the block
@@ -150,12 +151,25 @@ class InferenceSession:
         """Logits for one padded query block: ``idx`` is a 1-D vector of
         target ids (its length is the block capacity); the result is the
         ``(len(idx), num_classes)`` rows of ``session(params)[idx]``. Padded
-        slots should repeat a valid id; callers discard their rows."""
-        idx = torch.as_tensor(idx, dtype=torch.long, device=self.graph_batch.device)
+        slots should repeat a valid id; callers discard their rows.
+
+        An id outside ``[0, num_targets)`` raises ``IndexError`` naming the
+        bad ids, before any launch (the reference's gather wraps a negative
+        id and clamps a large one without a word). Ids given on the host (a
+        sequence, a numpy array, a CPU tensor) are checked there; a CUDA id
+        tensor costs one reduction on the device and one synchronize."""
+        idx = torch.as_tensor(idx, dtype=torch.long)
         if idx.dim() != 1:
             raise ValueError(
                 f"query block must be a 1-D id vector, got shape {tuple(idx.shape)}"
             )
+        n = self.graph_batch.num_targets
+        if idx.numel():
+            lo, hi = torch.stack(torch.aminmax(idx)).tolist()
+            if lo < 0 or hi >= n:
+                bad = idx[(idx < 0) | (idx >= n)].tolist()
+                raise IndexError(f"query ids outside [0, {n}): {bad}")
+        idx = idx.to(self.graph_batch.device)
         gather = self.compile_query(idx.shape[0])
         out = self._forward(params)
         flows.DISPATCH["query_calls"] += 1

@@ -144,24 +144,27 @@ def block_table(layout, meta: np.ndarray) -> np.ndarray:
 
 def _layout_device(layout, prune_k: Optional[int], device: torch.device):
     """Device mirrors of the layout's static arrays and of the block table
-    for ``prune_k``, cached on the layout."""
+    for ``prune_k``, cached on the layout; normal tensors even when built
+    under ``torch.inference_mode()``."""
     cache = layout._dev
     base_key = ("base", device)
     if base_key not in cache:
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-        cache[base_key] = (
-            put(layout.nbr.astype(np.int32)),
-            put(layout.msk.astype(bool)),
-            put(layout.ety.astype(np.int32)),
-            put(layout.row_targets.astype(np.int32)),
-            put(layout.perm.astype(np.int64)),
-        )
+        with torch.inference_mode(False):
+            cache[base_key] = (
+                put(layout.nbr.astype(np.int32)),
+                put(layout.msk.astype(bool)),
+                put(layout.ety.astype(np.int32)),
+                put(layout.row_targets.astype(np.int32)),
+                put(layout.perm.astype(np.int64)),
+            )
     key = (device, prune_k)
     if key not in cache:
         meta, _, k_s = grouped_meta(layout, prune_k)
-        blk = torch.from_numpy(block_table(layout, meta)).to(device)
+        with torch.inference_mode(False):
+            blk = torch.from_numpy(block_table(layout, meta)).to(device)
         cache[key] = (blk, k_s)
     return cache[base_key], cache[key]
 

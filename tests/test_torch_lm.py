@@ -11,7 +11,9 @@ runs the plain version of kernel #4) within 1e-5; the gemma3 smoke
 tolerance (``tests/test_lm_archs.py``), with and without a logit softcap.
 The pruned branches agree because the retained sets agree on float32
 logits without ties (the reference keeps every logit at or above the K-th,
-the port exactly K by the kernel's rule).
+the port exactly K by the kernel's rule). The same prefill and decode in
+bfloat16 give equal greedy tokens and logits within 4 bfloat16 ulps of
+the logit scale.
 """
 import dataclasses
 import gc
@@ -354,3 +356,40 @@ def test_lm_default_device_needs_a_gpu():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tbuild(tget("gemma3-4b", smoke=True))
+
+
+def _bf16_ulp(x: float) -> float:
+    """The spacing of bfloat16 values (8 significant bits) at magnitude
+    ``x``."""
+    return 2.0 ** (np.floor(np.log2(x)) - 7)
+
+
+def test_lm_bfloat16_prefill_and_decode_match_reference():
+    """The inputs of ``test_lm_prefill_and_decode_match_reference`` in
+    bfloat16, the dtype gemma3-4b serves in: greedy tokens equal on every
+    (batch, step) row, and logits within 4 bfloat16 ulps of the logit
+    scale (the largest |logit| of the reference's run: 0.742, where one
+    ulp is 2**-8 and the largest difference measured was 7.1e-3, 1.8
+    ulps). The two packages round at different places (the port forms α
+    and α·V in float32 and then casts; the reference casts α before its
+    product), so the bound is stated in ulps, not as the float32 test's
+    1e-4."""
+    import jax.numpy as jnp
+
+    jcfg, tcfg = _cfgs(dtype="bfloat16")
+    jm, params, tree = _reference_lm(jcfg)
+    tm = tbuild(tcfg, device="cpu", params=convert.lm_params_from_reference(tcfg, tree, device="cpu"))
+    rng = np.random.default_rng(5)
+    b, t, gen = 2, 24, 8
+    toks = rng.integers(0, tcfg.vocab_size, size=(b, t + gen))
+    lj, cj = jm.prefill(params, jnp.asarray(toks[:, :t]), max_len=t + gen)
+    lt, ct = tm.prefill(torch.from_numpy(toks[:, :t]), max_len=t + gen)
+    pairs = [(lt.float().numpy(), _np(lj.astype(jnp.float32)))]
+    for pos in range(t, t + gen):
+        lj, cj = jm.decode_step(params, jnp.asarray(toks[:, pos:pos + 1]), pos, cj)
+        lt, ct = tm.decode_step(torch.from_numpy(toks[:, pos:pos + 1]), pos, ct)
+        pairs.append((lt.float().numpy(), _np(lj.astype(jnp.float32))))
+    bound = 4 * _bf16_ulp(max(float(np.abs(want).max()) for _, want in pairs))
+    for got, want in pairs:
+        assert np.array_equal(got.argmax(-1), want.argmax(-1))
+        np.testing.assert_allclose(got, want, atol=bound, rtol=0)

@@ -10,14 +10,16 @@ reference's session tasks and sizes):
   * ``batch`` equals separate calls; the task's cache is keyed on the flow
     and on the parameters' names, shapes and dtypes; ``query_capacities``
     is ascending; ``cost_analysis()`` is ``None``; a params mapping that
-    differs from the session's program raises.
+    differs from the session's program raises; a query id outside the rows
+    raises ``IndexError`` before any forward, where the reference wraps or
+    clamps it.
 
 The ``cuda``-marked tests skip without a card. On one, a session is a
 captured CUDA graph: its forward is the eager ``model.apply`` bit for bit
 on the bucketed, per-bucket loop and flat routes; replays tick no
 dispatch or launch counter; new params give the new weights' logits; an
 earlier result is unchanged by a later call; a forward that cannot be
-captured raises. The LM's compiled decode step gives the eager loop's
+captured raises; out-of-range ids on the card raise before any launch. The LM's compiled decode step gives the eager loop's
 tokens, logits and cache bit for bit.
 """
 import gc
@@ -152,6 +154,42 @@ def test_query_capacities_and_cost_analysis(port_tasks):
         InferenceSession(tt.model, tt.batch, _flow())
 
 
+def test_query_out_of_range_ids_raise(port_tasks, ref_tasks):
+    """The reference's gather (``out[idx]`` under ``jax.jit``) wraps a
+    negative id and clamps a large one: on n rows, ids [-1, n + 1, 0] give
+    rows [n - 1, n - 1, 0] (on 4 rows, [-1, 5, 0] give [3, 3, 0]), with no
+    error. The port raises ``IndexError`` naming the bad ids, before any
+    forward runs, for ids on the host in any form."""
+    from repro.core.flows import FlowConfig as JFlowConfig
+
+    jt = ref_tasks[("han", "acm")]
+    jsess = jt.compile(JFlowConfig("staged"))
+    full = np.asarray(jsess(jt.params))
+    n = full.shape[0]
+    got = np.asarray(jsess.query(jt.params, np.array([-1, n + 1, 0], np.int32)))
+    np.testing.assert_array_equal(got, full[[n - 1, n - 1, 0]])
+
+    tt = port_tasks[("han", "acm")]
+    calls = []
+
+    class Counting:
+        num_classes = tt.model.num_classes
+
+        def apply(self, params, batch, flow):
+            calls.append(flow)
+            return tt.model.apply(params, batch, flow)
+
+    sess = InferenceSession(Counting(), tt.batch, FlowConfig("staged"), params=tt.params)
+    queries = tflows.DISPATCH["query_calls"]
+    for bad in ([-1, n + 1, 0], np.array([0, n]), torch.tensor([-2, 3])):
+        with pytest.raises(IndexError, match=r"outside \[0, %d\)" % n) as err:
+            sess.query(tt.params, bad)
+        assert all(str(i) in str(err.value) for i in torch.as_tensor(bad).tolist() if not 0 <= i < n)
+    assert calls == [] and sess.query_capacities == () and tflows.DISPATCH["query_calls"] == queries
+    rows = sess.query(tt.params, [n - 1, 0])
+    assert torch.equal(rows, sess(tt.params)[[n - 1, 0]]) and tflows.DISPATCH["query_calls"] == queries + 1
+
+
 def test_mismatched_params_raise(port_tasks):
     """A params mapping with other names, shapes or dtypes than the
     session's program raises ``ValueError`` on every entry point."""
@@ -230,6 +268,24 @@ def test_cuda_replays_tick_nothing(cuda_device):
         sess(task.params)
     torch.cuda.synchronize()
     assert _counters() == before
+
+
+@pytest.mark.cuda
+def test_cuda_query_out_of_range_ids_raise(cuda_device):
+    """Ids on the card are checked with one reduction and one synchronize:
+    an id outside the rows raises ``IndexError`` before any launch (and
+    never trips a device-side assert), and the card serves on."""
+    task = _prepare("han", "acm", cuda_device)
+    sess = task.compile(_flow())
+    n = sess.out_shape[0]
+    before = _counters()
+    with pytest.raises(IndexError, match=str(n)):
+        sess.query(task.params, torch.tensor([0, n], device=cuda_device))
+    with pytest.raises(IndexError, match="-1"):
+        sess.query(task.params, torch.tensor([-1, 1], device=cuda_device, dtype=torch.int32))
+    assert _counters() == before
+    idx = torch.tensor([n - 1, 0], device=cuda_device)
+    assert torch.equal(sess.query(task.params, idx), sess(task.params)[idx])
 
 
 @pytest.mark.cuda
