@@ -140,7 +140,28 @@ exits non-zero at the first phase that fails:
    rows are counted and printed); a ``fig9_<model>_acm_K<k>`` line each;
    then the step's times (captured and eager, the CUDA-event median; the
    first step, warm-up and capture included; the device's busy share);
-6. prints a ``train {...}`` line with the step times, the card line, then
+6. the SGB options and on-disk data, as the reference's ``sgb_scale`` and
+   ``na_dispatch`` benchmarks run them, at ``scale=1.0``: ACM, IMDB and
+   DBLP exported as dumps (``save_hetgraph``, npz) and loaded back equal
+   array for array; then for HAN on DBLP and ACM, RGAT and Simple-HGN on
+   ACM and IMDB, and RGAT on IMDB at ``max_degree=64``, ``prepare`` with
+   ``bucket_sizes="auto"`` from the registry (no cache), then twice from
+   the dump through an empty cache directory under ``build/``: a miss
+   that writes one entry, then a hit that writes nothing and whose tables
+   and grouped layouts are the miss's (and the registry build's) bit for
+   bit. Each hit task (its tables read-only views into the mapped entry;
+   a warning about a non-writable array fails the run) is served as phase
+   3 serves a task, on the bucketed single dispatch and the per-bucket
+   loop: launches of the eager forward derived from the SGB, captured,
+   replays bit for bit; its logits bit for bit the miss task's session's,
+   within 1e-4 of the default buckets' task on the card and of the CPU
+   forward. Simple-HGN on ACM is also served with every parameter in
+   bfloat16: captured, logits within 1e-4 of the CPU's and the same
+   accuracy. Then kernel #1 and kernel #2 on HAN ACM's auto layout against
+   its default one (held to their plain versions; device and event times,
+   bounds) and each path's prepare seconds and captured forward times,
+   auto beside default, printed with the card line;
+7. prints a ``train {...}`` line with the step times, the card line, then
    the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}``
    as the last line.
 """
@@ -2089,6 +2110,285 @@ def train_phase(pipeline, FlowConfig, ops, gpu_tasks, dev):
     return results
 
 
+# phase 6: the SGB options and on-disk data, as the reference's sgb_scale and
+# na_dispatch benchmarks run them (bucket_sizes="auto" through the artifact
+# cache): (model, dataset, max_degree)
+SGB_PATHS = (("han", "dblp", 256), ("han", "acm", 256), ("rgat", "acm", 256), ("rgat", "imdb", 256),
+             ("simple_hgn", "acm", 256), ("simple_hgn", "imdb", 256), ("rgat", "imdb", 64))
+SGB_ROUTES = ("bucketed", "loop")
+SGB_BF16_PATH = ("simple_hgn", "acm", 256)  # the relation term: theta_rel in bfloat16
+SGB_DIR = ROOT / "build" / "sgb_phase"  # the dumps and the cache, emptied at the start
+
+
+def same_graph(a, b, what: str) -> None:
+    """Two ``HetGraph``s equal array for array."""
+    import numpy as np
+
+    check((a.node_types, a.num_nodes, a.relations, a.label_type, a.num_classes)
+          == (b.node_types, b.num_nodes, b.relations, b.label_type, b.num_classes), f"{what}: schema differs")
+    pairs = [(a.labels, b.labels)] + [(a.features[t], b.features[t]) for t in a.node_types]
+    pairs += [(x, y) for rel in a.edges for x, y in zip(a.edges[rel], b.edges[rel])]
+    check(list(a.edges) == list(b.edges)
+          and all(x.dtype == y.dtype and np.array_equal(x, y) for x, y in pairs), f"{what}: arrays differ")
+
+
+def same_sgb(a, b, what: str, ops) -> None:
+    """Two SGB stacks equal bit for bit: bucket tables, target order and the
+    grouped layout the kernels walk."""
+    import numpy as np
+
+    from repro_torch.data.sgb_cache import _GROUPED_ARRAYS
+
+    check([sg.name for sg in a] == [sg.name for sg in b], f"{what}: semantic graphs differ")
+    for x, y in zip(a, b):
+        check(x.bucket_capacities == y.bucket_capacities, f"{what} {x.name}: capacities differ")
+        arrays = [(getattr(bx, f), getattr(by, f)) for bx, by in zip(x.buckets, y.buckets)
+                  for f in ("targets", "nbr_idx", "nbr_mask", "edge_type")]
+        lx, ly = x.grouped(ops.T_TILE, ops.W_TILE), y.grouped(ops.T_TILE, ops.W_TILE)
+        arrays += [(getattr(lx, f), getattr(ly, f)) for f in _GROUPED_ARRAYS] + [(x.target_perm(), y.target_perm())]
+        check(lx.num_rows == ly.num_rows and all(
+            u.dtype == v.dtype and u.shape == v.shape and np.array_equal(u, v) for u, v in arrays
+        ), f"{what} {x.name}: tables differ")
+
+
+def sgb_kernel_times(auto, default, dev):
+    """Kernel #1 (the fused grouped launch, one a metapath graph) and kernel
+    #2 (the fused flat launch, one a pruned bucket of the per-bucket loop)
+    on HAN ACM's auto layout against its default one, on the same
+    projected features and weights: device and event times, the plain
+    versions' times and largest differences, and the bounds from the bytes
+    and operations this run's inputs need (summed over the launches of one
+    forward)."""
+    import torch
+
+    from repro_torch.core import attention, flows
+    from repro_torch.core.projection import project_features
+    from repro_torch.kernels.fused_prune_aggregate import ops, ref
+
+    t, bounds, err, shapes = {}, {}, {"prune_aggregate": 0.0, "flat_prune_aggregate": 0.0}, {}
+    with torch.inference_mode():
+        for name, task in (("auto", auto), ("default", default)):
+            p, batch, model = task.params, task.batch, task.model
+            h = project_features(p, batch.features, batch.node_types, model.heads, model.dh)
+            dst = slice(batch.dst_offset, batch.dst_offset + batch.num_targets)
+            k1_calls, k2_calls = [], []
+            nb1 = no1 = nb2 = no2 = 0
+            for sg in task.sgs:
+                sc = attention.decompose_scores(h, p[f"attn.{sg.name}.a_src"], p[f"attn.{sg.name}.a_dst"], dst)
+                layout = sg.grouped(ops.T_TILE, ops.W_TILE)
+                (nbr, msk, _, rt, _), (blk, k_s) = ops._layout_device(layout, PRUNE_K, dev)
+                args = (nbr, msk, None, sc.theta_src, None, sc.theta_dst, rt, blk, k_s, h)
+                out, alpha, ids = ops.prune_aggregate(*args, keep=True)
+                plain = ref.prune_aggregate_plain(*args, 0.2)
+                check(torch.equal(ids, plain[2]) and float((alpha - plain[1]).abs().max()) <= TOL_ALPHA,
+                      f"phase 6 {name} {sg.name}: kernel #1's ids or alpha differ from its plain version's")
+                err["prune_aggregate"] = max(err["prune_aggregate"], float((out - plain[0]).abs().max()))
+                k1, _, _ = k1_bound(msk, nbr, None, sc.theta_src, None, sc.theta_dst, alpha, ids,
+                                    (rt.numel() + blk.numel()) * 4)
+                _, _, b, o = fused_bound(k1, alpha, ids, h, out)
+                nb1, no1 = nb1 + b, no1 + o
+                k1_calls.append(args)
+                shapes[f"{name} {sg.name}"] = {
+                    "capacities": list(sg.bucket_capacities), "grid_steps": layout.num_steps, "k_s": k_s,
+                    "valid_slots": int(msk.sum()),
+                    "k1_device_ms": sum(device_times(lambda a=args: ops.prune_aggregate(*a), 20).values()),
+                    "k2_launches": [],
+                }
+                for targets, nbr2, msk2, _ in flows._bucket_loop_tables(sg, False, dev):
+                    if nbr2.shape[1] <= PRUNE_K:
+                        continue  # the §4.3 bypass: no kernel launch
+                    args2 = (nbr2, msk2, None, sc.theta_src, None, sc.theta_dst[targets].contiguous(), h, PRUNE_K)
+                    out2, alpha2, ids2 = ops.flat_prune_aggregate(*args2, keep=True)
+                    plain = ref.flat_prune_aggregate_plain(*args2, 0.2)
+                    check(torch.equal(ids2, plain[2]) and float((alpha2 - plain[1]).abs().max()) <= TOL_ALPHA,
+                          f"phase 6 {name} {sg.name}: kernel #2's ids or alpha differ from its plain version's")
+                    err["flat_prune_aggregate"] = max(err["flat_prune_aggregate"], float((out2 - plain[0]).abs().max()))
+                    k1, _, _ = k1_bound(msk2, nbr2, None, sc.theta_src, None, args2[5], alpha2, ids2)
+                    _, _, b, o = fused_bound(k1, alpha2, ids2, h, out2)
+                    nb2, no2 = nb2 + b, no2 + o
+                    k2_calls.append(args2)
+                    shapes[f"{name} {sg.name}"]["k2_launches"].append({
+                        "rows": int(nbr2.shape[0]), "width": int(nbr2.shape[1]), "valid_slots": int(msk2.sum()),
+                        "device_ms": sum(device_times(lambda a=args2: ops.flat_prune_aggregate(*a), 20).values()),
+                    })
+            bounds[f"prune_aggregate_{name}"] = bound(nb1, no1) + (len(k1_calls),)
+            bounds[f"flat_prune_aggregate_{name}"] = bound(nb2, no2) + (len(k2_calls),)
+            timed(t, f"prune_aggregate_{name}", lambda c=k1_calls: [ops.prune_aggregate(*a) for a in c], 100)
+            timed(t, f"flat_prune_aggregate_{name}", lambda c=k2_calls: [ops.flat_prune_aggregate(*a) for a in c], 100)
+            t[f"prune_aggregate_{name}_plain"] = cuda_ms(
+                lambda c=k1_calls: [ref.prune_aggregate_plain(*a, 0.2) for a in c], 3, warmup=1)
+            t[f"flat_prune_aggregate_{name}_plain"] = cuda_ms(
+                lambda c=k2_calls: [ref.flat_prune_aggregate_plain(*a, 0.2) for a in c], 3, warmup=1)
+        torch.cuda.synchronize()
+    check(max(err.values()) <= TOL_OUT, f"phase 6: a kernel differs from its plain version by {err}")
+    return t, bounds, err, shapes
+
+
+def sgb_phase(pipeline, FlowConfig, ops, default_tasks, card, dev):
+    """Phase 6, the SGB options and on-disk data at ``scale=1.0``: ACM,
+    IMDB and DBLP exported as dumps and loaded back; for each of
+    ``SGB_PATHS``, ``prepare`` with ``bucket_sizes="auto"`` from the
+    registry (no cache), then twice from the dump through an empty cache
+    directory (a miss, then a hit whose tables are the miss's bit for bit);
+    each hit task served as phase 3 serves a task on the bucketed and loop
+    routes (launches derived from the SGB, captured, replays bit for bit),
+    its logits bit for bit the miss task's and within 1e-4 of the default
+    buckets' task and of the CPU forward; one hit task with every parameter
+    in bfloat16; then the times. Returns the results."""
+    import shutil
+    import warnings
+
+    import torch
+
+    from repro_torch.data import datasets, sgb_cache, synthetic
+
+    shutil.rmtree(SGB_DIR, ignore_errors=True)
+    cache = SGB_DIR / "cache"
+    check(sgb_cache.default_cache_dir() is None, "phase 6: $REPRO_SGB_CACHE is set")
+    result = {"card": card, "dumps": {}, "paths": {}}
+    dumps = {}
+    for ds in ("acm", "imdb", "dblp"):
+        g = datasets.resolve(ds, scale=SCALE, seed=0)[0]
+        t0 = time.perf_counter()
+        dumps[ds] = datasets.save_hetgraph(g, SGB_DIR / "dumps" / ds, name=ds, metapaths=synthetic.METAPATHS[ds])
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, name, mps = datasets.resolve(dumps[ds])
+        load_s = time.perf_counter() - t0
+        same_graph(back, g, f"dump {ds}")
+        check(name == ds and mps == {k: list(v) for k, v in synthetic.METAPATHS[ds].items()}, f"dump {ds}: meta")
+        result["dumps"][ds] = {"export_s": export_s, "load_s": load_s, "nodes": g.total_nodes,
+                               "edges": int(sum(len(s) for s, _ in g.edges.values()))}
+    print("  dumps exported and loaded back equal: " + json.dumps(result["dumps"]))
+
+    statuses = []
+    real_build_or_load = sgb_cache.build_or_load
+
+    def recording(*args, **kw):
+        out, status = real_build_or_load(*args, **kw)
+        statuses.append(status)
+        return out, status
+
+    def timed_prepare(model, ds, status, device, **kw):
+        statuses.clear()
+        sync(dev)
+        t0 = time.perf_counter()
+        task = pipeline.prepare(model, ds, device=device, **kw)
+        sync(dev)
+        secs = time.perf_counter() - t0
+        check(statuses == [status], f"phase 6 {model} {ds}: the SGB cache said {statuses}, expected {status}")
+        return task, secs
+
+    launches = {key: 0 for key in ops.LAUNCHES}
+    sgb_cache.build_or_load = recording
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message=".*not writable.*")
+            for model, ds, md in SGB_PATHS:
+                path = f"{model}/{ds}/max_degree={md}"
+                kw = dict(scale=SCALE, seed=0, max_degree=md, bucket_sizes="auto")
+                reg, reg_s = timed_prepare(model, ds, "off", dev, **kw)
+                entries = sorted(cache.glob("*.npz")) if cache.is_dir() else []
+                cold, miss_s = timed_prepare(model, str(dumps[ds]), "miss", dev, sgb_cache_dir=cache, **kw)
+                new = sorted(set(cache.glob("*.npz")) - set(entries))
+                check(len(new) == 1, f"{path}: the miss wrote {len(new)} entries")
+                stamp = new[0].stat().st_mtime_ns
+                hit, hit_s = timed_prepare(model, str(dumps[ds]), "hit", dev, sgb_cache_dir=cache, **kw)
+                check(len(list(cache.glob("*.npz"))) == len(entries) + 1 and new[0].stat().st_mtime_ns == stamp,
+                      f"{path}: the hit wrote to the cache")
+                check(not hit.sgs[0].buckets[0].nbr_idx.flags.writeable, f"{path}: the hit's tables are not mapped")
+                same_sgb(cold.sgs, hit.sgs, f"{path} hit vs miss", ops)
+                same_sgb(reg.sgs, hit.sgs, f"{path} hit vs registry", ops)
+                for name, p in hit.params.items():
+                    check(torch.equal(p, cold.params[name]), f"{path}: weights differ on {name}")
+                cpu, _ = timed_prepare(model, str(dumps[ds]), "hit", "cpu", sgb_cache_dir=cache, **kw)
+                dflt = default_tasks.get((model, ds, md))
+                if dflt is None:
+                    dflt = pipeline.prepare(model, ds, scale=SCALE, seed=0, max_degree=md, device=dev)
+                r = {"prepare_s": {"registry": reg_s, "dump_miss": miss_s, "dump_hit": hit_s},
+                     "capacities": [list(sg.bucket_capacities) for sg in hit.sgs],
+                     "default_capacities": [list(sg.bucket_capacities) for sg in dflt.sgs],
+                     "padded_slots": {"auto": sum(sg.padded_slots() for sg in hit.sgs),
+                                      "default": sum(sg.padded_slots() for sg in dflt.sgs)},
+                     "grid_steps": {name: sum(sg.grouped(ops.T_TILE, ops.W_TILE).num_steps for sg in t.sgs)
+                                    for name, t in (("auto", hit), ("default", dflt))},
+                     "routes": {}}
+                for route in SGB_ROUTES:
+                    key = f"{path}/{route}"
+                    flow = route_flow(FlowConfig, route)
+                    want = expected_launches(hit.sgs, route, PRUNE_K, getattr(hit.model, "num_layers", 1), ops)
+                    sess, logits, got = captured_session(hit, flow, want, f"phase 6 {key}", ops, dev)
+                    for k, n in got.items():
+                        launches[k] += n
+                    check(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == sess.out_shape,
+                          f"{key}: logits shape or non-finite values")
+                    check(same_bits((cold.compile(flow)(cold.params),), (logits,)),
+                          f"{key}: the hit's logits differ from the miss task's")
+                    d_sess = dflt.compile(flow)
+                    e_default = float((logits - d_sess(dflt.params)).abs().max())
+                    e_cpu = float((logits.cpu() - cpu.compile(flow)(cpu.params)).abs().max())
+                    check(e_default <= TOL_LOGITS and e_cpu <= TOL_LOGITS,
+                          f"{key}: logits differ from the default buckets' by {e_default:.3g}, "
+                          f"from the CPU by {e_cpu:.3g}")
+                    ms = {"auto": [], "default": []}
+                    for _ in range(2):  # alternate the two, 20 back-to-back forwards each
+                        ms["auto"].append(cuda_ms(lambda: sess(hit.params), 20))
+                        ms["default"].append(cuda_ms(lambda: d_sess(dflt.params), 20))
+                    widths = k1_widths(hit.sgs, route, PRUNE_K, ops)
+                    r["routes"][route] = {
+                        "launches": {k: n for k, n in got.items() if n}, "k1_widths": widths,
+                        "max_abs_diff_vs_default": e_default, "max_abs_err_vs_cpu": e_cpu,
+                        "captured_forward_ms": ms,
+                    }
+                    print(f"  {key}: auto capacities {r['capacities']}, launches "
+                          f"{ {k: n for k, n in got.items() if n} } a forward, K1 widths {widths}, captured "
+                          f"(3 replays == eager bitwise), == miss bitwise, |auto-default| {e_default:.3g}, "
+                          f"|gpu-cpu| {e_cpu:.3g}, captured forward auto {min(ms['auto']):.4f} / default "
+                          f"{min(ms['default']):.4f} ms")
+                result["paths"][path] = r
+                print(f"  {path}: prepare registry {reg_s:.3f} s, dump miss {miss_s:.3f} s, dump hit {hit_s:.3f} s; "
+                      f"padded slots auto {r['padded_slots']['auto']} / default {r['padded_slots']['default']}; "
+                      f"grid steps {r['grid_steps']['auto']} / {r['grid_steps']['default']} ({card})")
+                if (model, ds, md) == SGB_BF16_PATH:
+                    key = f"{path}/bucketed/bfloat16"
+                    flow = route_flow(FlowConfig, "bucketed")
+                    p16 = {n: p.to(torch.bfloat16) for n, p in hit.params.items()}
+                    c16 = {n: p.to(torch.bfloat16) for n, p in cpu.params.items()}
+                    want = expected_launches(hit.sgs, "bucketed", PRUNE_K, getattr(hit.model, "num_layers", 1), ops)
+                    _, logits, _ = captured_session(hit, flow, want, f"phase 6 {key}", ops, dev, params=p16)
+                    e_cpu = float((logits.cpu() - cpu.compile(flow, params=c16)(c16)).abs().max())
+                    accs = {}
+                    for split in ("val", "test"):
+                        n = len(hit.splits[split])
+                        a_gpu, a_cpu = pipeline.accuracy(hit, p16, flow, split), pipeline.accuracy(cpu, c16, flow, split)
+                        check(round(a_gpu * n) == round(a_cpu * n), f"{key}: {split} accuracy {a_gpu} on the card, "
+                                                                    f"{a_cpu} on the CPU")
+                        accs[split] = {"gpu": a_gpu, "cpu": a_cpu, "rows": n}
+                    check(e_cpu <= TOL_LOGITS and logits.dtype == torch.float32,
+                          f"{key}: logits {logits.dtype} differ from the CPU by {e_cpu:.3g}")
+                    result["bfloat16"] = {"path": key, "max_abs_err_vs_cpu": e_cpu, "accuracy": accs}
+                    print(f"  {key}: every parameter bfloat16, captured, logits float32, |gpu-cpu| {e_cpu:.3g}, "
+                          f"accuracy " + ", ".join(f"{s} {a['gpu']:.4f} (CPU {a['cpu']:.4f})" for s, a in accs.items()))
+                if (model, ds, md) == ("han", "acm", 256):
+                    kernel_pair = (hit, dflt)
+    finally:
+        sgb_cache.build_or_load = real_build_or_load
+    t, bounds, err, shapes = sgb_kernel_times(*kernel_pair, dev)
+    result.update(launches={k: n for k, n in launches.items() if n}, kernel_times_ms=t, kernel_err=err,
+                  kernel_shapes=shapes, kernel_bounds={k: dict(zip(("bound_ms", "bound_by", "bytes", "ops", "launches"), b))
+                                                       for k, b in bounds.items()})
+    for key in ("prune_aggregate", "flat_prune_aggregate"):
+        line = []
+        for name in ("auto", "default"):
+            b = result["kernel_bounds"][f"{key}_{name}"]
+            line.append(f"{name} {t[f'{key}_{name}']:.4f} ms device ({t[f'{key}_{name}_source']}), "
+                        f"{t[f'{key}_{name}_event']:.4f} ms events, plain {t[f'{key}_{name}_plain']:.2f} ms, "
+                        f"{b['launches']} launches, bound {b['bound_ms']:.5f} ms ({b['bound_by']}, {b['bytes']} B)")
+        print(f"  kernel {key} on han/acm a forward: " + "; ".join(line) + f" ({card})")
+    print("  shapes, han/acm layouts: " + json.dumps(shapes))
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -2125,6 +2425,8 @@ def main() -> int:
     acm_union = pipeline.prepare("simple_hgn", "acm", scale=SCALE, seed=0, bucket_sizes=None, device="cpu")
 
     # phase 2: kernels against their plain versions on the card
+    phase_s = {"1": build_s}
+    t_phase = time.perf_counter()
     print("phase 2: CUDA kernels against their plain PyTorch versions")
     err = check_kernels(kernel_cases(hetgraph, cpu_tasks), dev)
     check_tie(hetgraph, dev)
@@ -2140,6 +2442,7 @@ def main() -> int:
     err["topk_select"] = check_pruner_kernel(dev)
 
     # phase 3: the main paths
+    phase_s["2"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
     print(f"phase 3: fused_kernel serving at scale={SCALE}, prune_k={PRUNE_K}")
     reset_launches(ts_ops)
     results, gpu_tasks = main_path(pipeline, FlowConfig, ops, cpu_tasks, dev)
@@ -2155,6 +2458,7 @@ def main() -> int:
     pruner_result, pruner_shapes = pruner_main_path(model_tasks, FlowConfig, ops, ts_ops, tda_ops, decode_in, dev)
 
     # phase 4: times
+    phase_s["3"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
     print("phase 4: times (CUDA events)")
     t, bounds, shapes = grouped_timings(gpu_tasks["dblp"], dev)
     t_flat, b_flat, s_flat = flat_timings(model_tasks["simple_hgn/acm/flat"], dev)
@@ -2232,12 +2536,24 @@ def main() -> int:
     t_ts = pruner_timings(pruner_shapes, dev)
 
     # phase 5: HGNN training and the fig9 sweep
+    phase_s["4"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
     print(f"phase 5: HGNN training on ACM at scale={SCALE} ({TRAIN_STEPS} steps, lr {TRAIN_LR}) and the fig9 "
           f"sweep K={list(FIG9_KS)}")
     train = train_phase(pipeline, FlowConfig, ops, {
         "han": gpu_tasks["acm"], "rgat": model_tasks["rgat/acm/bucketed"],
         "simple_hgn": model_tasks["simple_hgn/acm/bucketed"],
     }, dev)
+
+    # phase 6: the SGB options and on-disk data
+    phase_s["5"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
+    print(f"phase 6: SGB options and on-disk data at scale={SCALE}: dumps, bucket_sizes='auto' through the "
+          "artifact cache, served")
+    default_tasks = {("han", ds, 256): task for ds, task in gpu_tasks.items()}
+    default_tasks.update({(m, ds, 256): model_tasks[f"{m}/{ds}/bucketed"]
+                          for m in ("rgat", "simple_hgn") for ds in ("acm", "imdb")})
+    sgb = sgb_phase(pipeline, FlowConfig, ops, default_tasks, card, dev)
+    phase_s["6"] = time.perf_counter() - t_phase
+    print(f"phase 6: wall time {phase_s['6']:.1f} s")
 
     kernels = []
     for key, line, lib in KERNELS:
@@ -2347,9 +2663,10 @@ def main() -> int:
         "decode_k1_tie_rows": {"phase2_cases": dec_ties, "phase2_tie_cases": tie_cases,
                                "main_path": lm_result["tie_rows"]},
         "pruner_times_ms": t_ts, "forward_ms": fwd, "forward_latency_ms": latency, "profiles": prof,
-        "train": train, "kernels": kernels,
+        "train": train, "sgb": sgb, "kernels": kernels, "phase_wall_s": phase_s,
     }, indent=1))
-    print(f"  full report: {REPORT.relative_to(ROOT)}; wall time {time.perf_counter() - t_start:.1f} s")
+    print(f"  full report: {REPORT.relative_to(ROOT)}; wall time {time.perf_counter() - t_start:.1f} s, by phase (s) "
+          + json.dumps({k: round(v, 1) for k, v in phase_s.items()}))
     print("train " + json.dumps({model: {
         key: r[key] for key in ("step_ms_captured", "step_ms_eager", "first_step_ms", "device_busy_share")
     } for model, r in train.items()}))

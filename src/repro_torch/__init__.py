@@ -14,13 +14,17 @@ Rules every module keeps:
     when no GPU is present unless the caller passed ``device="cpu"``
     (:func:`resolve_device`) — nothing drops to the CPU on its own;
   * randomness comes from explicit ``torch.Generator``s or seeded numpy;
-  * the HGNN path is float32; the LM path computes in ``cfg.dtype`` as the
-    reference does (bfloat16 activations for the published configs); TF32
-    is off for matmuls and convolutions (set below, at import), so a
-    float32 product on the card keeps full float32 precision.
+  * the HGNN path computes in the dtype the reference does (JAX's
+    promotion, ``core/dtypes.py``: float32 for the published setup, and
+    float32 features against bfloat16 weights stay float32); the LM path
+    computes in ``cfg.dtype`` as the reference does (bfloat16 activations
+    for the published configs); TF32 is off for matmuls and convolutions
+    (set below, at import), so a float32 product on the card keeps full
+    float32 precision.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # float32 means float32: no TF32 rounding in cuBLAS or cuDNN
@@ -37,3 +41,13 @@ def resolve_device(device="cuda") -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def from_host(a: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on ``device``. A read-only array (a view
+    into a mapped file, as an SGB cache hit hands out) is copied first, so
+    no tensor shares memory with the mapping; a writable one is shared on
+    the CPU, as ``torch.from_numpy`` shares it."""
+    if not a.flags.writeable:
+        a = np.array(a)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import pruning
+from repro_torch.core.dtypes import einsum
 
 LEAKY_SLOPE = 0.2
 
@@ -42,12 +43,12 @@ def decompose_scores(
     with ``rel_emb`` and ``a_rel`` also the per-edge-type term θ_rel
     (Simple-HGN). The tables come back contiguous, as the NA kernels take
     them."""
-    theta_src = torch.einsum("nhd,hd->nh", h_proj, a_src).contiguous()
+    theta_src = einsum("nhd,hd->nh", h_proj, a_src).contiguous()
     h_dst = h_proj[dst_slice] if dst_slice is not None else h_proj
-    theta_dst = torch.einsum("nhd,hd->nh", h_dst, a_dst).contiguous()
+    theta_dst = einsum("nhd,hd->nh", h_dst, a_dst).contiguous()
     theta_rel = None
     if rel_emb is not None and a_rel is not None:
-        theta_rel = torch.einsum("rhd,hd->rh", rel_emb, a_rel).contiguous()
+        theta_rel = einsum("rhd,hd->rh", rel_emb, a_rel).contiguous()
     return DecomposedScores(theta_src, theta_dst, theta_rel)
 
 
@@ -104,5 +105,5 @@ def aggregate_staged(
     alpha = torch.softmax(theta, dim=1)
     alpha = torch.where(mask[..., None], alpha, torch.zeros_like(alpha))
     feats = _rows(h_proj, nbr_idx)  # (T, D, H, dh)
-    return torch.einsum("tdh,tdhf->thf", alpha, feats)
+    return einsum("tdh,tdhf->thf", alpha, feats)
 

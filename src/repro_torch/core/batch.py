@@ -13,6 +13,8 @@ from typing import Dict, Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import from_host
+
 
 class GraphBatch:
     """One heterograph's model input: features + semantic graphs + meta.
@@ -44,7 +46,7 @@ class GraphBatch:
         """Build from a ``HetGraph`` + its SGB output, with the feature
         tables copied to ``device``."""
         features = {
-            t: torch.from_numpy(np.ascontiguousarray(f, np.float32)).to(device)
+            t: from_host(np.asarray(f, np.float32), device)
             for t, f in g.features.items()
         }
         return cls(

@@ -39,6 +39,7 @@ from typing import Optional, Union
 
 import torch
 
+from repro_torch import from_host
 from repro_torch.core import attention
 from repro_torch.core.hetgraph import BucketedSemanticGraph, SemanticGraph
 
@@ -89,22 +90,26 @@ def run_aggregate(
 
     return k_ops.fused_prune_aggregate(
         h_proj, scores.theta_src, scores.theta_dst, nbr_idx, nbr_mask,
-        theta_rel=scores.theta_rel, edge_type=edge_type,
+        theta_rel=_kernel_rel(scores), edge_type=edge_type,
         prune_k=cfg.prune_k, slope=attention.LEAKY_SLOPE,
     )
 
 
-def _put(a, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(a).to(device)
+def _kernel_rel(scores: attention.DecomposedScores) -> Optional[torch.Tensor]:
+    """θ_rel as the kernels take it, float32. It is bfloat16 (or float16)
+    when the rel parameters are; the reference's kernels promote it in
+    their body, and the cast up is exact."""
+    rel = scores.theta_rel
+    return None if rel is None else rel.float()
 
 
 def _table(nbr, msk, ety, use_ety: bool, device: torch.device):
     """Device mirror of one padded-CSC table: int32 ids, bool mask, int32
     edge types (``None`` without a rel term), the dtypes the kernels take."""
     return (
-        _put(nbr.astype("int32"), device),
-        _put(msk, device),
-        _put(ety.astype("int32"), device) if use_ety else None,
+        from_host(nbr.astype("int32"), device),
+        from_host(msk, device),
+        from_host(ety.astype("int32"), device) if use_ety else None,
     )
 
 
@@ -124,7 +129,7 @@ def _bucket_loop_tables(sg: BucketedSemanticGraph, use_ety: bool, device: torch.
     if key not in sg._device:
         with torch.inference_mode(False):
             sg._device[key] = tuple(
-                (_put(b.targets.astype("int64"), device),)
+                (from_host(b.targets.astype("int64"), device),)
                 + _table(b.nbr_idx, b.nbr_mask, b.edge_type, use_ety, device)
                 for b in sg.buckets
             )
@@ -144,8 +149,8 @@ def _device_tables(sg: BucketedSemanticGraph, use_ety: bool, device: torch.devic
             )
             sg._device[key] = (
                 tables,
-                _put(sg.concat_targets().astype("int64"), device),
-                _put(sg.target_perm().astype("int64"), device),
+                from_host(sg.concat_targets().astype("int64"), device),
+                from_host(sg.target_perm().astype("int64"), device),
             )
     return sg._device[key]
 
@@ -194,7 +199,7 @@ def run_aggregate_graph(
             # never changes the output dtype
             return k_ops.fused_prune_aggregate_grouped(
                 h_proj, scores.theta_src, scores.theta_dst, sg,
-                theta_rel=scores.theta_rel, prune_k=cfg.prune_k,
+                theta_rel=_kernel_rel(scores), prune_k=cfg.prune_k,
                 slope=attention.LEAKY_SLOPE,
             ).to(h_proj.dtype)
         tables, order, perm = _device_tables(sg, use_ety, dev)

@@ -9,6 +9,8 @@ plus a validity mask), either flat
 (:class:`BucketedSemanticGraph`): targets partitioned by degree into buckets
 of capacity e.g. ``{8, 32, 128, D_max}``, so padded NA slots follow the
 degree histogram, and buckets with capacity ≤ K bypass the pruner (§4.3).
+``bucket_sizes="auto"`` picks each graph's capacities from its own degree
+histogram (:func:`autotune_bucket_sizes`).
 
 :meth:`BucketedSemanticGraph.grouped` re-tiles every bucket into one
 grid-ordered stack of ``(t_tile, w)`` tiles (a :class:`GroupedBucketLayout`),
@@ -124,6 +126,10 @@ class HetGraph:
             )
         return self
 
+    @property
+    def total_nodes(self) -> int:
+        return sum(self.num_nodes[t] for t in self.node_types)
+
     def type_offsets(self) -> Dict[str, int]:
         """Global-id offsets: node types concatenated in ``node_types`` order."""
         off, out = 0, {}
@@ -157,6 +163,10 @@ class SemanticGraph:
     @property
     def num_targets(self) -> int:
         return self.nbr_idx.shape[0]
+
+    @property
+    def max_degree(self) -> int:
+        return self.nbr_idx.shape[1]
 
     @property
     def num_edges(self) -> int:
@@ -314,6 +324,9 @@ class BucketedSemanticGraph:
     num_targets: int
     buckets: Tuple[DegreeBucket, ...]
     num_edge_types: int = 1
+    _flat: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False
+    )
     _perm: Optional[np.ndarray] = dataclasses.field(
         default=None, init=False, repr=False, compare=False
     )
@@ -345,6 +358,41 @@ class BucketedSemanticGraph:
     def padded_slots(self) -> int:
         """Total NA slots the bucketed layout pays for (Σ_b T_b × D_b)."""
         return int(sum(b.nbr_idx.size for b in self.buckets))
+
+    def to_flat(self) -> SemanticGraph:
+        """The equivalent flat ``(T, D_max)`` graph, edge for edge."""
+        nbr, msk, ety = self._flat_arrays()
+        return SemanticGraph(
+            name=self.name, src_types=self.src_types, dst_type=self.dst_type,
+            nbr_idx=nbr, nbr_mask=msk, edge_type=ety,
+            num_edge_types=self.num_edge_types,
+        )
+
+    def _flat_arrays(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The flat ``(T, D_max)`` table rebuilt from the buckets. Cached."""
+        if self._flat is None:
+            d = self.max_degree
+            nbr = np.zeros((self.num_targets, d), dtype=np.int32)
+            msk = np.zeros((self.num_targets, d), dtype=bool)
+            ety = np.zeros((self.num_targets, d), dtype=np.int32)
+            for b in self.buckets:
+                nbr[b.targets, : b.capacity] = b.nbr_idx
+                msk[b.targets, : b.capacity] = b.nbr_mask
+                ety[b.targets, : b.capacity] = b.edge_type
+            self._flat = (nbr, msk, ety)
+        return self._flat
+
+    @property
+    def nbr_idx(self) -> np.ndarray:
+        return self._flat_arrays()[0]
+
+    @property
+    def nbr_mask(self) -> np.ndarray:
+        return self._flat_arrays()[1]
+
+    @property
+    def edge_type(self) -> np.ndarray:
+        return self._flat_arrays()[2]
 
     def concat_targets(self) -> np.ndarray:
         """Target ids in bucket-concatenation order (NA's output order
@@ -435,6 +483,54 @@ def _pad_csc(
     return nbr, msk, ety
 
 
+def autotune_bucket_sizes(
+    degrees: np.ndarray,
+    max_buckets: int = 4,
+    round_to: int = 1,
+    launch_cost: float = 0.0,
+) -> Tuple[int, ...]:
+    """Bucket capacities chosen from the observed degree histogram: the
+    segmentation of the unique degrees into at most ``max_buckets`` buckets
+    that minimizes
+
+        Σ_b  count_b × pad(cap_b)  +  launch_cost × num_buckets
+
+    (``pad`` rounds a capacity up to ``round_to``), by dynamic programming
+    over float64 costs. Capacities sit on observed degrees; with the
+    defaults the result is the padded-slot optimum and never pays more
+    padded slots than a static list of as many capacities."""
+    deg = np.maximum(np.asarray(degrees, np.int64).ravel(), 1)
+    if deg.size == 0:
+        return (1,)
+    uniq, counts = np.unique(deg, return_counts=True)
+    m = len(uniq)
+
+    def pad(c) -> int:
+        return int(-(-int(c) // round_to) * round_to)
+
+    if m <= max_buckets and launch_cost == 0.0:
+        return tuple(int(u) for u in uniq)
+    max_buckets = min(max_buckets, m)
+    csum = np.concatenate([[0], np.cumsum(counts)])
+    # f[b, j]: least cost covering uniq[:j] with b buckets; pred backtracks
+    f = np.full((max_buckets + 1, m + 1), float("inf"))
+    pred = np.zeros((max_buckets + 1, m + 1), np.int64)
+    f[0, 0] = 0.0
+    for b in range(1, max_buckets + 1):
+        for j in range(1, m + 1):
+            # the segment (i, j]: degrees in (uniq[i-1], uniq[j-1]]
+            costs = f[b - 1, :j] + (csum[j] - csum[:j]) * pad(uniq[j - 1]) + launch_cost
+            i = int(np.argmin(costs))
+            f[b, j], pred[b, j] = costs[i], i
+    b = int(np.argmin(f[:, m]))
+    caps, j = [], m
+    while j > 0:
+        caps.append(int(uniq[j - 1]))
+        j = int(pred[b, j])
+        b -= 1
+    return tuple(sorted(caps))
+
+
 def bucketize(
     name: str,
     src_types: Tuple[str, ...],
@@ -442,19 +538,20 @@ def bucketize(
     nbr: np.ndarray,
     msk: np.ndarray,
     ety: np.ndarray,
-    bucket_sizes: Sequence[int],
+    bucket_sizes: Union[Sequence[int], str],
     num_edge_types: int = 1,
 ) -> BucketedSemanticGraph:
     """Partition a flat padded-CSC table into degree buckets: each target
     goes to the tightest capacity ≥ its degree; the last bucket has capacity
-    D_max. Per-bucket tables are row/column slices of the flat table."""
-    if isinstance(bucket_sizes, str):
-        raise NotImplementedError(
-            f"bucket_sizes={bucket_sizes!r}: histogram autotuning comes with "
-            "a later slice of the port; pass a capacity list or None"
-        )
+    D_max. Per-bucket tables are row/column slices of the flat table.
+    ``bucket_sizes="auto"`` takes the capacities from this table's own
+    degree histogram (:func:`autotune_bucket_sizes`)."""
     t, d_max = nbr.shape
     deg = msk.sum(axis=1)
+    if isinstance(bucket_sizes, str):
+        if bucket_sizes != "auto":
+            raise ValueError(f"unknown bucket_sizes spec {bucket_sizes!r}")
+        bucket_sizes = autotune_bucket_sizes(deg)
     caps = sorted({int(c) for c in bucket_sizes if 0 < c < d_max})
     caps.append(d_max)
     # assignment = index of the first capacity >= degree
@@ -488,7 +585,7 @@ def _make_graph(
     msk: np.ndarray,
     ety: np.ndarray,
     num_edge_types: int,
-    bucket_sizes: Sequence[int] | None,
+    bucket_sizes: Sequence[int] | str | None,
 ):
     if bucket_sizes is None:
         return SemanticGraph(
@@ -506,7 +603,7 @@ def build_relation_graphs(
     max_degree: int | None = None,
     add_self_loops: bool = True,
     seed: int = 0,
-    bucket_sizes: Sequence[int] | None = None,
+    bucket_sizes: Sequence[int] | str | None = None,
 ) -> List[AnySemanticGraph]:
     """SGB for relation-based models (RGAT): one semantic graph per
     relation, in ``g.relations`` order; the model decides which to use.
@@ -536,7 +633,7 @@ def build_union_graph(
     max_degree: int | None = None,
     add_self_loops: bool = True,
     seed: int = 0,
-    bucket_sizes: Sequence[int] | None = None,
+    bucket_sizes: Sequence[int] | str | None = None,
 ) -> Dict[str, AnySemanticGraph]:
     """SGB for Simple-HGN: one union graph per destination type (all of
     ``g.node_types`` by default, in that order) holding the in-edges of
@@ -622,7 +719,7 @@ def build_metapath_graphs(
     max_degree: int | None = None,
     cap_fanout: int = 4096,
     seed: int = 0,
-    bucket_sizes: Sequence[int] | None = None,
+    bucket_sizes: Sequence[int] | str | None = None,
 ) -> List[AnySemanticGraph]:
     """SGB for metapath-based models (HAN).
 

@@ -3,6 +3,7 @@ from repro_torch.core.models.base import (  # noqa: F401
     HGNNModel,
     LayerStep,
     ModelEntry,
+    available,
     get_entry,
     register_model,
 )

@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.batch import GraphBatch, ModelSpec
+from repro_torch.core.dtypes import canonical
 from repro_torch.core.flows import FlowConfig
 from repro_torch.core.projection import glorot_
 
@@ -92,7 +93,10 @@ class HGNNModel(nn.Module):
         self, params: Params, batch: GraphBatch, flow: FlowConfig = FlowConfig()
     ) -> torch.Tensor:
         """The canonical forward pass: fold ``layer_steps`` then ``readout``.
-        (Replaces ``nn.Module.apply``, which this protocol does not use.)"""
+        (Replaces ``nn.Module.apply``, which this protocol does not use.)
+        float64 parameters compute as float32, as in the reference
+        (``core/dtypes.py``)."""
+        params = {n: canonical(p) for n, p in params.items()}
         carry: Carry = dict(batch.features)
         for step in self.layer_steps(params, batch, flow):
             h = step.project(carry)
@@ -115,6 +119,10 @@ class ModelEntry:
     factory: Callable[[ModelSpec], HGNNModel]
     sgb_kind: str
 
+    @property
+    def needs_metapaths(self) -> bool:
+        return self.sgb_kind == "metapath"
+
 
 MODELS: Dict[str, ModelEntry] = {}
 
@@ -136,3 +144,6 @@ def get_entry(name: str) -> ModelEntry:
             f"unknown model {name!r}; registered: {sorted(MODELS)}"
         ) from None
 
+
+def available() -> Tuple[str, ...]:
+    return tuple(sorted(MODELS))

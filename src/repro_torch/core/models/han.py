@@ -18,6 +18,7 @@ from torch import nn
 
 from repro_torch.core import attention, semantic_fusion
 from repro_torch.core.batch import GraphBatch, ModelSpec
+from repro_torch.core.dtypes import matmul
 from repro_torch.core.flows import FlowConfig, run_aggregate_graph
 from repro_torch.core.models.base import (
     HGNNModel,
@@ -98,4 +99,4 @@ class HAN(HGNNModel):
         )
 
     def readout(self, params: Params, batch: GraphBatch, carry) -> torch.Tensor:
-        return batch.constrain(carry @ params["out.w"] + params["out.b"], "logits")
+        return batch.constrain(matmul(carry, params["out.w"]) + params["out.b"], "logits")

@@ -19,6 +19,7 @@ from torch import nn
 
 from repro_torch.core import attention
 from repro_torch.core.batch import GraphBatch, ModelSpec
+from repro_torch.core.dtypes import matmul
 from repro_torch.core.flows import FlowConfig, run_aggregate_graph
 from repro_torch.core.models.base import (
     HGNNModel,
@@ -112,4 +113,4 @@ class RGAT(HGNNModel):
 
     def readout(self, params: Params, batch: GraphBatch, carry) -> torch.Tensor:
         z = carry[batch.label_type]
-        return batch.constrain(z @ params["out.w"] + params["out.b"], "logits")
+        return batch.constrain(matmul(z, params["out.w"]) + params["out.b"], "logits")

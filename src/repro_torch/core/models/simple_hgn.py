@@ -23,6 +23,7 @@ from torch import nn
 
 from repro_torch.core import attention
 from repro_torch.core.batch import GraphBatch, ModelSpec
+from repro_torch.core.dtypes import matmul
 from repro_torch.core.flows import FlowConfig, run_aggregate_graph
 from repro_torch.core.models.base import (
     HGNNModel,
@@ -114,7 +115,7 @@ class SimpleHGN(HGNNModel):
                 return {
                     t: F.elu(
                         zs[by_dst[t].name].reshape(num_nodes[t], self.dim)
-                        + carry[t] @ params[f"{pre}res.{t}"]
+                        + matmul(carry[t], params[f"{pre}res.{t}"])
                     )
                     for t in node_types
                 }
@@ -128,4 +129,4 @@ class SimpleHGN(HGNNModel):
 
     def readout(self, params: Params, batch: GraphBatch, carry) -> torch.Tensor:
         z = carry[batch.label_type]
-        return batch.constrain(z @ params["out.w"] + params["out.b"], "logits")
+        return batch.constrain(matmul(z, params["out.w"]) + params["out.b"], "logits")

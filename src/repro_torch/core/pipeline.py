@@ -2,17 +2,21 @@
 
 ``prepare()`` is table-driven over the model registry
 (``repro_torch.core.models.MODELS``): each architecture names its SGB kind
-and factory. The returned ``HGNNTask`` serves inference through
-``task.compile(flow)``, an :class:`~repro_torch.core.session.InferenceSession`
-cached per flow, device and parameter names, shapes and dtypes, and trains
-through ``train_hgnn``: full-batch cross-entropy on the train split and
-AdamW, one :class:`TrainStep` cached per (flow, lr, weight decay), which on
-a CUDA task is one captured CUDA graph (the reference's jitted step).
+and factory. The dataset is a registry name, an on-disk dump directory or
+a ``HetGraph`` (``data.datasets.resolve``), and the SGB goes through the
+artifact cache (``data.sgb_cache.build_or_load``). The returned
+``HGNNTask`` serves inference through ``task.compile(flow)``, an
+:class:`~repro_torch.core.session.InferenceSession` cached per flow,
+device and parameter names, shapes and dtypes, and trains through
+``train_hgnn``: full-batch cross-entropy on the train split and AdamW, one
+:class:`TrainStep` cached per (flow, lr, weight decay), which on a CUDA
+task is one captured CUDA graph (the reference's jitted step).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional, Sequence
+import os
+from typing import Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -23,7 +27,7 @@ from repro_torch.core.batch import GraphBatch, ModelSpec
 from repro_torch.core.flows import FlowConfig
 from repro_torch.core.models import get_entry
 from repro_torch.core.session import InferenceSession, param_spec
-from repro_torch.data import datasets
+from repro_torch.data import datasets, sgb_cache
 from repro_torch.optim import Optimizer, adamw
 
 
@@ -40,6 +44,11 @@ class HGNNTask:
     splits: Dict[str, np.ndarray]
     sgs: list  # semantic graphs driving NA
     device: torch.device
+    # the build arguments that produced ``sgs``: what merging a streamed
+    # delta into the layouts, or a rebuild for bit-parity, must replay
+    sgb_kind: str = ""
+    sgb_args: dict = dataclasses.field(default_factory=dict)
+    metapaths: Optional[Dict[str, Sequence[str]]] = None
     _sessions: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
     _steps: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
@@ -206,39 +215,56 @@ def _splits(n: int, seed: int = 0):
 
 def prepare(
     model_name: str,
-    dataset: str,
+    dataset: datasets.DatasetSpec,
     scale: float = 0.1,
     max_degree: Optional[int] = 256,
     seed: int = 0,
-    bucket_sizes: Optional[Sequence[int]] = hetgraph.DEFAULT_BUCKET_SIZES,
+    bucket_sizes: Union[Sequence[int], str, None] = hetgraph.DEFAULT_BUCKET_SIZES,
+    sgb_cache_dir: Union[str, "os.PathLike[str]", None] = None,
+    metapaths: Optional[Dict[str, Sequence[str]]] = None,
     device="cuda",
 ) -> HGNNTask:
     """Assemble dataset → SGB → model on ``device``.
 
-    ``dataset`` is a registry name, generated with ``scale``/``seed``. The
-    model's registry entry names its SGB kind: metapath graphs (HAN), one
-    graph per relation (RGAT) or one union graph per node type
-    (Simple-HGN). ``bucket_sizes`` selects the SGB layout: a capacity list
-    gives the degree-bucketed build (the default), ``None`` the flat
-    ``(T, D_max)`` one. The model's parameters are drawn on the CPU from a
-    ``torch.Generator`` seeded with ``seed`` and then moved, so the same
-    seed gives the same weights on every device. ``device`` defaults to
-    the GPU and raises without one; pass ``device="cpu"`` for the CPU.
+    ``dataset`` is a registry name (generated with ``scale``/``seed``), a
+    path to an on-disk dump directory or a ``HetGraph``
+    (``datasets.resolve``); the graph is schema-validated either way.
+    ``metapaths`` overrides the dataset's HAN metapath table (registry
+    datasets ship one, dumps may carry one in meta.json, an in-memory
+    ``HetGraph`` has none). The model's registry entry names its SGB kind:
+    metapath graphs (HAN), one graph per relation (RGAT) or one union
+    graph per node type (Simple-HGN). ``bucket_sizes`` selects the SGB
+    layout: a capacity list gives the degree-bucketed build (the default),
+    ``"auto"`` each graph's capacities from its own degree histogram
+    (``hetgraph.autotune_bucket_sizes``), ``None`` the flat ``(T, D_max)``
+    one. ``sgb_cache_dir`` (or ``$REPRO_SGB_CACHE``) loads a bucketed SGB
+    from the content-addressed artifact cache, or builds and saves it
+    there (``sgb_cache.build_or_load``). The model's parameters are drawn
+    on the CPU from a ``torch.Generator`` seeded with ``seed`` and then
+    moved, so the same seed gives the same weights on every device.
+    ``device`` defaults to the GPU and raises without one; pass
+    ``device="cpu"`` for the CPU. The reference's ``shards=`` waits for
+    the sharded layouts (ROADMAP §1 item 6).
     """
     dev = resolve_device(device)
     entry = get_entry(model_name)
-    g, mps = datasets.resolve(dataset, scale=scale, seed=seed)
-    sgb_kw = dict(max_degree=max_degree, seed=seed, bucket_sizes=bucket_sizes)
-    if entry.sgb_kind == "metapath":
+    g, ds_name, mps = datasets.resolve(dataset, scale=scale, seed=seed)
+    if metapaths is not None:
+        mps = metapaths
+    sgb_kw = dict(
+        max_degree=max_degree, seed=seed, bucket_sizes=bucket_sizes,
+        cache_dir=sgb_cache_dir,
+    )
+    if entry.needs_metapaths:
         if not mps:
             raise ValueError(
-                f"model {model_name!r} needs metapaths for dataset {dataset!r}"
+                f"model {model_name!r} needs metapaths for dataset "
+                f"{ds_name!r}: registry datasets define them; on-disk dumps "
+                "carry them in meta.json"
             )
-        built = hetgraph.build_metapath_graphs(g, mps, **sgb_kw)
-    elif entry.sgb_kind == "relation":
-        built = hetgraph.build_relation_graphs(g, **sgb_kw)
+        built, _ = sgb_cache.build_or_load(g, entry.sgb_kind, metapaths=mps, **sgb_kw)
     else:
-        built = hetgraph.build_union_graph(g, **sgb_kw)
+        built, _ = sgb_cache.build_or_load(g, entry.sgb_kind, **sgb_kw)
     # a union build is keyed by destination type, in node_types order
     sgs = list(built.values()) if isinstance(built, dict) else list(built)
     batch = GraphBatch.from_graph(g, sgs, dev)
@@ -247,7 +273,7 @@ def prepare(
     model.reset_parameters(torch.Generator().manual_seed(seed))
     model.to(dev)
     return HGNNTask(
-        name=f"{model_name}/{dataset}",
+        name=f"{model_name}/{ds_name}",
         model_name=model_name,
         model=model,
         graph=g,
@@ -258,6 +284,9 @@ def prepare(
         splits=_splits(g.num_nodes[g.label_type], seed),
         sgs=sgs,
         device=dev,
+        sgb_kind=entry.sgb_kind,
+        sgb_args=dict(max_degree=max_degree, seed=seed, bucket_sizes=bucket_sizes),
+        metapaths=dict(mps) if mps else None,
     )
 
 

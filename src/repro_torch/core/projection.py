@@ -8,6 +8,8 @@ from typing import Mapping, Tuple
 
 import torch
 
+from repro_torch.core.dtypes import matmul
+
 
 def glorot_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """In-place Glorot-uniform fill, fan-in the first dim and fan-out the
@@ -34,6 +36,6 @@ def project_features(
     outs = []
     for t in node_types:
         w, b = params[f"{prefix}proj.{t}.w"], params[f"{prefix}proj.{t}.b"]
-        h = features[t] @ w + b
+        h = matmul(features[t], w) + b
         outs.append(h.reshape(-1, heads, dh))
     return torch.cat(outs, dim=0)

@@ -39,6 +39,8 @@ def test_no_jax_or_reference_imports(tmp_path):
         assert port / sub / "__init__.py" in PORT_FILES, sub
     assert port / "kernels" / "topk_decode_attention" / "ops.py" in PORT_FILES
     assert port / "kernels" / "topk_select" / "ops.py" in PORT_FILES
+    for mod in ("data/datasets.py", "data/sgb_cache.py", "core/dtypes.py"):
+        assert port / mod in PORT_FILES, mod
     probe = tmp_path / "probe.py"
     probe.write_text(
         "import jax.numpy as jnp\nfrom repro.core import flows\n"
@@ -55,14 +57,20 @@ def test_no_jax_or_reference_imports(tmp_path):
     assert not bad, f"forbidden imports: {bad}"
 
 
-def test_cpu_forward_loads_neither_jax_nor_reference():
+def test_cpu_forward_loads_neither_jax_nor_reference(tmp_path):
     code = (
         "import sys\n"
         "from repro_torch.core import pipeline\n"
         "from repro_torch.core.flows import FlowConfig\n"
+        "from repro_torch.data import datasets, sgb_cache\n"
         "task = pipeline.prepare('han', 'acm', scale=0.03, device='cpu')\n"
         "out = task.compile(FlowConfig('fused_kernel', prune_k=4))(task.params)\n"
         "assert out.shape == (task.batch.num_targets, task.spec.num_classes)\n"
+        f"dump = datasets.save_hetgraph(task.graph, {str(tmp_path / 'dump')!r}, metapaths=task.metapaths)\n"
+        "for _ in range(2):\n"
+        "    t = pipeline.prepare('rgat', dump, bucket_sizes='auto', device='cpu',\n"
+        f"                         sgb_cache_dir={str(tmp_path / 'cache')!r})\n"
+        "    t.compile(FlowConfig('fused_kernel', prune_k=4))(t.params)\n"
         "from repro_torch.configs import get_config\n"
         "from repro_torch.models import build_model\n"
         "import torch\n"

@@ -95,6 +95,8 @@ def test_splits_identical(n):
 
 
 def _sgs_identical(jsgs, tsgs, layout):
+    """Semantic graphs table for table: flat tables (``layout=None``) or
+    the bucket tables of any bucketed build."""
     assert [sg.name for sg in jsgs] == [sg.name for sg in tsgs]
     for js, ts in zip(jsgs, tsgs):
         what = js.name
@@ -197,3 +199,75 @@ def test_relation_union_sgb_identical(tasks, ds, kind, layout, max_degree):
             _eq(getattr(jl, f), getattr(tl, f), f"{js.name}.grouped.{f}")
         for a, b in zip(jops.grouped_meta(jl, 8), tops.grouped_meta(tl, 8)):
             _eq(a, b, f"{js.name} meta")
+
+
+def _build_kind(hg, g, kind, ds, **kw):
+    if kind == "metapath":
+        from repro_torch.data.synthetic import METAPATHS
+
+        return hg.build_metapath_graphs(g, METAPATHS[ds], **kw)
+    return _build(hg, g, kind, **kw)
+
+
+@pytest.mark.parametrize("max_degree", (256, 64, None), ids=("cap256", "cap64", "uncapped"))
+@pytest.mark.parametrize("kind", ("metapath", "relation", "union"))
+@pytest.mark.parametrize("ds", DATASETS)
+def test_auto_sgb_identical(tasks, ds, kind, max_degree):
+    """``bucket_sizes="auto"``: the autotuned capacities, the bucket
+    tables, the grouped (8, 8) layouts and their K1/K2 metadata at K = 8,
+    array for array."""
+    jt, tt = tasks(ds, "default")
+    kw = dict(max_degree=max_degree, seed=0, bucket_sizes="auto")
+    jsgs, tsgs = _build_kind(jhg, jt.graph, kind, ds, **kw), _build_kind(thg, tt.graph, kind, ds, **kw)
+    _sgs_identical(jsgs, tsgs, "auto")
+    for js, ts in zip(jsgs, tsgs):
+        caps = thg.autotune_bucket_sizes(ts.degrees())
+        assert caps == jhg.autotune_bucket_sizes(js.degrees()), js.name
+        assert ts.bucket_capacities == tuple(c for c in caps if 0 < c < caps[-1]) + (caps[-1],), js.name
+        jl, tl = js.grouped(8, 8), ts.grouped(8, 8)
+        assert (jl.num_rows, jl.num_steps) == (tl.num_rows, tl.num_steps), js.name
+        for f in GROUPED_FIELDS:
+            _eq(getattr(jl, f), getattr(tl, f), f"{js.name}.grouped.{f}")
+        for a, b in zip(jops.grouped_meta(jl, 8), tops.grouped_meta(tl, 8)):
+            _eq(a, b, f"{js.name} meta")
+
+
+def test_unknown_bucket_sizes_spec_raises():
+    nbr = np.zeros((3, 4), np.int32)
+    msk = np.ones((3, 4), bool)
+    for hg in (jhg, thg):
+        with pytest.raises(ValueError, match="unknown bucket_sizes spec 'best'"):
+            hg.bucketize("g", ("x",), "x", nbr, msk, nbr, "best")
+
+
+@pytest.mark.parametrize("bucket_sizes", ("default", "auto"))
+@pytest.mark.parametrize("kind", ("metapath", "relation", "union"))
+@pytest.mark.parametrize("ds", DATASETS)
+def test_flat_views_and_statistics_identical(tasks, ds, kind, bucket_sizes):
+    """``to_flat``, the bucketed graph's flat views and its statistics, and
+    the flat graph's ``max_degree``, against the reference's; ``to_flat``
+    is edge for edge the flat build of the same graph; ``total_nodes``."""
+    jt, tt = tasks(ds, "default")
+    assert tt.graph.total_nodes == jt.graph.total_nodes == tt.batch.total_nodes
+    sizes = T_BUCKETS if bucket_sizes == "default" else "auto"
+    kw = dict(max_degree=256, seed=0)
+    jsgs = _build_kind(jhg, jt.graph, kind, ds, bucket_sizes=sizes, **kw)
+    tsgs = _build_kind(thg, tt.graph, kind, ds, bucket_sizes=sizes, **kw)
+    flats = _build_kind(thg, tt.graph, kind, ds, bucket_sizes=None, **kw)
+    for js, ts, tf in zip(jsgs, tsgs, flats):
+        what = js.name
+        jflat, tflat = js.to_flat(), ts.to_flat()
+        assert type(tflat) is thg.SemanticGraph, what
+        assert tflat.max_degree == jflat.max_degree == ts.max_degree == js.max_degree, what
+        assert tflat.num_edge_types == ts.num_edge_types, what
+        for f in ("nbr_idx", "nbr_mask", "edge_type"):
+            _eq(getattr(jflat, f), getattr(tflat, f), f"{what}.to_flat.{f}")
+            _eq(getattr(js, f), getattr(ts, f), f"{what}.{f} view")
+            assert getattr(ts, f) is getattr(tflat, f), f"{what}.{f}: the flat view is not cached"
+            # max_degree=256 caps the flat build as it caps the buckets
+            _eq(getattr(tf, f), getattr(tflat, f), f"{what}.{f} vs the flat build")
+        assert tf.max_degree == tflat.max_degree
+        _eq(js.degrees(), ts.degrees(), f"{what}.degrees")
+        _eq(ts.degrees(), tflat.degrees().astype(np.int64), f"{what}.degrees flat")
+        assert (ts.num_edges, ts.padded_slots()) == (js.num_edges, js.padded_slots()), what
+        assert tflat.padded_slots() == tflat.num_targets * tflat.max_degree >= ts.padded_slots(), what
