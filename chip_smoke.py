@@ -161,9 +161,37 @@ exits non-zero at the first phase that fails:
    its default one (held to their plain versions; device and event times,
    bounds) and each path's prepare seconds and captured forward times,
    auto beside default, printed with the card line;
-7. prints a ``train {...}`` line with the step times, the card line, then
-   the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}``
-   as the last line.
+7. serves RGAT on IMDB at ``scale=1.0``, ``max_degree=64`` (the setting
+   of the reference's ``benchmarks/serve_load.py`` and
+   ``examples/hgnn_serve.py``) through the serving front-end
+   (``repro_torch.serve``) over the captured ``fused_kernel`` K = 8
+   session, policy ``(1, 4, 8, 16)`` with a 2 ms flush timeout: 64
+   requests of 1-4 targets at once through an inline front-end and through
+   ``run_serial`` (rows bit for bit the full forward and each other, one
+   query call a block, fewer blocks than requests, no launch or NA
+   dispatch counter moving in a served window, the microbatched rate at
+   least twice the serial one with a mean batch of at least 8); the
+   device's busy share over the inline window and the double buffer in a
+   burst (from profiler traces: was block k + 1 dispatched before block
+   k's replay ended, did block k resolve before block k + 1's replay
+   ended, any pageable host-to-device copy); the threaded front-end on
+   paced Poisson arrivals at 2000 requests/s (rows bit for bit, both loop
+   threads ended after ``close``); two tenants, seeded and trained (30
+   steps), through one ``donate_params`` session and a streaming
+   ``WeightPlane`` (pinned snapshots; each tenant's rows bit for bit its
+   own forward); the primary failing for good behind a captured ``fused``
+   fallback (the breaker trips, every block is served by the fallback bit
+   for bit its forward, within 1e-4 of the primary's on rows no K-th-rank
+   tie reaches, none fails); a threaded front-end whose drain fails for
+   good (``close(timeout=0.5)`` returns, every future holds
+   ``ServeClosedError``, both threads end); ids -1 and num_targets raising
+   at ``submit`` before any launch, then a block served bit for bit;
+8. prints a ``train {...}`` line with the step times, a ``serve {...}``
+   line with the serving numbers (serial and microbatched wall time, QPS,
+   p50/p99, mean batch, pad fraction and blocks; the threaded p50/p99; the
+   busy share; the overlap counts), the card line, then the
+   ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
+   the last line.
 """
 from __future__ import annotations
 
@@ -215,6 +243,12 @@ CPU_CHECK_PROMPT = 2100  # > K = 2048: the global layer's retention domain drops
 TRAIN_STEPS, TRAIN_LR, TRAIN_CHECK_STEPS, TRAIN_TIMED = 200, 5e-3, 20, 20
 FIG9_KS = (2, 5, 10, 20, 50)
 TOL_TRAIN_LOSS, TOL_TRAIN_PARAMS = 1e-5, 1e-4
+# phase 7, the serving front-end: the reference's serve_load.py / hgnn_serve.py
+# setting (RGAT IMDB, max_degree 64, policy (1, 4, 8, 16) with a 2 ms flush
+# timeout, 64 requests of 1-4 targets, 2000 req/s paced, 30 training steps)
+SERVE_MAX_DEGREE, SERVE_CAPACITIES, SERVE_FLUSH = 64, (1, 4, 8, 16), 2e-3
+SERVE_REQUESTS, SERVE_RATE, SERVE_TRAIN_STEPS = 64, 2000.0, 30
+SERVE_REPEATS = 20  # each timed window replays the 64-request workload this many times
 
 
 def check(cond, msg: str) -> None:
@@ -2389,6 +2423,316 @@ def sgb_phase(pipeline, FlowConfig, ops, default_tasks, card, dev):
     return result
 
 
+def serve_trace(path: Path, window_ms: float) -> dict:
+    """Phase 7's reading of a Chrome trace of served blocks: the device's
+    busy time (the union of its kernel and copy intervals) over the host's
+    window, and, for each pair of consecutive blocks k, k + 1 (one
+    ``cudaGraphLaunch`` and one ``cudaEventSynchronize`` a block, in order;
+    a replay's kernels carry its launch's correlation id): whether block
+    k + 1's replay was launched before block k's replay ended on the card
+    (its host-to-device copy and dispatch did not wait for block k), and
+    whether block k's resolve returned before block k + 1's replay ended
+    (the resolve did not wait for block k + 1). Pageable host-to-device
+    copies in the window are counted: they can synchronize the stream."""
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy, end = 0.0, -float("inf")
+    for e in sorted(device, key=lambda e: e["ts"]):
+        lo, hi = e["ts"], e["ts"] + e.get("dur", 0)
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    runtime = sorted((e for e in events if e.get("cat") == "cuda_runtime"), key=lambda e: e["ts"])
+    launches = [e for e in runtime if e["name"].startswith("cudaGraphLaunch")]
+    syncs = [e for e in runtime if e["name"].startswith("cudaEventSynchronize")]
+    ends = {}
+    for e in device:
+        corr = (e.get("args") or {}).get("correlation")
+        ends[corr] = max(ends.get(corr, -float("inf")), e["ts"] + e.get("dur", 0))
+    replay_end = [ends.get((e.get("args") or {}).get("correlation")) for e in launches]
+    pairs = [k for k in range(len(launches) - 1) if replay_end[k] is not None and replay_end[k + 1] is not None]
+    out = {
+        "device_busy_ms": busy / 1e3 if device else None, "window_ms": window_ms,
+        "busy_share": busy / 1e3 / window_ms if device else None,
+        "graph_launches": len(launches), "event_syncs": len(syncs), "replays_traced": sum(r is not None for r in replay_end),
+        "pageable_h2d_copies": sum("Pageable" in e["name"] and "HtoD" in e["name"] for e in device),
+        "pinned_h2d_copies": sum("Pinned" in e["name"] and "HtoD" in e["name"] for e in device),
+    }
+    if not pairs or len(syncs) != len(launches):
+        out["overlap"] = "not measured (the trace holds no replay kernels by launch, or not one sync a block)"
+        return out
+    out["pairs"] = len(pairs)
+    out["next_dispatched_before_replay_end"] = sum(launches[k + 1]["ts"] < replay_end[k] for k in pairs)
+    out["resolved_before_next_replay_end"] = sum(
+        syncs[k]["ts"] + syncs[k].get("dur", 0) < replay_end[k + 1] for k in pairs)
+    return out
+
+
+def serve_phase(pipeline, FlowConfig, kernel_ops, dev):
+    """Phase 7: the serving front-end (``repro_torch.serve``) over the
+    captured ``fused_kernel`` session of RGAT on IMDB at ``scale=1.0``,
+    ``max_degree=64`` (the reference's ``benchmarks/serve_load.py`` and
+    ``examples/hgnn_serve.py`` setting), policy ``(1, 4, 8, 16)`` with a 2
+    ms flush timeout. Each timed window replays the reference's 64-request
+    workload ``SERVE_REPEATS`` times and reports over all its requests.
+    Replays are counted per session, so kernel #1's replayed launches
+    count only the ``fused_kernel`` sessions' forwards, not the ``fused``
+    fallback's. Every check raises; returns the results."""
+    import numpy as np
+    import torch
+
+    from repro_torch import serve
+    from repro_torch.core import flows
+
+    ops = kernel_ops[0]
+    res = {}
+    task = pipeline.prepare("rgat", "imdb", scale=SCALE, max_degree=SERVE_MAX_DEGREE, seed=0, device=dev)
+    flow = FlowConfig("fused_kernel", prune_k=PRUNE_K)
+    want = expected_launches(task.sgs, "bucketed", PRUNE_K, task.model.num_layers, ops)
+    sess, logits, launches = captured_session(task, flow, want, "serve/rgat/imdb", ops, dev)
+    cpu_task = pipeline.prepare("rgat", "imdb", scale=SCALE, max_degree=SERVE_MAX_DEGREE, seed=0,
+                                device=torch.device("cpu"))
+    err = float((logits.cpu() - cpu_task.compile(flow)(cpu_task.params)).abs().max())
+    check(bool(torch.isfinite(logits).all()) and err <= TOL_LOGITS, f"serve: GPU logits differ from the CPU by {err:.3g}")
+    full = logits.cpu().numpy()
+    n = sess.out_shape[0]
+    per_forward = launches["prune_aggregate"]
+    policy = serve.BatchPolicy(SERVE_CAPACITIES, flush_timeout=SERVE_FLUSH)
+    res["path"] = {"launches": launches, "logits_shape": list(logits.shape), "max_abs_err_vs_cpu": err,
+                   "captured_bitwise_eager": 3}
+
+    def counters():
+        return [dict(m.LAUNCHES) for m in kernel_ops], dict(flows.DISPATCH)
+
+    # the sessions a served window may replay, by flow, and their replays
+    # over every served window
+    sessions = {"fused_kernel": [sess], "fused": []}
+    replays = {flow: 0 for flow in sessions}
+
+    def served_window(run):
+        """``run()`` with the launch counters at 0 and the dispatch
+        counters read around it: no launch and no NA dispatch (replays
+        only), and one replay of a tracked session a query call; adds the
+        replays to ``replays`` by flow and returns run's result and the
+        query calls it made."""
+        for m in kernel_ops:
+            reset_launches(m)
+        before = dict(flows.DISPATCH)
+        start = {flow: sum(x.forwards for x in xs) for flow, xs in sessions.items()}
+        out = run()
+        sync(dev)
+        launched, after = counters()
+        check(all(v == 0 for m in launched for v in m.values()), f"serve: a served window launched {launched}")
+        moved = {k: after[k] - before[k] for k in after if k != "query_calls" and after[k] != before[k]}
+        check(not moved, f"serve: a served window entered NA dispatch {moved}")
+        q = after["query_calls"] - before["query_calls"]
+        by_flow = {flow: sum(x.forwards for x in xs) - start[flow] for flow, xs in sessions.items()}
+        check(sum(by_flow.values()) == q, f"serve: {q} query calls in a window, but replays {by_flow}")
+        for flow, r in by_flow.items():
+            replays[flow] += r
+        return out, q
+
+    def bit_exact(futs, wl, table, what):
+        for w, f in zip(wl, futs):
+            rows = f.result(60)
+            check(isinstance(rows, np.ndarray) and np.array_equal(rows, table[w.targets]),
+                  f"serve: {what}: a future's rows differ from the full forward's")
+
+    def summary(stats, wall_s):
+        s = stats.summary()
+        return {"wall_s": wall_s, "qps": s["qps"], "qps_wall": s["requests"] / wall_s, "p50_ms": s["p50_ms"],
+                "p99_ms": s["p99_ms"], "mean_batch": s["mean_batch"], "pad_fraction": s["pad_fraction"],
+                "blocks": s["blocks"], "requests": s["requests"], "repeats": SERVE_REPEATS}
+
+    def repeated(fe, wl):
+        """The workload through ``fe`` ``SERVE_REPEATS`` times, each run
+        drained before the next; the futures of all runs, in order."""
+        return [f for _ in range(SERVE_REPEATS) for f in serve.run_workload(fe, wl)]
+
+    # inline, saturation: serial (one padded block a request) vs microbatched
+    wl = serve.make_workload(SERVE_REQUESTS, n, rate=None, size_range=(1, 4), seed=0)
+    wl_r = list(wl) * SERVE_REPEATS
+    for rep in range(2):  # the first pass warms the pinned pools; the second is reported
+        t0 = time.perf_counter()
+        (serial_rows, serial_stats), q = served_window(
+            lambda: serve.run_serial(sess, task.params, wl_r, policy, serve.SystemClock()))
+        serial_s = time.perf_counter() - t0
+        check(q == len(wl_r), f"serve: the serial loop made {q} query calls for {len(wl_r)} requests")
+        for w, rows in zip(wl_r, serial_rows):
+            check(np.array_equal(rows, full[w.targets]), "serve: a serial row differs from the full forward's")
+        fe = serve.ServeFrontend(sess, task.params, policy=policy, clock=serve.SystemClock(),
+                                 executor=serve.InlineExecutor())
+        t0 = time.perf_counter()
+        futs, q = served_window(lambda: repeated(fe, wl))
+        micro_s = time.perf_counter() - t0
+        bit_exact(futs, wl_r, full, "inline")
+        for f, rows in zip(futs, serial_rows):
+            check(np.array_equal(f.result(0), rows), "serve: a microbatched row differs from the serial loop's")
+        check(q == fe.stats.blocks < len(wl_r), f"serve: {q} query calls for {fe.stats.blocks} blocks")
+    res["serial"] = summary(serial_stats, serial_s)
+    res["microbatched"] = summary(fe.stats, micro_s)
+    res["speedup_qps"] = res["microbatched"]["qps"] / res["serial"]["qps"]
+    check(res["speedup_qps"] >= 2.0 and res["microbatched"]["mean_batch"] >= 8.0,
+          f"serve: microbatched {res['microbatched']['qps']:.0f} QPS against serial {res['serial']['qps']:.0f} "
+          f"(need 2x), mean batch {res['microbatched']['mean_batch']:.2f} (need 8)")
+    print(f"  serve rgat/imdb (max_degree {SERVE_MAX_DEGREE}), {len(wl)} requests at once, {SERVE_REPEATS} times: serial "
+          f"{res['serial']['qps']:.0f} QPS ({res['serial']['blocks']} blocks), microbatched "
+          f"{res['microbatched']['qps']:.0f} QPS ({res['microbatched']['blocks']} blocks, mean batch "
+          f"{res['microbatched']['mean_batch']:.2f}), {res['speedup_qps']:.2f}x; rows bitwise the full forward, "
+          "no launch or NA dispatch in the window")
+
+    # the device's busy share over the inline microbatched window (the
+    # profiled window itself), and the double buffer in bursts each drained
+    # by one pump (blocks back to back)
+    from torch.profiler import ProfilerActivity, profile
+
+    trace_dir = ROOT / "build"
+    trace_dir.mkdir(exist_ok=True)
+    for name, burst in (("window", False), ("burst", True)):
+        fe = serve.ServeFrontend(sess, task.params, policy=policy, clock=serve.SystemClock(),
+                                 executor=serve.InlineExecutor())
+
+        def run(fe=fe, burst=burst):
+            if not burst:
+                return repeated(fe, wl)
+            futs = []
+            for _ in range(SERVE_REPEATS):
+                futs += [fe.submit(w.targets) for w in wl]
+                fe.flush()
+            return futs
+
+        sync(dev)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            futs, _ = served_window(run)
+            window_ms = (time.perf_counter() - t0) * 1e3
+        bit_exact(futs, wl_r, full, f"profiled {name}")
+        path = trace_dir / f"serve_trace_{name}.json"
+        prof.export_chrome_trace(str(path))
+        res[f"trace_{name}"] = dict(serve_trace(path, window_ms), blocks=fe.stats.blocks, repeats=SERVE_REPEATS)
+        print(f"  serve trace, {name}: " + json.dumps(res[f"trace_{name}"]))
+    # an estimate, not a measurement of one window: the profiled run's
+    # device time over the wall time of the unprofiled run of the same
+    # traffic (the profiler slows the host, not the card)
+    busy = res["trace_window"]["device_busy_ms"]
+    res["busy_share_estimate"] = None if busy is None else busy / (res["microbatched"]["wall_s"] * 1e3)
+
+    # threaded: paced Poisson arrivals
+    wl_t = serve.make_workload(SERVE_REQUESTS, n, rate=SERVE_RATE, size_range=(1, 4), seed=0)
+    fe = serve.ServeFrontend(sess, task.params, policy=policy, clock=serve.SystemClock(),
+                             executor=serve.ThreadExecutor())
+
+    def threaded():
+        with fe:
+            futs = repeated(fe, wl_t)
+            bit_exact(futs, wl_t * SERVE_REPEATS, full, "threaded")
+        return futs
+
+    t0 = time.perf_counter()
+    served_window(threaded)
+    res["threaded"] = summary(fe.stats, time.perf_counter() - t0)
+    for t in fe.executor.threads:
+        t.join(5.0)
+    check(not any(t.is_alive() for t in fe.executor.threads), "serve: a loop thread outlived close")
+    print(f"  serve threaded, {len(wl_t)} requests at {SERVE_RATE:.0f}/s, {SERVE_REPEATS} times: p50 {res['threaded']['p50_ms']:.3f} ms, "
+          f"p99 {res['threaded']['p99_ms']:.3f} ms, {res['threaded']['blocks']} blocks; both threads ended")
+
+    # two tenants through one donate_params session, weights streamed
+    trained = pipeline.train_hgnn(task, steps=SERVE_TRAIN_STEPS, lr=TRAIN_LR)
+    sess_d = task.compile(flow, donate_params=True)
+    check(sess_d.captured and sess_d.donate_params and sess_d is not sess, "serve: no captured donate_params session")
+    sessions["fused_kernel"].append(sess_d)
+    tables = {"init": sess_d(task.params).cpu().numpy(), "trained": sess_d(trained).cpu().numpy()}
+    check(np.array_equal(tables["init"], full) and np.array_equal(tables["trained"], sess(trained).cpu().numpy()),
+          "serve: the donate_params session's forward differs from the primary's")
+    check(not np.array_equal(tables["init"], tables["trained"]), "serve: training did not change the logits")
+    plane = serve.WeightPlane(task.params, stream=True)
+    plane.publish("init", task.params)
+    plane.publish("trained", trained)
+    check(all(t.is_pinned() for t in plane._versions["trained"].values()), "serve: a streamed snapshot is not pinned")
+    wl_2 = serve.make_workload(SERVE_REQUESTS, n, tenants=("init", "trained"), seed=9)
+    fe = serve.ServeFrontend(sess_d, plane, policy=policy, clock=serve.SystemClock(), executor=serve.InlineExecutor())
+    futs, _ = served_window(lambda: serve.run_workload(fe, wl_2))
+    for w, f in zip(wl_2, futs):
+        check(np.array_equal(f.result(0), tables[w.tenant][w.targets]), f"serve: tenant {w.tenant}'s rows differ")
+    res["tenants"] = {"requests": len(wl_2), "blocks": fe.stats.blocks,
+                      "by_tenant": {t: sum(w.tenant == t for w in wl_2) for t in ("init", "trained")}}
+    print(f"  serve two tenants (init, trained {SERVE_TRAIN_STEPS} steps), streamed from pinned memory through one "
+          f"donate_params session: {fe.stats.blocks} blocks, each tenant's rows bitwise its own forward")
+
+    # degradation: the primary fails for good, the breaker routes to a
+    # captured fused fallback, prewarmed by the front-end
+    fallback = task.compile(FlowConfig("fused", prune_k=PRUNE_K))
+    check(fallback.captured, "serve: the fallback session is not captured")
+    sessions["fused"].append(fallback)
+    fb_full = fallback(task.params).cpu().numpy()
+    n_ties, reached = tie_rows(task, task.params, PRUNE_K, FlowConfig)
+    reached = reached.cpu().numpy()
+    plan = serve.FaultPlan()
+    plan.fail("dispatch", RuntimeError("injected primary failure"), engine="primary", times=None)
+    fe = serve.ServeFrontend(sess, task.params, policy=policy, clock=serve.SystemClock(),
+                             executor=serve.InlineExecutor(), fallback=fallback, faults=plan,
+                             supervisor=serve.SupervisorPolicy(max_retries=0, breaker_threshold=2))
+    check(sorted(fallback.query_capacities) == list(SERVE_CAPACITIES), "serve: the fallback ladder is not prewarmed")
+    kernel_replays = replays["fused_kernel"]
+    futs, _ = served_window(lambda: serve.run_workload(fe, wl))
+    check(replays["fused_kernel"] == kernel_replays and replays["fused"] == fe.stats.fallback_blocks,
+          f"serve: the degraded window replayed {replays}, {fe.stats.fallback_blocks} fallback blocks")
+    d_primary = 0.0
+    for w, f in zip(wl, futs):
+        check(f.exception(0) is None and f.via == "fallback", f"serve: a degraded future: {f.exception(0)!r}, {f.via}")
+        check(np.array_equal(f.result(0), fb_full[w.targets]), "serve: a degraded row differs from the fallback's")
+        keep = ~reached[w.targets]
+        if keep.any():
+            d_primary = max(d_primary, float(np.abs(f.result(0)[keep] - full[w.targets][keep]).max()))
+    check(d_primary <= TOL_LOGITS, f"serve: fallback rows differ from the primary's by {d_primary:.3g}")
+    check(fe.breaker.trips >= 1 and fe.stats.failed == 0, f"serve: trips {fe.breaker.trips}, failed {fe.stats.failed}")
+    res["degraded"] = {"blocks": fe.stats.blocks, "fallback_blocks": fe.stats.fallback_blocks,
+                       "trips": fe.breaker.trips, "max_abs_diff_vs_primary": d_primary, "na_tie_rows": n_ties,
+                       "tie_reached_logit_rows": int(reached.sum())}
+    print(f"  serve degraded: breaker tripped {fe.breaker.trips}x, {fe.stats.fallback_blocks} blocks via the "
+          f"fallback, rows bitwise its forward, {d_primary:.3g} from the primary's ({n_ties} NA tie rows)")
+
+    # a wedged threaded front-end over the card session: close ends both threads
+    plan = serve.FaultPlan()
+    plan.fail("drain", RuntimeError("wedged drain"), times=None)
+    fe = serve.ServeFrontend(sess, task.params, policy=policy, clock=serve.SystemClock(),
+                             executor=serve.ThreadExecutor(), faults=plan).start()
+    futs = [fe.submit(w.targets) for w in wl[:8]]
+    t0 = time.perf_counter()
+    fe.close(timeout=0.5)
+    close_s = time.perf_counter() - t0
+    check(all(isinstance(f.exception(0), serve.ServeClosedError) for f in futs),
+          "serve: a wedged front-end's future does not hold ServeClosedError")
+    for t in fe.executor.threads:
+        t.join(1.0)
+    check(not any(t.is_alive() for t in fe.executor.threads), "serve: a wedged front-end's thread outlived close")
+    res["wedged_close"] = {"close_s": close_s, "collector_errors": fe.health().collector_errors}
+    print(f"  serve wedged: close(timeout=0.5) returned in {close_s:.2f} s, 8 futures ServeClosedError, both threads "
+          f"ended, {fe.health().collector_errors} failed drains (backed off)")
+
+    # bad ids raise at submit, before any launch; the context serves on
+    fe = serve.ServeFrontend(sess, task.params, policy=policy, clock=serve.SystemClock(),
+                             executor=serve.InlineExecutor())
+
+    def bad_then_good():
+        for bad in ([-1], [n]):
+            try:
+                fe.submit(bad)
+            except IndexError:
+                continue
+            raise AssertionError(f"serve: submit({bad}) did not raise IndexError")
+        check(len(fe.queue) == 0, "serve: a bad request was queued")
+        f = fe.submit([n - 1, 0, 1])
+        fe.flush()
+        return f
+
+    f, _ = served_window(bad_then_good)
+    check(np.array_equal(f.result(0), full[[n - 1, 0, 1]]), "serve: the block after the bad ids differs")
+    res["replayed_forwards"] = dict(replays)
+    res["replayed_launches"] = replays["fused_kernel"] * per_forward
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2555,6 +2899,15 @@ def main() -> int:
     phase_s["6"] = time.perf_counter() - t_phase
     print(f"phase 6: wall time {phase_s['6']:.1f} s")
 
+    # phase 7: the serving front-end
+    t_phase = time.perf_counter()
+    print(f"phase 7: the serving front-end (repro_torch.serve) on RGAT IMDB at scale={SCALE}, "
+          f"max_degree={SERVE_MAX_DEGREE}, policy {SERVE_CAPACITIES}")
+    served = serve_phase(pipeline, FlowConfig, (ops, tda_ops, ts_ops), dev)
+    results["serve/rgat/imdb"] = served["path"]
+    phase_s["7"] = time.perf_counter() - t_phase
+    print(f"phase 7: wall time {phase_s['7']:.1f} s")
+
     kernels = []
     for key, line, lib in KERNELS:
         bound_ms, bound_by, nbytes, nops = bounds[key]
@@ -2580,6 +2933,8 @@ def main() -> int:
             "shapes": (s_flat if key.startswith("flat_") else shapes)["graph"],
             "check": CHECKS[key.removeprefix("flat_")],
         })
+        if key == "prune_aggregate":
+            kernels[-1]["replayed_launches_phase7"] = served["replayed_launches"]
     wide_rows = (("prune_wide", "prune", KERNELS[0][1]), ("prune_aggregate_wide", "prune_aggregate", KERNELS[2][1]),
                  ("flat_prune_wide", "flat_prune", KERNELS[3][1]),
                  ("flat_prune_aggregate_wide", "flat_prune_aggregate", KERNELS[5][1]))
@@ -2663,13 +3018,26 @@ def main() -> int:
         "decode_k1_tie_rows": {"phase2_cases": dec_ties, "phase2_tie_cases": tie_cases,
                                "main_path": lm_result["tie_rows"]},
         "pruner_times_ms": t_ts, "forward_ms": fwd, "forward_latency_ms": latency, "profiles": prof,
-        "train": train, "sgb": sgb, "kernels": kernels, "phase_wall_s": phase_s,
+        "train": train, "sgb": sgb, "serve": served, "kernels": kernels, "phase_wall_s": phase_s,
     }, indent=1))
     print(f"  full report: {REPORT.relative_to(ROOT)}; wall time {time.perf_counter() - t_start:.1f} s, by phase (s) "
           + json.dumps({k: round(v, 1) for k, v in phase_s.items()}))
     print("train " + json.dumps({model: {
         key: r[key] for key in ("step_ms_captured", "step_ms_eager", "first_step_ms", "device_busy_share")
     } for model, r in train.items()}))
+    print("serve " + json.dumps({
+        "path": f"rgat/imdb scale={SCALE} max_degree={SERVE_MAX_DEGREE} fused_kernel K={PRUNE_K}, policy "
+                f"{list(SERVE_CAPACITIES)}",
+        "serial": served["serial"], "microbatched": served["microbatched"], "speedup_qps": served["speedup_qps"],
+        "threaded": {k: served["threaded"][k] for k in ("p50_ms", "p99_ms", "blocks", "mean_batch")},
+        "busy_share_inline_window": {"profiled": served["trace_window"]["busy_share"],
+                                     "estimate_traced_busy_over_unprofiled_window": served["busy_share_estimate"]},
+        "replayed_forwards": served["replayed_forwards"],
+        "overlap_burst": {k: served["trace_burst"].get(k) for k in (
+            "pairs", "next_dispatched_before_replay_end", "resolved_before_next_replay_end", "overlap",
+            "pageable_h2d_copies")},
+        "card": card,
+    }))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

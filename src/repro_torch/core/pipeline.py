@@ -7,7 +7,7 @@ a ``HetGraph`` (``data.datasets.resolve``), and the SGB goes through the
 artifact cache (``data.sgb_cache.build_or_load``). The returned
 ``HGNNTask`` serves inference through ``task.compile(flow)``, an
 :class:`~repro_torch.core.session.InferenceSession` cached per flow,
-device and parameter names, shapes and dtypes, and trains through
+device, parameter names, shapes and dtypes and ``donate_params``, and trains through
 ``train_hgnn``: full-batch cross-entropy on the train split and AdamW, one
 :class:`TrainStep` cached per (flow, lr, weight decay), which on a CUDA
 task is one captured CUDA graph (the reference's jitted step).
@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 from typing import Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
@@ -51,26 +52,54 @@ class HGNNTask:
     metapaths: Optional[Dict[str, Sequence[str]]] = None
     _sessions: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
     _steps: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+    _warned_logits: bool = dataclasses.field(default=False, repr=False, compare=False)
 
     @property
     def num_edges(self) -> int:
         return int(sum(sg.num_edges for sg in self.sgs))
 
-    def compile(self, flow: FlowConfig = FlowConfig(), params=None) -> InferenceSession:
+    def logits(self, params, flow: FlowConfig = FlowConfig()) -> torch.Tensor:
+        """DEPRECATED shim over ``model.apply(params, batch, flow)``, as the
+        reference keeps it: bit for bit ``model.apply``, with one
+        ``DeprecationWarning`` per task. New code calls
+        ``task.model.apply(params, task.batch, flow)`` for one forward or
+        ``task.compile(flow)`` for repeated inference."""
+        if not self._warned_logits:
+            self._warned_logits = True
+            warnings.warn(
+                "HGNNTask.logits is deprecated: use "
+                "task.model.apply(params, task.batch, flow) or "
+                "task.compile(flow)",
+                DeprecationWarning,
+                stacklevel=2,
+            )
+        return self.model.apply(params, self.batch, flow)
+
+    def compile(
+        self, flow: FlowConfig = FlowConfig(), params=None, donate_params: bool = False
+    ) -> InferenceSession:
         """The serving entry: one session per (flow, device, parameter
-        names with their shapes and dtypes), cached on the task, so repeated
-        calls (``accuracy`` over splits, a serving loop) share one program.
-        ``params`` only gives the example the session is built against
-        (default: the task's own). The reference also keys on the mesh,
-        which is not ported yet (ROADMAP §1 item 7), and takes
-        ``donate_params``, which waits for ``serve/`` (§1 item 4), its only
-        caller there."""
+        names with their shapes and dtypes, ``donate_params``), cached on the
+        task, so repeated calls (``accuracy`` over splits, a serving loop)
+        share one program. ``params`` only gives the example the session is
+        built against (default: the task's own); ``donate_params`` marks a
+        session for weight streaming (``InferenceSession``), a second handle
+        on the program of the session that differs only in it, where that
+        one is cached already. The reference
+        also keys on the mesh, which waits for the sharded layouts (ROADMAP
+        §1 item 6)."""
         if params is None:
             params = self.params
-        key = (flow, self.device, param_spec(params))
+        key = (flow, self.device, param_spec(params), bool(donate_params))
         sess = self._sessions.get(key)
         if sess is None:
-            sess = InferenceSession(self.model, self.batch, flow, params=params)
+            twin = self._sessions.get(key[:3] + (not key[3],))
+            if twin is not None:
+                sess = twin.with_donation(donate_params)
+            else:
+                sess = InferenceSession(
+                    self.model, self.batch, flow, params=params, donate_params=donate_params
+                )
             self._sessions[key] = sess
         return sess
 

@@ -21,7 +21,20 @@ example ``params``:
 
 The program is specialized to the example params' names, shapes and
 dtypes: a params mapping that differs in any of them raises
-``ValueError``, never a silent recapture. Entry points:
+``ValueError``, never a silent recapture.
+
+A captured session is shared state: every call copies into the same static
+inputs and replays into the same static output. So a call runs copy →
+replay → read-out (the clone or the gather) under the session's lock, on
+the caller's current stream, and when that stream is not the one the
+previous call ran on, it first waits for that one: replays of one session
+are serialized on the card whichever threads and streams call it, and a
+caller that stays on one stream (the serving front-end's stepper) pays no
+cross-stream wait. Host query ids go to the card through pinned memory,
+asynchronously: a call does not wait for an earlier call's forward.
+``forwards`` counts the forwards run through this session object (graph
+replays on a CUDA batch).
+Entry points:
 
   * ``session(params)`` — ``(num_targets, num_classes)`` logits, a fresh
     tensor: a call never writes to a caller's tensor, and a later call
@@ -39,9 +52,21 @@ dtypes: a params mapping that differs in any of them raises
 
 ``params`` is a flat mapping of parameter name to tensor, as
 ``dict(model.named_parameters())`` gives it.
+
+``donate_params=True`` marks a session for weight streaming
+(``serve.WeightPlane(stream=True)`` hands it fresh tensors per call). A
+CUDA graph cannot take a caller's buffers, so the session copies the params
+into its static inputs, as every session does, and keeps no reference to
+them. The reference's donation also invalidates the caller's arrays; that
+has no counterpart here: the caller's tensors stay valid. So the flag
+changes no program: ``with_donation`` gives a second handle on the same
+captured graph, static buffers and lock (``HGNNTask.compile`` uses it), and
+only the serving front-end reads the flag.
 """
 from __future__ import annotations
 
+import copy
+import threading
 from typing import Callable, List, Mapping, Optional, Sequence, Tuple
 
 import torch
@@ -63,6 +88,14 @@ def _gather(out: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.index_select(0, idx)
 
 
+class _Serial:
+    """What orders the calls of one captured program, shared by every
+    handle on it: the lock and the stream the last call ran on."""
+
+    def __init__(self, stream: torch.cuda.Stream):
+        self.lock, self.stream = threading.Lock(), stream
+
+
 class InferenceSession:
     """One model forward over one batch under one flow, built once (a CUDA
     graph on a CUDA batch) and served many times."""
@@ -73,17 +106,30 @@ class InferenceSession:
         batch: GraphBatch,
         flow: FlowConfig = FlowConfig(),
         params: Optional[Mapping[str, torch.Tensor]] = None,
+        donate_params: bool = False,
     ):
         if params is None:
             raise ValueError("InferenceSession needs example params to build its program against")
         self.model = model
         self.graph_batch = batch
         self.flow = flow
+        self.donate_params = bool(donate_params)
         self._spec = param_spec(params)
         self._capacities: set = set()
         self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self.forwards = 0
         if batch.device.type == "cuda":
             self._capture(params)
+            self._serial = _Serial(torch.cuda.current_stream(batch.device))
+
+    def with_donation(self, donate_params: bool) -> "InferenceSession":
+        """A handle on this session's program (its graph, static buffers and
+        lock) whose ``donate_params`` is the one given; its query ladder
+        and ``forwards`` start empty."""
+        other = copy.copy(self)
+        other.donate_params = bool(donate_params)
+        other._capacities, other.forwards = set(), 0
+        return other
 
     def _capture(self, params) -> None:
         """Static inputs, one eager warm-up forward on a side stream, then
@@ -114,24 +160,31 @@ class InferenceSession:
                 f"shape or dtype differs for {sorted(n for n in set(want) & set(have) if want[n] != have[n])}"
             )
 
-    def _forward(self, params) -> torch.Tensor:
-        """The forward's output: the graph's static output after a replay
-        (valid until the next replay), or a fresh eager result."""
+    def _run(self, params, read_out: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+        """``read_out(forward output)``: on a captured session, the copy of
+        ``params`` into the static inputs, the replay and ``read_out`` run on
+        the caller's stream under the session's lock, after the stream of
+        the previous call (module docstring); otherwise the eager forward,
+        then ``read_out``."""
         self._check(params)
         with torch.inference_mode():
             if self._graph is None:
-                return self.model.apply(params, self.graph_batch, self.flow)
-            torch._foreach_copy_(self._inputs, [params[n] for n in self._names])
-            self._graph.replay()
-            return self._out
+                self.forwards += 1
+                return read_out(self.model.apply(params, self.graph_batch, self.flow))
+            serial = self._serial
+            with serial.lock:
+                stream = torch.cuda.current_stream(self.graph_batch.device)
+                if stream != serial.stream:
+                    stream.wait_stream(serial.stream)
+                    serial.stream = stream
+                torch._foreach_copy_(self._inputs, [params[n] for n in self._names])
+                self._graph.replay()
+                self.forwards += 1
+                return read_out(self._out)
 
     def __call__(self, params) -> torch.Tensor:
         """(num_targets, num_classes) logits, a tensor of the caller's own."""
-        out = self._forward(params)
-        if self._graph is None:
-            return out
-        with torch.inference_mode():
-            return out.clone()
+        return self._run(params, lambda out: out if self._graph is None else out.clone())
 
     def batch(self, params_list: Sequence) -> List[torch.Tensor]:
         """One forward per parameter set (an ensemble, A/B weights), each
@@ -169,12 +222,17 @@ class InferenceSession:
             if lo < 0 or hi >= n:
                 bad = idx[(idx < 0) | (idx >= n)].tolist()
                 raise IndexError(f"query ids outside [0, {n}): {bad}")
-        idx = idx.to(self.graph_batch.device)
         gather = self.compile_query(idx.shape[0])
-        out = self._forward(params)
+        dev = self.graph_batch.device
+        if dev.type == "cuda" and idx.device.type == "cpu":
+            idx = idx.pin_memory()  # an asynchronous copy, on the caller's stream
+
+        def read_out(out):
+            return gather(out, idx.to(dev, non_blocking=True))
+
+        rows = self._run(params, read_out)
         flows.DISPATCH["query_calls"] += 1
-        with torch.inference_mode():
-            return gather(out, idx)
+        return rows
 
     def prewarm(self, capacities: Sequence[int]) -> "InferenceSession":
         """Record every capacity of a query ladder. Returns self."""

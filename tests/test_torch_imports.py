@@ -1,7 +1,7 @@
-"""Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the reference package ``repro`` (the machine
-with the GPU has no JAX, and the port keeps its own copy of what it
-needs)."""
+"""Import hygiene of the port: ``repro_torch`` (its ``serve/`` included) and
+``chip_smoke.py`` import neither JAX nor anything of the reference package
+``repro`` (the machine with the GPU has no JAX, and the port keeps its own
+copy of what it needs, the JAX-free ``repro.serve`` modules too)."""
 import ast
 import os
 import subprocess
@@ -35,8 +35,10 @@ def test_no_jax_or_reference_imports(tmp_path):
     assert len(PORT_FILES) > 10
     assert (ROOT / "chip_smoke.py").is_file()
     port = ROOT / "src" / "repro_torch"
-    for sub in ("core", "data", "kernels", "configs", "layers", "models", "launch"):
+    for sub in ("core", "data", "kernels", "configs", "layers", "models", "launch", "serve"):
         assert port / sub / "__init__.py" in PORT_FILES, sub
+    for mod in ("clock", "faults", "frontend", "health", "load", "plane", "queueing"):
+        assert port / "serve" / f"{mod}.py" in PORT_FILES, mod
     assert port / "kernels" / "topk_decode_attention" / "ops.py" in PORT_FILES
     assert port / "kernels" / "topk_select" / "ops.py" in PORT_FILES
     for mod in ("data/datasets.py", "data/sgb_cache.py", "core/dtypes.py"):
@@ -71,6 +73,12 @@ def test_cpu_forward_loads_neither_jax_nor_reference(tmp_path):
         "    t = pipeline.prepare('rgat', dump, bucket_sizes='auto', device='cpu',\n"
         f"                         sgb_cache_dir={str(tmp_path / 'cache')!r})\n"
         "    t.compile(FlowConfig('fused_kernel', prune_k=4))(t.params)\n"
+        "from repro_torch import serve\n"
+        "fe = serve.ServeFrontend(task.compile(FlowConfig('fused_kernel', prune_k=4)), task.params,\n"
+        "                         clock=serve.FakeClock(), executor=serve.InlineExecutor())\n"
+        "wl = serve.make_workload(9, task.batch.num_targets, seed=0)\n"
+        "futs = serve.run_workload(fe, wl)\n"
+        "assert all(f.result(0).shape == (len(w.targets), task.spec.num_classes) for w, f in zip(wl, futs))\n"
         "from repro_torch.configs import get_config\n"
         "from repro_torch.models import build_model\n"
         "import torch\n"
