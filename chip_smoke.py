@@ -186,12 +186,37 @@ exits non-zero at the first phase that fails:
    good (``close(timeout=0.5)`` returns, every future holds
    ``ServeClosedError``, both threads end); ids -1 and num_targets raising
    at ``submit`` before any launch, then a block served bit for bit;
-8. prints a ``train {...}`` line with the step times, a ``serve {...}``
+8. serves ego subgraphs (``session.query_ego``) in the setting of the
+   reference's ``benchmarks/serve_ego.py``, grown to IMDB at ``scale=1.0``,
+   ``max_degree=64``, K = 8, ``enable_ego(seed=0, sample_sizes=(1, 4))``,
+   32 seeded queries of 1 and 4 targets, HAN (depth 1), RGAT (3) and
+   Simple-HGN (2) on captured ``fused_kernel`` sessions. A first pass
+   captures one CUDA graph per ego signature: kernel #2's launches must be
+   2 (warm-up and capture) per layer and ego table wider than K of each
+   captured signature, and HAN's ego globals (its β over the full graph)
+   add kernel #1's launches of one forward once. A second pass replays:
+   no program built, no launch or NA dispatch counter moving, every query
+   an ego call or a counted fallback, every row within 1e-5 of the
+   captured full forward, bit for bit the eager ego forward on the card on
+   the same ego batch, which is within 1e-4 of the port's CPU ego forward
+   (the plain versions). Then the overflow (capacities (1,): a counted
+   fallback, bit for bit ``session.query``), ids -1 and ``num_targets``
+   raising ``IndexError`` before any launch, then a good query; the front-
+   end with ``BatchPolicy((1, 4, 8, 16), 2 ms, ego=True)`` on RGAT serving
+   phase 7's 64-request workload inline (on a fake clock, so the served
+   window meets the warm-up's blocks): rows within 1e-5, query calls equal
+   to the fallbacks, no launch in the served window; per query, medians of
+   20 repeats, ``query_ego`` against ``query`` (host extraction, the
+   replay's device time, wall time, rows and bytes read), the ego graphs
+   captured and the memory their private pools hold; and HAN at
+   ``scale=1.0`` and 4.0 (rows a query must grow at most half as fast as
+   the graph);
+9. prints a ``train {...}`` line with the step times, a ``serve {...}``
    line with the serving numbers (serial and microbatched wall time, QPS,
    p50/p99, mean batch, pad fraction and blocks; the threaded p50/p99; the
-   busy share; the overlap counts), the card line, then the
-   ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
-   the last line.
+   busy share; the overlap counts), an ``ego {...}`` line with phase 8's
+   numbers, the card line, then the ``{"kernels": [...]}`` line, then
+   ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
 
@@ -249,6 +274,12 @@ TOL_TRAIN_LOSS, TOL_TRAIN_PARAMS = 1e-5, 1e-4
 SERVE_MAX_DEGREE, SERVE_CAPACITIES, SERVE_FLUSH = 64, (1, 4, 8, 16), 2e-3
 SERVE_REQUESTS, SERVE_RATE, SERVE_TRAIN_STEPS = 64, 2000.0, 30
 SERVE_REPEATS = 20  # each timed window replays the 64-request workload this many times
+# phase 8, ego subgraphs: the reference's serve_ego.py setting (IMDB,
+# max_degree 64, sample_sizes (1, 4), queries of 1 and 4 targets from seed
+# 1) at scale 1.0, 32 queries, K 8, the registered depths; the scaling run
+# grows HAN's graph from scale 1 to 4
+EGO_MODELS = (("han", 1), ("rgat", 3), ("simple_hgn", 2))
+EGO_QUERIES, EGO_SIZES, EGO_REPEATS, EGO_SCALES = 32, (1, 4), 20, (1.0, 4.0)
 
 
 def check(cond, msg: str) -> None:
@@ -2733,6 +2764,251 @@ def serve_phase(pipeline, FlowConfig, kernel_ops, dev):
     return res
 
 
+def ego_queries(n: int, seed: int = 1) -> list:
+    """The reference's ``serve_ego.py`` queries: sizes cycling 1, 4."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, n, size=min(EGO_SIZES[i % len(EGO_SIZES)], n)).astype(np.int32)
+            for i in range(EGO_QUERIES)]
+
+
+def median(xs) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def pool_bytes(graphs):
+    """Bytes the caching allocator holds in the private memory pools of
+    the captured ``graphs`` (its segment snapshot, by pool id); ``None``
+    where the snapshot names no pool."""
+    import torch
+
+    pools = {tuple(g.pool()) for g in graphs}
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(s["total_size"] for s in segs if tuple(s["segment_pool_id"]) in pools)
+
+
+def ego_times(sess, params, queries, dev) -> dict:
+    """Per query, medians over ``EGO_REPEATS`` passes: the wall time of a
+    synchronized ``query_ego`` and ``query``, the host's extraction alone,
+    the device time of the query's ego graph replay and of the full
+    forward's (CUDA events around ``replay()``), and rows and bytes read a
+    query (the planner's stats over one pass)."""
+    import torch
+
+    planner, gl = sess.ego_planner, sess._ego_globals_for(params)
+    wall = {"ego": [], "query": [], "extract": []}
+    for _ in range(EGO_REPEATS):
+        for idx in queries:
+            for name, fn in (("ego", lambda: sess.query_ego(params, idx)), ("query", lambda: sess.query(params, idx)),
+                             ("extract", lambda: planner.extract(idx, ego_globals=gl))):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize(dev)
+                wall[name].append((time.perf_counter() - t0) * 1e3)
+
+    def replay_ms(graph):
+        return event_median_ms(graph.replay, EGO_REPEATS)
+
+    by_sig = {sig: replay_ms(exe._graph) for sig, exe in sess._ego_exes.items()}
+    planner.stats.reset()
+    ego_replay = []
+    for idx in queries:
+        eb = planner.extract(idx, ego_globals=gl)
+        if eb is not None:
+            ego_replay.append(by_sig[eb.sig])
+    st = planner.stats
+    served = max(st.queries - st.fallbacks, 1)
+    return {"query_ego_ms": median(wall["ego"]), "query_ms": median(wall["query"]),
+            "extract_ms": median(wall["extract"]), "ego_replay_device_ms": median(ego_replay),
+            "ego_replay_device_ms_max": max(ego_replay), "full_replay_device_ms": replay_ms(sess._graph),
+            "rows_per_query": st.rows_per_query, "bytes_per_query": st.bytes_read / served,
+            "fallbacks": st.fallbacks, "repeats": EGO_REPEATS, "queries": len(queries)}
+
+
+def ego_phase(pipeline, FlowConfig, kernel_ops, dev):
+    """Phase 8: ego-subgraph serving on the captured ``fused_kernel``
+    sessions of HAN, RGAT and Simple-HGN on IMDB (module docstring). Every
+    check raises; returns the results, with each model's first-pass
+    launches under ``launches``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import serve
+    from repro_torch.core import flows
+    from repro_torch.core.ego import EgoPlanner
+    from repro_torch.core.session import InferenceSession
+
+    ops = kernel_ops[0]
+    flow = FlowConfig("fused_kernel", prune_k=PRUNE_K)
+    res = {}
+
+    def counters():
+        return [dict(m.LAUNCHES) for m in kernel_ops], dict(flows.DISPATCH)
+
+    def zero_launches():
+        for m in kernel_ops:
+            reset_launches(m)
+
+    for model, depth in EGO_MODELS:
+        key = f"{model}/imdb"
+        task = pipeline.prepare(model, "imdb", scale=SCALE, max_degree=SERVE_MAX_DEGREE, seed=0, device=dev)
+        check(task.model.num_layers == depth, f"ego {key}: depth {task.model.num_layers}, expected {depth}")
+        want_full = expected_launches(task.sgs, "bucketed", PRUNE_K, depth, ops)
+        sess, logits, _ = captured_session(task, flow, want_full, f"ego {key}", ops, dev)
+        full = logits.cpu().numpy()
+        n = task.batch.num_targets
+        queries = ego_queries(n)
+
+        # first pass: one capture per new signature
+        zero_launches()
+        before = dict(flows.DISPATCH)
+        sess.enable_ego(seed=0, sample_sizes=EGO_SIZES)
+        first = [sess.query_ego(task.params, idx) for idx in queries]
+        sync(dev)
+        launched, after = counters()
+        sigs = list(sess._ego_exes)
+        wide = sum(s.d_cap > PRUNE_K for sig in sigs for s in sig.sgs)
+        want = {k: 0 for k in ops.LAUNCHES}
+        want["flat_prune_aggregate"] = 2 * depth * wide
+        want["prune_aggregate"] = want_full["prune_aggregate"] if model == "han" else 0
+        check(launched[0] == want and not any(v for m in launched[1:] for v in m.values()),
+              f"ego {key}: the first pass launched {launched}, expected {want}")
+        moved = {k: after[k] - before[k] for k in after}
+        check(moved["ego_traces"] == len(sigs) > 0, f"ego {key}: {moved['ego_traces']} programs for {len(sigs)} signatures")
+        check(all(isinstance(exe._graph, torch.cuda.CUDAGraph) for exe in sess._ego_exes.values()),
+              f"ego {key}: an ego program is not a captured graph")
+
+        # second pass: replays only
+        zero_launches()
+        before = dict(flows.DISPATCH)
+        second = [sess.query_ego(task.params, idx) for idx in queries]
+        sync(dev)
+        launched, after = counters()
+        moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        check(all(v == 0 for m in launched for v in m.values()), f"ego {key}: the replays launched {launched}")
+        check(set(moved) <= {"ego_calls", "ego_bypass", "ego_fallback", "query_calls"},
+              f"ego {key}: the replays entered NA dispatch or built a program: {moved}")
+        calls, fallback = moved.get("ego_calls", 0), moved.get("ego_fallback", 0)
+        check(calls + fallback == len(queries) and moved.get("query_calls", 0) == fallback,
+              f"ego {key}: {calls} ego calls and {fallback} fallbacks for {len(queries)} queries")
+        err_full, err_cpu = 0.0, 0.0
+        gl = sess._ego_globals_for(task.params)
+        cpu_params = {k: v.cpu() for k, v in task.params.items()}
+        for idx, a, b in zip(queries, first, second):
+            rows = b.cpu()
+            check(torch.equal(a.cpu(), rows), f"ego {key}: a replay differs from the first pass")
+            err_full = max(err_full, float(np.abs(rows.numpy() - full[idx]).max()))
+            eb = sess.ego_planner.extract(idx, ego_globals=gl)
+            if eb is None:
+                continue
+            with torch.inference_mode():
+                on_card = eb.to(dev)
+                eager = task.model.apply(task.params, on_card, flow).index_select(0, on_card.out_rows).cpu()
+                on_cpu = eb.to("cpu")
+                cpu = task.model.apply(cpu_params, on_cpu, flow).index_select(0, on_cpu.out_rows)
+            check(same_bits([rows], [eager]), f"ego {key}: a replay differs from the eager ego forward on the card")
+            err_cpu = max(err_cpu, float((eager - cpu).abs().max()))
+        check(err_full <= TOL_OUT, f"ego {key}: ego rows differ from the full forward by {err_full:.3g}")
+        check(err_cpu <= TOL_LOGITS, f"ego {key}: the card's ego forward differs from the CPU's by {err_cpu:.3g}")
+        r = {"signatures": len(sigs), "captured_graphs": len(sess._ego_exes),
+             "max_d_cap": sorted({sig.max_d_cap for sig in sigs}), "wide_tables": wide,
+             "ego_calls": calls, "ego_bypass": moved.get("ego_bypass", 0), "ego_fallback": fallback,
+             "max_abs_err_vs_full": err_full, "max_abs_err_card_vs_cpu": err_cpu,
+             "pool_reserved_bytes": pool_bytes([exe._graph for exe in sess._ego_exes.values()]),
+             "full_forward_pool_bytes": pool_bytes([sess._graph]), "launches": dict(want)}
+
+        # overflow: capacities (1,) send a block of 3 to the full forward
+        planner = sess.ego_planner
+        sess.enable_ego(planner=EgoPlanner(task.batch, depth=depth, capacities={t: (1,) for t in task.batch.node_types}))
+        before = dict(flows.DISPATCH)
+        idx = np.array([2, 7, 11], dtype=np.int32)
+        got = sess.query_ego(task.params, idx)
+        check(flows.DISPATCH["ego_fallback"] - before["ego_fallback"] == 1
+              and flows.DISPATCH["ego_calls"] == before["ego_calls"], f"ego {key}: the overflow was not a fallback")
+        check(same_bits([got], [sess.query(task.params, idx)]), f"ego {key}: the fallback differs from query")
+        sess.enable_ego(planner=planner)
+
+        # bad ids raise before any launch or extraction; then a good query
+        zero_launches()
+        before, queried = dict(flows.DISPATCH), planner.stats.queries
+        for bad in ([-1], [n]):
+            try:
+                sess.query_ego(task.params, bad)
+            except IndexError:
+                continue
+            raise AssertionError(f"ego {key}: query_ego({bad}) did not raise IndexError")
+        sync(dev)
+        launched, after = counters()
+        check(after == before and planner.stats.queries == queried and not any(v for m in launched for v in m.values()),
+              f"ego {key}: a bad id reached the extraction or the card")
+        good = sess.query_ego(task.params, [n - 1, 0]).cpu().numpy()
+        check(float(np.abs(good - full[[n - 1, 0]]).max()) <= TOL_OUT, f"ego {key}: the query after bad ids differs")
+
+        r["times"] = ego_times(sess, task.params, queries, dev)
+        res[key] = r
+        print(f"  ego {key}: {len(sigs)} signatures captured (max_d_cap {r['max_d_cap']}, {wide} tables wider than "
+              f"K), launches {dict((k, v) for k, v in want.items() if v)}; replays bitwise the eager ego forward, "
+              f"{err_full:.3g} from the full forward, card vs CPU {err_cpu:.3g}; {calls} ego calls "
+              f"({r['ego_bypass']} bypass), {fallback} fallbacks; " + json.dumps(r["times"]))
+
+        if model == "rgat":
+            # the front-end with ego routing on a session of its own (its
+            # planner tuned on the policy's ladder), phase 7's workload
+            fsess = InferenceSession(task.model, task.batch, flow, params=task.params)
+            policy = serve.BatchPolicy(SERVE_CAPACITIES, flush_timeout=SERVE_FLUSH, ego=True)
+            wl = serve.make_workload(SERVE_REQUESTS, n, rate=None, size_range=(1, 4), seed=0)
+            fe = serve.ServeFrontend(fsess, task.params, policy=policy, clock=serve.FakeClock(),
+                                     executor=serve.InlineExecutor())
+            check(fsess.ego_planner is not None, "ego front-end: ego not enabled on the primary")
+            serve.run_workload(fe, wl)  # warm-up: the captures
+            sync(dev)
+            zero_launches()
+            before = dict(flows.DISPATCH)
+            blocks0 = fe.stats.blocks
+            t0 = time.perf_counter()
+            futs = serve.run_workload(fe, wl)
+            wall_s = time.perf_counter() - t0
+            launched, after = counters()
+            moved = {k: after[k] - before[k] for k in after}
+            blocks = fe.stats.blocks - blocks0
+            err = max(float(np.abs(f.result(0) - full[w.targets]).max()) for w, f in zip(wl, futs))
+            check(err <= TOL_OUT, f"ego front-end: rows differ from the full forward by {err:.3g}")
+            check(moved["query_calls"] == moved["ego_fallback"] and moved["ego_calls"] + moved["ego_fallback"] == blocks,
+                  f"ego front-end: {moved} for {blocks} blocks")
+            check(moved["ego_traces"] == 0 and not any(v for m in launched for v in m.values()),
+                  f"ego front-end: the served window launched {launched} or built {moved['ego_traces']} programs")
+            res["frontend"] = {"requests": len(wl), "blocks": blocks, "ego_calls": moved["ego_calls"],
+                               "ego_fallback": moved["ego_fallback"], "max_abs_err_vs_full": err,
+                               "wall_ms": wall_s * 1e3, "captured_graphs": len(fsess._ego_exes),
+                               "capacities": {t: list(c) for t, c in fsess.ego_planner.capacities.items()}}
+            print("  ego front-end rgat/imdb: " + json.dumps(res["frontend"]))
+
+    # scaling: HAN's rows a query against the graph's size
+    scaling = {}
+    for scale in EGO_SCALES:
+        task = pipeline.prepare("han", "imdb", scale=scale, max_degree=SERVE_MAX_DEGREE, seed=0, device=dev)
+        sess = task.compile(flow).enable_ego(seed=0, sample_sizes=EGO_SIZES)
+        queries = ego_queries(task.batch.num_targets)
+        for idx in queries:  # warm: the captures
+            sess.query_ego(task.params, idx)
+        scaling[scale] = dict(ego_times(sess, task.params, queries, dev), graph_nodes=task.batch.total_nodes,
+                              signatures=len(sess._ego_exes))
+    lo, hi = (scaling[s] for s in EGO_SCALES)
+    growth = {"graph": hi["graph_nodes"] / lo["graph_nodes"], "rows": hi["rows_per_query"] / lo["rows_per_query"],
+              "query_ego_ms": hi["query_ego_ms"] / lo["query_ego_ms"], "query_ms": hi["query_ms"] / lo["query_ms"],
+              "ego_replay_device_ms": hi["ego_replay_device_ms"] / lo["ego_replay_device_ms"],
+              "full_replay_device_ms": hi["full_replay_device_ms"] / lo["full_replay_device_ms"]}
+    check(growth["graph"] >= 2.0 and growth["rows"] <= 0.5 * growth["graph"],
+          f"ego scaling: rows a query grew {growth['rows']:.2f}x against the graph's {growth['graph']:.2f}x")
+    res["scaling"] = {"han/imdb": {str(s): v for s, v in scaling.items()}, "growth": growth}
+    print("  ego scaling han/imdb: " + json.dumps(res["scaling"]))
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2908,6 +3184,16 @@ def main() -> int:
     phase_s["7"] = time.perf_counter() - t_phase
     print(f"phase 7: wall time {phase_s['7']:.1f} s")
 
+    # phase 8: ego subgraphs
+    t_phase = time.perf_counter()
+    print(f"phase 8: ego-subgraph serving (session.query_ego) on IMDB at scale={SCALE}, max_degree={SERVE_MAX_DEGREE}, "
+          f"K={PRUNE_K}, {EGO_QUERIES} queries of {list(EGO_SIZES)} targets")
+    ego = ego_phase(pipeline, FlowConfig, (ops, tda_ops, ts_ops), dev)
+    for model, _ in EGO_MODELS:
+        results[f"ego/{model}/imdb"] = {"launches": ego[f"{model}/imdb"]["launches"]}
+    phase_s["8"] = time.perf_counter() - t_phase
+    print(f"phase 8: wall time {phase_s['8']:.1f} s")
+
     kernels = []
     for key, line, lib in KERNELS:
         bound_ms, bound_by, nbytes, nops = bounds[key]
@@ -3018,7 +3304,7 @@ def main() -> int:
         "decode_k1_tie_rows": {"phase2_cases": dec_ties, "phase2_tie_cases": tie_cases,
                                "main_path": lm_result["tie_rows"]},
         "pruner_times_ms": t_ts, "forward_ms": fwd, "forward_latency_ms": latency, "profiles": prof,
-        "train": train, "sgb": sgb, "serve": served, "kernels": kernels, "phase_wall_s": phase_s,
+        "train": train, "sgb": sgb, "serve": served, "ego": ego, "kernels": kernels, "phase_wall_s": phase_s,
     }, indent=1))
     print(f"  full report: {REPORT.relative_to(ROOT)}; wall time {time.perf_counter() - t_start:.1f} s, by phase (s) "
           + json.dumps({k: round(v, 1) for k, v in phase_s.items()}))
@@ -3037,6 +3323,15 @@ def main() -> int:
             "pairs", "next_dispatched_before_replay_end", "resolved_before_next_replay_end", "overlap",
             "pageable_h2d_copies")},
         "card": card,
+    }))
+    print("ego " + json.dumps({
+        "path": f"imdb scale={SCALE} max_degree={SERVE_MAX_DEGREE} fused_kernel K={PRUNE_K}, {EGO_QUERIES} queries of "
+                f"{list(EGO_SIZES)} targets, medians of {EGO_REPEATS}",
+        **{key: {k: r[k] for k in ("signatures", "max_d_cap", "ego_calls", "ego_bypass", "ego_fallback",
+                                   "max_abs_err_vs_full", "pool_reserved_bytes", "full_forward_pool_bytes",
+                                   "times")}
+           for key, r in ego.items() if key.endswith("/imdb")},
+        "frontend": ego["frontend"], "scaling_growth": ego["scaling"]["growth"], "card": card,
     }))
     print(card)
     print(json.dumps({"kernels": kernels}))

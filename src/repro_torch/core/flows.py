@@ -47,7 +47,18 @@ from repro_torch.core.hetgraph import BucketedSemanticGraph, SemanticGraph
 #   graph_calls  — run_aggregate_graph entries on bucketed graphs
 #   bucket_calls — per-bucket NA dispatches of bucket_dispatch="loop"
 #   query_calls  — InferenceSession.query blocks served
-DISPATCH = {"graph_calls": 0, "bucket_calls": 0, "query_calls": 0}
+#   ego_calls    — InferenceSession.query_ego blocks served on their
+#                  extracted neighborhood (core/ego.py)
+#   ego_bypass   — those whose every ego table is at most prune_k wide under
+#                  fused / fused_kernel: every graph takes the §4.3 bypass
+#   ego_fallback — query_ego blocks whose closure outgrew the top ego
+#                  capacity, served by the full forward (session.query)
+#   ego_traces   — ego programs built, one per ego signature: a CUDA graph
+#                  captured on a card, an eager program on the CPU
+DISPATCH = {
+    "graph_calls": 0, "bucket_calls": 0, "query_calls": 0,
+    "ego_calls": 0, "ego_bypass": 0, "ego_fallback": 0, "ego_traces": 0,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,7 +126,10 @@ def _table(nbr, msk, ety, use_ety: bool, device: torch.device):
 
 def _flat_tables(sg: SemanticGraph, use_ety: bool, device: torch.device):
     """Device mirror of a flat graph's table, cached on the graph per
-    device."""
+    device. A graph whose tables are tensors already (an ego batch's views,
+    built per query) is used as it is, and nothing is cached on it."""
+    if isinstance(sg.nbr_idx, torch.Tensor):
+        return sg.nbr_idx, sg.nbr_mask, sg.edge_type if use_ety else None
     key = ("tables", use_ety, device)
     if key not in sg._device:
         with torch.inference_mode(False):

@@ -330,6 +330,9 @@ class BucketedSemanticGraph:
     _perm: Optional[np.ndarray] = dataclasses.field(
         default=None, init=False, repr=False, compare=False
     )
+    _lookup: Optional[Tuple[np.ndarray, np.ndarray]] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False
+    )
     _grouped: Dict[Tuple[int, int], GroupedBucketLayout] = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False
     )
@@ -413,6 +416,20 @@ class BucketedSemanticGraph:
             self._perm = perm
         return self._perm
 
+    def row_lookup(self) -> Tuple[np.ndarray, np.ndarray]:
+        """``(bucket_of, row_of)``: two ``(T,)`` int32 arrays mapping a local
+        target id to its bucket index and to its row within that bucket, so
+        single rows are addressed without building the flat ``(T, D_max)``
+        view. Cached."""
+        if self._lookup is None:
+            bucket_of = np.zeros(self.num_targets, dtype=np.int32)
+            row_of = np.zeros(self.num_targets, dtype=np.int32)
+            for i, b in enumerate(self.buckets):
+                bucket_of[b.targets] = i
+                row_of[b.targets] = np.arange(b.num_targets, dtype=np.int32)
+            self._lookup = (bucket_of, row_of)
+        return self._lookup
+
     def grouped(self, t_tile: int = 8, w: int = 8) -> GroupedBucketLayout:
         """The single-launch ragged-grid relayout (cached per tile shape)."""
         key = (t_tile, w)
@@ -481,6 +498,61 @@ def _pad_csc(
         etype = edge_type[order]
         ety.reshape(-1)[flat] = etype[keep].astype(np.int32, copy=False)
     return nbr, msk, ety
+
+
+def slice_rows(
+    sg: Union[SemanticGraph, BucketedSemanticGraph],
+    rows: np.ndarray,
+    width: Optional[int] = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """The padded-CSC rows ``rows`` (local target ids) of ``sg``, without
+    building its full ``(T, D_max)`` table.
+
+    Returns ``(nbr_idx, nbr_mask, edge_type, bytes_read)``: three
+    ``(len(rows), width)`` tables (``width`` defaults to the widest bucket
+    capacity among the rows, or a flat graph's ``max_degree``) and the table
+    bytes gathered, 9 a slot (int32 id, int32 edge type, bool mask). A
+    bucketed graph is fancy-indexed bucket by bucket through
+    :meth:`~BucketedSemanticGraph.row_lookup`, so only the touched rows of
+    its (possibly memory-mapped) bucket tables are read. Neighbor ids stay
+    global.
+    """
+    rows = np.asarray(rows, dtype=np.int64)
+    n = rows.shape[0]
+    if isinstance(sg, SemanticGraph):
+        d = sg.max_degree
+        if width is None:
+            width = d
+        if width < d:
+            raise ValueError(f"width {width} < flat max_degree {d}")
+        nbr = np.zeros((n, width), dtype=np.int32)
+        msk = np.zeros((n, width), dtype=bool)
+        ety = np.zeros((n, width), dtype=np.int32)
+        nbr[:, :d] = sg.nbr_idx[rows]
+        msk[:, :d] = sg.nbr_mask[rows]
+        ety[:, :d] = sg.edge_type[rows]
+        return nbr, msk, ety, int(n) * d * 9
+    bucket_of, row_of = sg.row_lookup()
+    bsel = bucket_of[rows]
+    if width is None:
+        caps = sg.bucket_capacities
+        width = max((caps[b] for b in np.unique(bsel)), default=1)
+    nbr = np.zeros((n, width), dtype=np.int32)
+    msk = np.zeros((n, width), dtype=bool)
+    ety = np.zeros((n, width), dtype=np.int32)
+    bytes_read = 0
+    for i, b in enumerate(sg.buckets):
+        hit = np.flatnonzero(bsel == i)
+        if hit.size == 0:
+            continue
+        if b.capacity > width:
+            raise ValueError(f"rows span bucket capacity {b.capacity} > width {width}")
+        r = row_of[rows[hit]]
+        nbr[hit, : b.capacity] = b.nbr_idx[r]
+        msk[hit, : b.capacity] = b.nbr_mask[r]
+        ety[hit, : b.capacity] = b.edge_type[r]
+        bytes_read += int(r.size) * b.capacity * 9
+    return nbr, msk, ety, bytes_read
 
 
 def autotune_bucket_sizes(

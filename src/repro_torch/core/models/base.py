@@ -89,6 +89,13 @@ class HGNNModel(nn.Module):
         """Final carry -> (num_targets, num_classes) logits."""
         raise NotImplementedError
 
+    def ego_globals(self, params: Params, batch: GraphBatch, flow: FlowConfig = FlowConfig()):
+        """Graph-global quantities an ego forward (``core/ego.py``) cannot
+        compute from a sliced neighborhood, as a mapping of tensors the
+        ego batch injects; ``None`` for a model whose layers are row-local
+        (RGAT, Simple-HGN)."""
+        return None
+
     def apply(
         self, params: Params, batch: GraphBatch, flow: FlowConfig = FlowConfig()
     ) -> torch.Tensor:

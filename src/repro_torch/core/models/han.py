@@ -5,10 +5,13 @@ semantic-level attention fuses the per-metapath embeddings. Paper
 settings: 8 heads × dh 8 = hidden 64, semantic-attention hidden 128, one
 layer.
 
-The forward pass is one ``LayerStep``: ``project`` builds the global
-projected table, each ``na`` entry runs one NA dispatch per metapath graph
-(one launch of each fused kernel under ``fused_kernel``), and ``fuse`` is
-the semantic-level attention.
+The forward pass is one ``LayerStep`` (``num_layers`` is 1, the depth an
+ego closure expands to): ``project`` builds the global projected table,
+each ``na`` entry runs one NA dispatch per metapath graph (one launch of
+each fused kernel under ``fused_kernel``), and ``fuse`` is the
+semantic-level attention. Its β is a mean over every target, which an ego
+forward cannot compute from a neighborhood: ``ego_globals`` computes it on
+the full graph and an ego batch injects it.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from torch import nn
 
 from repro_torch.core import attention, semantic_fusion
 from repro_torch.core.batch import GraphBatch, ModelSpec
-from repro_torch.core.dtypes import matmul
+from repro_torch.core.dtypes import canonical, matmul
 from repro_torch.core.flows import FlowConfig, run_aggregate_graph
 from repro_torch.core.models.base import (
     HGNNModel,
@@ -34,7 +37,7 @@ from repro_torch.core.projection import glorot_, project_features
 class HAN(HGNNModel):
     def __init__(self, spec: ModelSpec, heads: int = 8, dh: int = 8, sem_hidden: int = 128):
         super().__init__()
-        self.heads, self.dh = heads, dh
+        self.heads, self.dh, self.num_layers = heads, dh, 1
         self.dim = heads * dh
         self.num_classes = spec.num_classes
         self.proj = projection(spec.feat_dims, self.dim)
@@ -89,6 +92,10 @@ class HAN(HGNNModel):
 
         def fuse(carry, h, zs):
             stack = torch.stack([zs[sg.name] for sg in batch.sgs])
+            injected = getattr(batch, "ego_globals", None) or {}
+            if "sem_beta" in injected:
+                # an ego forward: β of the full graph, injected
+                return semantic_fusion.fuse_with_beta(injected["sem_beta"], stack)
             return semantic_fusion.semantic_attention(params, stack)
 
         yield LayerStep(
@@ -100,3 +107,16 @@ class HAN(HGNNModel):
 
     def readout(self, params: Params, batch: GraphBatch, carry) -> torch.Tensor:
         return batch.constrain(matmul(carry, params["out.w"]) + params["out.b"], "logits")
+
+    def ego_globals(self, params: Params, batch: GraphBatch, flow: FlowConfig = FlowConfig()):
+        """``{"sem_beta": β}``, the semantic attention over the FULL graph:
+        one forward up to the fusion stage (on the card, under
+        ``fused_kernel``, kernel #1 once per metapath), no readout. Callers
+        cache it per weight version."""
+        params = {n: canonical(p) for n, p in params.items()}
+        step = next(iter(self.layer_steps(params, batch, flow)))
+        with torch.inference_mode():
+            h = step.project(dict(batch.features))
+            zs = {name: fn(h) for name, fn in step.na}
+            stack = torch.stack([zs[sg.name] for sg in batch.sgs])
+            return {"sem_beta": semantic_fusion.semantic_beta(params, stack)}

@@ -48,7 +48,21 @@ Entry points:
   * ``compile_query(capacity)`` / ``prewarm(capacities)`` record the block
     capacities of a query ladder (the gather needs no program of its own)
     and ``query_capacities`` lists them;
-  * ``cost_analysis()`` is ``None``: there is no compiler estimate.
+  * ``cost_analysis()`` is ``None``: there is no compiler estimate;
+  * ``enable_ego(...)`` attaches an ``EgoPlanner`` (``core/ego.py``) and
+    ``session.query_ego(params, idx)`` serves a block on its targets'
+    extracted neighborhood: one program per ``EgoSignature``, on a CUDA
+    batch a CUDA graph captured at the signature's first query (static
+    inputs: the params, one byte buffer holding the extracted arrays, the
+    injected ``ego_globals``; a warm-up on a side stream, then the capture
+    into a private pool), on a CPU batch the eager forward. A call copies
+    the extracted arrays through one pinned buffer into the graph's static
+    inputs and replays it, on the caller's stream under the graph's own
+    lock, ordered as ``_run`` orders a session's calls; a replay ticks no
+    launch or dispatch counter. An id outside ``[0, num_targets)`` raises
+    ``IndexError`` before any extraction (the reference wraps a negative
+    id and fails inside the extraction on a large one). A block whose
+    closure outgrows the planner's top capacity is served by ``query``.
 
 ``params`` is a flat mapping of parameter name to tensor, as
 ``dict(model.named_parameters())`` gives it.
@@ -69,10 +83,12 @@ import copy
 import threading
 from typing import Callable, List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import flows
 from repro_torch.core.batch import GraphBatch
+from repro_torch.core.ego import EgoBatch, EgoPlanner
 from repro_torch.core.flows import FlowConfig
 
 ParamSpec = Tuple[Tuple[str, Tuple[int, ...], torch.dtype], ...]
@@ -86,6 +102,9 @@ def param_spec(params: Mapping[str, torch.Tensor]) -> ParamSpec:
 
 def _gather(out: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.index_select(0, idx)
+
+
+_UNSET = object()
 
 
 class _Serial:
@@ -118,6 +137,11 @@ class InferenceSession:
         self._capacities: set = set()
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self.forwards = 0
+        # ego serving: the planner, one program per EgoSignature, and the
+        # ego globals of the last params seen (by identity)
+        self._ego = None
+        self._ego_exes: dict = {}
+        self._ego_globals_cache = None
         if batch.device.type == "cuda":
             self._capture(params)
             self._serial = _Serial(torch.cuda.current_stream(batch.device))
@@ -240,6 +264,121 @@ class InferenceSession:
             self.compile_query(cap)
         return self
 
+    # -- ego-subgraph serving -----------------------------------------------
+
+    def enable_ego(self, planner=None, **planner_kw) -> "InferenceSession":
+        """Attach an :class:`~repro_torch.core.ego.EgoPlanner` for
+        ``query_ego``. With no ``planner``, builds one over this session's
+        batch with ``depth = model.num_layers`` (``capacities``,
+        ``features``, ``sample_sizes``, ``seed``, … pass through). Returns
+        self."""
+        if planner is None:
+            depth = getattr(self.model, "num_layers", None)
+            if depth is None:
+                raise ValueError(
+                    "model exposes no num_layers; pass an EgoPlanner "
+                    "built with an explicit depth"
+                )
+            planner = EgoPlanner(self.graph_batch, depth=depth, **planner_kw)
+        self._ego = planner
+        return self
+
+    @property
+    def ego_planner(self):
+        """The attached planner (``None`` until ``enable_ego``)."""
+        return self._ego
+
+    def _ego_globals_for(self, params):
+        """``model.ego_globals`` cached per params object (a front-end
+        routing weight versions caches per version itself and passes the
+        result in)."""
+        ent = self._ego_globals_cache
+        if ent is None or ent[0] is not params:
+            ent = (params, self.model.ego_globals(params, self.graph_batch, self.flow))
+            self._ego_globals_cache = ent
+        return ent[1]
+
+    def compile_ego(self, ego_batch, params):
+        """The program of ``ego_batch``'s signature, ``exe(params, batch)
+        -> model.apply(params, batch, flow)[batch.out_rows]``, built at the
+        signature's first batch and cached: on a CUDA batch a CUDA graph
+        captured against ``params`` and ``ego_batch`` (raises if it cannot),
+        on a CPU batch the eager forward. Counted in
+        ``DISPATCH["ego_traces"]``."""
+        exe = self._ego_exes.get(ego_batch.sig)
+        if exe is None:
+            flows.DISPATCH["ego_traces"] += 1
+            if self.graph_batch.device.type == "cuda":
+                exe = _EgoGraph(self.model, self.flow, ego_batch, params, self.graph_batch.device)
+            else:
+                exe = _EagerEgo(self.model, self.flow)
+            self._ego_exes[ego_batch.sig] = exe
+        return exe
+
+    def adopt_ego_cache(self, other: "InferenceSession") -> int:
+        """Adopt ``other``'s ego programs (a graph-version swap). A program
+        reads nothing of its session's graph: every table comes in with the
+        ego batch, and a captured graph carries its own static inputs and
+        lock, so it serves this session's params, never ``other``'s. Needs
+        the same model object, an equal flow and the same device; entries
+        already here are kept. Returns how many were adopted
+        (``ego_traces`` does not tick)."""
+        if (
+            other.model is not self.model
+            or other.flow != self.flow
+            or other.graph_batch.device != self.graph_batch.device
+        ):
+            raise ValueError(
+                "ego programs are only portable between sessions "
+                "sharing the model object, flow config and device"
+            )
+        adopted = 0
+        for sig, exe in other._ego_exes.items():
+            if sig not in self._ego_exes:
+                self._ego_exes[sig] = exe
+                adopted += 1
+        return adopted
+
+    def query_ego(self, params, idx, ego_globals=_UNSET) -> torch.Tensor:
+        """Logits for one padded query block, the forward run on the
+        extracted L-hop neighborhood of ``idx``: the contract of
+        :meth:`query`, within 1e-5 of its rows (another program over the
+        same arithmetic). An id outside ``[0, num_targets)`` raises
+        ``IndexError`` before any extraction. A block whose closure outgrows
+        the planner's top capacity is served by :meth:`query`
+        (``DISPATCH["ego_fallback"]``); one whose ego tables are all at most
+        ``prune_k`` wide takes the §4.3 bypass on every graph
+        (``DISPATCH["ego_bypass"]``). ``ego_globals`` defaults to the
+        model's, computed once per params object."""
+        if self._ego is None:
+            raise RuntimeError("ego path not enabled: call session.enable_ego() first")
+        if isinstance(idx, torch.Tensor):
+            idx = idx.detach().cpu().numpy()
+        ids = np.asarray(idx)
+        if ids.ndim != 1:
+            raise ValueError(f"query block must be a 1-D id vector, got shape {ids.shape}")
+        ids = ids.astype(np.int64)
+        n = self.graph_batch.num_targets
+        if ids.size and (ids.min() < 0 or ids.max() >= n):
+            bad = ids[(ids < 0) | (ids >= n)].tolist()
+            raise IndexError(f"query ids outside [0, {n}): {bad}")
+        self._check(params)
+        idx = ids.astype(np.int32)
+        gl = self._ego_globals_for(params) if ego_globals is _UNSET else ego_globals
+        eb = self._ego.extract(idx, ego_globals=gl)
+        if eb is None:
+            flows.DISPATCH["ego_fallback"] += 1
+            return self.query(params, idx)  # takes the session's lock itself
+        exe = self.compile_ego(eb, params)
+        flows.DISPATCH["ego_calls"] += 1
+        if (
+            self.flow.flow in ("fused", "fused_kernel")
+            and self.flow.prune_k is not None
+            and eb.sig.max_d_cap <= self.flow.prune_k
+        ):
+            flows.DISPATCH["ego_bypass"] += 1
+        return exe(params, eb)
+
     @property
     def query_capacities(self) -> Tuple[int, ...]:
         """The capacities recorded by ``compile_query``, ascending."""
@@ -266,3 +405,97 @@ class InferenceSession:
             f"InferenceSession(flow={self.flow.flow!r}, "
             f"device={self.graph_batch.device}, captured={self.captured})"
         )
+
+
+class _EagerEgo:
+    """An ego program on the CPU: the eager forward."""
+
+    def __init__(self, model, flow: FlowConfig):
+        self.model, self.flow = model, flow
+
+    def __call__(self, params, ego_batch) -> torch.Tensor:
+        with torch.inference_mode():
+            b = ego_batch.to("cpu")
+            return self.model.apply(params, b, self.flow).index_select(0, b.out_rows)
+
+
+class _EgoGraph:
+    """One ego signature's forward captured as a CUDA graph.
+
+    Static inputs: clones of the params, one device byte buffer whose
+    256-byte-aligned segments are typed views holding the extracted host
+    arrays (``EgoBatch.host_leaves``: features, tables, ``out_rows``; the
+    alignment of a tensor of its own, so a library kernel chosen by
+    alignment is the eager forward's), and clones of the injected
+    ``ego_globals``. A call packs the host arrays
+    into one fresh pinned buffer (the caching host allocator does not hand
+    it out again before its copy ends), copies it with the params and the
+    globals into the static inputs and replays, all on the caller's stream
+    under the graph's own lock, after the stream of the previous call; the
+    result is a clone of the static output."""
+
+    def __init__(self, model, flow: FlowConfig, ego_batch, params, device: torch.device):
+        self.model, self.flow, self.sig = model, flow, ego_batch.sig
+        leaves = ego_batch.host_leaves()
+        self._layout, off = [], 0
+        for a in leaves:
+            self._layout.append((off, a.nbytes))
+            off += -(-a.nbytes // 256) * 256
+        self._nbytes = max(off, 16)
+        self._buf = torch.zeros(self._nbytes, dtype=torch.uint8, device=device)
+        views = [
+            self._buf[o:o + n].view(torch.from_numpy(np.empty(0, a.dtype)).dtype).view(a.shape)
+            for (o, n), a in zip(self._layout, leaves)
+        ]
+        nt = len(self.sig.node_types)
+        tables = tuple(tuple(views[nt + 3 * i: nt + 3 * i + 3]) for i in range(len(self.sig.sgs)))
+        self._names = tuple(sorted(params))
+        with torch.no_grad():
+            self._inputs = [params[n].detach().clone() for n in self._names]
+            self._globals = {k: v.detach().clone() for k, v in ego_batch.ego_globals.items()}
+        static = EgoBatch(
+            self.sig, dict(zip(self.sig.node_types, views[:nt])), tables, views[-1], self._globals
+        )
+        self._buf.copy_(self._pack(leaves), non_blocking=True)
+        p = dict(zip(self._names, self._inputs))
+
+        def forward():
+            return model.apply(p, static, flow).index_select(0, static.out_rows)
+
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side), torch.inference_mode():
+            forward()
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.inference_mode(), torch.cuda.graph(graph):
+            out = forward()
+        self._graph, self._out = graph, out
+        self._serial = _Serial(torch.cuda.current_stream(device))
+        self.forwards = 0
+
+    def _pack(self, leaves) -> torch.Tensor:
+        host = torch.empty(self._nbytes, dtype=torch.uint8, pin_memory=True)
+        hn = host.numpy()
+        for (o, n), a in zip(self._layout, leaves):
+            hn[o:o + n] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+        return host
+
+    def __call__(self, params, ego_batch) -> torch.Tensor:
+        if ego_batch.sig != self.sig:
+            raise ValueError("ego batch's signature is not this program's")
+        host = self._pack(ego_batch.host_leaves())
+        with torch.inference_mode():
+            serial = self._serial
+            with serial.lock:
+                stream = torch.cuda.current_stream(self._buf.device)
+                if stream != serial.stream:
+                    stream.wait_stream(serial.stream)
+                    serial.stream = stream
+                torch._foreach_copy_(self._inputs, [params[n] for n in self._names])
+                for k, v in self._globals.items():
+                    v.copy_(ego_batch.ego_globals[k], non_blocking=True)
+                self._buf.copy_(host, non_blocking=True)
+                self._graph.replay()
+                self.forwards += 1
+                return self._out.clone()

@@ -237,8 +237,14 @@ class ServeFrontend:
     configures retry/backoff/breaker; ``faults`` threads a
     :class:`FaultPlan` through the checkout/dispatch/drain seams.
 
-    ``BatchPolicy(ego=True)`` raises ``NotImplementedError``: ego serving
-    waits for ``core/ego.py`` (ROADMAP §1 item 4).
+    ``BatchPolicy(ego=True)`` routes primary blocks through
+    ``session.query_ego``: each block's forward on its targets' extracted
+    neighborhood (``core/ego.py``; on a card one captured graph per ego
+    signature), a block whose closure outgrows the ego ladder served by the
+    full forward. The front-end enables ego on the primary with the
+    policy's block ladder as the planner's sample sizes, and caches the
+    model's ego globals (HAN's β) per tenant weight version and session:
+    a publish recomputes them. Fallback blocks go through ``query``.
     """
 
     _PIPE_DEPTH = 2  # double buffer: one block in flight, one staged
@@ -254,11 +260,6 @@ class ServeFrontend:
         supervisor: Optional[SupervisorPolicy] = None,
         faults: Optional[FaultPlan] = None,
     ):
-        if getattr(policy, "ego", False):
-            raise NotImplementedError(
-                "BatchPolicy(ego=True): ego-subgraph serving is not ported "
-                "yet (ROADMAP §1 item 4); serve full forwards with ego=False"
-            )
         self.graphs: Optional[GraphPlane] = None
         if isinstance(session, GraphPlane):
             # live graph evolution: serve whatever version the plane has
@@ -303,6 +304,12 @@ class ServeFrontend:
                 continue
             for cap in policy.capacities:
                 sess.compile_query(cap)
+        # ego routing: the planner's ladder is tuned on this policy's block
+        # sizes; the ego globals are cached per (tenant version, session)
+        self._ego = bool(getattr(policy, "ego", False))
+        self._ego_globals: dict = {}
+        if self._ego and session.ego_planner is None:
+            session.enable_ego(sample_sizes=policy.capacities)
         # submit checks ids on the host against the served rows (a session
         # without out_shape, like a test double, skips the check)
         out_shape = getattr(session, "out_shape", None)
@@ -386,7 +393,23 @@ class ServeFrontend:
             self.faults.fire("dispatch", self._ctx(
                 "dispatch", tenant=blk.tenant, block=blk, engine=engine,
             ))
+        if self._ego and engine == "primary" and session.ego_planner is not None:
+            gl = self._ego_globals_for(blk.tenant, params, session)
+            return _stage(session.query_ego(params, blk.idx, ego_globals=gl))
         return _stage(session.query(params, blk.idx))
+
+    def _ego_globals_for(self, tenant: str, params, session):
+        """``model.ego_globals`` per tenant, keyed by the plane's version
+        token (a streaming plane checks out fresh tensors every block, so
+        the params' identity would recompute it every block) and by the
+        session (a graph-plane publish swaps it, and the globals must be
+        computed over the new graph)."""
+        tok = (self.plane.version_token(tenant), id(session))
+        ent = self._ego_globals.get(tenant)
+        if ent is None or ent[0] != tok:
+            ent = (tok, session.model.ego_globals(params, session.graph_batch, session.flow))
+            self._ego_globals[tenant] = ent
+        return ent[1]
 
     def _dispatch_with_retry(self, blk: QueryBlock, session, engine: str):
         """Dispatch with capped exponential backoff on the injected clock

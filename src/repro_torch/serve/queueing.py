@@ -168,11 +168,10 @@ class BatchPolicy:
     the backlog (and every queued request's latency) grow without bound
     (None = unbounded, the pre-robustness behavior).
 
-    ``ego=True`` is the reference's ego-subgraph routing (each primary
-    block's forward on its extracted O(neighborhood) batch). The port
-    accepts the field, and ``ServeFrontend`` raises ``NotImplementedError``
-    when it is set: ego serving waits for ``core/ego.py`` (ROADMAP §1
-    item 4)."""
+    ``ego=True`` routes primary-engine query blocks through the
+    ego-subgraph path (``session.query_ego``): each block's forward runs on
+    its targets' extracted neighborhood, and a block whose closure outgrows
+    the ego capacity ladder falls back to the full forward."""
 
     capacities: Tuple[int, ...] = (1, 4, 8, 16)
     flush_timeout: float = 2e-3

@@ -41,7 +41,7 @@ def test_no_jax_or_reference_imports(tmp_path):
         assert port / "serve" / f"{mod}.py" in PORT_FILES, mod
     assert port / "kernels" / "topk_decode_attention" / "ops.py" in PORT_FILES
     assert port / "kernels" / "topk_select" / "ops.py" in PORT_FILES
-    for mod in ("data/datasets.py", "data/sgb_cache.py", "core/dtypes.py"):
+    for mod in ("data/datasets.py", "data/sgb_cache.py", "core/dtypes.py", "core/ego.py"):
         assert port / mod in PORT_FILES, mod
     probe = tmp_path / "probe.py"
     probe.write_text(
@@ -79,6 +79,9 @@ def test_cpu_forward_loads_neither_jax_nor_reference(tmp_path):
         "wl = serve.make_workload(9, task.batch.num_targets, seed=0)\n"
         "futs = serve.run_workload(fe, wl)\n"
         "assert all(f.result(0).shape == (len(w.targets), task.spec.num_classes) for w, f in zip(wl, futs))\n"
+        "import repro_torch.core.ego\n"
+        "sess = task.compile(FlowConfig('fused_kernel', prune_k=4)).enable_ego(seed=0, sample=4)\n"
+        "assert sess.query_ego(task.params, [0, 1]).shape == (2, task.spec.num_classes)\n"
         "from repro_torch.configs import get_config\n"
         "from repro_torch.models import build_model\n"
         "import torch\n"

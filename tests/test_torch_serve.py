@@ -11,7 +11,10 @@ Simple-HGN DBLP under ``fused``, ``fused_kernel`` and the §4.3 bypass, the
 amortization of forwards over requests, ``session.query``, two tenants
 through one ``donate_params`` session and a streaming ``WeightPlane``, the
 plane's spec check, the threaded collector/stepper pair, and the
-``task.logits`` deprecation shim.
+``task.logits`` deprecation shim. ``BatchPolicy(ego=True)`` serves blocks
+through ``session.query_ego`` (rows within 1e-5 of the full forward, a full
+forward only for a fallback block), and a weight publish recomputes HAN's
+injected β.
 
 Against the reference (same inputs): the same requests through both
 ``RequestQueue``s give equal ``QueryBlock``s; ``make_workload`` is bit for
@@ -47,6 +50,7 @@ from repro_torch.convert import params_from_reference  # noqa: E402
 from repro_torch.core import flows, pipeline  # noqa: E402
 from repro_torch.core.flows import FlowConfig  # noqa: E402
 from repro_torch.core.hetgraph import autotune_bucket_sizes  # noqa: E402
+from repro_torch.core.session import InferenceSession  # noqa: E402
 from repro_torch.kernels.fused_prune_aggregate import ops as fpa_ops  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     BatchPolicy,
@@ -390,12 +394,64 @@ def test_paced_workload_on_fake_clock_is_deterministic():
     assert once() == once()
 
 
-def test_ego_policy_raises_not_implemented():
-    """``BatchPolicy(ego=True)`` is accepted as a field; the front-end
-    refuses it until ego serving is ported."""
-    assert BatchPolicy(ego=True).ego
-    with pytest.raises(NotImplementedError, match="item 4"):
-        _inline(policy=BatchPolicy(capacities=(1, 4, 8), ego=True))
+@pytest.mark.parametrize("model,dataset", TASKS)
+def test_ego_policy_routes_blocks_through_query_ego(tasks, model, dataset):
+    """``BatchPolicy(ego=True)`` enables ego on the primary and serves each
+    block through ``query_ego``, the ragged final block included: every row
+    within 1e-5 of the full forward (``fused_kernel``, its plain versions
+    here), one ego call or one counted fallback a block, and a full forward
+    (``query``) only for a fallback block."""
+    task = tasks[(model, dataset)]
+    sess = InferenceSession(task.model, task.batch, FlowConfig("fused_kernel", prune_k=8), params=task.params)
+    full = sess(task.params).numpy()
+    fe, _, _ = _inline(session=sess, params=task.params,
+                       policy=BatchPolicy(capacities=(1, 4, 8), flush_timeout=0.01, ego=True))
+    assert BatchPolicy(ego=True).ego and sess.ego_planner is not None
+    before = dict(flows.DISPATCH)
+    wl = make_workload(13, task.batch.num_targets, size_range=(1, 3), seed=3)
+    futs = run_workload(fe, wl)
+    for w, f in zip(wl, futs):
+        assert isinstance(f.result(0), np.ndarray)
+        np.testing.assert_allclose(f.result(0), full[w.targets], rtol=0, atol=ATOL)
+    d = {k: flows.DISPATCH[k] - before[k] for k in before}
+    assert fe.stats.completed == len(wl) and fe.stats.blocks < len(wl)
+    assert d["ego_calls"] + d["ego_fallback"] == fe.stats.blocks
+    assert d["query_calls"] == d["ego_fallback"]
+
+
+def test_ego_globals_recomputed_on_publish(tasks):
+    """HAN's β is cached per tenant weight version: blocks of one version
+    compute it once, and a publish (a new version token) recomputes it, so
+    the new weights' rows are served within 1e-5 of their full forward."""
+    task = tasks[("han", "acm")]
+    sess = InferenceSession(task.model, task.batch, FlowConfig("fused", prune_k=8), params=task.params)
+    other = {n: t * 0.5 for n, t in task.params.items()}
+    plane = WeightPlane(task.params)
+    plane.publish("t", task.params)
+    fe, _, _ = _inline(session=sess, params=plane,
+                       policy=BatchPolicy(capacities=(1, 4, 8), flush_timeout=0.01, ego=True))
+    computed = []
+    ego_globals = task.model.ego_globals
+
+    def counted(*args, **kw):
+        computed.append(1)
+        return ego_globals(*args, **kw)
+
+    task.model.ego_globals = counted
+    try:
+        wl = make_workload(9, task.batch.num_targets, size_range=(1, 3), tenants=("t",), seed=4)
+        for params in (task.params, other):
+            plane.publish("t", params)
+            full = sess(params).numpy()
+            for w, f in zip(wl, run_workload(fe, wl)):
+                np.testing.assert_allclose(f.result(0), full[w.targets], rtol=0, atol=ATOL)
+            beta = fe._ego_globals["t"][1]["sem_beta"]
+            np.testing.assert_allclose(beta.numpy(), ego_globals(params, task.batch, sess.flow)["sem_beta"].numpy(),
+                                       rtol=0, atol=0)
+    finally:
+        del task.model.ego_globals
+    assert len(computed) == 2
+    assert fe.stats.blocks > 2
 
 
 # ---------------------------------------------------------------------------
