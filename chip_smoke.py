@@ -211,12 +211,53 @@ exits non-zero at the first phase that fails:
    captured and the memory their private pools hold; and HAN at
    ``scale=1.0`` and 4.0 (rows a query must grow at most half as fast as
    the graph);
-9. prints a ``train {...}`` line with the step times, a ``serve {...}``
+9. streams graph deltas (``repro_torch.stream``) in the setting of the
+   reference's ``benchmarks/graph_deltas.py`` full run: RGAT on DBLP at
+   ``scale=1.0``, ``max_degree=None``, seed 0, ``enable_ego(seed=0,
+   sample_sizes=(1, 4))``, 8 batches of 48 random edges alternating AP and
+   PV, one ego-continuity delta first; the one change is the session, the
+   captured ``fused_kernel`` flow at K = 8 (the reference runs ``fused``),
+   so kernel #1 is on the path. Every successor is a new CUDA graph
+   captured by ``StreamIngestor.ingest``; after each ingest its warm-up
+   and capture must have launched kernel #1 twice a forward's count and a
+   replay none; clean slices' device tables and every feature tensor must
+   be the predecessor's (``data_ptr``), dirty slices' their own; the
+   predecessor's dirty tables are zeroed and the successor's replay must
+   not change; the merged host tables must equal a cold ``prepare`` of
+   the version's graph array for array, its captured logits that cold
+   capture's bit for bit, each dirty slice's fused NA on seeded inputs the
+   cold slice's bit for bit, and every version's logits the CPU forward
+   (plain versions) within 1e-5. (RGAT's DBLP logits read no NA, since the
+   labeled type receives no relation: the table checks are the ones that
+   see a delta.) The ego proof: an absorb-tier delta outside a warm
+   closure recaptures nothing, carries the closure, adopts the ego graphs,
+   hits the closure and serves the query bit for bit as before. An inline
+   front-end (fake clock) serves 2 requests an ingest, each row bit for bit
+   its version's. The merge's mean time over the 8 batches must be at
+   most 0.2 of a cold rebuild (the builders plus the grouped layouts,
+   median of 5), as the reference asserts. Then HAN on DBLP: an AP delta
+   (the full-rebuild tier: APA's compose draws under the fanout cap, so no
+   closure is carried) whose adopted ego graph must recapture nothing and
+   serve the successor's β (rows bit for bit the eager ego forward with
+   it, 1e-5 of the successor's full forward), where zeroing the
+   successor's own APA mask moves the logits and restoring it restores
+   them. Then a session dropped while its replay waits behind a spin on
+   another stream, whose feature memory must not be handed out first; and
+   a threaded front-end at 2000 requests/s, paced, serving through the 8
+   ingests on a fresh task: nothing failed, shed, expired or stranded,
+   every row bit for bit the rows of the version that served it (the
+   checkout recorded per block), every version serving, and the memory
+   reserved after the 8 ingests within one session's pool plus one set of
+   tables of where it started;
+10. prints a ``train {...}`` line with the step times, a ``serve {...}``
    line with the serving numbers (serial and microbatched wall time, QPS,
    p50/p99, mean batch, pad fraction and blocks; the threaded p50/p99; the
    busy share; the overlap counts), an ``ego {...}`` line with phase 8's
-   numbers, the card line, then the ``{"kernels": [...]}`` line, then
-   ``{"ok": true, "device": {...}}`` as the last line.
+   numbers, a ``stream {...}`` line with phase 9's (merge and cold
+   rebuild times and their ratio, per-ingest session times, bytes
+   uploaded and tiers, the threaded QPS during the ingests, memory), the
+   card line, then the ``{"kernels": [...]}`` line, then ``{"ok": true,
+   "device": {...}}`` as the last line.
 """
 from __future__ import annotations
 
@@ -280,6 +321,13 @@ SERVE_REPEATS = 20  # each timed window replays the 64-request workload this man
 # grows HAN's graph from scale 1 to 4
 EGO_MODELS = (("han", 1), ("rgat", 3), ("simple_hgn", 2))
 EGO_QUERIES, EGO_SIZES, EGO_REPEATS, EGO_SCALES = 32, (1, 4), 20, (1.0, 4.0)
+# phase 9, streamed graph deltas: the reference's benchmarks/graph_deltas.py
+# full run (RGAT DBLP, scale 1.0, max_degree None, 8 batches of 48 random
+# edges alternating AP / PV, merge <= 0.2x the cold rebuild), served by the
+# captured fused_kernel K = 8 session instead of the reference's fused flow
+STREAM_BATCHES, STREAM_EDGES, STREAM_RELS, STREAM_RATIO_CEILING = 8, 48, ("AP", "PV"), 0.2
+STREAM_SPIN_CYCLES = 200_000_000  # ~0.1 s of one SM spinning ahead of a replay
+STREAM_WORKLOAD = 40_000  # paced requests offered at most (20 s at 2000/s); cut at the last ingest
 
 
 def check(cond, msg: str) -> None:
@@ -3009,6 +3057,447 @@ def ego_phase(pipeline, FlowConfig, kernel_ops, dev):
     return res
 
 
+def stream_host_arrays(sgs, ops) -> dict:
+    """Every host array of a bucketed stack, by name: the bucket tables,
+    ``perm``, the row lookup and the grouped layout the kernel walks."""
+    out = {}
+    for sg in sgs:
+        for i, b in enumerate(sg.buckets):
+            for f in ("targets", "nbr_idx", "nbr_mask", "edge_type"):
+                out[sg.name, i, f] = getattr(b, f)
+        out[sg.name, "perm"] = sg.target_perm()
+        out[sg.name, "bucket_of"], out[sg.name, "row_of"] = sg.row_lookup()
+        lay = sg.grouped(ops.T_TILE, ops.W_TILE)
+        for f in ("nbr", "msk", "ety", "step_row", "step_dt", "step_ndt", "step_bucket", "caps", "caps_pad",
+                  "row_targets", "perm"):
+            out[sg.name, "grouped", f] = getattr(lay, f)
+    return out
+
+
+def same_arrays(a: dict, b: dict) -> bool:
+    import numpy as np
+
+    return list(a) == list(b) and all(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+
+
+def zero_tables(sgs) -> int:
+    """Zero every device table cached on ``sgs``; returns the bytes."""
+    from repro_torch.core.session import sg_tensors
+
+    n = 0
+    for sg in sgs:
+        for t in sg_tensors(sg):
+            t.zero_()
+            n += t.nbytes
+    return n
+
+
+def cold_rebuild_s(hetgraph, graph, sgs, sgb_args) -> float:
+    """The reference's ``_cold_rebuild_time``: the relation builders on
+    ``graph`` plus the grouped layouts ``sgs`` carry, host wall time."""
+    t0 = time.perf_counter()
+    built = hetgraph.build_relation_graphs(graph, max_degree=sgb_args["max_degree"], seed=sgb_args["seed"],
+                                           bucket_sizes=sgb_args["bucket_sizes"])
+    for old, new in zip(sgs, built):
+        for key in old._grouped:
+            new.grouped(*key)
+    return time.perf_counter() - t0
+
+
+def retire_in_flight(task, flow, dev) -> bool:
+    """A session dropped while its replay still waits on another stream
+    behind a spin: the memory that replay reads outside its pool (here the
+    batch's feature tensors, allocated on this stream) must not be handed
+    to new tensors first. Drops the session, fills same-sized new tensors
+    with NaN, then waits: True when the replay's rows are still the
+    session's."""
+    import torch
+
+    from repro_torch.core.batch import GraphBatch
+    from repro_torch.core.session import InferenceSession
+
+    batch = GraphBatch.from_graph(task.graph, task.sgs, dev)
+    sess = InferenceSession(task.model, batch, flow, params=task.params)
+    want = sess(task.params)
+    shapes = [(f.shape, f.dtype) for f in batch.features.values()]
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(STREAM_SPIN_CYCLES)
+        got = sess(task.params)
+    del sess, batch
+    junk = [torch.full(shape, float("nan"), dtype=dtype, device=dev) for shape, dtype in shapes]
+    side.synchronize()
+    del junk
+    return same_bits([got], [want])
+
+
+def stream_phase(pipeline, FlowConfig, kernel_ops, card, dev):
+    """Phase 9: streamed graph deltas (``repro_torch.stream``) in the
+    setting of the reference's ``benchmarks/graph_deltas.py`` full run
+    (module docstring). Every check raises; returns the results."""
+    import gc
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from repro_torch import serve
+    from repro_torch.core import flows, hetgraph
+    from repro_torch.core.session import InferenceSession, sg_tensors
+    from repro_torch.stream import StreamIngestor
+    from repro_torch.stream.merge import _degrees_of
+
+    ops = kernel_ops[0]
+    flow = FlowConfig("fused_kernel", prune_k=PRUNE_K)
+    res = {}
+
+    def zero_launches():
+        for m in kernel_ops:
+            reset_launches(m)
+
+    def launched():
+        return [dict(m.LAUNCHES) for m in kernel_ops]
+
+    def delta_of(rng, g, i):
+        """The reference's batch ``i``: random edges into one of AP, PV."""
+        rels = [r for r in g.relations if r[1] in STREAM_RELS]
+        s_t, name, d_t = rels[i % len(rels)]
+        return {name: (rng.integers(0, g.num_nodes[s_t], STREAM_EDGES), rng.integers(0, g.num_nodes[d_t], STREAM_EDGES))}
+
+    def ptrs(sg):
+        return {t.data_ptr() for t in sg_tensors(sg)}
+
+    def ingest_checked(ing, task, edges, model):
+        """One ingest and the per-version gates that need the predecessor:
+        launches 2 x a forward's (warm-up and capture), none in a replay;
+        clean slices' device tables and the features the predecessor's,
+        dirty slices' their own; the predecessor's dirty tables zeroed,
+        the successor's replay unchanged. Returns the report, the
+        successor's logits, the dirty slices and a row for the print."""
+        old, old_sgs = ing.session, {sg.name: sg for sg in ing.sgs}
+        old_feats = old.graph_batch.features
+        zero_launches()
+        rep = ing.ingest(edges)
+        sync(dev)
+        got = launched()
+        sess = ing.session
+        want = expected_launches(ing.sgs, "bucketed", PRUNE_K, task.model.num_layers, ops)
+        check(got[0] == {k: 2 * v for k, v in want.items()} and not any(v for m in got[1:] for v in m.values()),
+              f"stream {model} v{rep.version}: the ingest launched {got}, expected twice {want}")
+        check(sess.captured and sess is ing.plane.current() and rep.version == ing.version,
+              f"stream {model} v{rep.version}: the successor is not a published captured session")
+        zero_launches()
+        before = dict(flows.DISPATCH)
+        logits = sess(task.params)
+        sync(dev)
+        check(not any(v for m in launched() for v in m.values()) and flows.DISPATCH == before,
+              f"stream {model} v{rep.version}: a replay launched or dispatched")
+        dirty = [sg for sg in ing.sgs if sg is not old_sgs[sg.name]]
+        for sg in ing.sgs:
+            mine, theirs = ptrs(sg), ptrs(old_sgs[sg.name])
+            check(mine and (mine == theirs if sg is old_sgs[sg.name] else not mine & theirs),
+                  f"stream {model} v{rep.version} {sg.name}: device tables shared wrongly")
+        feats = sess.graph_batch.features
+        check(all(feats[t] is old_feats[t] for t in feats), f"stream {model} v{rep.version}: a feature tensor moved")
+        uploaded = sum(t.nbytes for sg in dirty for t in sg_tensors(sg))
+        zeroed = zero_tables([old_sgs[sg.name] for sg in dirty])
+        check(same_bits([sess(task.params)], [logits]),
+              f"stream {model} v{rep.version}: zeroing the predecessor's tables changed the successor's replay")
+        row = {"version": rep.version, "tiers": rep.stats.summary(), "dirty_slices": [sg.name for sg in dirty],
+               "t_merge_ms": rep.t_merge * 1e3, "t_batch_ms": rep.t_batch * 1e3,
+               "t_session_ms": rep.t_session * 1e3, "t_publish_ms": rep.t_publish * 1e3,
+               "bytes_uploaded": uploaded, "predecessor_bytes_zeroed": zeroed,
+               "launches": got[0]["prune_aggregate"], "closures_carried": rep.closures_carried,
+               "exes_adopted": rep.exes_adopted}
+        return rep, logits, dirty, row
+
+    def cold_checks(ing, task, logits, dirty, model, key):
+        """The version against a cold ``prepare`` of its graph on the card:
+        host tables array for array, the captured logits bit for bit, and
+        each dirty slice's fused NA (kernel #1 on seeded inputs) bit for
+        bit the cold slice's."""
+        cold = pipeline.prepare(model, ing.graph, max_degree=None, seed=0, metapaths=task.metapaths, device=dev)
+        check(same_arrays(stream_host_arrays(ing.sgs, ops), stream_host_arrays(cold.sgs, ops)),
+              f"stream {key}: merged host tables differ from the cold build's")
+        check(same_bits([logits], [cold.compile(flow)(task.params)]),
+              f"stream {key}: the successor's logits differ from the cold capture's")
+        cold_by = {sg.name: sg for sg in cold.sgs}
+        gen = torch.Generator(device=dev).manual_seed(len(dirty))
+        n = task.batch.total_nodes
+        h = torch.randn((n, 2, 16), device=dev, generator=gen)
+        ts = torch.randn((n, 2), device=dev, generator=gen)
+        for sg in dirty:
+            td = torch.randn((sg.num_targets, 2), device=dev, generator=gen)
+            a = ops.fused_prune_aggregate_grouped(h, ts, td, sg, prune_k=PRUNE_K)
+            b = ops.fused_prune_aggregate_grouped(h, ts, td, cold_by[sg.name], prune_k=PRUNE_K)
+            check(same_bits([a], [b]), f"stream {key} {sg.name}: the slice's NA differs from the cold slice's")
+        zero_launches()
+
+    # -- pass A: the reference's run, inline front-end, every gate --------
+    rng = np.random.default_rng(0)
+    task = pipeline.prepare("rgat", "dblp", scale=SCALE, max_degree=None, seed=0, device=dev)
+    want0 = expected_launches(task.sgs, "bucketed", PRUNE_K, task.model.num_layers, ops)
+    base, base_logits, _ = captured_session(task, flow, want0, "stream rgat/dblp", ops, dev)
+    base.enable_ego(seed=0, sample_sizes=EGO_SIZES)
+    ing = StreamIngestor(task, base)
+    fe = serve.ServeFrontend(ing.plane, task.params, policy=serve.BatchPolicy(capacities=(1, 4)),
+                             clock=serve.FakeClock(), executor=serve.InlineExecutor())
+    n_tgt = task.batch.num_targets
+    versions = {0: base_logits.cpu().numpy()}
+    graphs = {0: ing.graph}
+    inline = [(fe.submit(q), q, 0) for q in (rng.integers(0, n_tgt, 2) for _ in range(2))]
+    fe.pump(force=True)
+
+    # ego continuity: one absorb-tier delta outside a warm closure
+    qa = np.arange(min(4, n_tgt), dtype=np.int32)
+    ego_before = base.query_ego(task.params, qa)
+    full_a, _ = base.ego_planner._closure(qa.astype(np.int64))
+    g = ing.graph
+    s_t, rel, d_t = g.relations[0]
+    sg0 = next(s for s in ing.sgs if s.name == rel)
+    bucket_of, row_of = sg0.row_lookup()
+    cand = np.setdiff1d(np.arange(g.num_nodes[d_t], dtype=np.int64), full_a.get(d_t, []))
+    ok = cand[_degrees_of(sg0, cand, bucket_of, row_of) + 1 <= np.asarray(sg0.bucket_capacities)[bucket_of[cand]]]
+    check(ok.size > 0, "stream: no absorbable target outside the warm closure")
+    traces0 = flows.DISPATCH["ego_traces"]
+    rep, logits, dirty, row = ingest_checked(
+        ing, task, {rel: (rng.integers(0, g.num_nodes[s_t], 1), np.array([int(ok[0])], dtype=np.int64))}, "rgat")
+    rows = [dict(row, delta="ego proof")]
+    ego_after = ing.session.query_ego(task.params, qa)
+    hits = ing.session.ego_planner.stats.closure_hits
+    ego = {"absorbed": rep.stats.absorbed_slices, "full_rebuild": rep.stats.full_rebuild,
+           "ego_traces_moved": flows.DISPATCH["ego_traces"] - traces0, "closures_carried": rep.closures_carried,
+           "exes_adopted": rep.exes_adopted, "closure_hits": hits, "rows_bitwise": same_bits([ego_after], [ego_before])}
+    check(ego["absorbed"] >= 1 and not ego["full_rebuild"] and ego["ego_traces_moved"] == 0
+          and ego["closures_carried"] >= 1 and ego["exes_adopted"] >= 1 and hits >= 1 and ego["rows_bitwise"],
+          f"stream: the ego continuity proof failed: {ego}")
+    res["ego_rgat"] = ego
+    cold_checks(ing, task, logits, dirty, "rgat", f"rgat/dblp v{rep.version}")
+    versions[rep.version], graphs[rep.version] = logits.cpu().numpy(), ing.graph
+
+    # the 8 batches, 2 requests an ingest through the inline front-end
+    batches = []
+    for i in range(STREAM_BATCHES):
+        edges = delta_of(rng, ing.graph, i)
+        batches.append(edges)
+        rep, logits, dirty, row = ingest_checked(ing, task, edges, "rgat")
+        rows.append(dict(row, delta=f"{list(edges)[0]} x {STREAM_EDGES}"))
+        cold_checks(ing, task, logits, dirty, "rgat", f"rgat/dblp v{rep.version}")
+        versions[rep.version], graphs[rep.version] = logits.cpu().numpy(), ing.graph
+        zero_launches()
+        inline += [(fe.submit(q), q, rep.version) for q in (rng.integers(0, n_tgt, 2) for _ in range(2))]
+        fe.pump(force=True)
+        check(not any(v for m in launched() for v in m.values()), "stream: the inline front-end launched")
+    fe.close()
+    st = fe.stats
+    check(st.failed == 0 and st.shed == 0 and st.expired == 0 and st.completed == st.submitted == len(inline)
+          and all(f.done() for f, _, _ in inline), f"stream: the inline front-end stranded or failed: {st.summary()}")
+    check(all(np.array_equal(f.result(0), versions[v][q]) for f, q, v in inline),
+          "stream: an inline row differs from its version's logits")
+    for r in rows:
+        print("  stream ingest " + json.dumps(r))
+
+    # every version within 1e-5 of the CPU forward (plain versions), the
+    # eight forwards side by side, one intra-op thread each
+    cpu_params = {k: v.detach().cpu() for k, v in task.params.items()}
+
+    def cpu_forward(v):
+        cpu = pipeline.prepare("rgat", graphs[v], max_degree=None, seed=0, device="cpu")
+        with torch.inference_mode():
+            return v, float(np.abs(cpu.model.apply(cpu_params, cpu.batch, flow).numpy() - versions[v]).max())
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with ThreadPoolExecutor(8) as pool:
+            cpu_err = dict(pool.map(cpu_forward, sorted(versions)))
+    finally:
+        torch.set_num_threads(threads)
+    check(max(cpu_err.values()) <= TOL_OUT, f"stream: a version differs from its CPU forward: {cpu_err}")
+
+    # merge cost against the cold rebuild (host)
+    t_merge = [r["t_merge_ms"] for r in rows[1:]]
+    cold_ms = sorted(cold_rebuild_s(hetgraph, ing.graph, ing.sgs, task.sgb_args) * 1e3 for _ in range(5))
+    ratio = (sum(t_merge) / len(t_merge)) / cold_ms[2]
+    res["pass_a"] = {"ingests": rows, "mean_merge_ms": sum(t_merge) / len(t_merge), "cold_rebuild_ms": cold_ms,
+                     "merge_over_cold": ratio, "cpu_max_abs_err": max(cpu_err.values()),
+                     "inline": {"requests": len(inline), "completed": st.completed, "failed": st.failed,
+                                "shed": st.shed, "expired": st.expired},
+                     "ingest_launches_prune_aggregate": sum(r["launches"] for r in rows),
+                     "launches_per_forward": want0}
+    print(f"  stream merge: mean {res['pass_a']['mean_merge_ms']:.3f} ms over {len(t_merge)} batches, cold rebuild "
+          f"{cold_ms[2]:.3f} ms (median of 5: {[round(x, 3) for x in cold_ms]}), ratio {ratio:.4f} "
+          f"(<= {STREAM_RATIO_CEILING}); every version 1e-5 of the CPU ({max(cpu_err.values()):.3g})")
+    check(ratio <= STREAM_RATIO_CEILING, f"stream: the merge costs {ratio:.3f} of a cold rebuild")
+    del ing, fe, base, inline
+    gc.collect()
+
+    # -- HAN DBLP: the adopted ego graph serves the successor's β ---------
+    htask = pipeline.prepare("han", "dblp", scale=SCALE, max_degree=None, seed=0, device=dev)
+    hwant = expected_launches(htask.sgs, "bucketed", PRUNE_K, htask.model.num_layers, ops)
+    hs, _, _ = captured_session(htask, flow, hwant, "stream han/dblp", ops, dev)
+    hs.enable_ego(seed=0, sample_sizes=EGO_SIZES)
+    hing = StreamIngestor(htask, hs)
+    before = hs.query_ego(htask.params, qa)
+    beta0 = {k: v.clone() for k, v in hs._ego_globals_for(htask.params).items()}
+    full_h, _ = hs.ego_planner._closure(qa.astype(np.int64))
+    outside = np.setdiff1d(np.arange(htask.graph.num_nodes["author"]), full_h["author"])
+    traces0 = flows.DISPATCH["ego_traces"]
+    hrep, hlogits, hdirty, hrow = ingest_checked(
+        hing, htask, {"AP": (outside[:1], rng.integers(0, htask.graph.num_nodes["paper"], 1))}, "han")
+    check("APA" in [sg.name for sg in hdirty], f"stream han: the AP delta left APA clean ({hrep.stats.summary()})")
+    got = hing.session.query_ego(htask.params, qa)
+    beta1 = hing.session._ego_globals_for(htask.params)
+    eb = hing.session.ego_planner.extract(qa, ego_globals=beta1)
+    check(eb is not None, "stream han: the ego query fell back to the full forward")
+    with torch.inference_mode():
+        on_card = eb.to(dev)
+        eager = htask.model.apply(htask.params, on_card, flow).index_select(0, on_card.out_rows)
+        eb0 = hing.session.ego_planner.extract(qa, ego_globals=beta0)
+        on_card0 = eb0.to(dev)
+        eager0 = htask.model.apply(htask.params, on_card0, flow).index_select(0, on_card0.out_rows)
+    full_err = float((got - hing.session(htask.params)[torch.as_tensor(qa, device=dev).long()]).abs().max())
+    han = {"tiers": hrep.stats.summary(), "ego_traces_moved": flows.DISPATCH["ego_traces"] - traces0,
+           "closures_carried": hrep.closures_carried, "exes_adopted": hrep.exes_adopted,
+           "closure_hits": hing.session.ego_planner.stats.closure_hits, "max_abs_err_vs_full": full_err,
+           "rows_bitwise_eager_with_successor_beta": same_bits([got], [eager]),
+           "beta_changed": any(not torch.equal(beta0[k], beta1[k]) for k in beta0),
+           "rows_bitwise_eager_with_predecessor_beta": same_bits([got], [eager0]),
+           "rows_bitwise_before": same_bits([got], [before]), **{k: hrow[k] for k in ("t_session_ms", "bytes_uploaded")}}
+    check(han["ego_traces_moved"] == 0 and han["exes_adopted"] >= 1 and full_err <= TOL_OUT
+          and han["rows_bitwise_eager_with_successor_beta"], f"stream han: the ego proof failed: {han}")
+    # the zeroing above can see a table: the successor's own APA mask, zeroed, moves its logits
+    hwant_bits = hing.session(htask.params)
+    apa = next(sg for sg in hing.sgs if sg.name == "APA")
+    msk = next(v for k, v in next(iter(apa._grouped.values()))._dev.items() if k[0] == "base")[1]
+    saved = msk.clone()
+    msk.zero_()
+    moved = not same_bits([hing.session(htask.params)], [hwant_bits])
+    msk.copy_(saved)
+    check(moved and same_bits([hing.session(htask.params)], [hwant_bits]),
+          "stream han: zeroing the successor's own APA table did not move its logits, or restoring it did not")
+    cold_checks(hing, htask, hlogits, hdirty, "han", f"han/dblp v{hrep.version}")
+    han["own_table_zeroed_moves_logits"] = moved
+    res["ego_han"] = han
+    print("  stream ego proof rgat/dblp: " + json.dumps(res["ego_rgat"]))
+    print("  stream ego proof han/dblp: " + json.dumps(han))
+    del hing, hs, htask
+    gc.collect()
+
+    # -- pass B: a threaded front-end serving through 8 ingests -----------
+    task = pipeline.prepare("rgat", "dblp", scale=SCALE, max_degree=None, seed=0, device=dev)
+    check(retire_in_flight(task, flow, dev),
+          "stream: a dropped session's replay read memory handed out again before it ran")
+
+    class RecordingPlane(serve.GraphPlane):
+        """The graph plane, keeping per thread the version of its last
+        checkout (the front-end resolves one per block)."""
+
+        def __init__(self, session):
+            super().__init__(session)
+            self.seen = threading.local()
+
+        def current(self):
+            self.seen.version, session = self.checkout()
+            return session
+
+    sess = InferenceSession(task.model, task.batch, flow, params=task.params)
+    plane = RecordingPlane(sess)
+    ing = StreamIngestor(task, sess, plane=plane)
+    versions = {0: sess(task.params).cpu().numpy()}
+    pool0 = pool_bytes([sess._graph])
+    del sess
+    sync(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = {"reserved": torch.cuda.memory_reserved(dev), "allocated": torch.cuda.memory_allocated(dev)}
+    fe = serve.ServeFrontend(plane, task.params, policy=serve.BatchPolicy(SERVE_CAPACITIES, flush_timeout=SERVE_FLUSH),
+                             clock=serve.SystemClock(), executor=serve.ThreadExecutor())
+    served_by = {}
+    dispatch = fe._supervised_dispatch
+
+    def recorded_dispatch(blk):
+        out = dispatch(blk)
+        for req, _ in blk.requests:
+            served_by[req.future] = plane.seen.version
+        return out
+
+    fe._supervised_dispatch = recorded_dispatch
+    wl = serve.make_workload(STREAM_WORKLOAD, n_tgt, rate=SERVE_RATE, size_range=(1, 4), seed=1)
+    stop, offered, errors = threading.Event(), [], []
+
+    def offer():
+        try:
+            t0 = time.perf_counter()
+            for w in wl:
+                if stop.is_set():
+                    return
+                dt = t0 + w.t_offset - time.perf_counter()
+                if dt > 0:
+                    time.sleep(dt)
+                offered.append((fe.submit(w.targets), w.targets))
+        except BaseException as exc:  # noqa: BLE001 - re-raised on the main thread
+            errors.append(exc)
+
+    submitter = threading.Thread(target=offer, name="stream-offer")
+    fe.start()
+    t0 = time.perf_counter()
+    submitter.start()
+    time.sleep(0.05)
+    trows = []
+    for edges in batches:
+        old_sgs = {sg.name: sg for sg in ing.sgs}
+        rep = ing.ingest(edges)
+        versions[rep.version] = ing.session(task.params).cpu().numpy()
+        trows.append({"version": rep.version, "tiers": rep.stats.summary(), "t_merge_ms": rep.t_merge * 1e3,
+                      "t_session_ms": rep.t_session * 1e3, "t_publish_ms": rep.t_publish * 1e3,
+                      "bytes_uploaded": sum(t.nbytes for sg in ing.sgs if sg is not old_sgs[sg.name]
+                                            for t in sg_tensors(sg))})
+    time.sleep(0.05)
+    stop.set()
+    submitter.join(60)
+    check(not submitter.is_alive() and not errors, f"stream: the offering thread failed: {errors}")
+    fe.close()
+    wall_s = time.perf_counter() - t0
+    for th in fe.executor.threads:
+        th.join(5.0)
+    check(not any(th.is_alive() for th in fe.executor.threads), "stream: a loop thread outlived close")
+    st = fe.stats
+    check(st.failed == 0 and st.shed == 0 and st.expired == 0 and st.completed == st.submitted == len(offered)
+          and all(f.done() for f, _ in offered), f"stream: the threaded front-end stranded or failed: {st.summary()}")
+    check(all(np.array_equal(f.result(0), versions[served_by[f]][q]) for f, q in offered),
+          "stream: a threaded row differs from the rows of the version that served it")
+    by_version = {v: sum(1 for f, _ in offered if served_by[f] == v) for v in sorted(versions)}
+    check(all(by_version.values()), f"stream: a version served no request: {by_version}")
+    summ = st.summary()
+    del fe, dispatch, recorded_dispatch, offered, served_by  # the front-end holds the base version
+    sync(dev)
+    gc.collect()
+    reserved_cached = torch.cuda.memory_reserved(dev)
+    torch.cuda.empty_cache()
+    tables = sum(t.nbytes for t in ing.session._serial._held)
+    mem = {"start": mem0, "after": {"reserved": torch.cuda.memory_reserved(dev),
+                                    "allocated": torch.cuda.memory_allocated(dev)},
+           "reserved_before_empty_cache": reserved_cached, "session_pool": pool_bytes([ing.session._graph]),
+           "base_pool": pool0, "tables": tables}
+    check(mem["session_pool"] is not None, "stream: the allocator's snapshot names no pool")
+    bound = mem0["reserved"] + mem["session_pool"] + tables
+    check(mem["after"]["reserved"] <= bound,
+          f"stream: reserved memory after {len(batches)} ingests {mem['after']['reserved']} > {bound} (start + one "
+          f"session's pool + one set of tables): a retired version kept its memory; {mem}")
+    res["pass_b"] = {"ingests": trows, "requests": sum(by_version.values()),
+                     "by_version": by_version, "wall_s": wall_s, "qps": summ["qps"], "p50_ms": summ["p50_ms"],
+                     "p99_ms": summ["p99_ms"], "blocks": summ["blocks"], "mean_batch": summ["mean_batch"],
+                     "memory": mem, "retire_in_flight": True}
+    print("  stream threaded: " + json.dumps({k: v for k, v in res["pass_b"].items() if k != "ingests"}))
+    for r in trows:
+        print("  stream threaded ingest " + json.dumps(r))
+    res["launches"] = {"prune_aggregate": res["pass_a"]["ingest_launches_prune_aggregate"] + hrow["launches"]}
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -3194,6 +3683,14 @@ def main() -> int:
     phase_s["8"] = time.perf_counter() - t_phase
     print(f"phase 8: wall time {phase_s['8']:.1f} s")
 
+    # phase 9: streamed graph deltas
+    t_phase = time.perf_counter()
+    print(f"phase 9: streamed graph deltas (repro_torch.stream) on RGAT DBLP at scale={SCALE}, max_degree=None, "
+          f"{STREAM_BATCHES} batches of {STREAM_EDGES} edges into {list(STREAM_RELS)}, fused_kernel K={PRUNE_K}")
+    stream = stream_phase(pipeline, FlowConfig, (ops, tda_ops, ts_ops), card, dev)
+    phase_s["9"] = time.perf_counter() - t_phase
+    print(f"phase 9: wall time {phase_s['9']:.1f} s")
+
     kernels = []
     for key, line, lib in KERNELS:
         bound_ms, bound_by, nbytes, nops = bounds[key]
@@ -3221,6 +3718,7 @@ def main() -> int:
         })
         if key == "prune_aggregate":
             kernels[-1]["replayed_launches_phase7"] = served["replayed_launches"]
+            kernels[-1]["launches_phase9_ingests"] = stream["launches"]["prune_aggregate"]
     wide_rows = (("prune_wide", "prune", KERNELS[0][1]), ("prune_aggregate_wide", "prune_aggregate", KERNELS[2][1]),
                  ("flat_prune_wide", "flat_prune", KERNELS[3][1]),
                  ("flat_prune_aggregate_wide", "flat_prune_aggregate", KERNELS[5][1]))
@@ -3304,7 +3802,8 @@ def main() -> int:
         "decode_k1_tie_rows": {"phase2_cases": dec_ties, "phase2_tie_cases": tie_cases,
                                "main_path": lm_result["tie_rows"]},
         "pruner_times_ms": t_ts, "forward_ms": fwd, "forward_latency_ms": latency, "profiles": prof,
-        "train": train, "sgb": sgb, "serve": served, "ego": ego, "kernels": kernels, "phase_wall_s": phase_s,
+        "train": train, "sgb": sgb, "serve": served, "ego": ego, "stream": stream, "kernels": kernels,
+        "phase_wall_s": phase_s,
     }, indent=1))
     print(f"  full report: {REPORT.relative_to(ROOT)}; wall time {time.perf_counter() - t_start:.1f} s, by phase (s) "
           + json.dumps({k: round(v, 1) for k, v in phase_s.items()}))
@@ -3332,6 +3831,21 @@ def main() -> int:
                                    "times")}
            for key, r in ego.items() if key.endswith("/imdb")},
         "frontend": ego["frontend"], "scaling_growth": ego["scaling"]["growth"], "card": card,
+    }))
+    pa, pb = stream["pass_a"], stream["pass_b"]
+    print("stream " + json.dumps({
+        "path": f"rgat/dblp scale={SCALE} max_degree=None fused_kernel K={PRUNE_K}, {STREAM_BATCHES} batches of "
+                f"{STREAM_EDGES} edges into {list(STREAM_RELS)}",
+        "mean_merge_ms": pa["mean_merge_ms"], "cold_rebuild_ms": pa["cold_rebuild_ms"][2],
+        "merge_over_cold": pa["merge_over_cold"],
+        "t_session_ms": [r["t_session_ms"] for r in pa["ingests"][1:]],
+        "bytes_uploaded": [r["bytes_uploaded"] for r in pa["ingests"][1:]],
+        "tiers": [r["tiers"] for r in pa["ingests"][1:]],
+        "threaded": {k: pb[k] for k in ("requests", "qps", "p50_ms", "p99_ms", "blocks", "wall_s")},
+        "memory": pb["memory"], "ego_rgat": stream["ego_rgat"],
+        "ego_han": {k: stream["ego_han"][k] for k in ("tiers", "closures_carried", "exes_adopted", "beta_changed",
+                                                      "max_abs_err_vs_full")},
+        "card": card,
     }))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -42,13 +42,17 @@ class GraphBatch:
         self.label_type = label_type
 
     @classmethod
-    def from_graph(cls, g, sgs, device: torch.device) -> "GraphBatch":
+    def from_graph(cls, g, sgs, device: torch.device, features=None) -> "GraphBatch":
         """Build from a ``HetGraph`` + its SGB output, with the feature
-        tables copied to ``device``."""
-        features = {
-            t: from_host(np.asarray(f, np.float32), device)
-            for t, f in g.features.items()
-        }
+        tables copied to ``device``. ``features`` overrides them: its
+        tensors are taken as they are, with no copy (the stream ingestor
+        hands a successor the serving batch's tensors of the node types a
+        delta did not touch)."""
+        if features is None:
+            features = {
+                t: from_host(np.asarray(f, np.float32), device)
+                for t, f in g.features.items()
+            }
         return cls(
             features=features, sgs=sgs, node_types=g.node_types,
             offsets=g.type_offsets(), num_nodes=g.num_nodes,

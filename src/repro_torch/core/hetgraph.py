@@ -126,6 +126,44 @@ class HetGraph:
             )
         return self
 
+    def validate_delta(self, edges: Dict[str, Tuple[np.ndarray, np.ndarray]]) -> None:
+        """Validate an appended edge batch ``{rel_name: (src, dst)}`` in
+        O(batch), not O(graph): known relation name, a (src, dst) pair of
+        1-D integer arrays of equal length, ids inside the endpoint types'
+        ranges. Collects every violation and raises one ``ValueError``, as
+        :meth:`validate` does (the streaming ingest path, ``stream/``)."""
+        errs: List[str] = []
+        known = {r[1]: r for r in self.relations}
+        for name, pair in edges.items():
+            rel = known.get(name)
+            if rel is None:
+                errs.append(f"delta relation {name!r} not in graph relations {sorted(known)}")
+                continue
+            if not (isinstance(pair, tuple) and len(pair) == 2):
+                errs.append(f"delta[{name!r}] is not a (src, dst) pair")
+                continue
+            src, dst = (np.asarray(a) for a in pair)
+            if len(src) != len(dst):
+                errs.append(f"delta[{name!r}]: src/dst length mismatch ({len(src)} vs {len(dst)})")
+            src_t, _, dst_t = rel
+            for ids, t, side in ((src, src_t, "src"), (dst, dst_t, "dst")):
+                if ids.ndim != 1:
+                    errs.append(f"delta[{name!r}] {side} ids must be 1-D, got shape {ids.shape}")
+                    continue
+                if not np.issubdtype(ids.dtype, np.integer):
+                    errs.append(f"delta[{name!r}] {side} ids dtype {ids.dtype} is not an integer type")
+                    continue
+                if ids.size == 0:
+                    continue
+                lo, hi = int(ids.min()), int(ids.max())
+                if lo < 0 or hi >= self.num_nodes.get(t, 0):
+                    errs.append(
+                        f"delta[{name!r}] {side} ids [{lo}, {hi}] out of range for "
+                        f"{t!r} (num_nodes={self.num_nodes.get(t)})"
+                    )
+        if errs:
+            raise ValueError("HetGraph delta validation failed:\n  - " + "\n  - ".join(errs))
+
     @property
     def total_nodes(self) -> int:
         return sum(self.num_nodes[t] for t in self.node_types)
@@ -676,14 +714,22 @@ def build_relation_graphs(
     add_self_loops: bool = True,
     seed: int = 0,
     bucket_sizes: Sequence[int] | str | None = None,
+    rng: np.random.Generator | None = None,
+    only: Sequence[str] | None = None,
 ) -> List[AnySemanticGraph]:
     """SGB for relation-based models (RGAT): one semantic graph per
     relation, in ``g.relations`` order; the model decides which to use.
-    A relation whose endpoints share a type gets self-loops."""
-    rng = np.random.default_rng(seed)
+    A relation whose endpoints share a type gets self-loops.
+
+    ``rng`` replaces the generator drawn from ``seed`` (the delta merge
+    passes a draw-counting one); ``only`` restricts the build to the named
+    relations (the merge rebuilds only the dirty slices)."""
+    rng = np.random.default_rng(seed) if rng is None else rng
     offs = g.type_offsets()
     out = []
     for (src_t, name, dst_t) in g.relations:
+        if only is not None and name not in only:
+            continue
         src, dst = g.edges[name]
         gsrc = src.astype(np.int64) + offs[src_t]
         if add_self_loops and src_t == dst_t:
@@ -706,12 +752,14 @@ def build_union_graph(
     add_self_loops: bool = True,
     seed: int = 0,
     bucket_sizes: Sequence[int] | str | None = None,
+    rng: np.random.Generator | None = None,
 ) -> Dict[str, AnySemanticGraph]:
     """SGB for Simple-HGN: one union graph per destination type (all of
     ``g.node_types`` by default, in that order) holding the in-edges of
     every relation, with per-slot relation ids for the edge-type term.
-    Self-loops get their own type id, ``len(g.relations)``."""
-    rng = np.random.default_rng(seed)
+    Self-loops get their own type id, ``len(g.relations)``. ``rng``
+    replaces the generator drawn from ``seed``."""
+    rng = np.random.default_rng(seed) if rng is None else rng
     offs = g.type_offsets()
     rel_ids = {name: i for i, (_, name, _) in enumerate(g.relations)}
     self_loop_id = len(rel_ids)
@@ -792,15 +840,17 @@ def build_metapath_graphs(
     cap_fanout: int = 4096,
     seed: int = 0,
     bucket_sizes: Sequence[int] | str | None = None,
+    rng: np.random.Generator | None = None,
 ) -> List[AnySemanticGraph]:
     """SGB for metapath-based models (HAN).
 
     ``metapaths`` maps a name (e.g. ``"PAP"``) to the relation names to
     compose, e.g. ``("AP_rev", "AP")``; a ``_rev`` suffix transposes the
     edge list. Endpoints share the metapath's end type. Self-loops are added
-    (HAN aggregates v itself).
+    (HAN aggregates v itself). ``rng`` replaces the generator drawn from
+    ``seed``.
     """
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(seed) if rng is None else rng
     offs = g.type_offsets()
 
     def rel_pairs(name: str) -> Tuple[np.ndarray, np.ndarray, str, str]:

@@ -10,12 +10,15 @@ example ``params``:
     tensors it owns, runs the eager forward once on a side stream (which
     fills every lazy device cache and builds the kernel library), then
     captures the forward into a memory pool of its own (so no other
-    session's replay reuses the buffers its kernels write). A call copies
-    its params into the static inputs (one ``torch._foreach_copy_``) and
-    replays the graph: no Python NA dispatch, no kernel wrapper runs, so
-    the launch counters (``flows.DISPATCH``, the kernels' ``LAUNCHES``)
-    tick at the warm-up and at the capture, never on a replay. A capture
-    that fails raises; the session never gives way to the eager forward;
+    session's replay reuses the buffers its kernels write), one capture at
+    a time in the process and in thread-local mode, so other threads keep
+    serving while a session (a graph version's successor) is captured. A
+    call copies its params into the static inputs (one
+    ``torch._foreach_copy_``) and replays the graph: no Python NA
+    dispatch, no kernel wrapper runs, so the launch counters
+    (``flows.DISPATCH``, the kernels' ``LAUNCHES``) tick at the warm-up and
+    at the capture, never on a replay. A capture that fails raises; the
+    session never gives way to the eager forward;
   * on a CPU batch it runs the same eager forward under
     ``torch.inference_mode()`` on every call.
 
@@ -30,8 +33,12 @@ the caller's current stream, and when that stream is not the one the
 previous call ran on, it first waits for that one: replays of one session
 are serialized on the card whichever threads and streams call it, and a
 caller that stays on one stream (the serving front-end's stepper) pays no
-cross-stream wait. Host query ids go to the card through pinned memory,
-asynchronously: a call does not wait for an earlier call's forward.
+cross-stream wait. The device tensors a replay reads outside its pool
+(static inputs, features, tables) are marked used on every stream a call
+runs on, so the memory of a dropped session (a retired graph version) is
+handed out again only after its last replay has ended. Host query ids go
+to the card through pinned memory, asynchronously: a call does not wait
+for an earlier call's forward.
 ``forwards`` counts the forwards run through this session object (graph
 replays on a CUDA batch).
 Entry points:
@@ -107,12 +114,95 @@ def _gather(out: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 _UNSET = object()
 
 
+# One capture at a time in the process: entering a capture synchronizes
+# the device and empties the allocator's cache, which must not meet another
+# thread's capture in progress. Every capture warms up on one side stream
+# per device: cuBLAS keeps a workspace for each stream it has run on for the
+# life of the process, so a fresh stream a capture (a graph version's
+# successor) would hold 32 MiB more each time.
+_CAPTURE_LOCK = threading.Lock()
+_WARMUP_STREAMS: dict = {}
+
+
+def _capture_graph(forward: Callable[[], torch.Tensor], device: torch.device):
+    """``(graph, out)``: ``forward`` run once eagerly on the device's
+    warm-up stream (which fills every lazy device cache), then captured as
+    a CUDA graph into a private pool. The capture is thread-local: other
+    threads may replay, allocate, copy and synchronize meanwhile (a
+    successor captured while its predecessor serves), and only this thread
+    is held to the capture's rules. Raises if the capture fails."""
+    with _CAPTURE_LOCK:
+        side = _WARMUP_STREAMS.get(device)
+        if side is None:
+            side = _WARMUP_STREAMS[device] = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side), torch.inference_mode():
+            forward()
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.inference_mode(), torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = forward()
+    return graph, out
+
+
+def _device_tensors(obj, out: list) -> list:
+    """Every CUDA tensor in ``obj``, a tensor or nested tuples, lists and
+    dict values of them."""
+    if isinstance(obj, torch.Tensor):
+        if obj.is_cuda:
+            out.append(obj)
+    elif isinstance(obj, (tuple, list)):
+        for x in obj:
+            _device_tensors(x, out)
+    elif isinstance(obj, dict):
+        for x in obj.values():
+            _device_tensors(x, out)
+    return out
+
+
+def sg_tensors(sg) -> list:
+    """The device tensors cached on one semantic graph: its tables
+    (``_device``) and its grouped layouts' (``_dev``)."""
+    return _device_tensors([sg._device, *(lay._dev for lay in getattr(sg, "_grouped", {}).values())], [])
+
+
+def _batch_tensors(batch: GraphBatch) -> list:
+    """The device tensors of a batch that its captured forward reads: the
+    feature tensors and the semantic graphs' cached device tables (filled
+    at the warm-up)."""
+    return _device_tensors(batch.features, []) + [t for sg in batch.sgs for t in sg_tensors(sg)]
+
+
 class _Serial:
     """What orders the calls of one captured program, shared by every
-    handle on it: the lock and the stream the last call ran on."""
+    handle on it: the lock and the stream the last call ran on.
 
-    def __init__(self, stream: torch.cuda.Stream):
+    It also holds the device tensors a replay reads outside the graph's
+    private pool (static inputs, features, tables), and marks each as used
+    on every stream a call runs on (``record_stream``): when the program
+    is dropped (a retired graph version), the caching allocator hands
+    their memory out again only after the work queued on those streams
+    has ended, the last replay included. The pool itself is returned to
+    the device only by a synchronizing free."""
+
+    def __init__(self, stream: torch.cuda.Stream, held: Sequence[torch.Tensor]):
         self.lock, self.stream = threading.Lock(), stream
+        self._held, self._used = tuple(held), set()
+        self._use(stream)
+
+    def _use(self, stream: torch.cuda.Stream) -> None:
+        if stream not in self._used:
+            self._used.add(stream)
+            for t in self._held:
+                t.record_stream(stream)
+
+    def follow(self, stream: torch.cuda.Stream) -> None:
+        """Under ``lock``, before a call's work on ``stream``: order it
+        after the previous call's stream."""
+        if stream != self.stream:
+            stream.wait_stream(self.stream)
+            self.stream = stream
+            self._use(stream)
 
 
 class InferenceSession:
@@ -144,7 +234,9 @@ class InferenceSession:
         self._ego_globals_cache = None
         if batch.device.type == "cuda":
             self._capture(params)
-            self._serial = _Serial(torch.cuda.current_stream(batch.device))
+            self._serial = _Serial(
+                torch.cuda.current_stream(batch.device), self._inputs + _batch_tensors(batch)
+            )
 
     def with_donation(self, donate_params: bool) -> "InferenceSession":
         """A handle on this session's program (its graph, static buffers and
@@ -156,22 +248,15 @@ class InferenceSession:
         return other
 
     def _capture(self, params) -> None:
-        """Static inputs, one eager warm-up forward on a side stream, then
-        the forward captured into a private pool. Raises if it cannot."""
-        dev = self.graph_batch.device
+        """Static inputs, then the forward warmed up and captured
+        (``_capture_graph``). Raises if it cannot."""
         self._names = tuple(name for name, _, _ in self._spec)
         with torch.no_grad():
             self._inputs = [params[n].detach().clone() for n in self._names]
         static = dict(zip(self._names, self._inputs))
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side), torch.inference_mode():
-            self.model.apply(static, self.graph_batch, self.flow)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.inference_mode(), torch.cuda.graph(graph):
-            out = self.model.apply(static, self.graph_batch, self.flow)
-        self._graph, self._out = graph, out
+        self._graph, self._out = _capture_graph(
+            lambda: self.model.apply(static, self.graph_batch, self.flow), self.graph_batch.device
+        )
 
     def _check(self, params) -> None:
         got = param_spec(params)
@@ -197,10 +282,7 @@ class InferenceSession:
                 return read_out(self.model.apply(params, self.graph_batch, self.flow))
             serial = self._serial
             with serial.lock:
-                stream = torch.cuda.current_stream(self.graph_batch.device)
-                if stream != serial.stream:
-                    stream.wait_stream(serial.stream)
-                    serial.stream = stream
+                serial.follow(torch.cuda.current_stream(self.graph_batch.device))
                 torch._foreach_copy_(self._inputs, [params[n] for n in self._names])
                 self._graph.replay()
                 self.forwards += 1
@@ -458,20 +540,12 @@ class _EgoGraph:
         )
         self._buf.copy_(self._pack(leaves), non_blocking=True)
         p = dict(zip(self._names, self._inputs))
-
-        def forward():
-            return model.apply(p, static, flow).index_select(0, static.out_rows)
-
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side), torch.inference_mode():
-            forward()
-        torch.cuda.current_stream(device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.inference_mode(), torch.cuda.graph(graph):
-            out = forward()
-        self._graph, self._out = graph, out
-        self._serial = _Serial(torch.cuda.current_stream(device))
+        self._graph, self._out = _capture_graph(
+            lambda: model.apply(p, static, flow).index_select(0, static.out_rows), device
+        )
+        self._serial = _Serial(
+            torch.cuda.current_stream(device), [self._buf, *self._inputs, *self._globals.values()]
+        )
         self.forwards = 0
 
     def _pack(self, leaves) -> torch.Tensor:
@@ -488,10 +562,7 @@ class _EgoGraph:
         with torch.inference_mode():
             serial = self._serial
             with serial.lock:
-                stream = torch.cuda.current_stream(self._buf.device)
-                if stream != serial.stream:
-                    stream.wait_stream(serial.stream)
-                    serial.stream = stream
+                serial.follow(torch.cuda.current_stream(self._buf.device))
                 torch._foreach_copy_(self._inputs, [params[n] for n in self._names])
                 for k, v in self._globals.items():
                     v.copy_(ego_batch.ego_globals[k], non_blocking=True)

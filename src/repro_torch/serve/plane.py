@@ -135,18 +135,19 @@ class GraphPlane:
 
     The structural sibling of :class:`WeightPlane`: where the weight
     plane routes blocks across parameter versions of one graph, the
-    graph plane swaps the graph itself. A streamed-delta ingestor (the
-    reference's ``stream/``, not ported yet: ROADMAP §1 item 5) merges
-    version ``v``'s layouts into ``v + 1``, builds a successor
-    ``InferenceSession`` over them, and ``publish``-es it; serving code
-    resolves the session once per query block via :meth:`checkout`.
+    graph plane swaps the graph itself. A streamed-delta ingestor
+    (``repro_torch.stream.StreamIngestor``) merges version ``v``'s layouts
+    into ``v + 1``, builds a successor ``InferenceSession`` over them, and
+    ``publish``-es it; serving code resolves the session once per query
+    block via :meth:`checkout`.
 
     Checkout semantics — the serving-parity contract: a block that
     checked out version ``v`` runs to completion on ``v`` even if
     ``v + 1`` publishes mid-flight (the old session, layouts, and device
     tables stay alive for exactly as long as some block still references
-    them — plain refcounting, no epoch bookkeeping). New arrivals pick up
-    ``v + 1`` at their own checkout. No request is ever failed or
+    them — plain refcounting, no epoch bookkeeping; on a card the session
+    hands their memory back only after its last replay has ended). New
+    arrivals pick up ``v + 1`` at their own checkout. No request is ever failed or
     stranded by a version swap.
 
     ``publish`` validates the successor's ``out_shape`` against the

@@ -1,7 +1,8 @@
-"""Import hygiene of the port: ``repro_torch`` (its ``serve/`` included) and
-``chip_smoke.py`` import neither JAX nor anything of the reference package
-``repro`` (the machine with the GPU has no JAX, and the port keeps its own
-copy of what it needs, the JAX-free ``repro.serve`` modules too)."""
+"""Import hygiene of the port: ``repro_torch`` (its ``serve/`` and
+``stream/`` included) and ``chip_smoke.py`` import neither JAX nor anything
+of the reference package ``repro`` (the machine with the GPU has no JAX,
+and the port keeps its own copy of what it needs, the JAX-free
+``repro.serve`` modules too)."""
 import ast
 import os
 import subprocess
@@ -35,13 +36,14 @@ def test_no_jax_or_reference_imports(tmp_path):
     assert len(PORT_FILES) > 10
     assert (ROOT / "chip_smoke.py").is_file()
     port = ROOT / "src" / "repro_torch"
-    for sub in ("core", "data", "kernels", "configs", "layers", "models", "launch", "serve"):
+    for sub in ("core", "data", "kernels", "configs", "layers", "models", "launch", "serve", "stream"):
         assert port / sub / "__init__.py" in PORT_FILES, sub
     for mod in ("clock", "faults", "frontend", "health", "load", "plane", "queueing"):
         assert port / "serve" / f"{mod}.py" in PORT_FILES, mod
     assert port / "kernels" / "topk_decode_attention" / "ops.py" in PORT_FILES
     assert port / "kernels" / "topk_select" / "ops.py" in PORT_FILES
-    for mod in ("data/datasets.py", "data/sgb_cache.py", "core/dtypes.py", "core/ego.py"):
+    for mod in ("data/datasets.py", "data/sgb_cache.py", "core/dtypes.py", "core/ego.py",
+                "stream/delta.py", "stream/merge.py", "stream/ingest.py"):
         assert port / mod in PORT_FILES, mod
     probe = tmp_path / "probe.py"
     probe.write_text(
@@ -82,6 +84,10 @@ def test_cpu_forward_loads_neither_jax_nor_reference(tmp_path):
         "import repro_torch.core.ego\n"
         "sess = task.compile(FlowConfig('fused_kernel', prune_k=4)).enable_ego(seed=0, sample=4)\n"
         "assert sess.query_ego(task.params, [0, 1]).shape == (2, task.spec.num_classes)\n"
+        "from repro_torch.stream import StreamIngestor\n"
+        "ing = StreamIngestor(task, sess)\n"
+        "rep = ing.ingest({'AP': ([0, 1], [2, 3])})\n"
+        "assert rep.version == 1 and ing.session(task.params).shape == (task.batch.num_targets, task.spec.num_classes)\n"
         "from repro_torch.configs import get_config\n"
         "from repro_torch.models import build_model\n"
         "import torch\n"
