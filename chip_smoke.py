@@ -249,15 +249,30 @@ exits non-zero at the first phase that fails:
    checkout recorded per block), every version serving, and the memory
    reserved after the 8 ingests within one session's pool plus one set of
    tables of where it started;
-10. prints a ``train {...}`` line with the step times, a ``serve {...}``
+10. shards grouped NA: every shard of the 2-, 4- and 8-way splits of
+   phase 3's bucketed paths and of the wide path (K None and 300) through
+   ``ops.shard_out`` on the card, each stitched output bit for bit the
+   single-device fused launch with one launch per shard that has grid
+   steps; a one-rank NCCL device mesh (a ``tcp://127.0.0.1`` rendezvous,
+   destroyed at the end of the phase) under which ``prepare`` splits
+   every graph and HAN ACM, RGAT IMDB and Simple-HGN IMDB are captured
+   (logits bit for bit the unsharded sessions', no launch on a replay,
+   both timed back to back); two RGAT DBLP deltas on a ``shards=2`` task
+   (phase 9's first batch, then one into rows with room: splits equal to
+   a cold build's, the successor on the same mesh, a new shard reading no
+   device mirror of its predecessor); and a HAN ACM training step
+   captured while a threaded front-end serves RGAT IMDB at 2000
+   requests/s, with no failed request;
+11. prints a ``train {...}`` line with the step times, a ``serve {...}``
    line with the serving numbers (serial and microbatched wall time, QPS,
    p50/p99, mean batch, pad fraction and blocks; the threaded p50/p99; the
    busy share; the overlap counts), an ``ego {...}`` line with phase 8's
    numbers, a ``stream {...}`` line with phase 9's (merge and cold
    rebuild times and their ratio, per-ingest session times, bytes
-   uploaded and tiers, the threaded QPS during the ingests, memory), the
-   card line, then the ``{"kernels": [...]}`` line, then ``{"ok": true,
-   "device": {...}}`` as the last line.
+   uploaded and tiers, the threaded QPS during the ingests, memory), a
+   ``shard {...}`` line with phase 10's, the card line, then the
+   ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
+   the last line.
 """
 from __future__ import annotations
 
@@ -328,6 +343,17 @@ EGO_QUERIES, EGO_SIZES, EGO_REPEATS, EGO_SCALES = 32, (1, 4), 20, (1.0, 4.0)
 STREAM_BATCHES, STREAM_EDGES, STREAM_RELS, STREAM_RATIO_CEILING = 8, 48, ("AP", "PV"), 0.2
 STREAM_SPIN_CYCLES = 200_000_000  # ~0.1 s of one SM spinning ahead of a replay
 STREAM_WORKLOAD = 40_000  # paced requests offered at most (20 s at 2000/s); cut at the last ingest
+# phase 10, sharded grouped NA: every shard of 2-, 4- and 8-way splits on
+# the card (shard_out), the served paths under a one-rank NCCL device mesh,
+# two of phase 9's deltas on a shards=2 task, and a training step captured
+# while a threaded front-end serves another tenant
+SHARD_WAYS = (2, 4, 8)
+SHARD_PATHS = (("han", "dblp"), ("han", "acm"), ("rgat", "acm"), ("rgat", "imdb"), ("simple_hgn", "acm"),
+               ("simple_hgn", "imdb"))
+SHARD_MESH_PATHS = (("han", "acm"), ("rgat", "imdb"), ("simple_hgn", "imdb"))
+SHARD_DELTAS, SHARD_TIMED = 2, 50
+SHARD_TRAIN_LR = 1e-3  # a step of its own: phase 5 cached the ones at TRAIN_LR
+SHARD_SERVE_REQUESTS = 20_000  # paced requests offered at most (10 s at 2000/s); cut once the steps ran
 
 
 def check(cond, msg: str) -> None:
@@ -3498,6 +3524,307 @@ def stream_phase(pipeline, FlowConfig, kernel_ops, card, dev):
     return res
 
 
+def free_port() -> int:
+    """A free TCP port on the loopback interface, for the process group's
+    rendezvous (no network: 127.0.0.1 only)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def record_grouped(task, flow, ops) -> list:
+    """One eager forward of ``flow``, recording the arguments of each
+    grouped NA call (``ops.fused_prune_aggregate_grouped``) in call order:
+    ``[(h_proj, theta_src, theta_dst, sg, theta_rel, prune_k, slope), ...]``."""
+    import torch
+
+    calls, orig = [], ops.fused_prune_aggregate_grouped
+
+    def record(h, ts, td, sg, theta_rel=None, prune_k=None, slope=0.2):
+        calls.append((h, ts, td, sg, theta_rel, prune_k, slope))
+        return orig(h, ts, td, sg, theta_rel=theta_rel, prune_k=prune_k, slope=slope)
+
+    ops.fused_prune_aggregate_grouped = record
+    try:
+        with torch.inference_mode():
+            task.model.apply(task.params, task.batch, flow)
+    finally:
+        ops.fused_prune_aggregate_grouped = orig
+    return calls
+
+
+def stitched(ops, sl, h, ts, td, rel, prune_k, slope):
+    """Every shard of ``sl`` through ``shard_out`` on this device, then the
+    global ``perm`` gather: what the ranks of an n-way mesh compute."""
+    import torch
+
+    outs = [ops.shard_out(sl, s, h, ts, td, theta_rel=rel, prune_k=prune_k, slope=slope) for s in range(sl.n_shards)]
+    return torch.cat(outs).index_select(0, torch.from_numpy(sl.perm.astype("int64")).to(h.device))
+
+
+def check_shard_out(ops, calls, key, dev) -> dict:
+    """For each recorded grouped NA call: the single-device fused launch,
+    then every shard of its 2-, 4- and 8-way splits through ``shard_out``;
+    the stitched result must equal the single-device launch bit for bit,
+    with exactly one fused launch per shard that has grid steps (counted
+    by the wrapper and per shard) and none of any other kernel. Returns a
+    summary by split count."""
+    out = {n: {"graphs": 0, "launches": 0, "empty_shards": 0, "balance_max": 1.0, "k_s": []} for n in SHARD_WAYS}
+    for h, ts, td, sg, rel, pk, slope in calls:
+        ref = ops.fused_prune_aggregate_grouped(h, ts, td, sg, theta_rel=rel, prune_k=pk, slope=slope)
+        k_s = ops.grouped_meta(sg.grouped(ops.T_TILE, ops.W_TILE), pk)[2]
+        for n in SHARD_WAYS:
+            sl = sg.sharded(n, ops.T_TILE, ops.W_TILE)
+            check(ops.sharded_k_s(sl, pk) == k_s, f"shard {key} {sg.name} {n}-way: k_s differs from the unsharded {k_s}")
+            reset_launches(ops)
+            ops.SHARD_LAUNCHES.clear()
+            got = stitched(ops, sl, h, ts, td, rel, pk, slope)
+            sync(dev)
+            full = [s for s in range(n) if sl.shards[s].num_steps]
+            launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+            check(launched == {"prune_aggregate": len(full)} and ops.SHARD_LAUNCHES == {s: 1 for s in full},
+                  f"shard {key} {sg.name} {n}-way: launches {launched}, per shard {ops.SHARD_LAUNCHES}, "
+                  f"expected one per shard with steps {full}")
+            check(same_bits([got], [ref]), f"shard {key} {sg.name} {n}-way: stitched shards differ from the "
+                                           "single-device launch")
+            r = out[n]
+            r["graphs"] += 1
+            r["launches"] += len(full)
+            r["empty_shards"] += n - len(full)
+            r["balance_max"] = max(r["balance_max"], sl.balance())
+            r["k_s"].append(k_s)
+    for r in out.values():
+        r["k_s"] = sorted(set(r["k_s"]))
+    return out
+
+
+def shard_phase(pipeline, FlowConfig, kernel_ops, tasks, lm_result, dev):
+    """Phase 10: sharded grouped NA. ``tasks`` maps a path key to (GPU task
+    of phase 3, prune_k values). Every check raises; returns the results."""
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import serve
+    from repro_torch.core import flows
+    from repro_torch.core.session import _device_tensors
+    from repro_torch.distributed import sharding as dist
+    from repro_torch.stream import StreamIngestor
+    from repro_torch.stream.merge import _degrees_of
+
+    ops = kernel_ops[0]
+    flow = FlowConfig("fused_kernel", prune_k=PRUNE_K)
+    res = {"shard_out": {}, "mesh": {}, "deltas": [], "train_under_serving": {}}
+
+    # (a) every shard of 2-, 4- and 8-way splits, on one card
+    for key, (task, prune_ks) in tasks.items():
+        for pk in prune_ks:
+            path = f"{key}/prune_k={pk}"
+            calls = record_grouped(task, FlowConfig("fused_kernel", prune_k=pk), ops)
+            check(calls, f"shard {path}: the forward made no grouped NA call")
+            res["shard_out"][path] = check_shard_out(ops, calls, path, dev)
+            print(f"  shard_out {path}: {len(calls)} grouped NA calls, stitched 2/4/8-way splits bit for bit the "
+                  "single-device launch, one launch per shard with steps: " + json.dumps(
+                      {n: {k: r[k] for k in ("launches", "empty_shards", "balance_max", "k_s")}
+                       for n, r in res["shard_out"][path].items()}))
+    res["shard_out_launches"] = sum(r[n]["launches"] for r in res["shard_out"].values() for n in SHARD_WAYS)
+
+    # (b) a one-rank NCCL device mesh: prepare, capture, replay, time
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0,
+                             device_id=dev)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        key_1 = (1, ops.T_TILE, ops.W_TILE)
+        for model, ds in SHARD_MESH_PATHS:
+            key = f"{model}/{ds}"
+            with dist.set_mesh(mesh):
+                task = pipeline.prepare(model, ds, scale=SCALE, seed=0, device=dev)
+                check(all(key_1 in sg._sharded for sg in task.sgs), f"shard mesh {key}: prepare did not split")
+                want = expected_launches(task.sgs, "bucketed", PRUNE_K, task.model.num_layers, ops)
+                reset_launches(ops)
+                for k in flows.DISPATCH:
+                    flows.DISPATCH[k] = 0
+                with torch.inference_mode():
+                    eager = task.model.apply(task.params, task.batch, flow)
+                sync(dev)
+                launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+                sharded_calls, lookups = flows.DISPATCH["sharded_calls"], flows.DISPATCH["mesh_lookups"]
+                check(dict(ops.LAUNCHES) == want and sharded_calls == flows.DISPATCH["graph_calls"] > 0
+                      and lookups == 1, f"shard mesh {key}: eager launches {launches} (want {want}), "
+                                        f"{sharded_calls} sharded calls, {lookups} lookups")
+                sess = task.compile(flow)
+            check(sess.captured and sess.mesh_info == (mesh, "data", 1),
+                  f"shard mesh {key}: the session is not captured on the mesh")
+            plain = task.compile(flow)
+            check(plain is not sess and plain.mesh_info is None, f"shard mesh {key}: the unsharded session is cached wrongly")
+            with torch.inference_mode():
+                eager_plain = task.model.apply(task.params, task.batch, flow)
+            reset_launches(ops)
+            dispatch = dict(flows.DISPATCH)
+            outs = [sess(task.params) for _ in range(3)]
+            plain_out = plain(task.params)
+            sync(dev)
+            check(not any(ops.LAUNCHES.values()) and flows.DISPATCH == dispatch,
+                  f"shard mesh {key}: a replay launched {ops.LAUNCHES} or dispatched")
+            check(same_bits(outs + [plain_out, eager_plain], [eager] * 5),
+                  f"shard mesh {key}: the sharded logits differ from the single-device ones")
+            ms = {"unsharded": [], "sharded": []}
+            for which in ("unsharded", "sharded", "sharded", "unsharded"):
+                s_ = plain if which == "unsharded" else sess
+                ms[which].append(cuda_ms(lambda s_=s_: s_(task.params), SHARD_TIMED))
+            res["mesh"][key] = {
+                "launches_per_forward": launches, "sharded_calls": sharded_calls, "mesh_lookups": lookups,
+                "replays_bitwise_single_device": 3,
+                "captured_forward_ms": {k: sum(v) / len(v) for k, v in ms.items()}, "captured_forward_ms_runs": ms,
+            }
+            print(f"  mesh {key}: one-rank NCCL mesh, launches {launches} a forward ({sharded_calls} sharded NA "
+                  f"calls, {lookups} lookup), captured, 3 replays bit for bit the single-device forward; captured "
+                  f"forward unsharded / sharded {res['mesh'][key]['captured_forward_ms']['unsharded']:.4f} / "
+                  f"{res['mesh'][key]['captured_forward_ms']['sharded']:.4f} ms (CUDA events, back to back)")
+
+        # (c) two of phase 9's deltas on a shards=2 task served on the mesh
+        with dist.set_mesh(mesh):
+            task = pipeline.prepare("rgat", "dblp", scale=SCALE, max_degree=None, seed=0, shards=2, device=dev)
+            sess = task.compile(flow)
+        ing = StreamIngestor(task, sess)
+        rng = np.random.default_rng(0)
+        s_t, name, d_t = next(r for r in task.graph.relations if r[1] == STREAM_RELS[0])
+        for i in range(SHARD_DELTAS):
+            g = ing.graph
+            src = rng.integers(0, g.num_nodes[s_t], STREAM_EDGES)
+            if i == 0:  # phase 9's first batch: 48 random edges into AP
+                dst = rng.integers(0, g.num_nodes[d_t], STREAM_EDGES)
+            else:  # 48 AP edges into rows with room: the absorb tier, split patches
+                sg = next(x for x in ing.sgs if x.name == name)
+                bucket_of, row_of = sg.row_lookup()
+                cand = np.arange(sg.num_targets)
+                room = np.asarray(sg.bucket_capacities)[bucket_of] - _degrees_of(sg, cand, bucket_of, row_of)
+                dst = rng.choice(cand[room > 0], STREAM_EDGES, replace=False)
+            edges = {name: (src, dst)}
+            old = {sg.name: sg for sg in ing.sgs}
+            rep = ing.ingest(edges)
+            check(ing.session.captured and ing.session.mesh_info == sess.mesh_info,
+                  f"shard delta {i}: the successor is not captured on the predecessor's mesh")
+            check((rep.stats.absorbed_slices == 1 or i == 0) and not rep.stats.full_rebuild,
+                  f"shard delta {i}: tiers {rep.stats.summary()}")
+            kept = fresh = 0
+            for sg in ing.sgs:
+                for skey, sl in sg._sharded.items():
+                    for a, b in zip(old[sg.name]._sharded[skey].shards, sl.shards):
+                        if a is b:
+                            kept += 1
+                        else:
+                            shared = ({t.data_ptr() for t in _device_tensors(a._dev, [])}
+                                      & {t.data_ptr() for t in _device_tensors(b._dev, [])})
+                            check(not shared, f"shard delta {i} {sg.name}: a new shard reads its predecessor's "
+                                              "device mirrors")
+                            fresh += 1
+            check(kept > 0 or i == 0, f"shard delta {i}: no shard kept its object through an absorb")
+            cold = pipeline.prepare("rgat", ing.graph, max_degree=None, seed=0, shards=2, device=dev)
+            splits = 0
+            for sg, csg in zip(ing.sgs, cold.sgs):
+                for skey in sg._sharded:
+                    a, b = sg._sharded[skey], csg.sharded(*skey)
+                    check(a.num_rows_alloc == b.num_rows_alloc and np.array_equal(a.perm, b.perm) and all(
+                        np.array_equal(getattr(x, f), getattr(y, f)) for x, y in zip(a.shards, b.shards)
+                        for f in ("nbr", "msk", "ety", "step_row", "step_dt", "step_ndt", "step_bucket",
+                                  "row_targets", "perm")),
+                        f"shard delta {i} {sg.name} {skey}: the patched split differs from the cold one")
+                    splits += 1
+            check(same_bits([ing.session(task.params)], [cold.compile(flow)(task.params)]),
+                  f"shard delta {i}: the successor's logits differ from the cold capture's")
+            dirty = [sg for sg in ing.sgs if sg is not old[sg.name]]
+            gen = torch.Generator(device=dev).manual_seed(i)
+            n = task.batch.total_nodes
+            for sg in dirty:
+                csg = next(c for c in cold.sgs if c.name == sg.name)
+                h = torch.randn((n, 2, 16), device=dev, generator=gen)
+                ts = torch.randn((n, 2), device=dev, generator=gen)
+                td = torch.randn((sg.num_targets, 2), device=dev, generator=gen)
+                ref = ops.fused_prune_aggregate_grouped(h, ts, td, csg, prune_k=PRUNE_K)
+                got = stitched(ops, sg.sharded(2, ops.T_TILE, ops.W_TILE), h, ts, td, None, PRUNE_K, 0.2)
+                check(same_bits([got], [ref]), f"shard delta {i} {sg.name}: the patched split's NA differs")
+            res["deltas"].append({"delta": f"{name} x {STREAM_EDGES}", "tiers": rep.stats.summary(),
+                                  "splits_equal_cold": splits, "shards_kept": kept, "shards_new": fresh,
+                                  "dirty_slices": [sg.name for sg in dirty],
+                                  "t_merge_ms": rep.t_merge * 1e3, "t_session_ms": rep.t_session * 1e3})
+            print(f"  delta {i} ({name} x {STREAM_EDGES}) on a shards=2 task on the mesh: {rep.stats.summary()}; "
+                  f"{splits} splits equal a cold prepare's ({kept} shards kept their objects, {fresh} new), the "
+                  "successor keeps the mesh, logits bit for bit the cold capture's, dirty slices' 2-way NA bit for "
+                  "bit")
+    finally:
+        # drop every graph that captured a collective before the group goes
+        ing = sess = plain = task = None
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        tdist.destroy_process_group()
+
+    # (d) a training step captured while a threaded front-end serves
+    stask, ttask = tasks["rgat/imdb"][0], tasks["han/acm"][0]
+    ssess = stask.compile(flow)
+    full = ssess(stask.params).cpu().numpy()
+    fe = serve.ServeFrontend(ssess, stask.params, policy=serve.BatchPolicy(SERVE_CAPACITIES, flush_timeout=SERVE_FLUSH),
+                             clock=serve.SystemClock(), executor=serve.ThreadExecutor())
+    wl = serve.make_workload(SHARD_SERVE_REQUESTS, stask.batch.num_targets, rate=SERVE_RATE, size_range=(1, 4), seed=2)
+    stop, offered, errors = threading.Event(), [], []
+
+    def offer():
+        try:
+            t0 = time.perf_counter()
+            for w in wl:
+                if stop.is_set():
+                    return
+                dt = t0 + w.t_offset - time.perf_counter()
+                if dt > 0:
+                    time.sleep(dt)
+                offered.append((fe.submit(w.targets), w.targets))
+        except BaseException as exc:  # noqa: BLE001 - re-raised on the main thread
+            errors.append(exc)
+
+    submitter = threading.Thread(target=offer, name="shard-offer")
+    fe.start()
+    submitter.start()
+    time.sleep(0.1)
+    n0 = len(offered)
+    t0 = time.perf_counter()
+    step = ttask._train_step(FlowConfig("staged"), SHARD_TRAIN_LR)
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    check(step.captured, "shard: the training step is not captured")
+    d_loss, d_param = captured_vs_eager(step, ttask.params)
+    n1 = len(offered)
+    time.sleep(0.1)
+    stop.set()
+    submitter.join(60)
+    check(not submitter.is_alive() and not errors, f"shard: the offering thread failed: {errors}")
+    fe.close()
+    for th in fe.executor.threads:
+        th.join(5.0)
+    check(not any(th.is_alive() for th in fe.executor.threads), "shard: a loop thread outlived close")
+    st = fe.stats
+    check(st.failed == 0 and st.shed == 0 and st.expired == 0 and st.completed == st.submitted == len(offered)
+          and all(f.done() for f, _ in offered), f"shard: the front-end failed or stranded requests: {st.summary()}")
+    check(all(np.array_equal(f.result(0), full[q]) for f, q in offered), "shard: a served row differs from the full rows")
+    check(n1 > n0, "shard: no request arrived while the step was captured and run")
+    check(d_loss <= TOL_OUT and d_param <= 1e-4,
+          f"shard: captured training differs from eager by {d_loss:.3g} (loss) / {d_param:.3g} (params)")
+    res["train_under_serving"] = {
+        "requests": len(offered), "during_capture_and_steps": n1 - n0, "failed": st.failed,
+        "capture_ms": capture_ms, "captured_vs_eager_loss": d_loss, "captured_vs_eager_params": d_param,
+        "decode_captured_steps_bitwise_eager": lm_result["captured_steps_bitwise_eager"],
+    }
+    print(f"  a HAN ACM training step captured in {capture_ms:.1f} ms while a threaded front-end served RGAT IMDB: "
+          f"{len(offered)} requests ({n1 - n0} during the capture and {2 * TRAIN_CHECK_STEPS} steps), none failed, "
+          f"rows bit for bit; captured vs eager steps {d_loss:.3g} (loss) / {d_param:.3g} (params); the captured "
+          f"decode step bit for bit its eager step on {lm_result['captured_steps_bitwise_eager']} steps (phase 3)")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -3691,6 +4018,18 @@ def main() -> int:
     phase_s["9"] = time.perf_counter() - t_phase
     print(f"phase 9: wall time {phase_s['9']:.1f} s")
 
+    # phase 10: sharded grouped NA
+    t_phase = time.perf_counter()
+    print(f"phase 10: sharded grouped NA at scale={SCALE}: shard_out at {list(SHARD_WAYS)} shards, a one-rank NCCL "
+          f"device mesh, {SHARD_DELTAS} deltas on a shards=2 task, a training step captured under threaded serving")
+    shard_tasks = {"han/dblp": (gpu_tasks["dblp"], (PRUNE_K,)), "han/acm": (gpu_tasks["acm"], (PRUNE_K,))}
+    shard_tasks.update({f"{m}/{ds}": (model_tasks[f"{m}/{ds}/bucketed"], (PRUNE_K,))
+                        for m, ds in SHARD_PATHS if m != "han"})
+    shard_tasks["han/acm/max_degree=None"] = (wide_tasks["bucketed"], WIDE_PRUNE_K)
+    sharded = shard_phase(pipeline, FlowConfig, (ops, tda_ops, ts_ops), shard_tasks, lm_result, dev)
+    phase_s["10"] = time.perf_counter() - t_phase
+    print(f"phase 10: wall time {phase_s['10']:.1f} s")
+
     kernels = []
     for key, line, lib in KERNELS:
         bound_ms, bound_by, nbytes, nops = bounds[key]
@@ -3719,6 +4058,9 @@ def main() -> int:
         if key == "prune_aggregate":
             kernels[-1]["replayed_launches_phase7"] = served["replayed_launches"]
             kernels[-1]["launches_phase9_ingests"] = stream["launches"]["prune_aggregate"]
+            kernels[-1]["launches_phase10_shard_out"] = sharded["shard_out_launches"]
+            kernels[-1]["launches_per_forward_phase10_mesh"] = {
+                path: r["launches_per_forward"].get("prune_aggregate", 0) for path, r in sharded["mesh"].items()}
     wide_rows = (("prune_wide", "prune", KERNELS[0][1]), ("prune_aggregate_wide", "prune_aggregate", KERNELS[2][1]),
                  ("flat_prune_wide", "flat_prune", KERNELS[3][1]),
                  ("flat_prune_aggregate_wide", "flat_prune_aggregate", KERNELS[5][1]))
@@ -3802,7 +4144,8 @@ def main() -> int:
         "decode_k1_tie_rows": {"phase2_cases": dec_ties, "phase2_tie_cases": tie_cases,
                                "main_path": lm_result["tie_rows"]},
         "pruner_times_ms": t_ts, "forward_ms": fwd, "forward_latency_ms": latency, "profiles": prof,
-        "train": train, "sgb": sgb, "serve": served, "ego": ego, "stream": stream, "kernels": kernels,
+        "train": train, "sgb": sgb, "serve": served, "ego": ego, "stream": stream, "shard": sharded,
+        "kernels": kernels,
         "phase_wall_s": phase_s,
     }, indent=1))
     print(f"  full report: {REPORT.relative_to(ROOT)}; wall time {time.perf_counter() - t_start:.1f} s, by phase (s) "
@@ -3846,6 +4189,14 @@ def main() -> int:
         "ego_han": {k: stream["ego_han"][k] for k in ("tiers", "closures_carried", "exes_adopted", "beta_changed",
                                                       "max_abs_err_vs_full")},
         "card": card,
+    }))
+    print("shard " + json.dumps({
+        "shard_out": {path: {n: {k: r[k] for k in ("graphs", "launches", "empty_shards", "balance_max")}
+                             for n, r in by_n.items()} for path, by_n in sharded["shard_out"].items()},
+        "mesh": {key: {k: r[k] for k in ("launches_per_forward", "captured_forward_ms")}
+                 for key, r in sharded["mesh"].items()},
+        "deltas": [{k: r[k] for k in ("delta", "tiers", "splits_equal_cold", "t_session_ms")} for r in sharded["deltas"]],
+        "train_under_serving": sharded["train_under_serving"], "card": card,
     }))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -82,8 +82,15 @@ class GraphBatch:
         return {sg.dst_type: sg for sg in self.sgs}
 
     def constrain(self, x: torch.Tensor, role: str) -> torch.Tensor:
-        """Placement hook of the reference's sharded path; the identity on
-        one device."""
+        """Placement hook of the reference's sharded path: the identity.
+        Its rules for the two roles (features, logits) are the
+        ``ntype_feat`` and ``targets`` axes, and both are replicated
+        (``distributed.sharding.DEFAULT_RULES``): NA reads arbitrary
+        global source ids, so every rank needs the whole feature table,
+        and semantic fusion's mean over all targets must see the same
+        operands in the same order on every rank to stay bit for bit the
+        single-device result. Sharded NA all-gathers its output, so every
+        rank holds both whole already."""
         return x
 
     def __repr__(self):

@@ -27,6 +27,16 @@ one launch of the flat kernel pair per pruned bucket), each followed by an
 table's padded width is ≤ ``prune_k``, ``fused_kernel`` takes the paper's
 §4.3 pruner bypass: the plain aggregation, no retention domain.
 
+Several devices: when a ``torch.distributed`` device mesh with a
+``bucket_tiles`` rule axis is ambient (``distributed.sharding.set_mesh``),
+``fused_kernel`` bucketed NA shards: the graph's ``ShardedBucketLayout``
+splits the grouped tile stack by target row blocks, each rank runs ONE
+fused launch on its own shard, and one all-gather plus the global inverse
+permutation restore target order, bit for bit the single-device launch.
+With no mesh, or ``FlowConfig(shard="off")``, nothing changes. Models
+resolve the mesh at most once per ``apply`` (``mesh_scope``); a session
+resolves it once at build and pins it.
+
 Device mirrors of a graph's tables are cached on the graph per device, so
 repeated forwards copy nothing from the host. They are built as normal
 tensors even when the first forward runs under ``torch.inference_mode()``
@@ -34,6 +44,8 @@ tensors even when the first forward runs under ``torch.inference_mode()``
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import Optional, Union
 
@@ -42,10 +54,15 @@ import torch
 from repro_torch import from_host
 from repro_torch.core import attention
 from repro_torch.core.hetgraph import BucketedSemanticGraph, SemanticGraph
+from repro_torch.distributed import sharding as dist
 
 # Python-side dispatch accounting:
 #   graph_calls  — run_aggregate_graph entries on bucketed graphs
 #   bucket_calls — per-bucket NA dispatches of bucket_dispatch="loop"
+#   sharded_calls — bucketed NA dispatches routed to the mesh-sharded path
+#   mesh_lookups — ambient-mesh resolutions (dist.graph_mesh) paid by NA
+#                  dispatch: at most one per model apply (mesh_scope), none
+#                  in a session, which pins the mesh it resolved at build
 #   query_calls  — InferenceSession.query blocks served
 #   ego_calls    — InferenceSession.query_ego blocks served on their
 #                  extracted neighborhood (core/ego.py)
@@ -56,9 +73,51 @@ from repro_torch.core.hetgraph import BucketedSemanticGraph, SemanticGraph
 #   ego_traces   — ego programs built, one per ego signature: a CUDA graph
 #                  captured on a card, an eager program on the CPU
 DISPATCH = {
-    "graph_calls": 0, "bucket_calls": 0, "query_calls": 0,
-    "ego_calls": 0, "ego_bypass": 0, "ego_fallback": 0, "ego_traces": 0,
+    "graph_calls": 0, "bucket_calls": 0, "sharded_calls": 0, "mesh_lookups": 0,
+    "query_calls": 0, "ego_calls": 0, "ego_bypass": 0, "ego_fallback": 0, "ego_traces": 0,
 }
+
+# the mesh-resolution scope stack, a ContextVar so that each thread sees its
+# own; entries are one-slot caches [resolved, graph_mesh() result or None]
+_UNSET = object()
+_MESH_SCOPE: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh_scope", default=())
+
+
+@contextlib.contextmanager
+def mesh_scope(pinned=_UNSET):
+    """A scope within which the ambient graph mesh is resolved at most once.
+
+    With no argument it is lazy: the first NA dispatch inside that needs
+    the mesh resolves it (one ``DISPATCH["mesh_lookups"]`` tick) and later
+    dispatches reuse the result; opened inside another scope it reuses
+    that scope's slot, so a pinning caller wins over a model's own scope.
+    With ``pinned=<graph_mesh() result or None>`` it is resolved already
+    and no lookup happens inside: a session pins the mesh it resolved at
+    build, and an ego forward pins no mesh."""
+    stack = _MESH_SCOPE.get()
+    if pinned is _UNSET and stack:
+        yield
+        return
+    entry = [pinned is not _UNSET, None if pinned is _UNSET else pinned]
+    token = _MESH_SCOPE.set(stack + (entry,))
+    try:
+        yield
+    finally:
+        _MESH_SCOPE.reset(token)
+
+
+def _graph_mesh_once():
+    """The scope-cached ``dist.graph_mesh()``; outside any scope, resolved
+    (and counted) at every call."""
+    stack = _MESH_SCOPE.get()
+    if stack:
+        entry = stack[-1]
+        if not entry[0]:
+            DISPATCH["mesh_lookups"] += 1
+            entry[1], entry[0] = dist.graph_mesh(), True
+        return entry[1]
+    DISPATCH["mesh_lookups"] += 1
+    return dist.graph_mesh()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,12 +127,17 @@ class FlowConfig:
     # "single": one dispatch per semantic graph; "loop": the reference's
     # per-bucket dispatch (the flat kernel pair per pruned bucket)
     bucket_dispatch: str = "single"
+    # "auto": fused_kernel bucketed NA shards over the ambient mesh's
+    # bucket_tiles axis when there is one; "off": never shards
+    shard: str = "auto"
 
     def __post_init__(self):
         if self.flow not in ("staged", "staged_pruned", "fused", "fused_kernel"):
             raise ValueError(f"unknown flow {self.flow!r}")
         if self.bucket_dispatch not in ("single", "loop"):
             raise ValueError(f"unknown bucket_dispatch {self.bucket_dispatch!r}")
+        if self.shard not in ("auto", "off"):
+            raise ValueError(f"unknown shard {self.shard!r}")
 
 
 def run_aggregate(
@@ -211,6 +275,15 @@ def run_aggregate_graph(
 
             # the kernel accumulates in f32; cast back so the dispatch
             # never changes the output dtype
+            gm = _graph_mesh_once() if cfg.shard == "auto" else None
+            if gm is not None:
+                mesh, axis, _ = gm
+                DISPATCH["sharded_calls"] += 1
+                return k_ops.fused_prune_aggregate_grouped_sharded(
+                    h_proj, scores.theta_src, scores.theta_dst, sg, mesh, axis,
+                    theta_rel=_kernel_rel(scores), prune_k=cfg.prune_k,
+                    slope=attention.LEAKY_SLOPE,
+                ).to(h_proj.dtype)
             return k_ops.fused_prune_aggregate_grouped(
                 h_proj, scores.theta_src, scores.theta_dst, sg,
                 theta_rel=_kernel_rel(scores), prune_k=cfg.prune_k,

@@ -15,6 +15,9 @@ histogram (:func:`autotune_bucket_sizes`).
 :meth:`BucketedSemanticGraph.grouped` re-tiles every bucket into one
 grid-ordered stack of ``(t_tile, w)`` tiles (a :class:`GroupedBucketLayout`),
 which the fused prune+aggregate kernel pair walks in one launch each.
+:meth:`BucketedSemanticGraph.sharded` splits that stack by whole row blocks
+across the ranks of a device mesh (a :class:`ShardedBucketLayout`), one
+launch per shard.
 """
 from __future__ import annotations
 
@@ -347,6 +350,162 @@ def _group_buckets(
 
 
 @dataclasses.dataclass
+class ShardedBucketLayout:
+    """A :class:`GroupedBucketLayout` partitioned by target row blocks
+    across ``n_shards`` devices (the ``("data",)`` mesh axis); the
+    reference's, array for array.
+
+    The unit of assignment is the row block (one ``t_tile`` slab of one
+    bucket's targets): a block's grid steps are contiguous in the grouped
+    stack (bucket-major, row-tile next, D-tile innermost), so moving whole
+    blocks keeps every per-shard stack a valid grid in its own right —
+    ``shards[s]`` is a plain :class:`GroupedBucketLayout` the grouped
+    ragged-grid kernel can run unchanged. Blocks are assigned by longest-
+    processing-time greedy on their D-tile counts, so per-shard *padded
+    slot* totals (the grouped NA cost model) are balanced within one
+    block's worth of slots.
+
+    Per-shard layouts keep the bucket-local step metadata verbatim
+    (``step_dt``/``step_ndt``/``step_bucket``; ``caps`` are shared) and
+    renumber only ``step_row``; ``row_targets`` keeps GLOBAL target ids so
+    each shard's θ_*v gather stays local to the shard. A per-shard
+    ``perm`` maps owned targets to shard-local rows (-1 for targets owned
+    by other shards); the stacked global inverse permutation ``perm`` maps
+    every target to ``shard * num_rows_alloc + local_row`` in the
+    shard-concatenated NA output, so target order is restored with one
+    gather after a single all-gather of the per-shard outputs.
+
+    ``num_rows_alloc`` pads every shard's output to the same row count and
+    reserves one trailing pad block per shard: the all-gather takes equal
+    row counts from every rank. A shard's rows past its own ``num_rows``
+    (the pad block among them) hold zeros that no target's ``perm`` entry
+    reads. The reference also aims its shorter shards' filler grid steps
+    at the pad block (its SPMD program needs equal grid lengths); a CUDA
+    launch per shard needs no filler.
+    """
+
+    n_shards: int
+    t_tile: int
+    w: int
+    shards: Tuple[GroupedBucketLayout, ...]
+    perm: np.ndarray  # (T,) int32: shard * num_rows_alloc + local row
+    num_rows_alloc: int  # per-shard padded output rows (incl. pad block)
+    num_steps_max: int  # max real grid steps across shards
+    _dev: Dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False
+    )
+
+    @property
+    def pad_block(self) -> int:
+        """Row-block index every shard's filler grid steps write to."""
+        return self.num_rows_alloc // self.t_tile - 1
+
+    def padded_slots(self) -> np.ndarray:
+        """Per-shard padded NA slots (the load-balance metric): every grid
+        step covers one ``(t_tile, w)`` tile."""
+        return np.asarray(
+            [s.num_steps * self.t_tile * self.w for s in self.shards], np.int64
+        )
+
+    def balance(self) -> float:
+        """max/mean of per-shard padded slots (1.0 = perfectly balanced)."""
+        slots = self.padded_slots()
+        mean = slots.mean()
+        return float(slots.max() / mean) if mean > 0 else 1.0
+
+
+def shard_layout(layout: GroupedBucketLayout, n_shards: int) -> ShardedBucketLayout:
+    """Split a grouped tile stack into ``n_shards`` per-shard layouts.
+
+    Row blocks (and their contiguous grid-step runs) are assigned whole;
+    assignment is longest-processing-time greedy on per-block D-tile counts
+    with deterministic ties (block index, then shard index), balancing
+    per-shard padded-slot totals. Within a shard, blocks keep their
+    original stack order, so per-target insertion order — and therefore the
+    kernel's bit pattern — is unchanged.
+    """
+    t_tile, w = layout.t_tile, layout.w
+    n_blocks = layout.num_rows // t_tile if layout.num_rows else 0
+    num_targets = layout.perm.shape[0]
+    if n_blocks == 0:
+        empty = GroupedBucketLayout(
+            t_tile=t_tile, w=w,
+            nbr=np.zeros((0, t_tile, w), np.int32),
+            msk=np.zeros((0, t_tile, w), bool),
+            ety=np.zeros((0, t_tile, w), np.int32),
+            step_row=np.zeros(0, np.int32), step_dt=np.zeros(0, np.int32),
+            step_ndt=np.zeros(0, np.int32), step_bucket=np.zeros(0, np.int32),
+            caps=layout.caps.copy(), caps_pad=layout.caps_pad.copy(),
+            row_targets=np.zeros(0, np.int32),
+            perm=np.full(num_targets, -1, np.int32), num_rows=0,
+        )
+        return ShardedBucketLayout(
+            n_shards=n_shards, t_tile=t_tile, w=w,
+            shards=tuple(empty for _ in range(n_shards)),
+            perm=np.zeros(num_targets, np.int32),
+            num_rows_alloc=t_tile, num_steps_max=0,
+        )
+    # per-block step runs: step_row is nondecreasing and visits every block
+    blocks, first_step = np.unique(layout.step_row, return_index=True)
+    if blocks.shape[0] != n_blocks:
+        raise ValueError("grouped stack has gaps in step_row")
+    blk_ndt = layout.step_ndt[first_step].astype(np.int64)
+    # LPT greedy: heaviest blocks first into the least-loaded shard
+    order = np.lexsort((np.arange(n_blocks), -blk_ndt))
+    load = np.zeros(n_shards, np.int64)
+    owner = np.zeros(n_blocks, np.int64)
+    for b in order:
+        s = int(np.argmin(load))  # first minimum: deterministic ties
+        owner[b] = s
+        load[s] += blk_ndt[b]
+    row_targets_blk = layout.row_targets.reshape(n_blocks, t_tile)
+    shards = []
+    local_block = np.zeros(n_blocks, np.int64)
+    for s in range(n_shards):
+        mine = np.flatnonzero(owner == s)  # ascending: original stack order
+        local_block[mine] = np.arange(mine.size)
+        steps = (
+            np.concatenate(
+                [np.arange(first_step[b], first_step[b] + blk_ndt[b]) for b in mine]
+            )
+            if mine.size
+            else np.zeros(0, np.int64)
+        )
+        perm_s = np.full(num_targets, -1, np.int32)
+        shards.append(
+            GroupedBucketLayout(
+                t_tile=t_tile, w=w,
+                nbr=layout.nbr[steps], msk=layout.msk[steps],
+                ety=layout.ety[steps],
+                step_row=np.repeat(
+                    np.arange(mine.size), blk_ndt[mine]
+                ).astype(np.int32),
+                step_dt=layout.step_dt[steps],
+                step_ndt=layout.step_ndt[steps],
+                step_bucket=layout.step_bucket[steps],
+                caps=layout.caps.copy(), caps_pad=layout.caps_pad.copy(),
+                row_targets=row_targets_blk[mine].ravel(),
+                perm=perm_s, num_rows=int(mine.size) * t_tile,
+            )
+        )
+    # per-shard + global inverse permutations, one vectorized pass
+    blk_of_t = layout.perm // t_tile
+    within = layout.perm % t_tile
+    local_rows = (local_block[blk_of_t] * t_tile + within).astype(np.int32)
+    # every shard gets the same allocation; +1 block is the shared pad block
+    num_rows_alloc = (max(s.num_rows for s in shards) // t_tile + 1) * t_tile
+    perm_g = (owner[blk_of_t] * num_rows_alloc + local_rows).astype(np.int32)
+    for s in range(n_shards):
+        t_mine = np.flatnonzero(owner[blk_of_t] == s)
+        shards[s].perm[t_mine] = local_rows[t_mine]
+    return ShardedBucketLayout(
+        n_shards=n_shards, t_tile=t_tile, w=w, shards=tuple(shards),
+        perm=perm_g, num_rows_alloc=num_rows_alloc,
+        num_steps_max=max(s.num_steps for s in shards),
+    )
+
+
+@dataclasses.dataclass
 class BucketedSemanticGraph:
     """A semantic graph as a small set of degree buckets.
 
@@ -372,6 +531,9 @@ class BucketedSemanticGraph:
         default=None, init=False, repr=False, compare=False
     )
     _grouped: Dict[Tuple[int, int], GroupedBucketLayout] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False
+    )
+    _sharded: Dict[Tuple[int, int, int], ShardedBucketLayout] = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False
     )
     _device: Dict = dataclasses.field(
@@ -476,6 +638,16 @@ class BucketedSemanticGraph:
                 self.buckets, self.num_targets, t_tile, w
             )
         return self._grouped[key]
+
+    def sharded(self, n_shards: int, t_tile: int = 8, w: int = 8) -> ShardedBucketLayout:
+        """The grouped layout split across ``n_shards`` devices by target
+        row blocks (cached per split; see :func:`shard_layout`). Built at
+        SGB time when ``pipeline.prepare`` is given a split count or finds
+        a mesh, else at the first sharded NA dispatch."""
+        key = (n_shards, t_tile, w)
+        if key not in self._sharded:
+            self._sharded[key] = shard_layout(self.grouped(t_tile, w), n_shards)
+        return self._sharded[key]
 
 
 def _pad_csc(

@@ -27,6 +27,7 @@ from typing import Callable, Dict, Iterable, Iterator, Mapping, Tuple
 import torch
 from torch import nn
 
+from repro_torch.core import flows
 from repro_torch.core.batch import GraphBatch, ModelSpec
 from repro_torch.core.dtypes import canonical
 from repro_torch.core.flows import FlowConfig
@@ -102,14 +103,16 @@ class HGNNModel(nn.Module):
         """The canonical forward pass: fold ``layer_steps`` then ``readout``.
         (Replaces ``nn.Module.apply``, which this protocol does not use.)
         float64 parameters compute as float32, as in the reference
-        (``core/dtypes.py``)."""
+        (``core/dtypes.py``). One ``flows.mesh_scope()`` around it resolves
+        the ambient mesh at most once, however many NA dispatches run."""
         params = {n: canonical(p) for n, p in params.items()}
-        carry: Carry = dict(batch.features)
-        for step in self.layer_steps(params, batch, flow):
-            h = step.project(carry)
-            zs = {name: fn(h) for name, fn in step.na}
-            carry = step.fuse(carry, h, zs)
-        return self.readout(params, batch, carry)
+        with flows.mesh_scope():
+            carry: Carry = dict(batch.features)
+            for step in self.layer_steps(params, batch, flow):
+                h = step.project(carry)
+                zs = {name: fn(h) for name, fn in step.na}
+                carry = step.fuse(carry, h, zs)
+            return self.readout(params, batch, carry)
 
     def forward(self, batch: GraphBatch, flow: FlowConfig = FlowConfig()) -> torch.Tensor:
         return self.apply(dict(self.named_parameters()), batch, flow)

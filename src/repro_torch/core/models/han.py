@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.core import attention, semantic_fusion
+from repro_torch.core import attention, flows, semantic_fusion
 from repro_torch.core.batch import GraphBatch, ModelSpec
 from repro_torch.core.dtypes import canonical, matmul
 from repro_torch.core.flows import FlowConfig, run_aggregate_graph
@@ -112,10 +112,11 @@ class HAN(HGNNModel):
         """``{"sem_beta": β}``, the semantic attention over the FULL graph:
         one forward up to the fusion stage (on the card, under
         ``fused_kernel``, kernel #1 once per metapath), no readout. Callers
-        cache it per weight version."""
+        cache it per weight version. It runs on one device, with no mesh
+        (no lookup): an ego forward is replicated."""
         params = {n: canonical(p) for n, p in params.items()}
         step = next(iter(self.layer_steps(params, batch, flow)))
-        with torch.inference_mode():
+        with torch.inference_mode(), flows.mesh_scope(pinned=None):
             h = step.project(dict(batch.features))
             zs = {name: fn(h) for name, fn in step.na}
             stack = torch.stack([zs[sg.name] for sg in batch.sgs])

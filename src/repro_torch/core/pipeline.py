@@ -7,7 +7,8 @@ a ``HetGraph`` (``data.datasets.resolve``), and the SGB goes through the
 artifact cache (``data.sgb_cache.build_or_load``). The returned
 ``HGNNTask`` serves inference through ``task.compile(flow)``, an
 :class:`~repro_torch.core.session.InferenceSession` cached per flow,
-device, parameter names, shapes and dtypes and ``donate_params``, and trains through
+device, ambient mesh, parameter names, shapes and dtypes and
+``donate_params``, and trains through
 ``train_hgnn``: full-batch cross-entropy on the train split and AdamW, one
 :class:`TrainStep` cached per (flow, lr, weight decay), which on a CUDA
 task is one captured CUDA graph (the reference's jitted step).
@@ -24,11 +25,13 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import hetgraph
+from repro_torch.core import session as _session
 from repro_torch.core.batch import GraphBatch, ModelSpec
 from repro_torch.core.flows import FlowConfig
 from repro_torch.core.models import get_entry
-from repro_torch.core.session import InferenceSession, param_spec
+from repro_torch.core.session import InferenceSession, mesh_fingerprint, param_spec
 from repro_torch.data import datasets, sgb_cache
+from repro_torch.distributed import sharding as dist
 from repro_torch.optim import Optimizer, adamw
 
 
@@ -78,27 +81,29 @@ class HGNNTask:
     def compile(
         self, flow: FlowConfig = FlowConfig(), params=None, donate_params: bool = False
     ) -> InferenceSession:
-        """The serving entry: one session per (flow, device, parameter
-        names with their shapes and dtypes, ``donate_params``), cached on the
-        task, so repeated calls (``accuracy`` over splits, a serving loop)
-        share one program. ``params`` only gives the example the session is
-        built against (default: the task's own); ``donate_params`` marks a
-        session for weight streaming (``InferenceSession``), a second handle
-        on the program of the session that differs only in it, where that
-        one is cached already. The reference
-        also keys on the mesh, which waits for the sharded layouts (ROADMAP
-        §1 item 6)."""
+        """The serving entry: one session per (flow, device, ambient mesh,
+        parameter names with their shapes and dtypes, ``donate_params``),
+        cached on the task, so repeated calls (``accuracy`` over splits, a
+        serving loop) share one program. The mesh is resolved once here
+        (``distributed.sharding.graph_mesh()``) and pinned in the session.
+        ``params`` only gives the example the session is built against
+        (default: the task's own); ``donate_params`` marks a session for
+        weight streaming (``InferenceSession``), a second handle on the
+        program of the session that differs only in it, where that one is
+        cached already."""
         if params is None:
             params = self.params
-        key = (flow, self.device, param_spec(params), bool(donate_params))
+        gm = dist.graph_mesh()
+        key = (flow, self.device, mesh_fingerprint(gm), param_spec(params), bool(donate_params))
         sess = self._sessions.get(key)
         if sess is None:
-            twin = self._sessions.get(key[:3] + (not key[3],))
+            twin = self._sessions.get(key[:4] + (not key[4],))
             if twin is not None:
                 sess = twin.with_donation(donate_params)
             else:
                 sess = InferenceSession(
-                    self.model, self.batch, flow, params=params, donate_params=donate_params
+                    self.model, self.batch, flow, params=params, donate_params=donate_params,
+                    mesh_info=gm,
                 )
             self._sessions[key] = sess
         return sess
@@ -142,10 +147,13 @@ class TrainStep:
     the step counter a 0-d device tensor, and updates them in place. On a
     CUDA task the whole step (forward, backward, clip and AdamW) is one
     CUDA graph, captured at construction into a pool of its own after one
-    eager step on a side stream (which fills every lazy device cache); a
-    call replays it and returns the static loss tensor, valid until the
-    next call. A capture that fails raises; the step never gives way to
-    the eager one. On the CPU a call runs the step eagerly.
+    eager step (which fills every lazy device cache), both through
+    ``session._capture_graph``: one capture at a time in the process, in
+    thread-local mode, warmed up on the device's one warm-up stream, so a
+    step can be captured while other threads serve. A call replays it and
+    returns the static loss tensor, valid until the next call. A capture
+    that fails raises; the step never gives way to the eager one. On the
+    CPU a call runs the step eagerly.
 
     ``reset(params)`` loads parameters and zeroes the optimizer state;
     ``params()`` returns copies of the parameters as they stand.
@@ -182,16 +190,9 @@ class TrainStep:
         return loss.detach()
 
     def _capture(self) -> None:
-        dev = self._task.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self.eager()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            loss = self.eager()
-        self._graph, self._loss_out = graph, loss
+        self._graph, self._loss_out = _session._capture_graph(
+            self.eager, self._task.device, inference=False
+        )
 
     def reset(self, params: Mapping[str, torch.Tensor]) -> None:
         """Load ``params`` (the names the step was built with) and zero the
@@ -252,6 +253,7 @@ def prepare(
     sgb_cache_dir: Union[str, "os.PathLike[str]", None] = None,
     metapaths: Optional[Dict[str, Sequence[str]]] = None,
     device="cuda",
+    shards: Optional[int] = None,
 ) -> HGNNTask:
     """Assemble dataset → SGB → model on ``device``.
 
@@ -272,17 +274,26 @@ def prepare(
     on the CPU from a ``torch.Generator`` seeded with ``seed`` and then
     moved, so the same seed gives the same weights on every device.
     ``device`` defaults to the GPU and raises without one; pass
-    ``device="cpu"`` for the CPU. The reference's ``shards=`` waits for
-    the sharded layouts (ROADMAP §1 item 6).
+    ``device="cpu"`` for the CPU.
+
+    ``shards`` splits every bucketed semantic graph's grouped tile stack
+    ahead of time (``BucketedSemanticGraph.sharded``) at the kernel's tile
+    shape: ``None`` reads the ambient mesh's ``bucket_tiles`` axis size (no
+    mesh, no split: the sharded NA path then splits at its first
+    dispatch), an int forces that many splits. With a cache directory the
+    splits are saved in (or read from) the entry.
     """
     dev = resolve_device(device)
     entry = get_entry(model_name)
     g, ds_name, mps = datasets.resolve(dataset, scale=scale, seed=seed)
     if metapaths is not None:
         mps = metapaths
+    if shards is None:
+        gm = dist.graph_mesh()
+        shards = gm[2] if gm is not None else 0
     sgb_kw = dict(
         max_degree=max_degree, seed=seed, bucket_sizes=bucket_sizes,
-        cache_dir=sgb_cache_dir,
+        cache_dir=sgb_cache_dir, shards=shards,
     )
     if entry.needs_metapaths:
         if not mps:
@@ -296,6 +307,14 @@ def prepare(
         built, _ = sgb_cache.build_or_load(g, entry.sgb_kind, **sgb_kw)
     # a union build is keyed by destination type, in node_types order
     sgs = list(built.values()) if isinstance(built, dict) else list(built)
+    if shards:
+        # the kernel's tile shape, which the sharded dispatch keys its
+        # split on (a cache hit carries the split already: a no-op then)
+        from repro_torch.kernels.fused_prune_aggregate.ops import T_TILE, W_TILE
+
+        for sg in sgs:
+            if isinstance(sg, hetgraph.BucketedSemanticGraph):
+                sg.sharded(shards, T_TILE, W_TILE)
     batch = GraphBatch.from_graph(g, sgs, dev)
     spec = ModelSpec.from_graph(g, sgs)
     model = entry.factory(spec)

@@ -74,6 +74,14 @@ Entry points:
 ``params`` is a flat mapping of parameter name to tensor, as
 ``dict(model.named_parameters())`` gives it.
 
+A session resolves the ambient device mesh once, at build
+(``mesh_info``, default ``distributed.sharding.graph_mesh()``), and runs
+its forward pinned to it (``flows.mesh_scope(pinned=...)``): under a mesh
+its ``fused_kernel`` NA runs one launch per shard and one all-gather, and
+the captured graph holds that all-gather (warmed up first, which creates
+the communicator). Every rank of the mesh must build and call the session
+alike. Ego programs run on one device, pinned to no mesh.
+
 ``donate_params=True`` marks a session for weight streaming
 (``serve.WeightPlane(stream=True)`` hands it fresh tensors per call). A
 CUDA graph cannot take a caller's buffers, so the session copies the params
@@ -86,6 +94,7 @@ only the serving front-end reads the flag.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import threading
 from typing import Callable, List, Mapping, Optional, Sequence, Tuple
@@ -97,6 +106,7 @@ from repro_torch.core import flows
 from repro_torch.core.batch import GraphBatch
 from repro_torch.core.ego import EgoBatch, EgoPlanner
 from repro_torch.core.flows import FlowConfig
+from repro_torch.distributed import sharding as dist
 
 ParamSpec = Tuple[Tuple[str, Tuple[int, ...], torch.dtype], ...]
 
@@ -114,6 +124,15 @@ def _gather(out: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 _UNSET = object()
 
 
+def mesh_fingerprint(gm) -> Optional[Tuple]:
+    """Hashable identity of a resolved ``dist.graph_mesh()`` result, for
+    keying session caches: ``None`` (no mesh) or ``(mesh, axis, size)``."""
+    if gm is None:
+        return None
+    mesh, axis, n = gm
+    return (mesh, axis, n)
+
+
 # One capture at a time in the process: entering a capture synchronizes
 # the device and empties the allocator's cache, which must not meet another
 # thread's capture in progress. Every capture warms up on one side stream
@@ -124,23 +143,29 @@ _CAPTURE_LOCK = threading.Lock()
 _WARMUP_STREAMS: dict = {}
 
 
-def _capture_graph(forward: Callable[[], torch.Tensor], device: torch.device):
+def _capture_graph(forward: Callable[[], object], device: torch.device, inference: bool = True):
     """``(graph, out)``: ``forward`` run once eagerly on the device's
-    warm-up stream (which fills every lazy device cache), then captured as
+    warm-up stream (which fills every lazy device cache, initializes a
+    process group's communicator and builds the kernels), then captured as
     a CUDA graph into a private pool. The capture is thread-local: other
     threads may replay, allocate, copy and synchronize meanwhile (a
-    successor captured while its predecessor serves), and only this thread
-    is held to the capture's rules. Raises if the capture fails."""
+    successor captured while its predecessor serves, a training step
+    captured while another tenant is served), and only this thread is held
+    to the capture's rules. Both runs are under ``torch.inference_mode()``
+    unless ``inference=False`` (a training step, which differentiates).
+    Raises if the capture fails. Every capture of the port goes through
+    here: sessions, ego graphs, ``TrainStep`` and ``DecodeStep``."""
+    mode = torch.inference_mode if inference else contextlib.nullcontext
     with _CAPTURE_LOCK:
         side = _WARMUP_STREAMS.get(device)
         if side is None:
             side = _WARMUP_STREAMS[device] = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side), torch.inference_mode():
+        with torch.cuda.stream(side), mode():
             forward()
         torch.cuda.current_stream(device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.inference_mode(), torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        with mode(), torch.cuda.graph(graph, capture_error_mode="thread_local"):
             out = forward()
     return graph, out
 
@@ -162,8 +187,12 @@ def _device_tensors(obj, out: list) -> list:
 
 def sg_tensors(sg) -> list:
     """The device tensors cached on one semantic graph: its tables
-    (``_device``) and its grouped layouts' (``_dev``)."""
-    return _device_tensors([sg._device, *(lay._dev for lay in getattr(sg, "_grouped", {}).values())], [])
+    (``_device``), its grouped layouts' (``_dev``) and its sharded
+    layouts' (their own ``_dev`` and each shard's)."""
+    devs = [lay._dev for lay in getattr(sg, "_grouped", {}).values()]
+    for sl in getattr(sg, "_sharded", {}).values():
+        devs += [sl._dev] + [sh._dev for sh in sl.shards]
+    return _device_tensors([sg._device, *devs], [])
 
 
 def _batch_tensors(batch: GraphBatch) -> list:
@@ -216,9 +245,14 @@ class InferenceSession:
         flow: FlowConfig = FlowConfig(),
         params: Optional[Mapping[str, torch.Tensor]] = None,
         donate_params: bool = False,
+        mesh_info=_UNSET,
     ):
         if params is None:
             raise ValueError("InferenceSession needs example params to build its program against")
+        if mesh_info is _UNSET:
+            # the session's one mesh resolution: its forward runs pinned to it
+            mesh_info = dist.graph_mesh()
+        self.mesh_info = mesh_info
         self.model = model
         self.graph_batch = batch
         self.flow = flow
@@ -228,7 +262,7 @@ class InferenceSession:
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self.forwards = 0
         # ego serving: the planner, one program per EgoSignature, and the
-        # ego globals of the last params seen (by identity)
+        # ego globals of the last params seen (by tensor and version)
         self._ego = None
         self._ego_exes: dict = {}
         self._ego_globals_cache = None
@@ -255,8 +289,13 @@ class InferenceSession:
             self._inputs = [params[n].detach().clone() for n in self._names]
         static = dict(zip(self._names, self._inputs))
         self._graph, self._out = _capture_graph(
-            lambda: self.model.apply(static, self.graph_batch, self.flow), self.graph_batch.device
+            lambda: self._forward(static), self.graph_batch.device
         )
+
+    def _forward(self, params) -> torch.Tensor:
+        """The eager forward, pinned to the mesh resolved at build."""
+        with flows.mesh_scope(pinned=self.mesh_info):
+            return self.model.apply(params, self.graph_batch, self.flow)
 
     def _check(self, params) -> None:
         got = param_spec(params)
@@ -279,7 +318,7 @@ class InferenceSession:
         with torch.inference_mode():
             if self._graph is None:
                 self.forwards += 1
-                return read_out(self.model.apply(params, self.graph_batch, self.flow))
+                return read_out(self._forward(params))
             serial = self._serial
             with serial.lock:
                 serial.follow(torch.cuda.current_stream(self.graph_batch.device))
@@ -371,14 +410,25 @@ class InferenceSession:
         return self._ego
 
     def _ego_globals_for(self, params):
-        """``model.ego_globals`` cached per params object (a front-end
+        """``model.ego_globals`` cached per weight version: the name, the
+        tensor and its in-place version counter of every parameter, so an
+        in-place update (``mul_``, an optimizer step) or a key reassigned
+        in the same mapping computes it anew. (The reference keys on the
+        params object alone, and serves a stale β after its keys are
+        reassigned.) Parameters that are inference tensors carry no
+        version counter; with one of them nothing is cached. A front-end
         routing weight versions caches per version itself and passes the
-        result in)."""
+        result in."""
+        tensors = tuple(params[n] for n in sorted(params))
+        if any(t.is_inference() for t in tensors):
+            return self.model.ego_globals(params, self.graph_batch, self.flow)
+        token = tuple((n, t._version) for n, t in zip(sorted(params), tensors))
         ent = self._ego_globals_cache
-        if ent is None or ent[0] is not params:
-            ent = (params, self.model.ego_globals(params, self.graph_batch, self.flow))
+        if ent is None or ent[0] != token or any(a is not b for a, b in zip(ent[1], tensors)):
+            # the entry holds the tensors, so no id is reused while cached
+            ent = (token, tensors, self.model.ego_globals(params, self.graph_batch, self.flow))
             self._ego_globals_cache = ent
-        return ent[1]
+        return ent[2]
 
     def compile_ego(self, ego_batch, params):
         """The program of ``ego_batch``'s signature, ``exe(params, batch)
@@ -496,7 +546,7 @@ class _EagerEgo:
         self.model, self.flow = model, flow
 
     def __call__(self, params, ego_batch) -> torch.Tensor:
-        with torch.inference_mode():
+        with torch.inference_mode(), flows.mesh_scope(pinned=None):
             b = ego_batch.to("cpu")
             return self.model.apply(params, b, self.flow).index_select(0, b.out_rows)
 
@@ -540,9 +590,12 @@ class _EgoGraph:
         )
         self._buf.copy_(self._pack(leaves), non_blocking=True)
         p = dict(zip(self._names, self._inputs))
-        self._graph, self._out = _capture_graph(
-            lambda: model.apply(p, static, flow).index_select(0, static.out_rows), device
-        )
+
+        def forward():
+            with flows.mesh_scope(pinned=None):
+                return model.apply(p, static, flow).index_select(0, static.out_rows)
+
+        self._graph, self._out = _capture_graph(forward, device)
         self._serial = _Serial(
             torch.cuda.current_stream(device), [self._buf, *self._inputs, *self._globals.values()]
         )

@@ -22,10 +22,11 @@ max_degree, or the kernel tile constants changes the key: stale entries
 are never read, just orphaned (the cache directory is safe to delete at
 any time).
 
-An entry may also carry sharded splits of the grouped layout (written by
-the reference for a device mesh). This package does not shard: it loads
-such an entry's buckets and grouped layout, leaves the splits unread, and
-never writes an entry it loaded, so another process's splits survive.
+An entry may also carry sharded splits of the grouped layout
+(:class:`~repro_torch.core.hetgraph.ShardedBucketLayout`, one per split
+count), written for a device mesh by either package and read by both.
+``shards`` is not part of the key: a hit that lacks the split asked for
+builds it and saves the entry again with every split it carries.
 
 Entry point: :func:`build_or_load` — the drop-in replacement for calling
 the ``hetgraph.build_*`` functions directly, used by ``pipeline.prepare``.
@@ -47,6 +48,7 @@ from repro_torch.core.hetgraph import (
     DegreeBucket,
     GroupedBucketLayout,
     HetGraph,
+    ShardedBucketLayout,
 )
 
 CACHE_VERSION = 1
@@ -283,12 +285,17 @@ def save_sgb(
     keys: Optional[Sequence[str]] = None,
     t_tile: int = 8,
     w: int = 8,
+    shards: Union[int, Sequence[int]] = (),
 ) -> Path:
-    """Serialize a bucketed-SGB stack (+ grouped layouts at ``(t_tile, w)``)
-    to one npz; ``keys`` records dict ordering for union builds. The file
-    is the reference's entry without sharded splits. Atomic (tmp +
+    """Serialize a bucketed-SGB stack (+ grouped layouts at ``(t_tile, w)``,
+    + one sharded split per entry of ``shards``: an entry can carry splits
+    for several mesh sizes at once) to one npz, the reference's entry
+    file. ``keys`` records dict ordering for union builds. Atomic (tmp +
     ``os.replace``) so concurrent readers never see a torn entry."""
     path = Path(path)
+    if isinstance(shards, int):
+        shards = (shards,) if shards > 0 else ()
+    shard_ns = sorted({int(n) for n in shards if int(n) > 0})
     bw = _BlobWriter()
     metas: List[dict] = []
     for i, sg in enumerate(sgs):
@@ -307,13 +314,28 @@ def save_sgb(
             bw.add(f"{p}.msk", b.nbr_mask)
             bw.add(f"{p}.ety", b.edge_type)
         m["grouped"] = _pack_grouped(f"s{i}.g", sg.grouped(t_tile, w), bw)
+        splits = []
+        for n in shard_ns:
+            sl = sg.sharded(n, t_tile, w)
+            bw.add(f"s{i}.sh{n}.perm", sl.perm)
+            splits.append({
+                "n_shards": sl.n_shards,
+                "num_rows_alloc": int(sl.num_rows_alloc),
+                "num_steps_max": int(sl.num_steps_max),
+                "shards": [
+                    _pack_grouped(f"s{i}.sh{n}.{k}", sh, bw)
+                    for k, sh in enumerate(sl.shards)
+                ],
+            })
+        if splits:
+            m["sharded"] = splits
         metas.append(m)
     arrays, keymap = bw.blobs()
     meta = {
         "cache_version": CACHE_VERSION,
         "t_tile": t_tile,
         "w": w,
-        "shards": [],
+        "shards": shard_ns,
         "keys": list(keys) if keys is not None else None,
         "sgs": metas,
         "blobs": keymap,
@@ -354,9 +376,9 @@ def load_sgb(
     path: Union[str, "os.PathLike[str]"],
 ) -> Tuple[List[BucketedSemanticGraph], Optional[List[str]]]:
     """Reconstruct the bucketed-SGB stack from a saved entry (this
-    package's or the reference's). Grouped layouts are injected into the
-    graphs' layout caches so no dispatch rebuilds them; sharded splits are
-    left unread. Arrays are zero-copy read-only views into an mmap of the
+    package's or the reference's). Grouped layouts and sharded splits are
+    injected into the graphs' layout caches so no dispatch rebuilds them.
+    Arrays are zero-copy read-only views into an mmap of the
     entry when possible: whatever turns them into tensors copies them."""
     views = _npz_mmap_views(path)
     if views is not None:
@@ -401,6 +423,18 @@ def _reconstruct_sgb(
         sg._grouped[(t_tile, w)] = _unpack_grouped(
             f"s{i}.g", m["grouped"], br
         )
+        for sh in m.get("sharded", ()):
+            n = int(sh["n_shards"])
+            sg._sharded[(n, t_tile, w)] = ShardedBucketLayout(
+                n_shards=n, t_tile=t_tile, w=w,
+                shards=tuple(
+                    _unpack_grouped(f"s{i}.sh{n}.{k}", sm, br)
+                    for k, sm in enumerate(sh["shards"])
+                ),
+                perm=br.get(f"s{i}.sh{n}.perm"),
+                num_rows_alloc=int(sh["num_rows_alloc"]),
+                num_steps_max=int(sh["num_steps_max"]),
+            )
         out.append(sg)
     return out, meta["keys"]
 
@@ -438,6 +472,7 @@ def build_or_load(
     seed: int = 0,
     bucket_sizes: Union[Sequence[int], str, None] = None,
     cache_dir: Union[str, "os.PathLike[str]", None] = None,
+    shards: int = 0,
 ) -> Tuple[Union[List, Dict], str]:
     """Build the ``kind`` SGB stack for ``g``, or load it from the cache.
 
@@ -447,7 +482,13 @@ def build_or_load(
     (loaded), ``"miss"`` (built + saved), or ``"off"`` (no ``cache_dir``
     and no ``$REPRO_SGB_CACHE``, or a flat ``bucket_sizes=None`` build —
     only bucketed layouts are cached). A corrupt entry is treated as a
-    miss and overwritten; a hit is never written back.
+    miss and overwritten.
+
+    ``shards`` is not part of the key: an entry can carry sharded splits
+    for several mesh sizes. A hit that lacks the split asked for builds it
+    and saves the entry again with every split it carries (still a hit:
+    the bucket and grouped stacks were loaded, not rebuilt); any other hit
+    is never written back.
     """
     t_tile, w = _tile_constants()
     if cache_dir is None:
@@ -466,6 +507,8 @@ def build_or_load(
         except Exception:
             sgs = None  # torn/stale entry: rebuild and overwrite below
         if sgs is not None:
+            if shards > 0 and any((shards, t_tile, w) not in sg._sharded for sg in sgs):
+                _add_split(path, sgs, keys, shards, t_tile, w)
             out = dict(zip(keys, sgs)) if keys is not None else sgs
             return out, "hit"
     out = _build(g, kind, metapaths, max_degree, seed, bucket_sizes)
@@ -478,6 +521,27 @@ def build_or_load(
     for sg in sgs:
         if isinstance(sg, BucketedSemanticGraph):
             sg.grouped(t_tile, w)
+            if shards > 0:
+                sg.sharded(shards, t_tile, w)
     if all(isinstance(sg, BucketedSemanticGraph) for sg in sgs):
-        save_sgb(path, sgs, keys=keys, t_tile=t_tile, w=w)
+        save_sgb(path, sgs, keys=keys, t_tile=t_tile, w=w, shards=shards)
     return out, "miss"
+
+
+def _add_split(path: Path, sgs, keys, shards: int, t_tile: int, w: int) -> None:
+    """Build the ``shards`` split on the loaded ``sgs`` and save the entry
+    again. The split is merged into a FRESH read of the entry first: another
+    process may have added other splits since ``sgs`` was loaded, and
+    saving only this view would drop them (the window left costs at most
+    one redundant rebuild later, never a torn entry)."""
+    key = (shards, t_tile, w)
+    for sg in sgs:
+        sg.sharded(shards, t_tile, w)
+    try:
+        fresh, keys = load_sgb(path)
+    except Exception:
+        fresh = sgs
+    for sg_f, sg_m in zip(fresh, sgs):
+        sg_f._sharded.setdefault(key, sg_m._sharded[key])
+    all_ns = sorted({k[0] for sg in fresh for k in sg._sharded if k[1:] == (t_tile, w)})
+    save_sgb(path, fresh, keys=keys, t_tile=t_tile, w=w, shards=all_ns)

@@ -1,0 +1,3 @@
+"""Multi-device plumbing of the port: the graph axes of the reference's
+logical-axis rules and the ambient ``torch.distributed`` device mesh that
+sharded grouped NA binds to (``sharding``)."""

@@ -3,7 +3,10 @@
 :func:`fused_prune_aggregate_grouped` runs NA over every degree bucket of a
 ``BucketedSemanticGraph`` as ONE launch, :func:`prune_aggregate` (K1 and,
 in the same warp, K2's aggregation), then one ``perm`` gather back to
-target order. :func:`fused_prune_aggregate` runs NA over one flat ``(T,
+target order. :func:`fused_prune_aggregate_grouped_sharded` runs it split
+over the ranks of a device mesh: each rank ONE launch on its own shard of
+the graph's ``ShardedBucketLayout`` (:func:`shard_out`), one all-gather,
+one ``perm`` gather. :func:`fused_prune_aggregate` runs NA over one flat ``(T,
 D)`` padded-CSC table (a flat graph, or one bucket of the per-bucket loop)
 as one launch of :func:`flat_prune_aggregate`. The step wrappers of each
 pair, K1 :func:`prune` / :func:`flat_prune` and K2 :func:`aggregate` /
@@ -26,6 +29,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding as dist
 from repro_torch.kernels import build
 from repro_torch.kernels.common import check_tensor as _check
 from repro_torch.kernels.common import cuda_device as _cuda_device
@@ -51,6 +55,9 @@ LAUNCHES = {
     "prune": 0, "aggregate": 0, "flat_prune": 0, "flat_aggregate": 0,
     "prune_aggregate": 0, "flat_prune_aggregate": 0,
 }
+
+# launches of the grouped fused kernel made by shard_out, per shard index
+SHARD_LAUNCHES: dict = {}
 
 _ptr = ctypes.c_void_p
 _int = ctypes.c_int
@@ -377,6 +384,100 @@ def fused_prune_aggregate_grouped(
         h_proj, slope,
     )
     return out.index_select(0, perm)
+
+
+def sharded_k_s(sl, prune_k: Optional[int]) -> int:
+    """The retention-domain width every shard of ``sl`` launches with: the
+    largest ``k_s`` across shards (the reference's rule), which is the
+    unsharded layout's, since the shards' buckets together are the
+    layout's. A narrower shard's own ``k_s`` could put its domain in
+    registers where the single-device launch used shared memory; with one
+    width every target runs the single-device arithmetic. Cached on
+    ``sl``."""
+    key = ("k_s", prune_k)
+    if key not in sl._dev:
+        sl._dev[key] = max(
+            (grouped_meta(sh, prune_k)[2] for sh in sl.shards if sh.num_steps), default=1
+        )
+    return sl._dev[key]
+
+
+def shard_out(
+    sl,  # ShardedBucketLayout
+    s: int,
+    h_proj: torch.Tensor,  # (N, H, dh) f32
+    theta_src: torch.Tensor,  # (N, H)
+    theta_dst: torch.Tensor,  # (T, H) — full target range of the graph
+    theta_rel: Optional[torch.Tensor] = None,  # (R, H)
+    prune_k: Optional[int] = None,
+    slope: float = 0.2,
+) -> torch.Tensor:
+    """Shard ``s``'s part of sharded NA -> ``(sl.num_rows_alloc, H, dh)``
+    float32 in the shard's local row order: ONE fused launch of
+    :func:`prune_aggregate` on ``sl.shards[s]`` (θ_*v read through the
+    shard's global ``row_targets``, ``k_s`` from :func:`sharded_k_s`), its
+    rows padded with zeros to ``num_rows_alloc``. A shard with no grid
+    steps launches nothing and gives zeros. ``sl.perm`` reads no pad row,
+    so the outputs of every shard, concatenated in shard order and
+    gathered by ``sl.perm``, are the single-device NA bit for bit. This is
+    what each rank runs under a mesh; called for every ``s`` on one device
+    it runs an n-way split without one."""
+    lay = sl.shards[s]
+    n, h, dh = h_proj.shape
+    dev = h_proj.device
+    if lay.num_steps == 0:
+        return torch.zeros((sl.num_rows_alloc, h, dh), dtype=torch.float32, device=dev)
+    (nbr, msk, ety, row_targets, _), (blk, _) = _layout_device(lay, prune_k, dev)
+    out = prune_aggregate(
+        nbr, msk, ety, theta_src, theta_rel, theta_dst, row_targets, blk,
+        sharded_k_s(sl, prune_k), h_proj, slope,
+    )
+    if dev.type == "cuda":
+        SHARD_LAUNCHES[s] = SHARD_LAUNCHES.get(s, 0) + 1
+    pad = sl.num_rows_alloc - lay.num_rows
+    return torch.cat([out, out.new_zeros((pad, h, dh))]) if pad else out
+
+
+def _sharded_perm(sl, device: torch.device) -> torch.Tensor:
+    """``sl.perm`` as an int64 device tensor, cached on ``sl``."""
+    key = ("perm", device)
+    if key not in sl._dev:
+        with torch.inference_mode(False):
+            sl._dev[key] = torch.from_numpy(sl.perm.astype(np.int64)).to(device)
+    return sl._dev[key]
+
+
+def fused_prune_aggregate_grouped_sharded(
+    h_proj: torch.Tensor,  # (N, H, dh) f32, the same on every rank
+    theta_src: torch.Tensor,  # (N, H)
+    theta_dst: torch.Tensor,  # (T, H) — full target range of the graph
+    sg,  # BucketedSemanticGraph
+    mesh,  # torch.distributed DeviceMesh
+    axis: str,  # the mesh axis to split over (the bucket_tiles rule axis)
+    theta_rel: Optional[torch.Tensor] = None,  # (R, H)
+    prune_k: Optional[int] = None,
+    slope: float = 0.2,
+) -> torch.Tensor:
+    """NA over ALL buckets of ``sg``, split across the ranks of ``mesh``'s
+    ``axis``: rank r runs ONE fused launch on shard r of
+    ``sg.sharded(n)`` (:func:`shard_out`); the per-shard outputs are
+    all-gathered ONCE over the axis's process group, and one gather by
+    the global ``perm`` restores target order. θ_u* and h' are the full
+    tables on every rank (NA reads any source id); each rank reads only
+    its own targets' θ_*v rows. Bit for bit the single-device launch.
+    Returns ``(sg.num_targets, H, dh)`` float32 on every rank. Every rank
+    must make the same call: the all-gather is a collective."""
+    n_sh = dist.axis_size(mesh, axis)
+    sl = sg.sharded(n_sh, T_TILE, W_TILE)
+    n, h, dh = h_proj.shape
+    if sl.num_steps_max == 0:
+        return torch.zeros((sg.num_targets, h, dh), dtype=torch.float32, device=h_proj.device)
+    local = shard_out(
+        sl, dist.shard_rank(mesh, axis), h_proj, theta_src, theta_dst,
+        theta_rel=theta_rel, prune_k=prune_k, slope=slope,
+    )
+    full = dist.replicate(local, mesh, axis)
+    return full.index_select(0, _sharded_perm(sl, h_proj.device))
 
 
 def flat_prune(

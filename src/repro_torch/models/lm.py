@@ -36,6 +36,7 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.projection import glorot_
+from repro_torch.core import session as _session
 from repro_torch.layers import blocks
 from repro_torch.layers.attention import KVCache, position_tensor
 from repro_torch.layers.norms import apply_norm, norm_shapes
@@ -231,9 +232,10 @@ class DecodeStep:
     place, bit for bit an eager ``decode_step``.
 
     On the card the first call captures the step as a CUDA graph, with
-    static ``token`` (B, 1) and ``pos`` tensors: one eager warm-up step on
-    a side stream (it fills the lazy state and builds the kernels), then
-    the capture. A step writes only the KV slot of its position, from its
+    static ``token`` (B, 1) and ``pos`` tensors: one eager warm-up step (it
+    fills the lazy state and builds the kernels), then the capture, both
+    through ``session._capture_graph`` (one capture at a time, thread-local,
+    the device's one warm-up stream). A step writes only the KV slot of its position, from its
     token and the other slots, so the warm-up and the replay write the same
     bits and the cache is left exactly as one eager step leaves it. Every
     call (the first included) copies the token and position into the
@@ -254,15 +256,9 @@ class DecodeStep:
         self._params = lm.compute_params()
         self._token = token.detach().clone()
         self._pos = position_tensor(pos, dev).clone()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side), torch.inference_mode():
-            lm.decode_step(self._token, self._pos, self.cache)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.inference_mode(), torch.cuda.graph(graph):
-            self._logits, _ = lm.decode_step(self._token, self._pos, self.cache)
-        self._graph = graph
+        self._graph, self._logits = _session._capture_graph(
+            lambda: lm.decode_step(self._token, self._pos, self.cache)[0], dev
+        )
 
     def __call__(self, token: torch.Tensor, pos) -> torch.Tensor:
         if self.lm.device.type != "cuda":

@@ -32,8 +32,8 @@ Timings come off the injected ``Clock`` (``FakeClock`` in tests):
 cold-rebuild bound is about — while ``t_session`` (warm-up and capture on
 a card) and ``t_publish`` isolate the successor's cost.
 
-The reference's successor session also takes the predecessor's
-``mesh_info``; the port has no mesh yet (ROADMAP §1 item 6).
+A successor session takes its predecessor's ``mesh_info``: a version
+served sharded over a device mesh stays sharded over the same mesh.
 """
 from __future__ import annotations
 
@@ -165,6 +165,7 @@ class StreamIngestor:
         t0 = self.clock.now()
         new_session = InferenceSession(
             self.task.model, new_batch, self.session.flow, params=self.task.params,
+            mesh_info=self.session.mesh_info,
         )
         carried, adopted = self._carry_ego(new_session, new_batch, new_graph, delta, dirty)
         t_session = self.clock.now() - t0

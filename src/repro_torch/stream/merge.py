@@ -48,10 +48,10 @@ degree cap are full by construction and spill before the assumption can
 be violated.
 
 Everything here is host-side numpy — no tensor moves, no device syncs —
-so a merge can run concurrently with serving on the live version. The
-reference also patches and mirrors the sharded layouts
-(``ShardedBucketLayout``); the port has none yet (ROADMAP §1 item 6), so
-their patch and mirror wait for it.
+so a merge can run concurrently with serving on the live version.
+Sharded splits (``ShardedBucketLayout``) are patched per shard the same
+way: a shard no delta row lands on keeps its very object, and with it its
+device mirrors; a patched shard is a new object with an empty ``_dev``.
 """
 from __future__ import annotations
 
@@ -65,6 +65,7 @@ from repro_torch.core.hetgraph import (
     DegreeBucket,
     GroupedBucketLayout,
     HetGraph,
+    ShardedBucketLayout,
     build_metapath_graphs,
     build_relation_graphs,
     build_union_graph,
@@ -196,6 +197,44 @@ def _patch_grouped(
     return dataclasses.replace(lay, nbr=nbr, msk=msk, ety=ety)
 
 
+def _patch_sharded(
+    sl: ShardedBucketLayout, patches: Sequence[_Patch]
+) -> ShardedBucketLayout:
+    """Per-shard copy-on-write tile rewrite. Degrees only grow within
+    existing capacities, so D-tile counts — and the LPT shard assignment —
+    are unchanged; untouched shards keep their very objects (and their
+    device mirrors)."""
+    nra = sl.num_rows_alloc
+    per_shard: Dict[int, List[Tuple[np.ndarray, ...]]] = {}
+    for _, t_b, nbr_n, msk_n, ety_n in patches:
+        val = sl.perm[t_b].astype(np.int64)
+        owner = val // nra
+        lrow = val % nra
+        for s in np.unique(owner):
+            m = np.flatnonzero(owner == s)
+            per_shard.setdefault(int(s), []).append(
+                (lrow[m], nbr_n[m], msk_n[m], ety_n[m])
+            )
+    shards = list(sl.shards)
+    for s, rows in per_shard.items():
+        lay = shards[s]
+        fs = _first_steps(lay)
+        flat, vn, vm, ve = [], [], [], []
+        for lrow, nbr_n, msk_n, ety_n in rows:
+            idx = _row_flat_index(fs, lrow, sl.t_tile, sl.w, nbr_n.shape[1])
+            flat.append(idx.ravel())
+            vn.append(nbr_n.ravel())
+            vm.append(msk_n.ravel())
+            ve.append(ety_n.ravel())
+        nbr, msk, ety = lay.nbr.copy(), lay.msk.copy(), lay.ety.copy()
+        ii = np.concatenate(flat)
+        nbr.reshape(-1)[ii] = np.concatenate(vn).astype(np.int32)
+        msk.reshape(-1)[ii] = np.concatenate(vm)
+        ety.reshape(-1)[ii] = np.concatenate(ve).astype(np.int32)
+        shards[s] = dataclasses.replace(lay, nbr=nbr, msk=msk, ety=ety)
+    return dataclasses.replace(sl, shards=tuple(shards))
+
+
 def _scatter_rows(arr: np.ndarray, rows: np.ndarray, new: np.ndarray):
     out = arr.copy()
     out[rows] = new.astype(arr.dtype, copy=False)
@@ -298,14 +337,18 @@ def _absorb(
     new_sg._lookup = sg._lookup
     for key, lay in sg._grouped.items():
         new_sg._grouped[key] = _patch_grouped(lay, patches)
+    for key, sl in sg._sharded.items():
+        new_sg._sharded[key] = _patch_sharded(sl, patches)
     return new_sg
 
 
 def _mirror_layouts(old: BucketedSemanticGraph, new: BucketedSemanticGraph):
-    """Build on the new slice every grouped layout key the old slice
-    carried, so a publish never lazily rebuilds on the serve path."""
+    """Build on the new slice every grouped/sharded layout key the old
+    slice carried, so a publish never lazily rebuilds on the serve path."""
     for (t_tile, w) in old._grouped:
         new.grouped(t_tile, w)
+    for (n, t_tile, w) in old._sharded:
+        new.sharded(n, t_tile, w)
 
 
 def _row_diff(a: BucketedSemanticGraph, b: BucketedSemanticGraph) -> np.ndarray:

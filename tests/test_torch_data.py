@@ -394,8 +394,10 @@ def test_cache_entry_matches_reference(tmp_path, ref, graphs, ds, kind, max_degr
 
 def test_reference_sharded_entry_loads_untouched(tmp_path, ref, graphs):
     """An entry the reference wrote with sharded splits: the port loads its
-    buckets and grouped layout (a hit, equal to its own build) and leaves
-    the file as it was."""
+    buckets and grouped layout (a hit, equal to its own build) and its
+    2-way splits (equal to the port's own split of its build, array for
+    array), and leaves the file as it was, asked for that split or for
+    none."""
     jg, tg = graphs["acm"]
     kw = dict(max_degree=256, seed=0, bucket_sizes="auto")
     _, s = ref.sgb_cache.build_or_load(jg, "relation", cache_dir=tmp_path, shards=2, **kw)
@@ -404,10 +406,22 @@ def test_reference_sharded_entry_loads_untouched(tmp_path, ref, graphs):
     meta = json.loads(bytes(_entry_arrays(path)["__meta__"]).decode())
     assert meta["shards"] == [2] and all("sharded" in m for m in meta["sgs"])
     before = (hashlib.sha256(path.read_bytes()).hexdigest(), path.stat().st_mtime_ns)
-    got, s = tcache.build_or_load(tg, "relation", cache_dir=tmp_path, **kw)
-    assert s == "hit"
-    _sgs_equal(got, thg.build_relation_graphs(tg, **kw))
-    assert (hashlib.sha256(path.read_bytes()).hexdigest(), path.stat().st_mtime_ns) == before
+    own = thg.build_relation_graphs(tg, **kw)
+    for shards in (0, 2):
+        got, s = tcache.build_or_load(tg, "relation", cache_dir=tmp_path, shards=shards, **kw)
+        assert s == "hit"
+        _sgs_equal(got, own)
+        for sg, osg in zip(got, own):
+            assert list(sg._sharded) == [(2, 8, 8)]
+            sl, want = sg._sharded[(2, 8, 8)], osg.sharded(2)
+            assert (sl.num_rows_alloc, sl.num_steps_max) == (want.num_rows_alloc, want.num_steps_max)
+            assert sl.perm.dtype == want.perm.dtype and np.array_equal(sl.perm, want.perm)
+            for a, b in zip(sl.shards, want.shards):
+                assert a.num_rows == b.num_rows
+                for f in GROUPED_FIELDS:
+                    x, y = getattr(a, f), getattr(b, f)
+                    assert x.dtype == y.dtype and np.array_equal(x, y), f
+        assert (hashlib.sha256(path.read_bytes()).hexdigest(), path.stat().st_mtime_ns) == before
     assert list(tmp_path.iterdir()) == [path]
 
 

@@ -621,6 +621,72 @@ def test_adopted_programs_serve_without_rebuilding(stream_task):
     assert flows.DISPATCH["ego_traces"] == traces
 
 
+def _han_beta_session():
+    """HAN ACM under ``staged`` on a params mapping of its own, its ego
+    rows 0 off the full rows for target 5 before any update."""
+    task = pipeline.prepare("han", "acm", scale=SCALE, max_degree=MAX_DEGREE, seed=0, device="cpu")
+    params = {n: t.detach().clone() for n, t in task.params.items()}
+    sess = InferenceSession(task.model, task.batch, FlowConfig("staged"), params=params).enable_ego(**PLANNER)
+    idx = np.array([5])
+    assert np.abs(sess.query_ego(params, idx).numpy() - sess(params).numpy()[idx]).max() <= TOL
+    return sess, params, idx
+
+
+def _beta_keys(params):
+    return [n for n in params if n.startswith(("attn.", "sem."))]
+
+
+def test_ego_beta_follows_in_place_updates():
+    """An in-place update of the tensors of the same params mapping (as an
+    optimizer makes) moves HAN's β: the ego rows follow the full rows
+    within 1e-5. Keyed on the params object alone, the cached β stayed the
+    old one (0.053 off the full rows here, the full rows moving 0.131)."""
+    sess, params, idx = _han_beta_session()
+    before = sess(params).numpy()[idx]
+    with torch.no_grad():
+        for n in _beta_keys(params):
+            params[n].mul_(3).add_(0.1)
+    full = sess(params).numpy()[idx]
+    assert np.abs(full - before).max() > 0.05
+    np.testing.assert_allclose(sess.query_ego(params, idx).numpy(), full, rtol=0, atol=TOL)
+
+
+def test_ego_beta_follows_reassigned_keys():
+    """Keys of the same mapping reassigned to new tensors: the ego rows
+    follow the full rows within 1e-5; a mapping with the same values after
+    that reuses the cached β."""
+    sess, params, idx = _han_beta_session()
+    for n in list(params):
+        params[n] = params[n] * 3 + 0.1
+    full = sess(params).numpy()[idx]
+    np.testing.assert_allclose(sess.query_ego(params, idx).numpy(), full, rtol=0, atol=TOL)
+    cached = sess._ego_globals_cache
+    sess.query_ego(params, idx)
+    assert sess._ego_globals_cache is cached
+
+
+def test_reference_ego_beta_stale_after_reassigned_keys():
+    """Recorded: the reference caches β by the identity of the params tree,
+    so reassigning every key of the same tree serves the old β: its ego
+    rows end up 5.94 off its full rows (a fault of the reference, which
+    stays as it is; the port is held to 1e-5 above)."""
+    jax = pytest.importorskip("jax")
+
+    from repro.core import pipeline as jpipe
+    from repro.core.flows import FlowConfig as JFlowConfig
+
+    jt = jpipe.prepare("han", "acm", scale=SCALE, max_degree=MAX_DEGREE, seed=0)
+    sess = jt.compile(JFlowConfig("staged"))
+    sess.enable_ego(**PLANNER)
+    params = jt.params
+    idx = np.array([5])
+    assert np.abs(np.asarray(sess.query_ego(params, idx)) - np.asarray(sess(params))[idx]).max() <= TOL
+    for key in list(params):  # every key of the same tree, reassigned
+        params[key] = jax.tree_util.tree_map(lambda x: x * 3 + 0.1, params[key])
+    err = np.abs(np.asarray(sess.query_ego(params, idx)) - np.asarray(sess(params))[idx]).max()
+    assert err > 5.0, err  # 5.94 on this jax and numpy
+
+
 # ---------------------------------------------------------------------------
 # on a card: one captured CUDA graph per ego signature
 # ---------------------------------------------------------------------------

@@ -36,14 +36,15 @@ def test_no_jax_or_reference_imports(tmp_path):
     assert len(PORT_FILES) > 10
     assert (ROOT / "chip_smoke.py").is_file()
     port = ROOT / "src" / "repro_torch"
-    for sub in ("core", "data", "kernels", "configs", "layers", "models", "launch", "serve", "stream"):
+    for sub in ("core", "data", "kernels", "configs", "layers", "models", "launch", "serve", "stream",
+                "distributed"):
         assert port / sub / "__init__.py" in PORT_FILES, sub
     for mod in ("clock", "faults", "frontend", "health", "load", "plane", "queueing"):
         assert port / "serve" / f"{mod}.py" in PORT_FILES, mod
     assert port / "kernels" / "topk_decode_attention" / "ops.py" in PORT_FILES
     assert port / "kernels" / "topk_select" / "ops.py" in PORT_FILES
     for mod in ("data/datasets.py", "data/sgb_cache.py", "core/dtypes.py", "core/ego.py",
-                "stream/delta.py", "stream/merge.py", "stream/ingest.py"):
+                "stream/delta.py", "stream/merge.py", "stream/ingest.py", "distributed/sharding.py"):
         assert port / mod in PORT_FILES, mod
     probe = tmp_path / "probe.py"
     probe.write_text(
@@ -88,6 +89,10 @@ def test_cpu_forward_loads_neither_jax_nor_reference(tmp_path):
         "ing = StreamIngestor(task, sess)\n"
         "rep = ing.ingest({'AP': ([0, 1], [2, 3])})\n"
         "assert rep.version == 1 and ing.session(task.params).shape == (task.batch.num_targets, task.spec.num_classes)\n"
+        "from repro_torch.distributed import sharding\n"
+        "assert sharding.graph_mesh() is None\n"
+        "t2 = pipeline.prepare('rgat', 'imdb', scale=0.03, device='cpu', shards=2)\n"
+        "assert all((2, 8, 8) in sg._sharded for sg in t2.sgs)\n"
         "from repro_torch.configs import get_config\n"
         "from repro_torch.models import build_model\n"
         "import torch\n"

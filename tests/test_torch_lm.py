@@ -240,6 +240,38 @@ def test_decode_step_tensor_pos_is_int_pos():
         assert torch.equal(a.k, c.k) and torch.equal(a.v, c.v)
 
 
+def test_decode_step_captures_through_the_session_capture(monkeypatch):
+    """``DecodeStep._capture`` goes through ``session._capture_graph`` (one
+    capture at a time, thread-local, the device's one warm-up stream) under
+    inference mode: one eager warm-up step, then the captured one, whose
+    logits it keeps. A step writes only its position's slot, so the cache
+    is left as one eager step leaves it. Recorded with a stand-in for the
+    capture that runs the step it is given twice, as the real one does."""
+    from repro_torch.core import session as tsession
+    from repro_torch.models.lm import DecodeStep
+
+    _, tcfg = _cfgs()
+    tm = tbuild(tcfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    toks = torch.from_numpy(np.random.default_rng(7).integers(0, tcfg.vocab_size, size=(2, 24)))
+    _, cache = tm.prefill(toks[:, :20], max_len=24)
+    ref_cache = [tattn.KVCache(c.k.clone(), c.v.clone()) for c in cache]
+    ref, ref_cache = tm.decode_step(toks[:, 20:21], 20, ref_cache)
+    calls = []
+
+    def capture(forward, device, inference=True):
+        calls.append((device, inference))
+        forward()
+        return "graph", forward()
+
+    monkeypatch.setattr(tsession, "_capture_graph", capture)
+    step = DecodeStep(tm, cache)
+    step._capture(toks[:, 20:21], 20)
+    assert calls == [(tm.device, True)]
+    assert step._graph == "graph" and torch.equal(step._logits, ref)
+    for a, b in zip(cache, ref_cache):
+        assert torch.equal(a.k, b.k) and torch.equal(a.v, b.v)
+
+
 @pytest.mark.parametrize("softcap", (None, 30.0))
 def test_compiled_decode_matches_reference(softcap):
     """8 steps of the compiled decode step (eager on the CPU) with tensor

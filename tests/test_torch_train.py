@@ -291,6 +291,36 @@ def test_train_after_compiled_session():
             assert any(not torch.equal(trained[n], task.params[n]) for n in trained)
 
 
+def test_train_step_captures_through_the_session_capture(monkeypatch):
+    """``TrainStep._capture`` goes through ``session._capture_graph`` (one
+    capture at a time, thread-local, the device's one warm-up stream) with
+    grad mode on, and its warm-up is one eager step before the captured
+    one, as before. Recorded here with a stand-in for the capture, which
+    runs the forward it is given twice, as the real one does."""
+    from repro_torch.core import session as tsession
+
+    task = _small()
+    step = task._train_step(FlowConfig("staged"), 5e-3)
+    calls, eager = [], []
+    orig = step.eager
+
+    def counted():
+        eager.append(torch.is_grad_enabled())
+        return orig()
+
+    def capture(forward, device, inference=True):
+        calls.append((device, inference))
+        forward()
+        return "graph", forward()
+
+    monkeypatch.setattr(step, "eager", counted)
+    monkeypatch.setattr(tsession, "_capture_graph", capture)
+    step._capture()
+    assert calls == [(task.device, False)]
+    assert eager == [True, True]  # the warm-up step, then the captured one
+    assert step._graph == "graph" and step._loss_out.dim() == 0
+
+
 def test_train_hgnn_leaves_task_params_and_returns_plain_copies():
     task = _small()
     before = {n: t.clone() for n, t in task.params.items()}
