@@ -263,14 +263,38 @@ exits non-zero at the first phase that fails:
    device mirror of its predecessor); and a HAN ACM training step
    captured while a threaded front-end serves RGAT IMDB at 2000
    requests/s, with no failed request;
-11. prints a ``train {...}`` line with the step times, a ``serve {...}``
+11. serves the dense and MoE LM archs through ``build_model``, ``prefill``
+   and ``compile_decode``, with seeded weights: qwen2-1.5b, chatglm3-6b and
+   olmoe-1b-7b whole at their published configs, qwen2-72b (8 of 80
+   layers) and arctic-480b (1 of 35) at full width with their depth cut to
+   fit one card. Each runs a prefill of (4, 3072) and 32 greedy decode
+   steps (8 for the cut two) eagerly, then the same steps through the
+   compiled step: tokens, float32 logits and cache bit for bit the eager
+   loop's, and no kernel of the port launched (none of these configs
+   prunes). It times the prefill and both decode loops, profiles a
+   captured step (and, for chatglm3-6b and qwen2-72b, a prefill: device
+   time by kernel, busy share),
+   reads the peak reserved memory, counts each decode step's bytes (the weights it reads
+   in the compute dtype, all of olmoe's experts included, and the KV rows
+   it needs), and prints how many (token, expert) picks each olmoe prefill
+   group dropped. For the three whole archs, 2 layers at full width in
+   float32 on the card and on the CPU (one seeded set of weights): the
+   prefill of (2, 300) and two decode steps' logits within 1e-4 of the
+   CPU's logit scale. For olmoe each layer's routing is compared first:
+   a token whose top-8 experts differ on the two devices is a flip, printed
+   with its top-8 margin on the CPU; the check fails above 1 % of the
+   routed tokens or at a flip whose margin exceeds 1e-5, and holds the
+   logits only on sequences whose every token was routed and slotted
+   alike;
+12. prints a ``train {...}`` line with the step times, a ``serve {...}``
    line with the serving numbers (serial and microbatched wall time, QPS,
    p50/p99, mean batch, pad fraction and blocks; the threaded p50/p99; the
    busy share; the overlap counts), an ``ego {...}`` line with phase 8's
    numbers, a ``stream {...}`` line with phase 9's (merge and cold
    rebuild times and their ratio, per-ingest session times, bytes
    uploaded and tiers, the threaded QPS during the ingests, memory), a
-   ``shard {...}`` line with phase 10's, the card line, then the
+   ``shard {...}`` line with phase 10's, an ``archs {...}`` line with phase
+   11's, the card line, then the
    ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
    the last line.
 """
@@ -354,6 +378,27 @@ SHARD_MESH_PATHS = (("han", "acm"), ("rgat", "imdb"), ("simple_hgn", "imdb"))
 SHARD_DELTAS, SHARD_TIMED = 2, 50
 SHARD_TRAIN_LR = 1e-3  # a step of its own: phase 5 cached the ones at TRAIN_LR
 SHARD_SERVE_REQUESTS = 20_000  # paced requests offered at most (10 s at 2000/s); cut once the steps ran
+# phase 11, the dense and MoE LM archs: (arch, layers kept or None for the
+# published depth, decode steps); the two cut to fit one card's 80 GB
+ARCH_RUNS = (("qwen2-1.5b", None, 32), ("chatglm3-6b", None, 32), ("olmoe-1b-7b", None, 32),
+             ("qwen2-72b", 8, 8), ("arctic-480b", 1, 8))
+ARCH_CPU_CHECK = ("qwen2-1.5b", "chatglm3-6b", "olmoe-1b-7b")
+# a prefill's profile costs 10-20 s of host time (tens of thousands of
+# events); two archs show its two regimes: chatglm3-6b's 28 global layers
+# (the plain-torch attention's elementwise passes) and qwen2-72b's wide GEMMs
+ARCH_PREFILL_PROFILE = ("chatglm3-6b", "qwen2-72b")
+ARCH_EAGER_OPS = 8  # an eager step's largest operators by device time, with their input shapes
+# card vs CPU: 2 layers, float32, batch 2 of 300 tokens (600 routed rows: a
+# group of 512 and a padded one for olmoe), 2 decode steps; errors relative
+# to the CPU's largest |logit|; routing flips allowed on at most 1 % of the
+# routed tokens, each with a top-k margin of at most 1e-5
+ARCH_CPU_LAYERS, ARCH_CPU_BATCH, ARCH_CPU_PROMPT, ARCH_CPU_STEPS = 2, 2, 300, 2
+TOL_ARCH_REL, ARCH_FLIP_SHARE, ARCH_FLIP_MARGIN = 1e-4, 0.01, 1e-5
+# the MoE archs' routing spread, seeded against unit-scale weights: per layer
+# of a 2-layer float32 prefill of batch 2 of 512 tokens (two whole groups of
+# 512, no pad rows); the second half of each sequence is the "late" tokens
+ARCH_SPREAD_BATCH, ARCH_SPREAD_PROMPT = 2, 512
+ARCH_ROUTER_SPREAD = 2.4  # the std of a unit-scale router's logits on a normed input
 
 
 def check(cond, msg: str) -> None:
@@ -1209,6 +1254,32 @@ def device_times(fn, reps: int) -> dict:
         if us > 0:
             per_kernel[ev.key] = us / reps / 1e3
     return per_kernel
+
+
+def op_device_times(fn, top: int) -> list:
+    """Device time of one call of ``fn`` (after a warm-up call) by the
+    PyTorch operator that launched each kernel and the operator's input
+    shapes (torch.profiler with ``record_shapes``), which name the call
+    site: the ``top`` largest as ``[operator, input shapes, ms]``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages(group_by_input_shape=True):
+        if ev.device_type != DeviceType.CPU:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append([ev.key, str(ev.input_shapes), us / 1e3])
+    return sorted(rows, key=lambda row: -row[2])[:top]
 
 
 def host_ops(fn) -> int:
@@ -3825,6 +3896,400 @@ def shard_phase(pipeline, FlowConfig, kernel_ops, tasks, lm_result, dev):
     return res
 
 
+@contextlib.contextmanager
+def recorded_dispatch(keep: list, reduce=lambda probs, dispatch: (probs.cpu(), dispatch.cpu())):
+    """Every MoE routing (``layers.moe._topk_dispatch``, one a layer) in
+    order, as ``reduce(probs (G, S, E) float32, dispatch (G, S, E, C))``:
+    by default both on the host."""
+    from repro_torch.layers import moe
+
+    real = moe._topk_dispatch
+
+    def record(probs, top_k, capacity):
+        dispatch, combine = real(probs, top_k, capacity)
+        keep.append(reduce(probs, dispatch))
+        return dispatch, combine
+
+    moe._topk_dispatch = record
+    try:
+        yield keep
+    finally:
+        moe._topk_dispatch = real
+
+
+def decode_step_bytes(lm, batch: int, positions) -> dict:
+    """Bytes a decode step must read: every weight it uses in the dtype it
+    computes in (the dense GShard einsum reads all experts; a tied head reads
+    the table, else the table gives only ``batch`` rows), and the KV rows of
+    positions 0..pos of every layer, as the mean over ``positions``."""
+    import torch
+
+    params = lm.compute_params()
+    cfg = lm.cfg
+
+    def size(tree) -> int:
+        if isinstance(tree, dict):
+            return sum(size(v) for v in tree.values())
+        if isinstance(tree, list):
+            return sum(size(v) for v in tree)
+        return tree.numel() * tree.element_size()
+
+    table = params["embed"]["table"]
+    weights = size(params["layers"]) + size(params["final_norm"]) + size(params.get("lm_head", {}))
+    weights += size(table) if cfg.tie_embeddings else batch * table.shape[1] * table.element_size()
+    el = torch.finfo(cfg.adtype).bits // 8
+    per_pos = 2 * batch * cfg.num_kv_heads * cfg.hd * el * cfg.num_layers
+    kv = sum(per_pos * (pos + 1) for pos in positions) / len(positions)
+    return {"weights": weights, "kv_mean": kv, "kv_per_position": per_pos,
+            "bound_ms": (weights + kv) / PEAK_BYTES_PER_S * 1e3}
+
+
+def sequential_topk(probs, k: int):
+    """The reference's routing order: k argmax picks, each masking its
+    expert (first maximum on ties) -> (..., k) expert ids."""
+    import torch
+
+    remaining, picks = probs.clone(), []
+    for _ in range(k):
+        idx = remaining.argmax(-1)
+        picks.append(idx)
+        remaining.scatter_(-1, idx[..., None], 0.0)
+    return torch.stack(picks, dim=-1)
+
+
+def routing_diff(cfg, rec_gpu, rec_cpu, batch: int, seq: int, first_call: int) -> dict:
+    """Phase 11's olmoe check of one call (a prefill of ``seq`` tokens a
+    sequence, or a decode step, ``seq`` 1): per layer, the tokens whose
+    top-k experts differ between the devices (flips, each with its top-k
+    margin on the CPU: the least gap among its k + 1 largest
+    probabilities), those routed alike but slotted or dropped differently
+    (a flip ahead of them in the group), and the sequences any of these
+    touch."""
+    import torch
+
+    k = cfg.moe.top_k
+    flips, slotted, tainted = [], 0, set()
+    for layer, ((pg, dg), (pc, dc)) in enumerate(zip(rec_gpu, rec_cpu)):
+        real = batch * seq  # rows past it are the zero pad of the last group
+        pg, pc = pg.reshape(-1, pg.shape[-1])[:real], pc.reshape(-1, pc.shape[-1])[:real]
+        dg, dc = dg.reshape(-1, *dg.shape[-2:])[:real], dc.reshape(-1, *dc.shape[-2:])[:real]
+        sel_g, sel_c = sequential_topk(pg, k), sequential_topk(pc, k)
+        flip = (sel_g != sel_c).any(-1)
+        moved = (dg != dc).flatten(1).any(-1) & ~flip
+        top = torch.sort(pc, dim=-1, descending=True).values[:, :k + 1]
+        margin = (top[:, :-1] - top[:, 1:]).min(-1).values
+        for row in torch.nonzero(flip).flatten().tolist():
+            flips.append({"call": first_call, "layer": layer, "sequence": row // seq, "token": row % seq,
+                          "margin": float(margin[row]), "gpu": sel_g[row].tolist(), "cpu": sel_c[row].tolist()})
+        slotted += int(moved.sum())
+        tainted |= {row // seq for row in torch.nonzero(flip | moved).flatten().tolist()}
+    return {"flips": flips, "slotted_differently": slotted, "tainted": tainted, "routed": batch * seq * len(rec_gpu)}
+
+
+def unit_scale_moe(lm, generator) -> None:
+    """Redraw an MoE LM's expert weights at unit scale (normal over the
+    square root of each product's fan-in) and its routers so that their
+    logits spread by ``ARCH_ROUTER_SPREAD`` on a normed input, as the CPU
+    tests do: routing then spreads over the experts and near-ties occur.
+    The seeded init's glorot takes E as the experts' fan-in, which leaves
+    their output tiny."""
+    import torch
+
+    params = {n: p.detach() for n, p in lm.named_parameters()}
+    for name, p in params.items():
+        scale = {"router": ARCH_ROUTER_SPREAD, "experts": 1.0}.get(name.split(".")[-2])
+        if scale is not None:
+            draw = torch.randn(p.shape, generator=generator, device=p.device)
+            params[name] = draw.mul_(scale * p.shape[-2] ** -0.5)
+    lm.load_params(params)
+
+
+def routing_spread(lm, toks) -> list:
+    """Per layer of an MoE LM's prefill of ``toks`` (B, S), walked with the
+    block's own functions: the RMS of the residual stream entering the
+    layer, of its attention output and of its MoE output; how alike the
+    late tokens (each sequence's second half) are at the attention output
+    and at the router's input (the mean cosine of each row to its
+    sequence's mean direction); and the share of (token, expert) picks
+    dropped past capacity."""
+    import torch
+
+    from repro_torch.layers import attention, blocks, moe
+    from repro_torch.layers.norms import apply_norm
+
+    cfg, params = lm.cfg, lm.compute_params()
+    x = lm._embed(params, toks)
+    positions = torch.arange(toks.shape[1], device=toks.device)
+    half = toks.shape[1] // 2
+    rms = lambda t: float(t.float().square().mean().sqrt())  # noqa: E731
+
+    def alike(t) -> float:
+        rows = torch.nn.functional.normalize(t[:, half:].float(), dim=-1)
+        mean = torch.nn.functional.normalize(rows.mean(1, keepdim=True), dim=-1)
+        return float((rows * mean).sum(-1).mean())
+
+    out = []
+    with torch.inference_mode():
+        for p, kind in zip(params["layers"], cfg.pattern()):
+            h, _ = attention.attention_train(cfg, p["attn"], apply_norm(cfg, p["ln1"], x), positions, kind="A")
+            hn = apply_norm(cfg, p["ln2"], x + h)
+            kept = []
+            with recorded_dispatch(kept, lambda probs, dispatch: float(dispatch.sum())):
+                mo, _ = moe.apply_moe(cfg, p["moe"], hn)
+            picks = cfg.moe.top_k * toks.numel()
+            out.append({"rms_residual": rms(x), "rms_attention": rms(h), "rms_moe": rms(mo),
+                        "late_alike_attention": alike(h), "late_alike_router_input": alike(hn),
+                        "dropped_share": (picks - kept[0]) / picks})
+            x, _ = blocks.apply_block_train(cfg, kind, p, x, positions)
+    return out
+
+
+def arch_cpu_check(arch: str, dev) -> dict:
+    """Phase 11: ``arch`` at full width, 2 layers, float32, the same
+    weights on the card and on the CPU; prefill and two decode steps.
+    Errors are relative to the CPU's largest |logit|. The weights are
+    seeded; an MoE arch's experts and routers are then redrawn at unit
+    scale (``unit_scale_moe``), after its routing spread was read under
+    both, since the seeded ones route alike most late tokens. For an MoE
+    arch the routing is compared first and the logits held only on the
+    sequences no routing difference touched."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=ARCH_CPU_LAYERS, dtype="float32")
+    b, t = ARCH_CPU_BATCH, ARCH_CPU_PROMPT
+    max_len = t + ARCH_CPU_STEPS
+    gpu = build_model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(2))
+    spread = {}
+    if cfg.moe is not None:
+        toks = torch.randint(0, cfg.vocab_size, (ARCH_SPREAD_BATCH, ARCH_SPREAD_PROMPT), device=dev,
+                             generator=torch.Generator(dev).manual_seed(4))
+        spread["seeded"] = routing_spread(gpu, toks)
+        unit_scale_moe(gpu, torch.Generator(dev).manual_seed(5))
+        spread["unit_scale"] = routing_spread(gpu, toks)
+        for weights, layers in spread.items():
+            print(f"  {arch} routing spread, {weights} weights, batch {ARCH_SPREAD_BATCH} of {ARCH_SPREAD_PROMPT} "
+                  f"tokens, by layer: {json.dumps(layers)}")
+    cpu = build_model(cfg, device="cpu", params={n: p.cpu() for n, p in gpu.named_parameters()})
+    toks = torch.randint(0, cfg.vocab_size, (b, t), generator=torch.Generator().manual_seed(3))
+    moe = cfg.moe is not None
+    calls, rows = [], []  # per call: (gpu logits, cpu logits); rows: routing diffs
+    with torch.inference_mode():
+        rec_g, rec_c = [], []
+        with recorded_dispatch(rec_g):
+            l_g, c_g = gpu.prefill(toks.to(dev), max_len=max_len)
+        with recorded_dispatch(rec_c):
+            l_c, c_c = cpu.prefill(toks, max_len=max_len)
+        calls.append((l_g.cpu(), l_c))
+        if moe:
+            rows.append(routing_diff(cfg, rec_g, rec_c, b, t, 0))
+        for i in range(ARCH_CPU_STEPS):
+            tok = l_c.argmax(-1)[:, None]
+            rec_g, rec_c = [], []
+            with recorded_dispatch(rec_g):
+                l_g, c_g = gpu.decode_step(tok.to(dev), t + i, c_g)
+            with recorded_dispatch(rec_c):
+                l_c, c_c = cpu.decode_step(tok, t + i, c_c)
+            calls.append((l_g.cpu(), l_c))
+            if moe:
+                rows.append(routing_diff(cfg, rec_g, rec_c, b, 1, i + 1))
+    del gpu, c_g
+    scale = max(float(c.abs().max()) for _, c in calls)
+    res = {"layers": ARCH_CPU_LAYERS, "batch": b, "prompt": t, "decode_steps": ARCH_CPU_STEPS, "logit_scale": scale,
+           "weights": "seeded, experts and routers at unit scale" if spread else "seeded"}
+    if spread:
+        res["routing_spread"] = spread
+    held = set(range(b))
+    if moe:
+        flips = [f for r in rows for f in r["flips"]]
+        routed = sum(r["routed"] for r in rows)
+        for r in rows:  # a sequence touched at any call is held at none
+            held -= r["tainted"]
+        res.update(routed_tokens=routed, flips=flips, flip_share=len(flips) / routed,
+                   slotted_differently=sum(r["slotted_differently"] for r in rows), sequences_held=sorted(held))
+        check(len(flips) <= ARCH_FLIP_SHARE * routed, f"{arch}: {len(flips)} of {routed} routed tokens flipped "
+                                                      f"between the card and the CPU")
+        check(all(f["margin"] <= ARCH_FLIP_MARGIN for f in flips),
+              f"{arch}: a routing flip with a top-k margin above {ARCH_FLIP_MARGIN}: {flips}")
+        check(held, f"{arch}: routing differences touched every sequence: {flips}")
+    rows_held = sorted(held)
+    errs = [float((g[rows_held] - c[rows_held]).abs().max()) / scale for g, c in calls]
+    res.update(rel_errs=errs)
+    check(all(bool(torch.isfinite(g).all()) for g, _ in calls), f"{arch}: non-finite logits on the card")
+    check(max(errs) <= TOL_ARCH_REL, f"{arch} {ARCH_CPU_LAYERS} layers float32, card vs CPU: logits {errs} of the "
+                                     f"logit scale {scale:.3g} > {TOL_ARCH_REL}")
+    line = (f"  {arch} {ARCH_CPU_LAYERS} layers float32, {res['weights']} weights, batch {b} prompt {t} + "
+            f"{ARCH_CPU_STEPS} steps: card vs CPU "
+            f"logits {max(errs):.3g} of the logit scale {scale:.3g} (prefill {errs[0]:.3g}, decode "
+            f"{max(errs[1:]):.3g})")
+    if moe:
+        line += (f"; routing: {len(res['flips'])} flips of {res['routed_tokens']} routed tokens, "
+                 f"{res['slotted_differently']} slotted differently, sequences held {res['sequences_held']}")
+        for f in res["flips"]:
+            print(f"  {arch} routing flip: {json.dumps(f)}")
+    print(line)
+    return res
+
+
+def arch_run(arch: str, layers, gen: int, zero: dict, modules, dev) -> dict:
+    """Phase 11, one arch on the card: seeded weights, prefill of
+    (LM_BATCH, LM_PROMPT), ``gen`` eager greedy decode steps, then the same
+    steps through ``compile_decode`` (tokens, float32 logits and cache bit
+    for bit the eager loop's); times, peak reserved memory and the decode
+    step's byte bound. No kernel of the port may launch (``zero``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.layers.attention import KVCache
+    from repro_torch.models import build_model
+
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
+    max_len = LM_PROMPT + gen
+    steady = lambda xs: median(xs[1:])  # noqa: E731  steps 2..gen
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_reserved(dev)
+    t0 = time.perf_counter()
+    lm = build_model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    lm.compute_params()
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), device=dev,
+                            generator=torch.Generator(dev).manual_seed(1))
+    for m in modules:
+        reset_launches(m)
+    routed = []
+    with torch.inference_mode():
+        # the MoE archs: picks kept per layer and group
+        kept = lambda probs, dispatch: dispatch.sum(dim=(1, 2, 3))  # noqa: E731
+        with recorded_dispatch(routed, kept) if cfg.moe else contextlib.nullcontext():
+            logits, cache = lm.prefill(prompts, max_len=max_len)
+        sync(dev)
+        check(all_launches(*modules) == zero, f"{arch} prefill launched kernels: {all_launches(*modules)}")
+        check(tuple(logits.shape) == (LM_BATCH, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+              f"{arch} prefill logits {tuple(logits.shape)} or non-finite values")
+        dropped = None
+        if cfg.moe:
+            # (token, expert) picks past an expert's capacity, per layer and group
+            sg = min(cfg.moe.group_size, LM_BATCH * LM_PROMPT)
+            dropped = [(cfg.moe.top_k * sg - k).round().long().tolist() for k in routed]
+        tok0 = logits.argmax(-1)[:, None]
+        eager_cache = [KVCache(c.k.clone(), c.v.clone()) for c in cache]
+        eager_ms, tokens, eager_logits, tok = [], [], [], tok0
+        for i in range(gen):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            tokens.append(tok)
+            start.record()
+            logits, eager_cache = lm.decode_step(tok, LM_PROMPT + i, eager_cache)
+            end.record()
+            end.synchronize()
+            check(bool(torch.isfinite(logits).all()), f"{arch} eager decode step {i}: non-finite logits")
+            eager_ms.append(start.elapsed_time(end))
+            eager_logits.append(logits)
+            tok = logits.argmax(-1)[:, None]
+        step = lm.compile_decode(cache)
+        captured_ms, tok = [], tok0
+        for i in range(gen):
+            check(torch.equal(tok, tokens[i]), f"{arch} captured decode step {i}: input token differs from the eager loop's")
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits = step(tok, LM_PROMPT + i)
+            end.record()
+            end.synchronize()
+            check(same_bits((logits,), (eager_logits[i],)), f"{arch} captured decode step {i}: logits differ from the "
+                                                            "eager step's")
+            captured_ms.append(start.elapsed_time(end))
+            tok = logits.argmax(-1)[:, None]
+        check(all(torch.equal(a.k, b.k) and torch.equal(a.v, b.v) for a, b in zip(cache, eager_cache)),
+              f"{arch}: the captured steps' cache differs from the eager loop's")
+        check(all_launches(*modules) == zero, f"{arch} decode launched kernels: {all_launches(*modules)}")
+        del eager_cache, eager_logits
+        prefill_ms = cuda_ms(lambda: lm.prefill(prompts, max_len=max_len), 2, warmup=0)
+        # where the time goes: device time by kernel of a captured step (it
+        # rewrites the slot of position LM_PROMPT each call) and of a prefill
+        profiles, t_prof = {}, time.perf_counter()
+        runs = [("captured_step", lambda: step(tok0, LM_PROMPT), steady(captured_ms))]
+        if arch in ARCH_PREFILL_PROFILE:
+            runs.append(("prefill", lambda: lm.prefill(prompts, max_len=max_len), prefill_ms))
+        for name, fn, ms in runs:
+            per_kernel = device_times(fn, 1 if name == "prefill" else 5)
+            busy = sum(per_kernel.values())
+            top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+            profiles[name] = None if busy == 0 else {
+                "device_busy_ms": busy, "busy_share": busy / ms, "kernels": len(per_kernel),
+                "top_kernels_ms": [[k[:80], v] for k, v in top]}
+        # the same step run eagerly, its device time by launching operator
+        eager_ops = op_device_times(lambda: lm.decode_step(tok0, LM_PROMPT, cache), ARCH_EAGER_OPS)
+        profile_s = time.perf_counter() - t_prof
+    sync(dev)
+    peak = torch.cuda.max_memory_reserved(dev)
+    nbytes = decode_step_bytes(lm, LM_BATCH, range(LM_PROMPT, max_len))
+    res = {
+        "arch": arch, "layers": cfg.num_layers, "published_layers": full.num_layers,
+        "cut": None if layers is None else f"{cfg.num_layers} of {full.num_layers} layers",
+        "param_count": cfg.param_count(), "param_dtype": cfg.param_dtype, "dtype": cfg.dtype,
+        "batch": LM_BATCH, "prompt": LM_PROMPT, "decode_steps": gen, "init_and_cast_s": init_s,
+        "prefill_ms": prefill_ms, "eager_step_ms_events": eager_ms, "captured_step_ms_events": captured_ms,
+        "eager_step_ms_median": steady(eager_ms), "captured_step_ms_median": steady(captured_ms),
+        "captured_tokens_per_s": LM_BATCH / (steady(captured_ms) / 1e3),
+        "eager_tokens_per_s": LM_BATCH / (steady(eager_ms) / 1e3),
+        "captured_steps_bitwise_eager": gen, "reserved_before_gb": base / 1e9, "peak_reserved_gb": peak / 1e9,
+        "decode_step_bytes": nbytes, "sample_tokens": tok[:, 0].tolist(), "profiles": profiles,
+        "eager_step_ops_ms": eager_ops, "profile_s": profile_s,
+    }
+    if dropped is not None:
+        res["dropped_picks_by_layer_group"] = dropped
+        res["dropped_picks_by_group"] = [sum(col) for col in zip(*dropped)]
+        res["groups"] = len(dropped[0])
+    cut = f" ({res['cut']})" if res["cut"] else ""
+    print(f"  {arch}{cut}: init {init_s:.1f} s, prefill {LM_BATCH}x{LM_PROMPT} {prefill_ms:.1f} ms, decode step "
+          f"eager / captured {res['eager_step_ms_median']:.3f} / {res['captured_step_ms_median']:.3f} ms median of "
+          f"steps 2-{gen} ({res['eager_tokens_per_s']:.1f} / {res['captured_tokens_per_s']:.1f} tokens/s), bound "
+          f"{nbytes['bound_ms']:.3f} ms ({nbytes['weights'] / 1e9:.2f} GB weights + {nbytes['kv_mean'] / 1e9:.3f} GB "
+          f"KV a step), peak reserved {res['peak_reserved_gb']:.1f} GB ({res['reserved_before_gb']:.1f} GB before); "
+          f"{gen} captured steps bit for bit the eager loop; sample tokens {res['sample_tokens']}")
+    print(f"  {arch} profiles took {profile_s:.1f} s")
+    for name, prof in profiles.items():
+        print(f"  {arch} profile {name}: " + (json.dumps(prof) if prof else "profiler saw no device time: not measured"))
+    print(f"  {arch} profile eager_step by operator [op, input shapes, ms]: "
+          + (json.dumps(eager_ops) if eager_ops else "profiler saw no device time: not measured"))
+    if dropped is not None:
+        print(f"  {arch} prefill: (token, expert) picks dropped past capacity, by group of {cfg.moe.group_size} summed "
+              f"over {cfg.num_layers} layers: {res['dropped_picks_by_group']}")
+    del lm, step, cache, prompts
+    return res
+
+
+def arch_phase(modules, card, dev) -> dict:
+    """Phase 11: every arch of ``ARCH_RUNS`` on the card, each freed before
+    the next, then the card-vs-CPU checks. Every check raises."""
+    import gc
+
+    import torch
+
+    torch.cuda.init()  # the memory statistics need an initialised device
+    gc.collect()  # hand back what phase 3's freed LM left cached
+    torch.cuda.empty_cache()
+    zero = {key: 0 for key in all_launches(*modules)}
+    out = {"card": card, "runs": {}, "cpu_check": {}}
+
+    def freed(part: str, arch: str, run) -> None:
+        t0 = time.perf_counter()
+        out[part][arch] = run()
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[part][arch]["wall_s"] = time.perf_counter() - t0
+        print(f"  {arch} {part}: wall time {out[part][arch]['wall_s']:.1f} s")
+
+    for arch, layers, gen in ARCH_RUNS:
+        freed("runs", arch, lambda: arch_run(arch, layers, gen, zero, modules, dev))
+    for arch in ARCH_CPU_CHECK:
+        freed("cpu_check", arch, lambda: arch_cpu_check(arch, dev))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4030,6 +4495,15 @@ def main() -> int:
     phase_s["10"] = time.perf_counter() - t_phase
     print(f"phase 10: wall time {phase_s['10']:.1f} s")
 
+    # phase 11: the dense and MoE LM archs; phase 3's LM is freed first
+    del lm, prompts, cache0, tok0, decode_in
+    t_phase = time.perf_counter()
+    print(f"phase 11: the dense and MoE LM archs, prefill {LM_BATCH}x{LM_PROMPT} + decode: "
+          + ", ".join(f"{a} ({'whole' if n is None else f'{n} layers'}, {g} steps)" for a, n, g in ARCH_RUNS))
+    archs = arch_phase((ops, tda_ops, ts_ops), card, dev)
+    phase_s["11"] = time.perf_counter() - t_phase
+    print(f"phase 11: wall time {phase_s['11']:.1f} s")
+
     kernels = []
     for key, line, lib in KERNELS:
         bound_ms, bound_by, nbytes, nops = bounds[key]
@@ -4144,7 +4618,7 @@ def main() -> int:
         "decode_k1_tie_rows": {"phase2_cases": dec_ties, "phase2_tie_cases": tie_cases,
                                "main_path": lm_result["tie_rows"]},
         "pruner_times_ms": t_ts, "forward_ms": fwd, "forward_latency_ms": latency, "profiles": prof,
-        "train": train, "sgb": sgb, "serve": served, "ego": ego, "stream": stream, "shard": sharded,
+        "train": train, "sgb": sgb, "serve": served, "ego": ego, "stream": stream, "shard": sharded, "archs": archs,
         "kernels": kernels,
         "phase_wall_s": phase_s,
     }, indent=1))
@@ -4197,6 +4671,14 @@ def main() -> int:
                  for key, r in sharded["mesh"].items()},
         "deltas": [{k: r[k] for k in ("delta", "tiers", "splits_equal_cold", "t_session_ms")} for r in sharded["deltas"]],
         "train_under_serving": sharded["train_under_serving"], "card": card,
+    }))
+    print("archs " + json.dumps({
+        "runs": {arch: {k: r[k] for k in ("cut", "prefill_ms", "eager_step_ms_median", "captured_step_ms_median",
+                                          "captured_tokens_per_s", "peak_reserved_gb")}
+                 | {"bound_ms": r["decode_step_bytes"]["bound_ms"]} for arch, r in archs["runs"].items()},
+        "cpu_check": {arch: {k: r.get(k) for k in ("rel_errs", "logit_scale", "flip_share", "sequences_held")}
+                      for arch, r in archs["cpu_check"].items()},
+        "card": card,
     }))
     print(card)
     print(json.dumps({"kernels": kernels}))

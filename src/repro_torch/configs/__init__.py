@@ -37,15 +37,10 @@ ALIASES = {
     "seamless-m4t-medium": "seamless_m4t_medium",
 }
 
-PORTED = ("gemma3_4b",)
+PORTED = ("gemma3_4b", "qwen2_1_5b", "qwen2_72b", "chatglm3_6b", "arctic_480b", "olmoe_1b_7b")
 
 # the ROADMAP item (section 1, "Slices left") that ports each remaining arch
 _NOT_PORTED = {
-    "qwen2_1_5b": "ROADMAP §1 LM-1 (the other A-only archs)",
-    "qwen2_72b": "ROADMAP §1 LM-1 (the other A-only archs)",
-    "chatglm3_6b": "ROADMAP §1 LM-1 (the other A-only archs)",
-    "arctic_480b": "ROADMAP §1 LM-2 (MoE 'M' blocks, layers/moe.py)",
-    "olmoe_1b_7b": "ROADMAP §1 LM-2 (MoE 'M' blocks, layers/moe.py)",
     "recurrentgemma_2b": "ROADMAP §1 LM-3 (RG-LRU 'R' blocks, layers/rglru.py)",
     "rwkv6_3b": "ROADMAP §1 LM-4 (RWKV 'W' blocks, layers/rwkv.py)",
     "llama32_vision_90b": "ROADMAP §1 LM-5 (cross-attention 'C' decode)",

@@ -29,14 +29,16 @@ language model, whose tree stacks the layers of each group of the layer
 pattern (``ModelConfig.layer_groups``)::
 
     {"embed": {"table": (V, d)}, "final_norm": {"scale": (d,)},
+     "lm_head": {"w": (d, V)},                      # untied heads only
      "groups": [(block tree of cycle position p, leaves stacked over the
                  group's repeats: (n, ...)) for p in the cycle], ...}
 
 Layer ``i`` of the pattern is group ``gi``, repeat ``r``, position ``p``
 with ``i = offset_gi + r·len(cycle_gi) + p``; its leaves go to
-``layers.<i>.<path>`` (``layers.5.attn.wq``). gemma3-4b has two groups, the
-cycle ``L L L L L A`` five times and a remainder ``L L L L`` (layers
-30–33).
+``layers.<i>.<path>`` (``layers.5.attn.wq``; an MoE block's nested
+``moe.router.w`` and ``moe.experts.wi`` keep their paths). gemma3-4b has
+two groups, the cycle ``L L L L L A`` five times and a remainder
+``L L L L`` (layers 30–33).
 
 The standalone Pruner (``kernels/topk_select``) has no parameters, so
 nothing here converts for it.
@@ -100,11 +102,13 @@ def lm_layout(cfg, tree: Mapping) -> Iterator[Tuple[str, str, Optional[int]]]:
     """``(port name, reference path, repeat)`` for every leaf of the
     reference LM tree, one per layer for stacked leaves (``repeat`` indexes
     the stacking axis; ``None`` for the unstacked embedding and final
-    norm). Leaves may be arrays or shape structs: only the tree is read."""
-    unknown = sorted(set(tree) - {"embed", "final_norm", "groups"})
+    norm and head). Leaves may be arrays or shape structs: only the tree
+    is read."""
+    tops = ("embed", "final_norm", "lm_head")
+    unknown = sorted(set(tree) - set(tops) - {"groups"})
     if unknown:
         raise NotImplementedError(f"LM tree parts {unknown} are not ported to repro_torch yet")
-    for top in ("embed", "final_norm"):
+    for top in (t for t in tops if t in tree):
         for path in _flatten(tree[top], f"{top}."):
             yield path, path, None
     offset = 0
@@ -123,8 +127,14 @@ def lm_layout(cfg, tree: Mapping) -> Iterator[Tuple[str, str, Optional[int]]]:
 
 def lm_params_from_reference(cfg, tree: Mapping, device="cuda") -> Dict[str, torch.Tensor]:
     """The reference LM's parameter tree (numpy leaves) as the port's flat
-    mapping in ``cfg.param_dtype`` on ``device``; ``LM.load_params`` (and
-    ``build_model(cfg, params=...)``) checks its names and shapes."""
+    mapping on ``device``, each tensor in the dtype the LM stores it in
+    (``models.lm.storage_dtype``: the reference's own, but for a layer's
+    weight matrices when ``param_dtype`` and ``dtype`` are both bfloat16);
+    ``LM.load_params`` (and ``build_model(cfg, params=...)``) checks its
+    names and shapes. A bfloat16 leaf (numpy's ``ml_dtypes`` type) goes
+    through float32, which holds it exactly."""
+    from repro_torch.models.lm import storage_dtype
+
     dev = resolve_device(device)
     leaves = _flatten(tree)
     out = {}
@@ -135,5 +145,8 @@ def lm_params_from_reference(cfg, tree: Mapping, device="cuda") -> Dict[str, tor
                 f"{path}: leaves must be numpy arrays (np.asarray the "
                 f"reference's arrays), got {type(leaf).__name__}"
             )
-        out[name] = torch.tensor(leaf if r is None else leaf[r], dtype=cfg.pdtype, device=dev)
+        leaf = leaf if r is None else leaf[r]
+        if leaf.dtype.name == "bfloat16":
+            leaf = leaf.astype(np.float32)
+        out[name] = torch.tensor(leaf, dtype=storage_dtype(cfg, name, leaf.shape), device=dev)
     return out

@@ -4,6 +4,10 @@
         --batch 4 --prompt-len 3072 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b --smoke \\
         --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b
+
+``--arch`` takes any ported arch (``repro_torch.configs.PORTED``, by name
+or alias); the others raise naming their ROADMAP item.
 
 Weights are seeded random (``--seed``), drawn on the device; prompts come
 from a ``torch.Generator`` (they do not match the reference launcher's

@@ -28,11 +28,13 @@ class KVCache(NamedTuple):
 
 
 def attention_shapes(cfg):
-    """Parameter shapes, ``(in, out)`` layout as the reference's."""
-    if cfg.qkv_bias:
-        raise NotImplementedError("QKV biases are not ported to repro_torch yet: ROADMAP §1 LM-1")
+    """Parameter shapes, ``(in, out)`` layout as the reference's; with
+    ``cfg.qkv_bias`` also the biases ``bq``, ``bk``, ``bv`` (zero at init)."""
     d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    return {"wq": (d, h * hd), "wk": (d, hkv * hd), "wv": (d, hkv * hd), "wo": (h * hd, d)}
+    shapes = {"wq": (d, h * hd), "wk": (d, hkv * hd), "wv": (d, hkv * hd), "wo": (h * hd, d)}
+    if cfg.qkv_bias:
+        shapes.update(bq=(h * hd,), bk=(hkv * hd,), bv=(hkv * hd,))
+    return shapes
 
 
 def _project_qkv(cfg, params, x):
@@ -42,6 +44,12 @@ def _project_qkv(cfg, params, x):
     q = x.to(dt) @ params["wq"].to(dt)
     k = x.to(dt) @ params["wk"].to(dt)
     v = x.to(dt) @ params["wv"].to(dt)
+    if "bq" in params:
+        # each bias cast to the compute dtype first, as the reference does: a
+        # float32 bias added to a bfloat16 product would promote it to float32
+        q = q + params["bq"].to(dt)
+        k = k + params["bk"].to(dt)
+        v = v + params["bv"].to(dt)
     return q.reshape(b, s, h, hd), k.reshape(b, s, hkv, hd), v.reshape(b, s, hkv, hd)
 
 

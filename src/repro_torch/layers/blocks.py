@@ -3,18 +3,22 @@ decode-apply, dispatched by kind (the reference's ``repro/layers/blocks.py``).
 
 Kinds ported:
   A  global attention + MLP            L  sliding-window attention + MLP
+  M  attention + MoE (opt. dense res)
 
-Every other kind of the reference (M, C, R, W, E, D) raises
+An "M" block's attention runs as kind "A" (a global cache; ADE pruning
+when ``cfg.attn_prune_k`` is set), then the MoE on ``ln2(x)``, plus the
+dense MLP on the same normed input when ``cfg.moe.dense_residual``
+(arctic). Every other kind of the reference (C, R, W, E, D) raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
 from repro_torch.layers import attention as attn
 from repro_torch.layers import mlp as mlp_mod
+from repro_torch.layers import moe as moe_mod
 from repro_torch.layers.norms import apply_norm, norm_shapes
 
 _NOT_PORTED = {
-    "M": "ROADMAP §1 LM-2 (MoE 'M' blocks, layers/moe.py)",
     "R": "ROADMAP §1 LM-3 (RG-LRU 'R' blocks, layers/rglru.py)",
     "W": "ROADMAP §1 LM-4 (RWKV 'W' blocks, layers/rwkv.py)",
     "C": "ROADMAP §1 LM-5 (cross-attention 'C' decode)",
@@ -24,7 +28,7 @@ _NOT_PORTED = {
 
 
 def _check_kind(kind: str) -> None:
-    if kind not in ("A", "L"):
+    if kind not in ("A", "L", "M"):
         if kind in _NOT_PORTED:
             raise NotImplementedError(
                 f"block kind {kind!r} is not ported to repro_torch yet: {_NOT_PORTED[kind]}"
@@ -33,15 +37,32 @@ def _check_kind(kind: str) -> None:
 
 
 def block_shapes(cfg, kind: str):
-    """``{"ln1": {...}, "ln2": {...}, "attn": {...}, "mlp": {...}}`` of
-    parameter shapes, the reference's tree for one block."""
+    """``{"ln1", "ln2", "attn", "mlp"}`` of parameter shapes, the
+    reference's tree for one block; an "M" block has ``"moe"`` (a nested
+    ``{"router", "experts"}``) and ``"mlp"`` only with a dense residual."""
     _check_kind(kind)
-    return {
-        "ln1": norm_shapes(cfg),
-        "ln2": norm_shapes(cfg),
-        "attn": attn.attention_shapes(cfg),
-        "mlp": mlp_mod.mlp_shapes(cfg),
-    }
+    shapes = {"ln1": norm_shapes(cfg), "ln2": norm_shapes(cfg), "attn": attn.attention_shapes(cfg)}
+    if kind == "M":
+        shapes["moe"] = moe_mod.moe_shapes(cfg)
+    if kind != "M" or cfg.moe.dense_residual:
+        shapes["mlp"] = mlp_mod.mlp_shapes(cfg)
+    return shapes
+
+
+def _ffn(cfg, kind: str, params, x):
+    """The block's feed-forward on the residual stream ``x``: its MLP, or
+    for "M" the MoE (aux loss dropped) plus the dense residual MLP."""
+    hn = apply_norm(cfg, params["ln2"], x)
+    if kind != "M":
+        return x + mlp_mod.apply_mlp(cfg, params["mlp"], hn)
+    mo, _ = moe_mod.apply_moe(cfg, params["moe"], hn)
+    if "mlp" in params:
+        mo = mo + mlp_mod.apply_mlp(cfg, params["mlp"], hn)
+    return x + mo
+
+
+def _attn_kind(kind: str) -> str:
+    return "A" if kind == "M" else kind
 
 
 def apply_block_train(cfg, kind: str, params, x, positions, emit_cache: bool = False):
@@ -49,16 +70,14 @@ def apply_block_train(cfg, kind: str, params, x, positions, emit_cache: bool = F
     _check_kind(kind)
     h, cache = attn.attention_train(
         cfg, params["attn"], apply_norm(cfg, params["ln1"], x), positions,
-        kind=kind, emit_cache=emit_cache,
+        kind=_attn_kind(kind), emit_cache=emit_cache,
     )
-    x = x + h
-    x = x + mlp_mod.apply_mlp(cfg, params["mlp"], apply_norm(cfg, params["ln2"], x))
-    return x, cache
+    return _ffn(cfg, kind, params, x + h), cache
 
 
 def init_block_cache(cfg, kind: str, batch: int, max_len: int, device):
     _check_kind(kind)
-    return attn.init_kv_cache(cfg, batch, max_len, kind, device)
+    return attn.init_kv_cache(cfg, batch, max_len, _attn_kind(kind), device)
 
 
 def apply_block_decode(cfg, kind: str, params, x, pos, cache):
@@ -66,8 +85,6 @@ def apply_block_decode(cfg, kind: str, params, x, pos, cache):
     ``x``'s device). Returns (x, cache), the cache updated in place."""
     _check_kind(kind)
     h, cache = attn.attention_decode(
-        cfg, params["attn"], apply_norm(cfg, params["ln1"], x), pos, cache, kind=kind
+        cfg, params["attn"], apply_norm(cfg, params["ln1"], x), pos, cache, kind=_attn_kind(kind)
     )
-    x = x + h
-    x = x + mlp_mod.apply_mlp(cfg, params["mlp"], apply_norm(cfg, params["ln2"], x))
-    return x, cache
+    return _ffn(cfg, kind, params, x + h), cache

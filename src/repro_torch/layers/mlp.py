@@ -1,6 +1,6 @@
-"""Feed-forward block: GeGLU (the reference's ``repro/layers/mlp.py``;
-its SwiGLU and plain-GELU forms come with the archs that use them, ROADMAP
-§1 LM-1 and LM-6).
+"""Feed-forward block: SwiGLU and GeGLU (the reference's
+``repro/layers/mlp.py``; its plain-GELU form comes with the arch that uses
+it, ROADMAP §1 LM-6).
 
 ``jax.nn.gelu`` defaults to the tanh approximation, which the reference
 uses; so does this port (``approximate="tanh"``)."""
@@ -9,12 +9,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+_GATES = {"swiglu": F.silu, "geglu": lambda g: F.gelu(g, approximate="tanh")}
+
 
 def mlp_shapes(cfg, d_ff: int | None = None):
     """Parameter shapes, ``(in, out)`` layout as the reference's."""
-    if cfg.activation != "geglu":
+    if cfg.activation not in _GATES:
         raise NotImplementedError(
-            f"activation {cfg.activation!r} is not ported to repro_torch yet: ROADMAP §1 LM-1 / LM-6"
+            f"activation {cfg.activation!r} is not ported to repro_torch yet: ROADMAP §1 LM-6"
         )
     d, f = cfg.d_model, d_ff or cfg.d_ff
     return {"wi": (d, f), "wg": (d, f), "wo": (f, d)}
@@ -24,5 +26,5 @@ def apply_mlp(cfg, params, x: torch.Tensor) -> torch.Tensor:
     dt = cfg.adtype
     h = x.to(dt) @ params["wi"].to(dt)
     g = x.to(dt) @ params["wg"].to(dt)
-    h = F.gelu(g, approximate="tanh") * h
+    h = _GATES[cfg.activation](g) * h
     return (h @ params["wo"].to(dt)).to(x.dtype)

@@ -1,22 +1,37 @@
 """Decoder-only language model assembled from layer blocks (the
 reference's ``repro/models/lm.py``), for the block kinds ported so far
-(A, L): prefill, then one token per ``decode_step``.
+(A, L, M): prefill, then one token per ``decode_step``.
 
 The layers are a ``ModuleList`` in ``cfg.pattern()`` order; the reference's
 ``lax.scan`` over stacked cycle repeats is a Python loop here, and its
 sharding constraints have no counterpart on one card. Parameter names
 follow the port's flat naming (``embed.table``, ``layers.<i>.attn.wq``,
-``layers.<i>.mlp.wi``, ``final_norm.scale``, …; ``convert`` maps the
-reference's stacked tree onto them). Weights keep the reference's
-``(in, out)`` layout and its ``param_dtype``.
+``layers.<i>.mlp.wi``, ``layers.<i>.moe.router.w``,
+``layers.<i>.moe.experts.wi``, ``final_norm.scale``, ``lm_head.w`` when
+the head is untied, …; ``convert`` maps the reference's stacked tree onto
+them). Weights keep the reference's ``(in, out)`` layout.
+
+Storage dtypes (:func:`storage_dtype`). The reference keeps the embedding
+table and an untied head in ``param_dtype`` and every other leaf in
+float32; so does the port, with one exception: a layer's weight matrices
+are stored in bfloat16 when ``param_dtype`` and ``dtype`` are both
+bfloat16 (qwen2-72b, arctic-480b), which is what each of the reference's
+uses reads (one rounding to bfloat16) in half the bytes. Norm scales, QKV
+biases and the MoE router stay float32 whatever ``param_dtype`` says.
+
+Embeddings. As the reference does, a tied embedding is scaled by √d
+(gemma-style) for every arch, qwen2-1.5b included, and an untied one is
+not.
 
 Compute dtype. The reference casts each float32 weight to ``cfg.dtype`` at
 every use; the port casts every weight and the embedding table once, at
 first use, and keeps those copies (:meth:`LM.compute_params`), which gives
 the same values. With ``dtype="bfloat16"`` and float32 parameters that is
 2 bytes more per parameter (7.8 GB for gemma3-4b's 3.88 B); with a
-float32 ``dtype`` the copies are the parameters themselves. Norm scales
-stay float32, as the reference reads them.
+float32 ``dtype``, or parameters already in ``dtype``, the copies are the
+parameters themselves. Norm scales and QKV biases stay float32 (each use
+casts them, as the reference's does), and so does an MoE router, the
+dtype the reference routes in.
 
 Caches are a list of ``KVCache`` per layer, updated in place by
 ``decode_step`` (the same list comes back).
@@ -42,11 +57,30 @@ from repro_torch.layers.attention import KVCache, position_tensor
 from repro_torch.layers.norms import apply_norm, norm_shapes
 
 
-def _params(shapes: Mapping, dtype, device) -> nn.ParameterDict:
-    """Inference-only parameters (no autograd state), zero until
+def storage_dtype(cfg: ModelConfig, name: str, shape) -> torch.dtype:
+    """The dtype the port stores parameter ``name`` (a ``named_parameters()``
+    name, or its tail from the part on) of ``shape`` in: ``param_dtype`` for
+    the embedding table and an untied head, as the reference's; float32 for
+    norm scales, biases and the MoE router, as the reference's; a layer's
+    other weights in bfloat16 when ``param_dtype`` and ``dtype`` both are,
+    else float32 (see the module docstring)."""
+    if name in ("embed.table", "lm_head.w"):
+        return cfg.pdtype
+    if len(shape) < 2 or name.endswith("router.w"):
+        return torch.float32
+    bf16 = cfg.pdtype == cfg.adtype == torch.bfloat16
+    return torch.bfloat16 if bf16 else torch.float32
+
+
+def _params(cfg: ModelConfig, prefix: str, shapes: Mapping, device) -> nn.ParameterDict:
+    """Inference-only parameters (no autograd state) named ``prefix`` +
+    name, each in its :func:`storage_dtype`, zero until
     ``reset_parameters`` or ``load_params`` fills them."""
     return nn.ParameterDict({
-        name: nn.Parameter(torch.zeros(shape, dtype=dtype, device=device), requires_grad=False)
+        name: nn.Parameter(
+            torch.zeros(shape, dtype=storage_dtype(cfg, prefix + name, shape), device=device),
+            requires_grad=False,
+        )
         for name, shape in shapes.items()
     })
 
@@ -58,13 +92,26 @@ def _reset_norm(cfg, norm: nn.ParameterDict) -> None:
         norm["bias"].data.zero_()
 
 
+class MoE(nn.Module):
+    """An "M" block's MoE parameters: ``router.w`` and ``experts.wi|wg|wo``,
+    the reference's paths (``nn.ParameterDict`` takes no dotted keys)."""
+
+    def __init__(self, cfg: ModelConfig, shapes: Mapping, device):
+        super().__init__()
+        self.router = _params(cfg, "moe.router.", shapes["router"], device)
+        self.experts = _params(cfg, "moe.experts.", shapes["experts"], device)
+
+
 class Block(nn.Module):
-    """One layer's parameters: ``ln1``, ``ln2``, ``attn``, ``mlp``."""
+    """One layer's parameters: ``ln1``, ``ln2``, ``attn``, and ``mlp``
+    and/or ``moe`` (an "M" block; ``mlp`` there only with a dense
+    residual)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device):
         super().__init__()
         for part, shapes in blocks.block_shapes(cfg, kind).items():
-            setattr(self, part, _params(shapes, cfg.pdtype, device))
+            module = MoE(cfg, shapes, device) if part == "moe" else _params(cfg, f"{part}.", shapes, device)
+            setattr(self, part, module)
 
 
 class LM(nn.Module):
@@ -75,22 +122,23 @@ class LM(nn.Module):
                 f"{cfg.family} models are not ported to repro_torch yet: "
                 "ROADMAP §1 LM-5 / LM-6"
             )
-        if not cfg.tie_embeddings:
-            raise NotImplementedError("an untied LM head is not ported to repro_torch yet: ROADMAP §1 LM-1")
         self.cfg = cfg
         self.device = resolve_device(device)
-        pdt = cfg.pdtype
-        self.embed = _params({"table": (cfg.vocab_size, cfg.d_model)}, pdt, self.device)
+        self.embed = _params(cfg, "embed.", {"table": (cfg.vocab_size, cfg.d_model)}, self.device)
         self.layers = nn.ModuleList(Block(cfg, kind, self.device) for kind in cfg.pattern())
-        self.final_norm = _params(norm_shapes(cfg), pdt, self.device)
+        self.final_norm = _params(cfg, "final_norm.", norm_shapes(cfg), self.device)
+        if not cfg.tie_embeddings:
+            self.lm_head = _params(cfg, "lm_head.", {"w": (cfg.d_model, cfg.vocab_size)}, self.device)
         self._compute: Optional[Dict] = None
 
     # ------------------------------------------------------------- params
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded init in a fixed order from ``generator`` (on any device;
         values are drawn there and copied): the embedding normal × 0.02,
-        glorot-uniform weights, norms as the reference inits them (RMSNorm's
-        scale at zero)."""
+        glorot-uniform weights (fan-in the first dim: an expert tensor
+        (E, d, f) takes E, as the reference's ``glorot`` does), QKV biases
+        zero, norms as the reference inits them (RMSNorm's scale at zero),
+        an untied head normal × 0.02."""
 
         def fill(p: nn.Parameter, draw) -> None:
             buf = torch.empty(p.shape, dtype=torch.float32, device=generator.device)
@@ -100,18 +148,25 @@ class LM(nn.Module):
         normal = lambda t: t.normal_(0.0, 1.0, generator=generator).mul_(0.02)  # noqa: E731
         fill(self.embed["table"], normal)
         for layer in self.layers:
-            for part in (layer.attn, layer.mlp):
-                for p in part.values():
-                    fill(p, lambda t: glorot_(t, generator))
-            for norm in (layer.ln1, layer.ln2):
-                _reset_norm(self.cfg, norm)
+            for part, module in layer.named_children():
+                if part in ("ln1", "ln2"):
+                    _reset_norm(self.cfg, module)
+                    continue
+                for p in module.parameters():  # weights glorot, QKV biases zero
+                    if p.dim() == 1:
+                        p.data.zero_()
+                    else:
+                        fill(p, lambda t: glorot_(t, generator))
         _reset_norm(self.cfg, self.final_norm)
+        if not self.cfg.tie_embeddings:
+            fill(self.lm_head["w"], normal)
         self._compute = None
 
     def load_params(self, params: Mapping[str, torch.Tensor]) -> None:
         """Take ``params`` (the names and shapes of ``named_parameters()``)
-        as the model's parameters; a tensor already on the model's device
-        in ``param_dtype`` is shared, not copied."""
+        as the model's parameters, each cast to its :func:`storage_dtype`; a
+        tensor already on the model's device in that dtype is shared, not
+        copied."""
         want = {n: tuple(p.shape) for n, p in self.named_parameters()}
         got = {n: tuple(t.shape) for n, t in params.items()}
         if got != want:
@@ -123,34 +178,42 @@ class LM(nn.Module):
                 f"{extra}, shapes differ for {shapes}"
             )
         for name, p in self.named_parameters():
-            p.data = params[name].detach().to(self.device, self.cfg.pdtype)
+            p.data = params[name].detach().to(self.device, p.dtype)
         self._compute = None
 
     def compute_params(self) -> Dict:
         """The parameters as the forward uses them, as the reference's tree:
-        ``{"embed", "final_norm", "layers": [per-layer dicts]}``,
-        weights and the table in ``cfg.dtype`` (built once, kept), norm
-        scales as stored."""
+        ``{"embed", "final_norm", "layers": [per-layer dicts], "lm_head"}``
+        (the head only when untied), weights and the table in
+        ``cfg.dtype`` (built once, kept), norm scales, biases and an MoE
+        router as stored, in float32."""
         if self._compute is None:
             dt = self.cfg.adtype
 
             def tree(pd: nn.ParameterDict):
                 return {n: (p.detach().to(dt) if p.dim() >= 2 else p.detach()) for n, p in pd.items()}
 
+            def part(module):
+                if isinstance(module, MoE):
+                    return {"router": {n: p.detach() for n, p in module.router.items()},
+                            "experts": tree(module.experts)}
+                return tree(module)
+
             self._compute = {
                 "embed": tree(self.embed),
                 "final_norm": tree(self.final_norm),
-                "layers": [
-                    {part: tree(getattr(layer, part)) for part in ("ln1", "ln2", "attn", "mlp")}
-                    for layer in self.layers
-                ],
+                "layers": [{name: part(m) for name, m in layer.named_children()} for layer in self.layers],
             }
+            if not self.cfg.tie_embeddings:
+                self._compute["lm_head"] = tree(self.lm_head)
         return self._compute
 
     # ------------------------------------------------------------ helpers
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         x = params["embed"]["table"][tokens]
+        if not cfg.tie_embeddings:
+            return x
         # gemma-style scaled embeddings (tied), the scale rounded to adtype; a
         # CPU scalar tensor, since a device one would be a synchronizing copy
         return x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.adtype)
@@ -158,7 +221,8 @@ class LM(nn.Module):
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         x = apply_norm(cfg, params["final_norm"], x)
-        logits = (x @ params["embed"]["table"].T).float()  # tied head
+        w = params["embed"]["table"].T if cfg.tie_embeddings else params["lm_head"]["w"]
+        logits = (x @ w).float()
         if cfg.logit_softcap:
             logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
         return logits
@@ -212,7 +276,7 @@ class LM(nn.Module):
     def _relayout_cache(self, kind: str, em: KVCache, s: int, max_len: int) -> KVCache:
         """One layer's emitted (B, S, Hkv, hd) K/V -> its decode cache."""
         cfg = self.cfg
-        if kind == "A":
+        if kind in ("A", "M"):
             pad = (0, 0, 0, 0, 0, max_len - s)
             return KVCache(k=nn.functional.pad(em.k, pad), v=nn.functional.pad(em.v, pad))
         w = min(cfg.sliding_window or s, max_len, s)

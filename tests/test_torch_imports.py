@@ -44,7 +44,8 @@ def test_no_jax_or_reference_imports(tmp_path):
     assert port / "kernels" / "topk_decode_attention" / "ops.py" in PORT_FILES
     assert port / "kernels" / "topk_select" / "ops.py" in PORT_FILES
     for mod in ("data/datasets.py", "data/sgb_cache.py", "core/dtypes.py", "core/ego.py",
-                "stream/delta.py", "stream/merge.py", "stream/ingest.py", "distributed/sharding.py"):
+                "stream/delta.py", "stream/merge.py", "stream/ingest.py", "distributed/sharding.py",
+                "layers/moe.py", "configs/olmoe_1b_7b.py", "configs/qwen2_1_5b.py"):
         assert port / mod in PORT_FILES, mod
     probe = tmp_path / "probe.py"
     probe.write_text(

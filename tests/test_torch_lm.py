@@ -1,4 +1,6 @@
-"""Port parity: the LM serving path (gemma3-4b) against the reference.
+"""Port parity: the LM serving path (gemma3-4b) against the reference;
+every ported arch's config, full layout and serving CLI (the dense and MoE
+archs' own cases are in ``test_torch_lm_archs.py``).
 
 The same numpy inputs and the reference's own parameters (converted with
 ``convert.lm_params_from_reference``) go through the reference's JAX
@@ -37,6 +39,9 @@ from repro_torch.models import build_model as tbuild  # noqa: E402
 
 ATOL_LAYER = 1e-5
 ATOL_LOGITS = 1e-4  # the reference's decode-vs-forward tolerance
+# every ported arch: config module name -> registry name
+ARCHS = {"gemma3_4b": "gemma3-4b", "qwen2_1_5b": "qwen2-1.5b", "qwen2_72b": "qwen2-72b",
+         "chatglm3_6b": "chatglm3-6b", "olmoe_1b_7b": "olmoe-1b-7b", "arctic_480b": "arctic-480b"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -74,32 +79,50 @@ def _np(x):
     return np.asarray(x)
 
 
-def test_config_matches_reference():
+@pytest.mark.parametrize("smoke", (False, True))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_config_matches_reference(arch, smoke):
+    """Each ported arch's config is the reference's field for field, under
+    its module name and its registry name."""
     from repro.configs import get_config as jget
 
-    j, t = jget("gemma3-4b"), tget("gemma3-4b")
+    j, t = jget(arch, smoke=smoke), tget(arch, smoke=smoke)
     fields = [f.name for f in dataclasses.fields(j)]
     assert fields == [f.name for f in dataclasses.fields(t)]
     for name in fields:
-        assert getattr(j, name) == getattr(t, name), name
+        jv, tv = getattr(j, name), getattr(t, name)
+        if name == "moe" and jv is not None:  # each package's own MoEConfig class
+            jv, tv = dataclasses.asdict(jv), dataclasses.asdict(tv)
+        assert jv == tv, name
+    assert (j.moe is None) == (t.moe is None)
     assert j.layer_groups() == t.layer_groups() and j.pattern() == t.pattern()
-    assert j.param_count() == t.param_count() == 3_879_731_200
-    assert t.adtype == torch.bfloat16 and t.pdtype == torch.float32
+    assert j.param_count() == t.param_count()
+    if not smoke:
+        assert tget(ARCHS[arch]) == t
+    if arch == "gemma3_4b" and not smoke:
+        assert t.param_count() == 3_879_731_200
+        assert t.adtype == torch.bfloat16 and t.pdtype == torch.float32
 
 
 def test_unported_arch_and_kind_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tget("qwen2-1.5b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tget("rwkv6_3b", smoke=True)
+    """What is still unported raises ``NotImplementedError`` naming its
+    ROADMAP item: the four archs of LM-3 to LM-6, the block kinds R, W, C,
+    E and D, and the plain-GELU MLP; an unknown name is a ``ValueError``."""
+    for arch, item in (("recurrentgemma_2b", "LM-3"), ("rwkv6_3b", "LM-4"), ("llama32_vision_90b", "LM-5"),
+                       ("seamless_m4t_medium", "LM-6")):
+        for smoke in (False, True):
+            with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
+                tget(arch, smoke=smoke)
     with pytest.raises(ValueError):
         tget("no-such-arch")
     smoke = tget("gemma3-4b", smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tblocks.block_shapes(smoke, "M")
-    for over in ({"qkv_bias": True}, {"tie_embeddings": False}, {"activation": "swiglu"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LM(dataclasses.replace(smoke, **over), device="meta")
+    for kind, item in (("R", "LM-3"), ("W", "LM-4"), ("C", "LM-5"), ("E", "LM-6"), ("D", "LM-6")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
+            tblocks.block_shapes(smoke, kind)
+        with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
+            LM(dataclasses.replace(smoke, cycle=("A", kind)), device="meta")
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 LM-6"):
+        LM(dataclasses.replace(smoke, activation="gelu_mlp"), device="meta")
 
 
 @pytest.mark.parametrize("norm", ("rmsnorm", "layernorm"))
@@ -346,16 +369,18 @@ def test_lm_params_round_trip_smoke():
     )
 
 
-def test_lm_layout_full_config_shapes():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_lm_layout_full_config_shapes(arch):
     """The published config, on shapes only (``jax.eval_shape`` of the
-    reference's init; the port's LM on the meta device): every leaf maps to
-    one parameter of the same shape, and the remainder group ("L" × 4)
-    lands at pattern layers 30–33."""
+    reference's init; the port's LM on the meta device): every leaf, the
+    untied head and the nested MoE tree included, maps to one parameter of
+    the same shape, and the count is the config's analytic one. gemma3's
+    remainder group ("L" × 4) lands at pattern layers 30–33."""
     import jax
     from repro.configs import get_config as jget
     from repro.models import build_model as jbuild
 
-    jcfg, tcfg = jget("gemma3-4b"), tget("gemma3-4b")
+    jcfg, tcfg = jget(arch), tget(arch)
     shapes = jax.eval_shape(jbuild(jcfg).init, jax.random.PRNGKey(0))
     leaves = convert._flatten(shapes)
     port = {n: tuple(p.shape) for n, p in LM(tcfg, device="meta").named_parameters()}
@@ -366,21 +391,33 @@ def test_lm_layout_full_config_shapes():
         assert name not in names
         names[name] = (path, r)
     assert set(names) == set(port)
-    for i in range(30, 34):
-        path, r = names[f"layers.{i}.attn.wq"]
-        assert path.startswith("groups.1.") and r == 0
-        assert path == f"groups.1.{i - 30}.attn.wq"
-    assert names["layers.29.attn.wq"] == ("groups.0.5.attn.wq", 4)
-    assert tcfg.pattern()[29] == "A" and set(tcfg.pattern()[30:]) == {"L"}
+    assert ("lm_head.w" in port) == (not tcfg.tie_embeddings)
+    if tcfg.moe is not None:
+        assert port["layers.0.moe.router.w"] == (tcfg.d_model, tcfg.moe.num_experts)
+        assert port[f"layers.{tcfg.num_layers - 1}.moe.experts.wo"] == (
+            tcfg.moe.num_experts, tcfg.moe.expert_d_ff, tcfg.d_model)
+    # the analytic count leaves out the biases and the norms
+    extra = sum(int(np.prod(s)) for n, s in port.items() if n.split(".")[-1] in ("bq", "bk", "bv", "scale", "bias"))
+    assert sum(int(np.prod(s)) for s in port.values()) - extra == tcfg.param_count()
+    if arch == "gemma3_4b":
+        for i in range(30, 34):
+            path, r = names[f"layers.{i}.attn.wq"]
+            assert path.startswith("groups.1.") and r == 0
+            assert path == f"groups.1.{i - 30}.attn.wq"
+        assert names["layers.29.attn.wq"] == ("groups.0.5.attn.wq", 4)
+        assert tcfg.pattern()[29] == "A" and set(tcfg.pattern()[30:]) == {"L"}
 
 
-def test_serve_cli_on_cpu(capsys):
+@pytest.mark.parametrize("arch", ("gemma3-4b", "qwen2-1.5b", "olmoe-1b-7b"))
+def test_serve_cli_on_cpu(arch, capsys):
+    """The serving CLI on gemma3 (pruned), an LM-1 and an MoE smoke arch."""
     from repro_torch.launch import serve
 
-    toks = serve.main(["--arch", "gemma3-4b", "--smoke", "--device", "cpu", "--prompt-len", "20", "--gen", "4"])
+    toks = serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--prompt-len", "20", "--gen", "4"])
     assert tuple(toks.shape) == (4, 5)
     out = capsys.readouterr().out
-    assert "[serve] arch=gemma3-4b-smoke prune_k=8" in out and "[serve] decode 4 steps" in out
+    prune_k = tget(arch, smoke=True).attn_prune_k
+    assert f"[serve] arch={arch}-smoke prune_k={prune_k}" in out and "[serve] decode 4 steps" in out
 
 
 def test_lm_default_device_needs_a_gpu():
