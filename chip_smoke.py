@@ -263,24 +263,27 @@ exits non-zero at the first phase that fails:
    device mirror of its predecessor); and a HAN ACM training step
    captured while a threaded front-end serves RGAT IMDB at 2000
    requests/s, with no failed request;
-11. serves the dense and MoE LM archs through ``build_model``, ``prefill``
-   and ``compile_decode``, with seeded weights: qwen2-1.5b, chatglm3-6b and
-   olmoe-1b-7b whole at their published configs, qwen2-72b (8 of 80
-   layers) and arctic-480b (1 of 35) at full width with their depth cut to
-   fit one card. Each runs a prefill of (4, 3072) and 32 greedy decode
-   steps (8 for the cut two) eagerly, then the same steps through the
-   compiled step: tokens, float32 logits and cache bit for bit the eager
-   loop's, and no kernel of the port launched (none of these configs
-   prunes). It times the prefill and both decode loops, profiles a
+11. serves the dense, MoE and recurrent LM archs through ``build_model``,
+   ``prefill`` and ``compile_decode``, with seeded weights: qwen2-1.5b,
+   chatglm3-6b, olmoe-1b-7b, recurrentgemma-2b (RG-LRU "R" blocks and
+   local attention, 2:1; the prompt passes its 2048-token window) and
+   rwkv6-3b (RWKV-6 "W" blocks) whole at their published configs,
+   qwen2-72b (8 of 80 layers) and arctic-480b (1 of 35) at full width with
+   their depth cut to fit one card. Each runs a prefill of (4, 3072) and
+   32 greedy decode steps (8 for the cut two) eagerly, then the same steps
+   through the compiled step: tokens, float32 logits and every cache and
+   recurrent state tensor bit for bit the eager loop's, and no kernel of
+   the port launched (none of these configs prunes). It times the prefill and both decode loops, profiles a
    captured step (and, for chatglm3-6b and qwen2-72b, a prefill: device
    time by kernel, busy share),
    reads the peak reserved memory, counts each decode step's bytes (the weights it reads
-   in the compute dtype, all of olmoe's experts included, and the KV rows
-   it needs), and prints how many (token, expert) picks each olmoe prefill
-   group dropped. For the three whole archs, 2 layers at full width in
-   float32 on the card and on the CPU (one seeded set of weights): the
-   prefill of (2, 300) and two decode steps' logits within 1e-4 of the
-   CPU's logit scale. For olmoe each layer's routing is compared first:
+   in the compute dtype, all of olmoe's experts included, the KV rows it
+   needs, at most a window's on a local layer, and the recurrent states it
+   reads and writes), and prints how many (token, expert) picks each olmoe
+   prefill group dropped. For the five whole archs, 2 layers (3 for
+   recurrentgemma-2b: R R L) at full width in float32 on the card and on
+   the CPU (one seeded set of weights): the prefill of (2, 300) and two
+   decode steps' logits within 1e-4 of the CPU's logit scale. For olmoe each layer's routing is compared first:
    a token whose top-8 experts differ on the two devices is a flip, printed
    with its top-8 margin on the CPU; the check fails above 1 % of the
    routed tokens or at a flip whose margin exceeds 1e-5, and holds the
@@ -378,11 +381,11 @@ SHARD_MESH_PATHS = (("han", "acm"), ("rgat", "imdb"), ("simple_hgn", "imdb"))
 SHARD_DELTAS, SHARD_TIMED = 2, 50
 SHARD_TRAIN_LR = 1e-3  # a step of its own: phase 5 cached the ones at TRAIN_LR
 SHARD_SERVE_REQUESTS = 20_000  # paced requests offered at most (10 s at 2000/s); cut once the steps ran
-# phase 11, the dense and MoE LM archs: (arch, layers kept or None for the
-# published depth, decode steps); the two cut to fit one card's 80 GB
+# phase 11, the dense, MoE and recurrent LM archs: (arch, layers kept or None
+# for the published depth, decode steps); the two cut to fit one card's 80 GB
 ARCH_RUNS = (("qwen2-1.5b", None, 32), ("chatglm3-6b", None, 32), ("olmoe-1b-7b", None, 32),
-             ("qwen2-72b", 8, 8), ("arctic-480b", 1, 8))
-ARCH_CPU_CHECK = ("qwen2-1.5b", "chatglm3-6b", "olmoe-1b-7b")
+             ("qwen2-72b", 8, 8), ("arctic-480b", 1, 8), ("recurrentgemma-2b", None, 32), ("rwkv6-3b", None, 32))
+ARCH_CPU_CHECK = ("qwen2-1.5b", "chatglm3-6b", "olmoe-1b-7b", "recurrentgemma-2b", "rwkv6-3b")
 # a prefill's profile costs 10-20 s of host time (tens of thousands of
 # events); two archs show its two regimes: chatglm3-6b's 28 global layers
 # (the plain-torch attention's elementwise passes) and qwen2-72b's wide GEMMs
@@ -391,8 +394,10 @@ ARCH_EAGER_OPS = 8  # an eager step's largest operators by device time, with the
 # card vs CPU: 2 layers, float32, batch 2 of 300 tokens (600 routed rows: a
 # group of 512 and a padded one for olmoe), 2 decode steps; errors relative
 # to the CPU's largest |logit|; routing flips allowed on at most 1 % of the
-# routed tokens, each with a top-k margin of at most 1e-5
+# routed tokens, each with a top-k margin of at most 1e-5; recurrentgemma-2b
+# on 3 layers, so that its first local-attention layer is in (R R L)
 ARCH_CPU_LAYERS, ARCH_CPU_BATCH, ARCH_CPU_PROMPT, ARCH_CPU_STEPS = 2, 2, 300, 2
+ARCH_CPU_LAYERS_OF = {"recurrentgemma-2b": 3}
 TOL_ARCH_REL, ARCH_FLIP_SHARE, ARCH_FLIP_MARGIN = 1e-4, 0.01, 1e-5
 # the MoE archs' routing spread, seeded against unit-scale weights: per layer
 # of a 2-layer float32 prefill of batch 2 of 512 tokens (two whole groups of
@@ -3918,14 +3923,19 @@ def recorded_dispatch(keep: list, reduce=lambda probs, dispatch: (probs.cpu(), d
 
 
 def decode_step_bytes(lm, batch: int, positions) -> dict:
-    """Bytes a decode step must read: every weight it uses in the dtype it
+    """Bytes a decode step must move: every weight it uses in the dtype it
     computes in (the dense GShard einsum reads all experts; a tied head reads
-    the table, else the table gives only ``batch`` rows), and the KV rows of
-    positions 0..pos of every layer, as the mean over ``positions``."""
+    the table, else the table gives only ``batch`` rows); the KV rows of
+    positions 0..pos of every global layer ("A", "M") and at most the
+    window's of a local one ("L"), as the mean over ``positions``; and the
+    recurrent states, read and written once a step: h (float32) and the
+    conv window of an "R" layer, the (B, H, hs, hs) float32 state and both
+    token shifts of a "W" layer."""
     import torch
 
     params = lm.compute_params()
     cfg = lm.cfg
+    kinds = cfg.pattern()
 
     def size(tree) -> int:
         if isinstance(tree, dict):
@@ -3938,10 +3948,16 @@ def decode_step_bytes(lm, batch: int, positions) -> dict:
     weights = size(params["layers"]) + size(params["final_norm"]) + size(params.get("lm_head", {}))
     weights += size(table) if cfg.tie_embeddings else batch * table.shape[1] * table.element_size()
     el = torch.finfo(cfg.adtype).bits // 8
-    per_pos = 2 * batch * cfg.num_kv_heads * cfg.hd * el * cfg.num_layers
-    kv = sum(per_pos * (pos + 1) for pos in positions) / len(positions)
-    return {"weights": weights, "kv_mean": kv, "kv_per_position": per_pos,
-            "bound_ms": (weights + kv) / PEAK_BYTES_PER_S * 1e3}
+    row = 2 * batch * cfg.num_kv_heads * cfg.hd * el  # one position's K and V in one layer
+    window = cfg.sliding_window or float("inf")
+    kv = sum(row * min(pos + 1, window if k == "L" else pos + 1) for pos in positions
+             for k in kinds if k in "AML") / len(positions)
+    w, hs = cfg.lru_width or cfg.d_model, cfg.rwkv_head_size
+    state = {"R": batch * (w * 4 + (cfg.conv_width - 1) * w * el),
+             "W": batch * (cfg.d_model // hs * hs * hs * 4 + 2 * cfg.d_model * el)}
+    states = 2 * sum(state.get(k, 0) for k in kinds)
+    return {"weights": weights, "kv_mean": kv, "kv_per_position": row * sum(k in "AM" for k in kinds),
+            "states_read_and_written": states, "bound_ms": (weights + kv + states) / PEAK_BYTES_PER_S * 1e3}
 
 
 def sequential_topk(probs, k: int):
@@ -4045,8 +4061,9 @@ def routing_spread(lm, toks) -> list:
 
 
 def arch_cpu_check(arch: str, dev) -> dict:
-    """Phase 11: ``arch`` at full width, 2 layers, float32, the same
-    weights on the card and on the CPU; prefill and two decode steps.
+    """Phase 11: ``arch`` at full width, 2 layers (``ARCH_CPU_LAYERS_OF``
+    where it says otherwise), float32, the same weights on the card and on
+    the CPU; prefill and two decode steps.
     Errors are relative to the CPU's largest |logit|. The weights are
     seeded; an MoE arch's experts and routers are then redrawn at unit
     scale (``unit_scale_moe``), after its routing spread was read under
@@ -4058,7 +4075,8 @@ def arch_cpu_check(arch: str, dev) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(get_config(arch), num_layers=ARCH_CPU_LAYERS, dtype="float32")
+    layers = ARCH_CPU_LAYERS_OF.get(arch, ARCH_CPU_LAYERS)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype="float32")
     b, t = ARCH_CPU_BATCH, ARCH_CPU_PROMPT
     max_len = t + ARCH_CPU_STEPS
     gpu = build_model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(2))
@@ -4097,7 +4115,7 @@ def arch_cpu_check(arch: str, dev) -> dict:
                 rows.append(routing_diff(cfg, rec_g, rec_c, b, 1, i + 1))
     del gpu, c_g
     scale = max(float(c.abs().max()) for _, c in calls)
-    res = {"layers": ARCH_CPU_LAYERS, "batch": b, "prompt": t, "decode_steps": ARCH_CPU_STEPS, "logit_scale": scale,
+    res = {"layers": layers, "kinds": "".join(cfg.pattern()), "batch": b, "prompt": t, "decode_steps": ARCH_CPU_STEPS, "logit_scale": scale,
            "weights": "seeded, experts and routers at unit scale" if spread else "seeded"}
     if spread:
         res["routing_spread"] = spread
@@ -4118,9 +4136,9 @@ def arch_cpu_check(arch: str, dev) -> dict:
     errs = [float((g[rows_held] - c[rows_held]).abs().max()) / scale for g, c in calls]
     res.update(rel_errs=errs)
     check(all(bool(torch.isfinite(g).all()) for g, _ in calls), f"{arch}: non-finite logits on the card")
-    check(max(errs) <= TOL_ARCH_REL, f"{arch} {ARCH_CPU_LAYERS} layers float32, card vs CPU: logits {errs} of the "
+    check(max(errs) <= TOL_ARCH_REL, f"{arch} {layers} layers float32, card vs CPU: logits {errs} of the "
                                      f"logit scale {scale:.3g} > {TOL_ARCH_REL}")
-    line = (f"  {arch} {ARCH_CPU_LAYERS} layers float32, {res['weights']} weights, batch {b} prompt {t} + "
+    line = (f"  {arch} {layers} layers ({res['kinds']}) float32, {res['weights']} weights, batch {b} prompt {t} + "
             f"{ARCH_CPU_STEPS} steps: card vs CPU "
             f"logits {max(errs):.3g} of the logit scale {scale:.3g} (prefill {errs[0]:.3g}, decode "
             f"{max(errs[1:]):.3g})")
@@ -4136,13 +4154,13 @@ def arch_cpu_check(arch: str, dev) -> dict:
 def arch_run(arch: str, layers, gen: int, zero: dict, modules, dev) -> dict:
     """Phase 11, one arch on the card: seeded weights, prefill of
     (LM_BATCH, LM_PROMPT), ``gen`` eager greedy decode steps, then the same
-    steps through ``compile_decode`` (tokens, float32 logits and cache bit
-    for bit the eager loop's); times, peak reserved memory and the decode
-    step's byte bound. No kernel of the port may launch (``zero``)."""
+    steps through ``compile_decode`` (tokens, float32 logits and every
+    tensor of the cache, KV caches and recurrent states alike, bit for bit
+    the eager loop's); times, peak reserved memory and the decode step's
+    byte bound. No kernel of the port may launch (``zero``)."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.layers.attention import KVCache
     from repro_torch.models import build_model
 
     full = get_config(arch)
@@ -4176,7 +4194,7 @@ def arch_run(arch: str, layers, gen: int, zero: dict, modules, dev) -> dict:
             sg = min(cfg.moe.group_size, LM_BATCH * LM_PROMPT)
             dropped = [(cfg.moe.top_k * sg - k).round().long().tolist() for k in routed]
         tok0 = logits.argmax(-1)[:, None]
-        eager_cache = [KVCache(c.k.clone(), c.v.clone()) for c in cache]
+        eager_cache = [type(c)(*(t.clone() for t in c)) for c in cache]
         eager_ms, tokens, eager_logits, tok = [], [], [], tok0
         for i in range(gen):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -4202,13 +4220,14 @@ def arch_run(arch: str, layers, gen: int, zero: dict, modules, dev) -> dict:
                                                             "eager step's")
             captured_ms.append(start.elapsed_time(end))
             tok = logits.argmax(-1)[:, None]
-        check(all(torch.equal(a.k, b.k) and torch.equal(a.v, b.v) for a, b in zip(cache, eager_cache)),
-              f"{arch}: the captured steps' cache differs from the eager loop's")
+        check(all(torch.equal(x, y) for a, b in zip(cache, eager_cache) for x, y in zip(a, b)),
+              f"{arch}: the captured steps' cache or states differ from the eager loop's")
         check(all_launches(*modules) == zero, f"{arch} decode launched kernels: {all_launches(*modules)}")
         del eager_cache, eager_logits
         prefill_ms = cuda_ms(lambda: lm.prefill(prompts, max_len=max_len), 2, warmup=0)
         # where the time goes: device time by kernel of a captured step (it
-        # rewrites the slot of position LM_PROMPT each call) and of a prefill
+        # rewrites the slot of position LM_PROMPT each call, and advances a
+        # recurrent state) and of a prefill
         profiles, t_prof = {}, time.perf_counter()
         runs = [("captured_step", lambda: step(tok0, LM_PROMPT), steady(captured_ms))]
         if arch in ARCH_PREFILL_PROFILE:
@@ -4235,7 +4254,8 @@ def arch_run(arch: str, layers, gen: int, zero: dict, modules, dev) -> dict:
         "eager_step_ms_median": steady(eager_ms), "captured_step_ms_median": steady(captured_ms),
         "captured_tokens_per_s": LM_BATCH / (steady(captured_ms) / 1e3),
         "eager_tokens_per_s": LM_BATCH / (steady(eager_ms) / 1e3),
-        "captured_steps_bitwise_eager": gen, "reserved_before_gb": base / 1e9, "peak_reserved_gb": peak / 1e9,
+        "captured_steps_bitwise_eager": gen, "cache_kinds": sorted({type(c).__name__ for c in cache}),
+        "reserved_before_gb": base / 1e9, "peak_reserved_gb": peak / 1e9,
         "decode_step_bytes": nbytes, "sample_tokens": tok[:, 0].tolist(), "profiles": profiles,
         "eager_step_ops_ms": eager_ops, "profile_s": profile_s,
     }
@@ -4248,8 +4268,8 @@ def arch_run(arch: str, layers, gen: int, zero: dict, modules, dev) -> dict:
           f"eager / captured {res['eager_step_ms_median']:.3f} / {res['captured_step_ms_median']:.3f} ms median of "
           f"steps 2-{gen} ({res['eager_tokens_per_s']:.1f} / {res['captured_tokens_per_s']:.1f} tokens/s), bound "
           f"{nbytes['bound_ms']:.3f} ms ({nbytes['weights'] / 1e9:.2f} GB weights + {nbytes['kv_mean'] / 1e9:.3f} GB "
-          f"KV a step), peak reserved {res['peak_reserved_gb']:.1f} GB ({res['reserved_before_gb']:.1f} GB before); "
-          f"{gen} captured steps bit for bit the eager loop; sample tokens {res['sample_tokens']}")
+          f"KV + {nbytes['states_read_and_written'] / 1e9:.4f} GB recurrent states a step), peak reserved {res['peak_reserved_gb']:.1f} GB ({res['reserved_before_gb']:.1f} GB before); "
+          f"{gen} captured steps bit for bit the eager loop ({', '.join(res['cache_kinds'])}); sample tokens {res['sample_tokens']}")
     print(f"  {arch} profiles took {profile_s:.1f} s")
     for name, prof in profiles.items():
         print(f"  {arch} profile {name}: " + (json.dumps(prof) if prof else "profiler saw no device time: not measured"))
@@ -4495,10 +4515,10 @@ def main() -> int:
     phase_s["10"] = time.perf_counter() - t_phase
     print(f"phase 10: wall time {phase_s['10']:.1f} s")
 
-    # phase 11: the dense and MoE LM archs; phase 3's LM is freed first
+    # phase 11: the dense, MoE and recurrent LM archs; phase 3's LM is freed first
     del lm, prompts, cache0, tok0, decode_in
     t_phase = time.perf_counter()
-    print(f"phase 11: the dense and MoE LM archs, prefill {LM_BATCH}x{LM_PROMPT} + decode: "
+    print(f"phase 11: the dense, MoE and recurrent LM archs, prefill {LM_BATCH}x{LM_PROMPT} + decode: "
           + ", ".join(f"{a} ({'whole' if n is None else f'{n} layers'}, {g} steps)" for a, n, g in ARCH_RUNS))
     archs = arch_phase((ops, tda_ops, ts_ops), card, dev)
     phase_s["11"] = time.perf_counter() - t_phase

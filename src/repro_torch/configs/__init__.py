@@ -37,12 +37,11 @@ ALIASES = {
     "seamless-m4t-medium": "seamless_m4t_medium",
 }
 
-PORTED = ("gemma3_4b", "qwen2_1_5b", "qwen2_72b", "chatglm3_6b", "arctic_480b", "olmoe_1b_7b")
+PORTED = ("gemma3_4b", "qwen2_1_5b", "qwen2_72b", "chatglm3_6b", "arctic_480b", "olmoe_1b_7b",
+          "recurrentgemma_2b", "rwkv6_3b")
 
 # the ROADMAP item (section 1, "Slices left") that ports each remaining arch
 _NOT_PORTED = {
-    "recurrentgemma_2b": "ROADMAP §1 LM-3 (RG-LRU 'R' blocks, layers/rglru.py)",
-    "rwkv6_3b": "ROADMAP §1 LM-4 (RWKV 'W' blocks, layers/rwkv.py)",
     "llama32_vision_90b": "ROADMAP §1 LM-5 (cross-attention 'C' decode)",
     "seamless_m4t_medium": "ROADMAP §1 LM-6 (audio encoder-decoder 'E'/'D')",
 }

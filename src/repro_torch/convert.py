@@ -36,7 +36,9 @@ pattern (``ModelConfig.layer_groups``)::
 Layer ``i`` of the pattern is group ``gi``, repeat ``r``, position ``p``
 with ``i = offset_gi + r·len(cycle_gi) + p``; its leaves go to
 ``layers.<i>.<path>`` (``layers.5.attn.wq``; an MoE block's nested
-``moe.router.w`` and ``moe.experts.wi`` keep their paths). gemma3-4b has
+``moe.router.w`` and ``moe.experts.wi`` keep their paths, as do an "R"
+block's ``lru.*`` and a "W" block's ``rwkv.*``, ``rwkv.ln_x.scale``
+included). gemma3-4b has
 two groups, the cycle ``L L L L L A`` five times and a remainder
 ``L L L L`` (layers 30–33).
 

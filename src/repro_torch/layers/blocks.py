@@ -3,24 +3,27 @@ decode-apply, dispatched by kind (the reference's ``repro/layers/blocks.py``).
 
 Kinds ported:
   A  global attention + MLP            L  sliding-window attention + MLP
-  M  attention + MoE (opt. dense res)
+  M  attention + MoE (opt. dense res)  R  RG-LRU recurrent + MLP
+  W  RWKV-6 time-mix + channel-mix
 
 An "M" block's attention runs as kind "A" (a global cache; ADE pruning
 when ``cfg.attn_prune_k`` is set), then the MoE on ``ln2(x)``, plus the
 dense MLP on the same normed input when ``cfg.moe.dense_residual``
-(arctic). Every other kind of the reference (C, R, W, E, D) raises
-``NotImplementedError`` naming its ROADMAP item.
+(arctic). "R" and "W" blocks carry a recurrent state (``LRUState``,
+``RWKVState``) in place of a KV cache; a decode step writes the next state
+into the cache's own tensors, as it writes a KV slot, so a captured step
+reads and writes the same storage on every replay. Every other kind of the
+reference (C, E, D) raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
 from repro_torch.layers import attention as attn
 from repro_torch.layers import mlp as mlp_mod
 from repro_torch.layers import moe as moe_mod
+from repro_torch.layers import rglru, rwkv
 from repro_torch.layers.norms import apply_norm, norm_shapes
 
 _NOT_PORTED = {
-    "R": "ROADMAP §1 LM-3 (RG-LRU 'R' blocks, layers/rglru.py)",
-    "W": "ROADMAP §1 LM-4 (RWKV 'W' blocks, layers/rwkv.py)",
     "C": "ROADMAP §1 LM-5 (cross-attention 'C' decode)",
     "E": "ROADMAP §1 LM-6 (audio encoder-decoder 'E'/'D')",
     "D": "ROADMAP §1 LM-6 (audio encoder-decoder 'E'/'D')",
@@ -28,7 +31,7 @@ _NOT_PORTED = {
 
 
 def _check_kind(kind: str) -> None:
-    if kind not in ("A", "L", "M"):
+    if kind not in ("A", "L", "M", "R", "W"):
         if kind in _NOT_PORTED:
             raise NotImplementedError(
                 f"block kind {kind!r} is not ported to repro_torch yet: {_NOT_PORTED[kind]}"
@@ -39,14 +42,32 @@ def _check_kind(kind: str) -> None:
 def block_shapes(cfg, kind: str):
     """``{"ln1", "ln2", "attn", "mlp"}`` of parameter shapes, the
     reference's tree for one block; an "M" block has ``"moe"`` (a nested
-    ``{"router", "experts"}``) and ``"mlp"`` only with a dense residual."""
+    ``{"router", "experts"}``) and ``"mlp"`` only with a dense residual; an
+    "R" block ``"lru"`` and ``"mlp"``; a "W" block only ``"rwkv"`` (with a
+    nested ``"ln_x"``) beside its norms."""
     _check_kind(kind)
-    shapes = {"ln1": norm_shapes(cfg), "ln2": norm_shapes(cfg), "attn": attn.attention_shapes(cfg)}
+    shapes = {"ln1": norm_shapes(cfg), "ln2": norm_shapes(cfg)}
+    if kind == "R":
+        return {**shapes, "lru": rglru.lru_shapes(cfg), "mlp": mlp_mod.mlp_shapes(cfg)}
+    if kind == "W":
+        return {**shapes, "rwkv": rwkv.rwkv_shapes(cfg)}
+    shapes["attn"] = attn.attention_shapes(cfg)
     if kind == "M":
         shapes["moe"] = moe_mod.moe_shapes(cfg)
     if kind != "M" or cfg.moe.dense_residual:
         shapes["mlp"] = mlp_mod.mlp_shapes(cfg)
     return shapes
+
+
+def init_rules(cfg, kind: str):
+    """The reference's init of a block's leaves that are neither glorot
+    matrices nor zero vectors (norms apart): ``"<part>.<name>"`` -> fill
+    of a float32 tensor from a generator."""
+    parts = {"R": ("lru", rglru.init_rules), "W": ("rwkv", rwkv.init_rules)}
+    if kind not in parts:
+        return {}
+    part, rules = parts[kind]
+    return {f"{part}.{name}": fill for name, fill in rules(cfg).items()}
 
 
 def _ffn(cfg, kind: str, params, x):
@@ -66,8 +87,19 @@ def _attn_kind(kind: str) -> str:
 
 
 def apply_block_train(cfg, kind: str, params, x, positions, emit_cache: bool = False):
-    """Returns (x, cache_or_None)."""
+    """Returns (x, cache_or_state_or_None)."""
     _check_kind(kind)
+    if kind == "R":
+        h, state = rglru.apply_recurrent_train(cfg, params["lru"], apply_norm(cfg, params["ln1"], x), emit_state=True)
+        return _ffn(cfg, kind, params, x + h), state if emit_cache else None
+    if kind == "W":
+        h1n = apply_norm(cfg, params["ln1"], x)
+        h, s_final = rwkv.time_mix_train(cfg, params["rwkv"], h1n, emit_state=True)
+        x = x + h
+        h2n = apply_norm(cfg, params["ln2"], x)
+        x = x + rwkv.channel_mix_train(cfg, params["rwkv"], h2n)
+        state = rwkv.RWKVState(s=s_final, shift_t=h1n[:, -1], shift_c=h2n[:, -1]) if emit_cache else None
+        return x, state
     h, cache = attn.attention_train(
         cfg, params["attn"], apply_norm(cfg, params["ln1"], x), positions,
         kind=_attn_kind(kind), emit_cache=emit_cache,
@@ -77,14 +109,36 @@ def apply_block_train(cfg, kind: str, params, x, positions, emit_cache: bool = F
 
 def init_block_cache(cfg, kind: str, batch: int, max_len: int, device):
     _check_kind(kind)
+    if kind == "R":
+        return rglru.init_lru_state(cfg, batch, device)
+    if kind == "W":
+        return rwkv.init_rwkv_state(cfg, batch, device)
     return attn.init_kv_cache(cfg, batch, max_len, _attn_kind(kind), device)
 
 
 def apply_block_decode(cfg, kind: str, params, x, pos, cache):
     """Single-token step at ``pos`` (an ``int`` or a 0-dim int64 tensor on
-    ``x``'s device). Returns (x, cache), the cache updated in place."""
+    ``x``'s device). Returns (x, cache), the cache updated in place: a KV
+    slot written, or every tensor of a recurrent state overwritten (after
+    the step has read them all)."""
     _check_kind(kind)
+    if kind == "R":
+        h, state = rglru.apply_recurrent_decode(cfg, params["lru"], apply_norm(cfg, params["ln1"], x), cache)
+        x = _ffn(cfg, kind, params, x + h)
+        return x, _write(cache, state)
+    if kind == "W":
+        h, s_new, shift_t = rwkv.time_mix_decode(cfg, params["rwkv"], apply_norm(cfg, params["ln1"], x), cache)
+        x = x + h
+        h2, shift_c = rwkv.channel_mix_decode(cfg, params["rwkv"], apply_norm(cfg, params["ln2"], x), cache)
+        return x + h2, _write(cache, rwkv.RWKVState(s=s_new, shift_t=shift_t, shift_c=shift_c))
     h, cache = attn.attention_decode(
         cfg, params["attn"], apply_norm(cfg, params["ln1"], x), pos, cache, kind=_attn_kind(kind)
     )
     return _ffn(cfg, kind, params, x + h), cache
+
+
+def _write(cache, state):
+    """Copy each tensor of ``state`` into ``cache``'s own; returns ``cache``."""
+    for dst, src in zip(cache, state):
+        dst.copy_(src)
+    return cache

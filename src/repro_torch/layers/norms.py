@@ -31,3 +31,22 @@ def norm_shapes(cfg):
 
 def apply_norm(cfg, params, x: torch.Tensor) -> torch.Tensor:
     return rmsnorm(params, x) if cfg.norm == "rmsnorm" else layernorm(params, x)
+
+
+def groupnorm_shapes(cfg):
+    """RWKV's per-head output norm: ``{"scale", "bias": (d,)}`` (ones and
+    zeros at init, whatever ``cfg.norm`` says)."""
+    return {"scale": (cfg.d_model,), "bias": (cfg.d_model,)}
+
+
+def groupnorm_heads(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Per-head LayerNorm for RWKV's time-mix output: x (..., H, hs) ->
+    (..., H·hs), normalised per head in float32, then the flat scale and
+    bias, cast back to ``x``'s dtype."""
+    dt = x.dtype
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.reciprocal(torch.sqrt(var + eps))
+    flat = y.flatten(-2)
+    return (flat * params["scale"] + params["bias"]).to(dt)

@@ -1,13 +1,14 @@
 """Decoder-only language model assembled from layer blocks (the
 reference's ``repro/models/lm.py``), for the block kinds ported so far
-(A, L, M): prefill, then one token per ``decode_step``.
+(A, L, M, R, W): prefill, then one token per ``decode_step``.
 
 The layers are a ``ModuleList`` in ``cfg.pattern()`` order; the reference's
 ``lax.scan`` over stacked cycle repeats is a Python loop here, and its
 sharding constraints have no counterpart on one card. Parameter names
 follow the port's flat naming (``embed.table``, ``layers.<i>.attn.wq``,
 ``layers.<i>.mlp.wi``, ``layers.<i>.moe.router.w``,
-``layers.<i>.moe.experts.wi``, ``final_norm.scale``, ``lm_head.w`` when
+``layers.<i>.moe.experts.wi``, ``layers.<i>.lru.wa``,
+``layers.<i>.rwkv.ln_x.scale``, ``final_norm.scale``, ``lm_head.w`` when
 the head is untied, …; ``convert`` maps the reference's stacked tree onto
 them). Weights keep the reference's ``(in, out)`` layout.
 
@@ -16,8 +17,10 @@ table and an untied head in ``param_dtype`` and every other leaf in
 float32; so does the port, with one exception: a layer's weight matrices
 are stored in bfloat16 when ``param_dtype`` and ``dtype`` are both
 bfloat16 (qwen2-72b, arctic-480b), which is what each of the reference's
-uses reads (one rounding to bfloat16) in half the bytes. Norm scales, QKV
-biases and the MoE router stay float32 whatever ``param_dtype`` says.
+uses reads (one rounding to bfloat16) in half the bytes. Vectors (norm
+scales, biases), the MoE router and RWKV's ``u``, ``decay_a`` and
+``decay_b`` (which the reference reads in float32 at every use) stay
+float32 whatever ``param_dtype`` says.
 
 Embeddings. As the reference does, a tied embedding is scaled by √d
 (gemma-style) for every arch, qwen2-1.5b included, and an untied one is
@@ -29,12 +32,18 @@ first use, and keeps those copies (:meth:`LM.compute_params`), which gives
 the same values. With ``dtype="bfloat16"`` and float32 parameters that is
 2 bytes more per parameter (7.8 GB for gemma3-4b's 3.88 B); with a
 float32 ``dtype``, or parameters already in ``dtype``, the copies are the
-parameters themselves. Norm scales and QKV biases stay float32 (each use
-casts them, as the reference's does), and so does an MoE router, the
-dtype the reference routes in.
+parameters themselves. Vectors stay float32 (each use casts them, as the
+reference's does), and so do an MoE router, the dtype the reference
+routes in, and RWKV's float32 matrices.
 
-Caches are a list of ``KVCache`` per layer, updated in place by
-``decode_step`` (the same list comes back).
+Seeded init (:meth:`LM.reset_parameters`) draws glorot matrices and zero
+vectors, but for the leaves the reference inits otherwise (RG-LRU's ``ba``,
+``lam`` and ``conv_w``; RWKV's ``mu_*``, ``w0``, decay LoRA and ``ln_x``:
+``blocks.init_rules``).
+
+Caches are a list per layer of a ``KVCache`` (A, L, M) or a recurrent
+state (``LRUState`` for R, ``RWKVState`` for W), updated in place by
+``decode_step`` (the same list, holding the same tensors, comes back).
 
 ``LM.compile_decode(cache)`` is the counterpart of the reference's
 ``jax.jit(model.decode_step)``: a :class:`DecodeStep` bound to one cache,
@@ -43,7 +52,7 @@ position. Prefill stays eager, as the reference does not jit it.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -55,21 +64,35 @@ from repro_torch.core import session as _session
 from repro_torch.layers import blocks
 from repro_torch.layers.attention import KVCache, position_tensor
 from repro_torch.layers.norms import apply_norm, norm_shapes
+from repro_torch.layers.rglru import LRUState
+from repro_torch.layers.rwkv import RWKVState
+
+Cache = Union[KVCache, LRUState, RWKVState]
+_RECURRENT = (LRUState, RWKVState)
+# matrices the reference reads in float32 whatever the compute dtype
+_FLOAT32_MATRICES = ("router.w", "rwkv.u", "rwkv.decay_a", "rwkv.decay_b")
 
 
 def storage_dtype(cfg: ModelConfig, name: str, shape) -> torch.dtype:
     """The dtype the port stores parameter ``name`` (a ``named_parameters()``
     name, or its tail from the part on) of ``shape`` in: ``param_dtype`` for
     the embedding table and an untied head, as the reference's; float32 for
-    norm scales, biases and the MoE router, as the reference's; a layer's
-    other weights in bfloat16 when ``param_dtype`` and ``dtype`` both are,
-    else float32 (see the module docstring)."""
+    vectors (norm scales, biases), the MoE router and RWKV's ``u`` and decay
+    LoRA, as the reference's; a layer's other weights in bfloat16 when
+    ``param_dtype`` and ``dtype`` both are, else float32 (see the module
+    docstring)."""
     if name in ("embed.table", "lm_head.w"):
         return cfg.pdtype
-    if len(shape) < 2 or name.endswith("router.w"):
+    if _stays_float32(name, shape):
         return torch.float32
     bf16 = cfg.pdtype == cfg.adtype == torch.bfloat16
     return torch.bfloat16 if bf16 else torch.float32
+
+
+def _stays_float32(name: str, shape) -> bool:
+    """A leaf the forward reads as stored, in float32: vectors and
+    ``_FLOAT32_MATRICES``."""
+    return len(shape) < 2 or name.endswith(_FLOAT32_MATRICES)
 
 
 def _params(cfg: ModelConfig, prefix: str, shapes: Mapping, device) -> nn.ParameterDict:
@@ -92,26 +115,33 @@ def _reset_norm(cfg, norm: nn.ParameterDict) -> None:
         norm["bias"].data.zero_()
 
 
-class MoE(nn.Module):
-    """An "M" block's MoE parameters: ``router.w`` and ``experts.wi|wg|wo``,
-    the reference's paths (``nn.ParameterDict`` takes no dotted keys)."""
+class Nested(nn.Module):
+    """A block part whose tree nests: its leaves as parameters, each inner
+    dict as a ``ParameterDict`` child, under the reference's paths
+    (``moe.router.w``, ``moe.experts.wi``, ``rwkv.mu_r``,
+    ``rwkv.ln_x.scale``; ``nn.ParameterDict`` takes no dotted keys)."""
 
-    def __init__(self, cfg: ModelConfig, shapes: Mapping, device):
+    def __init__(self, cfg: ModelConfig, part: str, shapes: Mapping, device):
         super().__init__()
-        self.router = _params(cfg, "moe.router.", shapes["router"], device)
-        self.experts = _params(cfg, "moe.experts.", shapes["experts"], device)
+        leaves = {n: s for n, s in shapes.items() if not isinstance(s, Mapping)}
+        for name, param in _params(cfg, f"{part}.", leaves, device).items():
+            self.register_parameter(name, param)
+        for name, sub in shapes.items():
+            if isinstance(sub, Mapping):
+                setattr(self, name, _params(cfg, f"{part}.{name}.", sub, device))
 
 
 class Block(nn.Module):
-    """One layer's parameters: ``ln1``, ``ln2``, ``attn``, and ``mlp``
-    and/or ``moe`` (an "M" block; ``mlp`` there only with a dense
-    residual)."""
+    """One layer's parameters, the reference's block tree: ``ln1``, ``ln2``
+    and ``attn`` + ``mlp`` (A, L), ``attn`` + ``moe`` (M; ``mlp`` too with a
+    dense residual), ``lru`` + ``mlp`` (R) or ``rwkv`` (W)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device):
         super().__init__()
         for part, shapes in blocks.block_shapes(cfg, kind).items():
-            module = MoE(cfg, shapes, device) if part == "moe" else _params(cfg, f"{part}.", shapes, device)
-            setattr(self, part, module)
+            nested = any(isinstance(s, Mapping) for s in shapes.values())
+            setattr(self, part, (Nested(cfg, part, shapes, device) if nested
+                                 else _params(cfg, f"{part}.", shapes, device)))
 
 
 class LM(nn.Module):
@@ -138,7 +168,8 @@ class LM(nn.Module):
         glorot-uniform weights (fan-in the first dim: an expert tensor
         (E, d, f) takes E, as the reference's ``glorot`` does), QKV biases
         zero, norms as the reference inits them (RMSNorm's scale at zero),
-        an untied head normal × 0.02."""
+        the recurrent blocks' other leaves as the reference's
+        (``blocks.init_rules``), an untied head normal × 0.02."""
 
         def fill(p: nn.Parameter, draw) -> None:
             buf = torch.empty(p.shape, dtype=torch.float32, device=generator.device)
@@ -147,13 +178,17 @@ class LM(nn.Module):
 
         normal = lambda t: t.normal_(0.0, 1.0, generator=generator).mul_(0.02)  # noqa: E731
         fill(self.embed["table"], normal)
-        for layer in self.layers:
+        for layer, kind in zip(self.layers, self.cfg.pattern()):
+            rules = blocks.init_rules(self.cfg, kind)
             for part, module in layer.named_children():
                 if part in ("ln1", "ln2"):
                     _reset_norm(self.cfg, module)
                     continue
-                for p in module.parameters():  # weights glorot, QKV biases zero
-                    if p.dim() == 1:
+                for name, p in module.named_parameters():  # else weights glorot, biases zero
+                    rule = rules.get(f"{part}.{name}")
+                    if rule is not None:
+                        fill(p, lambda t: rule(t, generator))
+                    elif p.dim() == 1:
                         p.data.zero_()
                     else:
                         fill(p, lambda t: glorot_(t, generator))
@@ -185,24 +220,25 @@ class LM(nn.Module):
         """The parameters as the forward uses them, as the reference's tree:
         ``{"embed", "final_norm", "layers": [per-layer dicts], "lm_head"}``
         (the head only when untied), weights and the table in
-        ``cfg.dtype`` (built once, kept), norm scales, biases and an MoE
-        router as stored, in float32."""
+        ``cfg.dtype`` (built once, kept), vectors, an MoE router and RWKV's
+        float32 matrices as stored, in float32."""
         if self._compute is None:
             dt = self.cfg.adtype
 
-            def tree(pd: nn.ParameterDict):
-                return {n: (p.detach().to(dt) if p.dim() >= 2 else p.detach()) for n, p in pd.items()}
-
-            def part(module):
-                if isinstance(module, MoE):
-                    return {"router": {n: p.detach() for n, p in module.router.items()},
-                            "experts": tree(module.experts)}
-                return tree(module)
+            def tree(module: nn.Module):
+                out: Dict = {}
+                for name, p in module.named_parameters():
+                    *path, leaf = name.split(".")
+                    node = out
+                    for key in path:
+                        node = node.setdefault(key, {})
+                    node[leaf] = p.detach() if _stays_float32(name, p.shape) else p.detach().to(dt)
+                return out
 
             self._compute = {
                 "embed": tree(self.embed),
                 "final_norm": tree(self.final_norm),
-                "layers": [{name: part(m) for name, m in layer.named_children()} for layer in self.layers],
+                "layers": [tree(layer) for layer in self.layers],
             }
             if not self.cfg.tie_embeddings:
                 self._compute["lm_head"] = tree(self.lm_head)
@@ -228,13 +264,13 @@ class LM(nn.Module):
         return logits
 
     # ------------------------------------------------------------- decode
-    def init_cache(self, batch: int, max_len: int) -> List[KVCache]:
+    def init_cache(self, batch: int, max_len: int) -> List[Cache]:
         return [
             blocks.init_block_cache(self.cfg, kind, batch, max_len, self.device)
             for kind in self.cfg.pattern()
         ]
 
-    def decode_step(self, token: torch.Tensor, pos, cache: List[KVCache]):
+    def decode_step(self, token: torch.Tensor, pos, cache: List[Cache]):
         """One decode step: ``token`` (B, 1) at position ``pos`` (an ``int``
         or a 0-dim int64 tensor on the model's device; both give the same
         bits) -> (logits (B, V) float32, cache), the cache updated in
@@ -246,20 +282,20 @@ class LM(nn.Module):
             x, cache[i] = blocks.apply_block_decode(cfg, kind, params["layers"][i], x, pos, cache[i])
         return self._logits(params, x)[:, 0], cache
 
-    def compile_decode(self, cache: List[KVCache]) -> "DecodeStep":
+    def compile_decode(self, cache: List[Cache]) -> "DecodeStep":
         """The decode step as one program, bound to ``cache`` and to the
         model's current weights (see :class:`DecodeStep`)."""
         return DecodeStep(self, cache)
 
     # ------------------------------------------------------------ prefill
-    def prefill(self, tokens: torch.Tensor, max_len: int) -> Tuple[torch.Tensor, List[KVCache]]:
+    def prefill(self, tokens: torch.Tensor, max_len: int) -> Tuple[torch.Tensor, List[Cache]]:
         """Run the prompt (B, S), returning (last-token logits (B, V)
         float32, decode cache for ``max_len`` positions).
 
         The prefill attention emits each layer's K/V, re-laid-out into the
         decode cache: global layers left-aligned and zero-padded to
         ``max_len``, local layers in the ring layout of the last ``window``
-        rows.
+        rows. A recurrent layer emits its state after the last token.
         """
         cfg, params = self.cfg, self.compute_params()
         s = tokens.shape[1]
@@ -273,9 +309,13 @@ class LM(nn.Module):
             caches.append(self._relayout_cache(kind, em, s, max_len))
         return self._logits(params, x[:, -1:, :])[:, 0], caches
 
-    def _relayout_cache(self, kind: str, em: KVCache, s: int, max_len: int) -> KVCache:
-        """One layer's emitted (B, S, Hkv, hd) K/V -> its decode cache."""
+    def _relayout_cache(self, kind: str, em: Cache, s: int, max_len: int) -> Cache:
+        """One layer's emitted (B, S, Hkv, hd) K/V -> its decode cache; a
+        recurrent state passes through, each tensor copied into storage of
+        its own (the emitted ones are views of whole-prompt tensors)."""
         cfg = self.cfg
+        if kind in ("R", "W"):
+            return type(em)(*(t.clone(memory_format=torch.contiguous_format) for t in em))
         if kind in ("A", "M"):
             pad = (0, 0, 0, 0, 0, max_len - s)
             return KVCache(k=nn.functional.pad(em.k, pad), v=nn.functional.pad(em.v, pad))
@@ -299,11 +339,14 @@ class DecodeStep:
     static ``token`` (B, 1) and ``pos`` tensors: one eager warm-up step (it
     fills the lazy state and builds the kernels), then the capture, both
     through ``session._capture_graph`` (one capture at a time, thread-local,
-    the device's one warm-up stream). A step writes only the KV slot of its position, from its
-    token and the other slots, so the warm-up and the replay write the same
-    bits and the cache is left exactly as one eager step leaves it. Every
-    call (the first included) copies the token and position into the
-    static inputs and replays; the launch counters tick at the warm-up and
+    the device's one warm-up stream). The warm-up writes the cache as a
+    step does: the KV slot of its position, which the first replay writes
+    again with the same bits, and the next recurrent state (R, W), which the
+    replay would advance a second time. So the recurrent states are copied
+    before the capture and put back after it, and the first call leaves the
+    cache exactly as one eager step leaves it. Every call (the first
+    included) copies the token and position into the static inputs and
+    replays; the launch counters tick at the warm-up and
     the capture, never on a replay. The returned logits are the graph's
     static output, overwritten by the next call: read them (an ``argmax``)
     before calling again. A step that cannot be captured raises; loading
@@ -311,7 +354,7 @@ class DecodeStep:
     On the CPU every call is an eager ``decode_step``.
     """
 
-    def __init__(self, lm: LM, cache: List[KVCache]):
+    def __init__(self, lm: LM, cache: List[Cache]):
         self.lm, self.cache = lm, cache
         self._graph: Optional[torch.cuda.CUDAGraph] = None
 
@@ -320,9 +363,14 @@ class DecodeStep:
         self._params = lm.compute_params()
         self._token = token.detach().clone()
         self._pos = position_tensor(pos, dev).clone()
+        states = [t for c in self.cache if isinstance(c, _RECURRENT) for t in c]
+        before = [t.clone() for t in states]
         self._graph, self._logits = _session._capture_graph(
             lambda: lm.decode_step(self._token, self._pos, self.cache)[0], dev
         )
+        with torch.inference_mode():  # undo the warm-up's step
+            for t, saved in zip(states, before):
+                t.copy_(saved)
 
     def __call__(self, token: torch.Tensor, pos) -> torch.Tensor:
         if self.lm.device.type != "cuda":

@@ -45,7 +45,8 @@ def test_no_jax_or_reference_imports(tmp_path):
     assert port / "kernels" / "topk_select" / "ops.py" in PORT_FILES
     for mod in ("data/datasets.py", "data/sgb_cache.py", "core/dtypes.py", "core/ego.py",
                 "stream/delta.py", "stream/merge.py", "stream/ingest.py", "distributed/sharding.py",
-                "layers/moe.py", "configs/olmoe_1b_7b.py", "configs/qwen2_1_5b.py"):
+                "layers/moe.py", "configs/olmoe_1b_7b.py", "configs/qwen2_1_5b.py", "layers/rglru.py",
+                "layers/rwkv.py", "configs/recurrentgemma_2b.py", "configs/rwkv6_3b.py"):
         assert port / mod in PORT_FILES, mod
     probe = tmp_path / "probe.py"
     probe.write_text(

@@ -41,7 +41,8 @@ ATOL_LAYER = 1e-5
 ATOL_LOGITS = 1e-4  # the reference's decode-vs-forward tolerance
 # every ported arch: config module name -> registry name
 ARCHS = {"gemma3_4b": "gemma3-4b", "qwen2_1_5b": "qwen2-1.5b", "qwen2_72b": "qwen2-72b",
-         "chatglm3_6b": "chatglm3-6b", "olmoe_1b_7b": "olmoe-1b-7b", "arctic_480b": "arctic-480b"}
+         "chatglm3_6b": "chatglm3-6b", "olmoe_1b_7b": "olmoe-1b-7b", "arctic_480b": "arctic-480b",
+         "recurrentgemma_2b": "recurrentgemma-2b", "rwkv6_3b": "rwkv6-3b"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -106,17 +107,16 @@ def test_config_matches_reference(arch, smoke):
 
 def test_unported_arch_and_kind_raise():
     """What is still unported raises ``NotImplementedError`` naming its
-    ROADMAP item: the four archs of LM-3 to LM-6, the block kinds R, W, C,
-    E and D, and the plain-GELU MLP; an unknown name is a ``ValueError``."""
-    for arch, item in (("recurrentgemma_2b", "LM-3"), ("rwkv6_3b", "LM-4"), ("llama32_vision_90b", "LM-5"),
-                       ("seamless_m4t_medium", "LM-6")):
+    ROADMAP item: the two archs of LM-5 and LM-6, the block kinds C, E and
+    D, and the plain-GELU MLP; an unknown name is a ``ValueError``."""
+    for arch, item in (("llama32_vision_90b", "LM-5"), ("seamless_m4t_medium", "LM-6")):
         for smoke in (False, True):
             with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
                 tget(arch, smoke=smoke)
     with pytest.raises(ValueError):
         tget("no-such-arch")
     smoke = tget("gemma3-4b", smoke=True)
-    for kind, item in (("R", "LM-3"), ("W", "LM-4"), ("C", "LM-5"), ("E", "LM-6"), ("D", "LM-6")):
+    for kind, item in (("C", "LM-5"), ("E", "LM-6"), ("D", "LM-6")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
             tblocks.block_shapes(smoke, kind)
         with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
@@ -373,9 +373,10 @@ def test_lm_params_round_trip_smoke():
 def test_lm_layout_full_config_shapes(arch):
     """The published config, on shapes only (``jax.eval_shape`` of the
     reference's init; the port's LM on the meta device): every leaf, the
-    untied head and the nested MoE tree included, maps to one parameter of
-    the same shape, and the count is the config's analytic one. gemma3's
-    remainder group ("L" × 4) lands at pattern layers 30–33."""
+    untied head and the nested MoE and RWKV trees included, maps to one
+    parameter of the same shape, and the count is the config's analytic
+    one. gemma3's remainder group ("L" × 4) lands at pattern layers 30–33,
+    recurrentgemma's ("R" R L × 8, then R R) at 24–25."""
     import jax
     from repro.configs import get_config as jget
     from repro.models import build_model as jbuild
@@ -396,8 +397,16 @@ def test_lm_layout_full_config_shapes(arch):
         assert port["layers.0.moe.router.w"] == (tcfg.d_model, tcfg.moe.num_experts)
         assert port[f"layers.{tcfg.num_layers - 1}.moe.experts.wo"] == (
             tcfg.moe.num_experts, tcfg.moe.expert_d_ff, tcfg.d_model)
-    # the analytic count leaves out the biases and the norms
-    extra = sum(int(np.prod(s)) for n, s in port.items() if n.split(".")[-1] in ("bq", "bk", "bv", "scale", "bias"))
+    # the analytic count leaves out the biases and the norms, RG-LRU's gate
+    # matrices wa and wi and one of its four vectors a layer (it counts 3·w),
+    # and RWKV's lerps mu_*, its w0 and u
+    def left_out(name):
+        part, leaf = name.split(".")[-2:]
+        return (leaf in ("bq", "bk", "bv", "scale", "bias") or (part == "lru" and leaf in ("wa", "wi"))
+                or (part == "rwkv" and (leaf.startswith("mu_") or leaf in ("w0", "u"))))
+
+    extra = sum(int(np.prod(s)) for n, s in port.items() if left_out(n))
+    extra += tcfg.pattern().count("R") * (tcfg.lru_width or tcfg.d_model)
     assert sum(int(np.prod(s)) for s in port.values()) - extra == tcfg.param_count()
     if arch == "gemma3_4b":
         for i in range(30, 34):
@@ -406,11 +415,19 @@ def test_lm_layout_full_config_shapes(arch):
             assert path == f"groups.1.{i - 30}.attn.wq"
         assert names["layers.29.attn.wq"] == ("groups.0.5.attn.wq", 4)
         assert tcfg.pattern()[29] == "A" and set(tcfg.pattern()[30:]) == {"L"}
+    if arch == "recurrentgemma_2b":
+        assert names["layers.25.lru.wa"] == ("groups.1.1.lru.wa", 0)
+        assert names["layers.23.attn.wq"] == ("groups.0.2.attn.wq", 7)
+        assert port["layers.0.lru.conv_w"] == (4, 2560)
+    if arch == "rwkv6_3b":
+        assert names["layers.31.rwkv.ln_x.scale"] == ("groups.0.0.rwkv.ln_x.scale", 31)
+        assert port["layers.31.rwkv.u"] == (40, 64) and port["layers.0.rwkv.decay_a"] == (2560, 64)
 
 
-@pytest.mark.parametrize("arch", ("gemma3-4b", "qwen2-1.5b", "olmoe-1b-7b"))
+@pytest.mark.parametrize("arch", ("gemma3-4b", "qwen2-1.5b", "olmoe-1b-7b", "recurrentgemma-2b", "rwkv6-3b"))
 def test_serve_cli_on_cpu(arch, capsys):
-    """The serving CLI on gemma3 (pruned), an LM-1 and an MoE smoke arch."""
+    """The serving CLI on gemma3 (pruned), an LM-1, an MoE and the two
+    recurrent smoke archs."""
     from repro_torch.launch import serve
 
     toks = serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--prompt-len", "20", "--gen", "4"])
