@@ -34,7 +34,12 @@ exits non-zero at the first phase that fails:
    sweep shapes, k >= length (equal to the dense attention), per-row
    lengths with one below K, the logits [1, 1, 2, 1] tie at k = 2 (keeps
    positions {1, 2}), gemma3-4b's decode shapes in float32 and bfloat16,
-   and a K too wide for shared memory, which raises before any launch;
+   the shapes the cross-attention archs' pruned cross-attention gives it in
+   phase 11 (llama-3.2-vision-90b's C layers: 8 q-heads a kv-head, hd 128,
+   4096 context rows, K 1024; seamless-m4t-medium's D cross: 1 a kv-head,
+   hd 64, 1024 rows, K 256; bfloat16, every row valid) and integer q and
+   keys at llama's grouping (tie-heavy), and a K too wide for shared
+   memory, which raises before any launch;
    decode K1's tie path and fast path on logits built for them, in float32
    and bfloat16 (ties at t straddling slot 2048 at K 2048, all-equal rows,
    -0.0 and +0.0 at t, NaN, -inf and NEG-band logits, lengths 0, below,
@@ -263,27 +268,47 @@ exits non-zero at the first phase that fails:
    device mirror of its predecessor); and a HAN ACM training step
    captured while a threaded front-end serves RGAT IMDB at 2000
    requests/s, with no failed request;
-11. serves the dense, MoE and recurrent LM archs through ``build_model``,
-   ``prefill`` and ``compile_decode``, with seeded weights: qwen2-1.5b,
-   chatglm3-6b, olmoe-1b-7b, recurrentgemma-2b (RG-LRU "R" blocks and
-   local attention, 2:1; the prompt passes its 2048-token window) and
-   rwkv6-3b (RWKV-6 "W" blocks) whole at their published configs,
-   qwen2-72b (8 of 80 layers) and arctic-480b (1 of 35) at full width with
-   their depth cut to fit one card. Each runs a prefill of (4, 3072) and
-   32 greedy decode steps (8 for the cut two) eagerly, then the same steps
-   through the compiled step: tokens, float32 logits and every cache and
-   recurrent state tensor bit for bit the eager loop's, and no kernel of
-   the port launched (none of these configs prunes). It times the prefill and both decode loops, profiles a
+11. serves the dense, MoE, recurrent and cross-attention LM archs through
+   ``build_model``, ``prefill`` and ``compile_decode``, with seeded
+   weights: qwen2-1.5b, chatglm3-6b, olmoe-1b-7b, recurrentgemma-2b
+   (RG-LRU "R" blocks and local attention, 2:1; the prompt passes its
+   2048-token window), rwkv6-3b (RWKV-6 "W" blocks) and
+   seamless-m4t-medium (12 "E" encoder layers over 1024 stub audio frames,
+   12 "D" decoder layers) whole at their published configs, qwen2-72b (8 of
+   80 layers), arctic-480b (1 of 35) and llama-3.2-vision-90b (10 of 100:
+   two A A A A C cycles, over 4096 stub image embeddings) at full width
+   with their depth cut to fit one card. The two cross-attention archs'
+   gates are drawn from N(0, 1) (the seeded init's are zero, which
+   silences the cross path) and their context on the card; the logits'
+   change with every gate at zero is printed. Each runs a prefill of
+   (4, 3072) and 32 greedy decode steps (8 for the cut three) eagerly,
+   then the same steps through the compiled step: tokens, float32 logits
+   and every cache and recurrent state tensor bit for bit the eager
+   loop's, and no kernel of the port launched (none of these published
+   configs prunes). Then the cross-attention archs again with ADE on
+   (``attn_prune_k`` 1024 for llama, 256 for seamless, as the launcher's
+   ``--prune-k`` sets it): a second LM on the same parameters (shared, not
+   copied), the same steps from a clone of the prefill cache,
+   teacher-forced on the dense run's tokens, eager (kernel #4's pair
+   launched once each per pruned attention a step: llama's 8 A and 2 C
+   layers, seamless's 12 self and 12 cross) and captured (bit for bit, no
+   launch on a replay), step times beside the dense ones and the top-1
+   agreement with the dense logits, and the decode pair timed at the first
+   cross-attention's inputs. It times the prefill and both decode loops, profiles a
    captured step (and, for chatglm3-6b and qwen2-72b, a prefill: device
    time by kernel, busy share),
    reads the peak reserved memory, counts each decode step's bytes (the weights it reads
    in the compute dtype, all of olmoe's experts included, the KV rows it
-   needs, at most a window's on a local layer, and the recurrent states it
+   needs, at most a window's on a local layer, a context's K rows and the
+   V rows kept, and the recurrent states it
    reads and writes), and prints how many (token, expert) picks each olmoe
-   prefill group dropped. For the five whole archs, 2 layers (3 for
-   recurrentgemma-2b: R R L) at full width in float32 on the card and on
-   the CPU (one seeded set of weights): the prefill of (2, 300) and two
-   decode steps' logits within 1e-4 of the CPU's logit scale. For olmoe each layer's routing is compared first:
+   prefill group dropped. For the five whole archs and the two
+   cross-attention ones, 2 layers (3 for recurrentgemma-2b: R R L; an A and
+   a C for llama; 2 D over 2 E for seamless) at full width in float32 on
+   the card and on the CPU (one seeded set of weights, gates drawn): the
+   prefill of (2, 300) and two decode steps' logits within 1e-4 of the
+   CPU's logit scale, and for the cross-attention archs the two steps again
+   pruned (kernel #4 on the card, its plain version on the CPU). For olmoe each layer's routing is compared first:
    a token whose top-8 experts differ on the two devices is a flip, printed
    with its top-8 margin on the CPU; the check fails above 1 % of the
    routed tokens or at a flip whose margin exceeds 1e-5, and holds the
@@ -381,11 +406,24 @@ SHARD_MESH_PATHS = (("han", "acm"), ("rgat", "imdb"), ("simple_hgn", "imdb"))
 SHARD_DELTAS, SHARD_TIMED = 2, 50
 SHARD_TRAIN_LR = 1e-3  # a step of its own: phase 5 cached the ones at TRAIN_LR
 SHARD_SERVE_REQUESTS = 20_000  # paced requests offered at most (10 s at 2000/s); cut once the steps ran
-# phase 11, the dense, MoE and recurrent LM archs: (arch, layers kept or None
+# phase 11, the dense, MoE, recurrent and cross-attention LM archs: (arch, layers kept or None
 # for the published depth, decode steps); the two cut to fit one card's 80 GB
 ARCH_RUNS = (("qwen2-1.5b", None, 32), ("chatglm3-6b", None, 32), ("olmoe-1b-7b", None, 32),
-             ("qwen2-72b", 8, 8), ("arctic-480b", 1, 8), ("recurrentgemma-2b", None, 32), ("rwkv6-3b", None, 32))
-ARCH_CPU_CHECK = ("qwen2-1.5b", "chatglm3-6b", "olmoe-1b-7b", "recurrentgemma-2b", "rwkv6-3b")
+             ("qwen2-72b", 8, 8), ("arctic-480b", 1, 8), ("recurrentgemma-2b", None, 32), ("rwkv6-3b", None, 32),
+             ("llama-3.2-vision-90b", 10, 8), ("seamless-m4t-medium", None, 32))
+ARCH_CPU_CHECK = ("qwen2-1.5b", "chatglm3-6b", "olmoe-1b-7b", "recurrentgemma-2b", "rwkv6-3b",
+                  "llama-3.2-vision-90b", "seamless-m4t-medium")
+# the cross-attention archs also run with ADE on (attn_prune_k, the knob the
+# launcher's --prune-k sets): the pruned cross-attention and self-attention
+# decode through kernel #4. K is a quarter of each context, a choice: neither
+# published config, nor anything else here, gives a K for these archs
+ARCH_PRUNE_K = {"llama-3.2-vision-90b": 1024, "seamless-m4t-medium": 256}
+# kernel #4 at the shapes their pruned cross-attention gives it in phase 11:
+# (name, B, H, Hkv, dh, context rows, K); phase 2 holds it to its plain
+# version there, and on integer q and keys at llama's grouping (tie-heavy)
+CROSS_DECODE_SHAPES = (("llama-3.2-vision-90b C layer", 4, 64, 8, 128, 4096, 1024),
+                       ("seamless-m4t-medium D cross", 4, 16, 16, 64, 1024, 256))
+CROSS_TIE_CASE = "integer q and keys at llama's C layer shape"
 # a prefill's profile costs 10-20 s of host time (tens of thousands of
 # events); two archs show its two regimes: chatglm3-6b's 28 global layers
 # (the plain-torch attention's elementwise passes) and qwen2-72b's wide GEMMs
@@ -398,6 +436,10 @@ ARCH_EAGER_OPS = 8  # an eager step's largest operators by device time, with the
 # on 3 layers, so that its first local-attention layer is in (R R L)
 ARCH_CPU_LAYERS, ARCH_CPU_BATCH, ARCH_CPU_PROMPT, ARCH_CPU_STEPS = 2, 2, 300, 2
 ARCH_CPU_LAYERS_OF = {"recurrentgemma-2b": 3}
+# the cross-attention archs' cut keeps a layer of each kind at full width:
+# llama's 2 layers are one A and one C (its first two of A A A A C are both
+# A), seamless's 2 decoder layers run over 2 encoder layers
+ARCH_CPU_CUT = {"llama-3.2-vision-90b": {"cycle": ("A", "C")}, "seamless-m4t-medium": {"enc_layers": 2}}
 TOL_ARCH_REL, ARCH_FLIP_SHARE, ARCH_FLIP_MARGIN = 1e-4, 0.01, 1e-5
 # the MoE archs' routing spread, seeded against unit-scale weights: per layer
 # of a 2-layer float32 prefill of batch 2 of 512 tokens (two whole groups of
@@ -430,6 +472,7 @@ def sync(dev) -> None:
 def reset_launches(ops) -> None:
     for key in ops.LAUNCHES:
         ops.LAUNCHES[key] = 0
+    getattr(ops, "LAUNCHES_BY_WIDTH", {}).clear()
 
 
 def k1_widths(sgs, route: str, prune_k, ops) -> list:
@@ -1343,6 +1386,11 @@ def decode_cases():
     cases.append(("integer q and keys (tie-heavy logits)", 2, 8, 2, 16, 180, 40, [180, 97], "ints"))
     for dt in ("float32", "bfloat16"):
         cases.append((f"gemma3-4b decode shapes {dt}", 4, 8, 4, 256, 3104, 2048, [3104, 3090, 3073, 3100], dt))
+    # the cross-attention archs' pruned cross-attention: every context row valid
+    for name, b, h, hkv, dh, c, k in CROSS_DECODE_SHAPES:
+        cases.append((f"{name} bfloat16", b, h, hkv, dh, c, k, [c] * b, "bfloat16"))
+    b, h, hkv, dh, c, k = CROSS_DECODE_SHAPES[0][1:]
+    cases.append((f"{CROSS_TIE_CASE} (tie-heavy logits)", b, h, hkv, dh, c, k, [c] * b, "ints"))
     # K2's edges: k = 1 with an empty row, k not a multiple of 32 nor of the
     # 64 parts a (batch, q-head) is split into, rows not a multiple of 16 B
     cases.append(("k = 1, one row empty", 2, 4, 2, 8, 64, 1, [0, 64], "float32"))
@@ -1361,7 +1409,7 @@ def check_decode_kernels(dev):
 
     err = {"score_prune": 0.0, "value_gather": 0.0}
     gen = torch.Generator().manual_seed(2)
-    ties = {}
+    ties, per_case = {}, {}
     for name, b, h, hkv, dh, s, k, lens, dt in decode_cases():
         dtype = torch.float32 if dt == "ints" else getattr(torch, dt)
         q, kc, vc = (torch.randn(shape, generator=gen).to(dev, dtype)
@@ -1415,9 +1463,14 @@ def check_decode_kernels(dev):
             extra += f", {int(short.sum())} row(s) below K keep only their valid positions"
         err["score_prune"] = max(err["score_prune"], e_a)
         err["value_gather"] = max(err["value_gather"], e_o)
+        per_case[name] = {"alpha_err": e_a, "out_err": e_o, "tie_rows": n_tie, "rows": b * h}
+        if name.startswith(CROSS_TIE_CASE):  # timed too: the tie path at llama's grouping
+            t_tie, b_tie, _ = decode_pair_times((q, kc, vc, lens, k, scale), dev)
+            per_case[name].update(times_ms=t_tie, bounds={key: {"bound_ms": v[0], "bound_by": v[1], "bytes": v[2]}
+                                                          for key, v in b_tie.items()})
         print(f"  kernels == plain  decode {name}: ids equal, alpha err {e_a:.3g}, out err {e_o:.3g}{extra}; "
               f"K2 with empty slots equal, bitwise the same on a second call; tie-path rows {n_tie} of {b * h}")
-    return err, ties
+    return err, ties, per_case
 
 
 def crafted_decode_inputs(x, scale, dtype, dev):
@@ -1772,15 +1825,15 @@ def capture_decode_inputs(lm, cache0, tok0):
     return seen[-1]
 
 
-def decode_timings(lm, prompts, cache0, tok0, decode_in, dev):
-    """Phase 4, the decode pair at ``decode_in`` (the inputs of the last
-    global layer in the first decode step, bfloat16 cache), its bounds from
-    this run's inputs, the LM's prefill and decode-step times, and the
-    decode pair's share of a decode step's device time."""
+def decode_pair_times(decode_in, dev):
+    """The decode pair at ``decode_in`` (q, k_cache, v_cache, lengths,
+    prune_k, scale): K1's ids held to its plain version's, K1 and K2 timed
+    (device and event ms), their plain versions and K2's library call (a
+    CSR sparse-dense product), and the bounds from the bytes and operations
+    these inputs need. Returns (times, bounds, shapes)."""
     import torch
 
     from repro_torch.kernels.topk_decode_attention import ops, ref
-    from repro_torch.layers.attention import KVCache
 
     q, kc, vc, lens, prune_k, scale = decode_in
     k = min(prune_k, kc.shape[1])
@@ -1788,6 +1841,13 @@ def decode_timings(lm, prompts, cache0, tok0, decode_in, dev):
     with torch.inference_mode():
         alpha, ids = ops.score_prune(q, kc, lens, k, scale)
         out = ops.value_gather(alpha, ids, vc)
+        a_p, i_p = ref.score_prune_plain(q, kc, lens, k, scale)
+        check(torch.equal(ids, i_p), f"decode K1 at {list(q.shape)} / {list(kc.shape)}: ids differ from the plain "
+                                     f"version's in {int((ids != i_p).sum())} slots")
+        t["alpha_err"] = float((alpha - a_p).abs().max())
+        t["out_err"] = float((out - ref.value_gather_plain(a_p, i_p, vc)).abs().max())
+        check(t["alpha_err"] <= TOL_ALPHA and t["out_err"] <= TOL_OUT,
+              f"decode pair at {list(kc.shape)}: alpha err {t['alpha_err']:.3g}, out err {t['out_err']:.3g}")
         t["score_prune_plain"] = cuda_ms(lambda: ref.score_prune_plain(q, kc, lens, k, scale), 2, warmup=1)
         t["value_gather_plain"] = cuda_ms(lambda: ref.value_gather_plain(alpha, ids, vc), 10)
         timed(t, "score_prune", lambda: ops.score_prune(q, kc, lens, k, scale), 30)
@@ -1821,6 +1881,23 @@ def decode_timings(lm, prompts, cache0, tok0, decode_in, dev):
         retained = int(keep.sum())
         k2_bytes = distinct * dh * el + (alpha.numel() + ids.numel()) * 4 + out.numel() * 4
         k2_ops = 2 * retained * dh
+    bounds = {"score_prune": bound(k1_bytes, k1_ops), "value_gather": bound(k2_bytes, k2_ops)}
+    shapes = {"q": list(q.shape), "cache": list(kc.shape), "dtype": str(kc.dtype), "k": k,
+              "lengths": lens.tolist(), "retained_slots": retained, "distinct_retained_rows": distinct}
+    return t, bounds, shapes
+
+
+def decode_timings(lm, prompts, cache0, tok0, decode_in, dev):
+    """Phase 4, the decode pair at ``decode_in`` (the inputs of the last
+    global layer in the first decode step, bfloat16 cache), its bounds from
+    this run's inputs, the LM's prefill and decode-step times, and the
+    decode pair's share of a decode step's device time."""
+    import torch
+
+    from repro_torch.layers.attention import KVCache
+
+    t, bounds, pair_shapes = decode_pair_times(decode_in, dev)
+    with torch.inference_mode():
         # the LM: prefill, and a decode step at one position (it writes the
         # same cache slot each time), eager and captured: its time, the
         # device's busy time and the decode pair's share of it
@@ -1842,12 +1919,7 @@ def decode_timings(lm, prompts, cache0, tok0, decode_in, dev):
                 "decode_pair_ms": pair, "decode_pair_share_of_device": pair / busy,
                 "host_ops_per_step": host_ops(fn), "top_kernels_ms": [[name[:80], ms] for name, ms in top],
             }
-    bounds = {"score_prune": bound(k1_bytes, k1_ops), "value_gather": bound(k2_bytes, k2_ops)}
-    shapes = {
-        "inputs": f"{LM_ARCH} decode step 1, last global layer", "q": list(q.shape), "cache": list(kc.shape),
-        "dtype": str(kc.dtype), "k": k, "lengths": lens.tolist(), "retained_slots": retained,
-        "distinct_retained_rows": distinct,
-    }
+    shapes = {"inputs": f"{LM_ARCH} decode step 1, last global layer", **pair_shapes}
     return t, bounds, shapes, prof
 
 
@@ -3925,17 +3997,23 @@ def recorded_dispatch(keep: list, reduce=lambda probs, dispatch: (probs.cpu(), d
 def decode_step_bytes(lm, batch: int, positions) -> dict:
     """Bytes a decode step must move: every weight it uses in the dtype it
     computes in (the dense GShard einsum reads all experts; a tied head reads
-    the table, else the table gives only ``batch`` rows); the KV rows of
-    positions 0..pos of every global layer ("A", "M") and at most the
-    window's of a local one ("L"), as the mean over ``positions``; and the
-    recurrent states, read and written once a step: h (float32) and the
-    conv window of an "R" layer, the (B, H, hs, hs) float32 state and both
-    token shifts of a "W" layer."""
+    the table, else the table gives only ``batch`` rows; a cross-attention's
+    wk, wv, bk and bv are not read, since the context's K and V were
+    projected at prefill, nor are an encoder's weights); the KV rows of
+    positions 0..pos of every global layer ("A", "M", a "D" block's self)
+    and at most the window's of a local one ("L"), and every context row's K
+    of a cross-attention ("C", a "D" block's cross), each with its V rows:
+    all of them dense, the K it keeps where the layer prunes
+    (``attn_prune_k`` below its cache width: the fewest rows its retained
+    set can span), as the mean over ``positions`` (the global cache is
+    ``max(positions) + 1`` wide); and the recurrent states, read and written
+    once a step: h (float32) and the conv window of an "R" layer, the
+    (B, H, hs, hs) float32 state and both token shifts of a "W" layer."""
     import torch
 
     params = lm.compute_params()
     cfg = lm.cfg
-    kinds = cfg.pattern()
+    kinds = lm.kinds
 
     def size(tree) -> int:
         if isinstance(tree, dict):
@@ -3944,19 +4022,38 @@ def decode_step_bytes(lm, batch: int, positions) -> dict:
             return sum(size(v) for v in tree)
         return tree.numel() * tree.element_size()
 
+    def read_at_decode(layer: dict) -> dict:
+        cross = {k: v for k, v in layer.get("cross", {}).items() if k not in ("wk", "wv", "bk", "bv")}
+        return {**layer, "cross": cross}
+
     table = params["embed"]["table"]
-    weights = size(params["layers"]) + size(params["final_norm"]) + size(params.get("lm_head", {}))
+    weights = sum(size(read_at_decode(p)) for p in params["layers"])
+    weights += size(params["final_norm"]) + size(params.get("lm_head", {}))
     weights += size(table) if cfg.tie_embeddings else batch * table.shape[1] * table.element_size()
     el = torch.finfo(cfg.adtype).bits // 8
-    row = 2 * batch * cfg.num_kv_heads * cfg.hd * el  # one position's K and V in one layer
+    half = batch * cfg.num_kv_heads * cfg.hd * el  # one position's K (or V) in one layer
+    row = 2 * half
     window = cfg.sliding_window or float("inf")
-    kv = sum(row * min(pos + 1, window if k == "L" else pos + 1) for pos in positions
-             for k in kinds if k in "AML") / len(positions)
+    max_len, ctx, prune = max(positions) + 1, lm.ctx_len, cfg.attn_prune_k
+
+    def attend(valid: int, width: int) -> int:  # K rows, then the V rows read
+        pruned = prune is not None and prune < width
+        return half * valid + half * (min(prune, valid) if pruned else valid)
+
+    def layer_kv(kind: str, pos: int) -> int:
+        if kind == "L":
+            return row * min(pos + 1, window)
+        return ((attend(pos + 1, max_len) if kind in "AMD" else 0)
+                + (attend(ctx, ctx) if kind in "CD" else 0))
+
+    kv = sum(layer_kv(k, pos) for pos in positions for k in kinds if k in "AMLCD") / len(positions)
+    context_kv = sum(attend(ctx, ctx) for k in kinds if k in "CD")
     w, hs = cfg.lru_width or cfg.d_model, cfg.rwkv_head_size
     state = {"R": batch * (w * 4 + (cfg.conv_width - 1) * w * el),
              "W": batch * (cfg.d_model // hs * hs * hs * 4 + 2 * cfg.d_model * el)}
     states = 2 * sum(state.get(k, 0) for k in kinds)
-    return {"weights": weights, "kv_mean": kv, "kv_per_position": row * sum(k in "AM" for k in kinds),
+    return {"weights": weights, "kv_mean": kv, "context_kv": context_kv,
+            "kv_per_position": row * sum(k in "AMD" for k in kinds),
             "states_read_and_written": states, "bound_ms": (weights + kv + states) / PEAK_BYTES_PER_S * 1e3}
 
 
@@ -4060,23 +4157,65 @@ def routing_spread(lm, toks) -> list:
     return out
 
 
+def draw_gates(lm, generator) -> list:
+    """Every cross-attention ``gate`` of ``lm`` drawn from N(0, 1) on the
+    generator's device: the seeded init's, like the reference's, are zero,
+    and ``tanh(0)`` silences the cross path. Returns the values drawn."""
+    import torch
+
+    drawn = []
+    for name, p in lm.named_parameters():
+        if name.endswith("cross.gate"):
+            p.data.copy_(torch.randn((), generator=generator, device=generator.device))
+            drawn.append(float(p))
+    lm._compute = None
+    return drawn
+
+
+def stub_context(lm, batch: int, generator):
+    """The stub frontend's output on the generator's device, as the
+    reference launcher draws it: (batch, ctx_len, d_model) standard normal
+    image embeddings or audio frames; None for an LM without a context."""
+    import torch
+
+    if not lm.ctx_len:
+        return None
+    return torch.randn((batch, lm.ctx_len, lm.cfg.d_model), generator=generator, device=generator.device)
+
+
+def pruned_layers(lm, max_len: int) -> int:
+    """Attentions of a decode step that prune through kernel #4: a global
+    self-attention ("A", "M", a "D" block's self) whose cache is wider than
+    ``attn_prune_k``, a cross-attention ("C", a "D" block's cross) whose
+    context is."""
+    k = lm.cfg.attn_prune_k
+    if k is None:
+        return 0
+    return sum((kind in "AMD" and k < max_len) + (kind in "CD" and k < lm.ctx_len) for kind in lm.kinds)
+
+
 def arch_cpu_check(arch: str, dev) -> dict:
     """Phase 11: ``arch`` at full width, 2 layers (``ARCH_CPU_LAYERS_OF``
-    where it says otherwise), float32, the same weights on the card and on
-    the CPU; prefill and two decode steps.
+    where it says otherwise, cut as ``ARCH_CPU_CUT`` says), float32, the
+    same weights on the card and on the CPU; prefill and two decode steps.
     Errors are relative to the CPU's largest |logit|. The weights are
     seeded; an MoE arch's experts and routers are then redrawn at unit
     scale (``unit_scale_moe``), after its routing spread was read under
     both, since the seeded ones route alike most late tokens. For an MoE
     arch the routing is compared first and the logits held only on the
-    sequences no routing difference touched."""
+    sequences no routing difference touched. A cross-attention arch gets
+    its gates drawn away from zero (``draw_gates``) and a seeded context,
+    and its two decode steps run again from the same prefill caches with
+    ``ARCH_PRUNE_K`` (kernel #4 on the card, its plain version on the CPU)."""
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels.topk_decode_attention import ops as tda
     from repro_torch.models import build_model
+    from repro_torch.models.lm import clone_cache
 
     layers = ARCH_CPU_LAYERS_OF.get(arch, ARCH_CPU_LAYERS)
-    cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype="float32", **ARCH_CPU_CUT.get(arch, {}))
     b, t = ARCH_CPU_BATCH, ARCH_CPU_PROMPT
     max_len = t + ARCH_CPU_STEPS
     gpu = build_model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(2))
@@ -4087,24 +4226,33 @@ def arch_cpu_check(arch: str, dev) -> dict:
         spread["seeded"] = routing_spread(gpu, toks)
         unit_scale_moe(gpu, torch.Generator(dev).manual_seed(5))
         spread["unit_scale"] = routing_spread(gpu, toks)
-        for weights, layers in spread.items():
+        for weights, by_layer in spread.items():
             print(f"  {arch} routing spread, {weights} weights, batch {ARCH_SPREAD_BATCH} of {ARCH_SPREAD_PROMPT} "
-                  f"tokens, by layer: {json.dumps(layers)}")
+                  f"tokens, by layer: {json.dumps(by_layer)}")
+    gates = draw_gates(gpu, torch.Generator(dev).manual_seed(6)) if gpu.ctx_len else []
     cpu = build_model(cfg, device="cpu", params={n: p.cpu() for n, p in gpu.named_parameters()})
+    ctx = stub_context(cpu, b, torch.Generator().manual_seed(7))
     toks = torch.randint(0, cfg.vocab_size, (b, t), generator=torch.Generator().manual_seed(3))
     moe = cfg.moe is not None
     calls, rows = [], []  # per call: (gpu logits, cpu logits); rows: routing diffs
+    pruned_calls, step_toks = [], []
+    if arch in ARCH_PRUNE_K:  # the same weights, pruned (shared, not copied)
+        pcfg = dataclasses.replace(cfg, attn_prune_k=ARCH_PRUNE_K[arch])
+        p_g = build_model(pcfg, device=dev, params=dict(gpu.named_parameters()))
+        p_c = build_model(pcfg, device="cpu", params=dict(cpu.named_parameters()))
     with torch.inference_mode():
         rec_g, rec_c = [], []
         with recorded_dispatch(rec_g):
-            l_g, c_g = gpu.prefill(toks.to(dev), max_len=max_len)
+            l_g, c_g = gpu.prefill(toks.to(dev), max_len=max_len, context=None if ctx is None else ctx.to(dev))
         with recorded_dispatch(rec_c):
-            l_c, c_c = cpu.prefill(toks, max_len=max_len)
+            l_c, c_c = cpu.prefill(toks, max_len=max_len, context=ctx)
         calls.append((l_g.cpu(), l_c))
+        prefill_caches = (clone_cache(c_g), clone_cache(c_c)) if arch in ARCH_PRUNE_K else None
         if moe:
             rows.append(routing_diff(cfg, rec_g, rec_c, b, t, 0))
         for i in range(ARCH_CPU_STEPS):
             tok = l_c.argmax(-1)[:, None]
+            step_toks.append(tok)
             rec_g, rec_c = [], []
             with recorded_dispatch(rec_g):
                 l_g, c_g = gpu.decode_step(tok.to(dev), t + i, c_g)
@@ -4113,12 +4261,28 @@ def arch_cpu_check(arch: str, dev) -> dict:
             calls.append((l_g.cpu(), l_c))
             if moe:
                 rows.append(routing_diff(cfg, rec_g, rec_c, b, 1, i + 1))
+        if prefill_caches is not None:
+            # the same decode steps, pruned, from the same prefill caches
+            # (prefill does not prune)
+            want = pruned_layers(p_g, max_len)
+            c_g, c_c = prefill_caches
+            for i, tok in enumerate(step_toks):
+                reset_launches(tda)
+                l_g, c_g = p_g.decode_step(tok.to(dev), t + i, c_g)
+                sync(dev)
+                check(tda.LAUNCHES == {"score_prune": want, "value_gather": want},
+                      f"{arch} pruned decode step {i}: kernel #4 launches {tda.LAUNCHES}, expected {want} each")
+                l_c, c_c = p_c.decode_step(tok, t + i, c_c)
+                pruned_calls.append((l_g.cpu(), l_c))
+            del p_g, prefill_caches
     del gpu, c_g
     scale = max(float(c.abs().max()) for _, c in calls)
-    res = {"layers": layers, "kinds": "".join(cfg.pattern()), "batch": b, "prompt": t, "decode_steps": ARCH_CPU_STEPS, "logit_scale": scale,
-           "weights": "seeded, experts and routers at unit scale" if spread else "seeded"}
+    res = {"layers": layers, "kinds": "".join(cpu.kinds), "batch": b, "prompt": t, "decode_steps": ARCH_CPU_STEPS,
+           "logit_scale": scale, "weights": "seeded, experts and routers at unit scale" if spread else "seeded"}
     if spread:
         res["routing_spread"] = spread
+    if gates:
+        res.update(gates=gates, context=list(ctx.shape), encoder_layers=cfg.enc_layers)
     held = set(range(b))
     if moe:
         flips = [f for r in rows for f in r["flips"]]
@@ -4135,13 +4299,21 @@ def arch_cpu_check(arch: str, dev) -> dict:
     rows_held = sorted(held)
     errs = [float((g[rows_held] - c[rows_held]).abs().max()) / scale for g, c in calls]
     res.update(rel_errs=errs)
-    check(all(bool(torch.isfinite(g).all()) for g, _ in calls), f"{arch}: non-finite logits on the card")
+    check(all(bool(torch.isfinite(g).all()) for g, _ in calls + pruned_calls), f"{arch}: non-finite logits on the card")
     check(max(errs) <= TOL_ARCH_REL, f"{arch} {layers} layers float32, card vs CPU: logits {errs} of the "
                                      f"logit scale {scale:.3g} > {TOL_ARCH_REL}")
     line = (f"  {arch} {layers} layers ({res['kinds']}) float32, {res['weights']} weights, batch {b} prompt {t} + "
             f"{ARCH_CPU_STEPS} steps: card vs CPU "
             f"logits {max(errs):.3g} of the logit scale {scale:.3g} (prefill {errs[0]:.3g}, decode "
             f"{max(errs[1:]):.3g})")
+    if pruned_calls:
+        p_errs = [float((g - c).abs().max()) / scale for g, c in pruned_calls]
+        res.update(pruned_rel_errs=p_errs, prune_k=ARCH_PRUNE_K[arch], pruned_layers_per_step=want)
+        check(max(p_errs) <= TOL_ARCH_REL, f"{arch} pruned (K {ARCH_PRUNE_K[arch]}) float32 decode, card vs CPU: "
+                                           f"logits {p_errs} of the logit scale {scale:.3g} > {TOL_ARCH_REL}")
+        line += (f"; pruned at K {ARCH_PRUNE_K[arch]} ({want} attentions a step through kernel #4 on the card, its "
+                 f"plain version on the CPU) decode {max(p_errs):.3g}; gates {[round(g, 3) for g in gates]}, "
+                 f"context {list(ctx.shape)}")
     if moe:
         line += (f"; routing: {len(res['flips'])} flips of {res['routed_tokens']} routed tokens, "
                  f"{res['slotted_differently']} slotted differently, sequences held {res['sequences_held']}")
@@ -4151,17 +4323,88 @@ def arch_cpu_check(arch: str, dev) -> dict:
     return res
 
 
+def decode_runs(tag: str, lm, cache, gen: int, want: dict, modules, first=None, forced=None, hook=None) -> dict:
+    """Phase 11's decode of one LM on the card: ``gen`` eager steps from a
+    clone of ``cache``, then the same steps through ``compile_decode`` on
+    ``cache`` itself. Greedy from the token ``first``, or teacher-forced on
+    ``forced`` (a token a step). Launches are counted a step: ``want`` on
+    an eager step, twice that on the captured loop's first (warm-up and
+    capture), nothing on a replay. The captured steps' input tokens and
+    logits, and at the end every tensor of the cache (KV caches and
+    recurrent states alike), are bit for bit the eager loop's. ``hook(i)``,
+    where given, is a context manager around eager step ``i``. Returns the
+    step, the input tokens, the eager logits, both loops' event times and
+    the token after the last captured step, and the launches counted over
+    the eager steps."""
+    import torch
+
+    from repro_torch.models.lm import cache_tensors, clone_cache
+
+    def timed(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits = fn()
+        end.record()
+        end.synchronize()
+        return logits, start.elapsed_time(end)
+
+    def launched(label: str, expected: dict) -> dict:
+        got = all_launches(*modules)
+        check(got == expected, f"{tag} {label}: launches {got}, expected {expected}")
+        return got
+
+    def after(i, logits):
+        return logits.argmax(-1)[:, None] if forced is None else forced[min(i + 1, gen - 1)]
+
+    twice = {key: 2 * n for key, n in want.items()}
+    zero = {key: 0 for key in want}
+    eager_cache, tokens, eager_logits, eager_ms = clone_cache(cache), [], [], []
+    eager_launches = dict(zero)
+    tok = first if forced is None else forced[0]
+    for i in range(gen):
+        for m in modules:
+            reset_launches(m)
+        tokens.append(tok)
+        with hook(i) if hook else contextlib.nullcontext():
+            (logits, eager_cache), ms = timed(lambda: lm.decode_step(tok, LM_PROMPT + i, eager_cache))
+        for key, n in launched(f"eager decode step {i}", want).items():
+            eager_launches[key] += n
+        check(bool(torch.isfinite(logits).all()), f"{tag} eager decode step {i}: non-finite logits")
+        eager_ms.append(ms)
+        eager_logits.append(logits)
+        tok = after(i, logits)
+    step = lm.compile_decode(cache)
+    captured_ms, tok = [], tokens[0]
+    for i in range(gen):
+        check(torch.equal(tok, tokens[i]), f"{tag} captured decode step {i}: input token differs from the eager loop's")
+        for m in modules:
+            reset_launches(m)
+        logits, ms = timed(lambda: step(tok, LM_PROMPT + i))
+        launched(f"captured decode step {i}", twice if i == 0 else zero)
+        check(same_bits((logits,), (eager_logits[i],)), f"{tag} captured decode step {i}: logits differ from the "
+                                                        "eager step's")
+        captured_ms.append(ms)
+        tok = after(i, logits)
+    check(all(torch.equal(x, y) for x, y in zip(cache_tensors(cache), cache_tensors(eager_cache))),
+          f"{tag}: the captured steps' cache or states differ from the eager loop's")
+    return {"step": step, "tokens": tokens, "eager_logits": eager_logits, "eager_ms": eager_ms,
+            "captured_ms": captured_ms, "last": tok, "eager_launches": eager_launches}
+
+
 def arch_run(arch: str, layers, gen: int, zero: dict, modules, dev) -> dict:
     """Phase 11, one arch on the card: seeded weights, prefill of
-    (LM_BATCH, LM_PROMPT), ``gen`` eager greedy decode steps, then the same
-    steps through ``compile_decode`` (tokens, float32 logits and every
-    tensor of the cache, KV caches and recurrent states alike, bit for bit
-    the eager loop's); times, peak reserved memory and the decode step's
-    byte bound. No kernel of the port may launch (``zero``)."""
+    (LM_BATCH, LM_PROMPT), ``gen`` greedy decode steps eager and then
+    captured (``decode_runs``); times, peak reserved memory and the decode
+    step's byte bound. No kernel of the port may launch (``zero``). A
+    cross-attention arch gets its gates drawn away from zero (``draw_gates``)
+    and a stub context drawn on the card; the logits' change with the gates
+    at zero is printed (``gates_off``), and then its pruned run
+    (``pruned_run``)."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
+    from repro_torch.models.lm import clone_cache
 
     full = get_config(arch)
     cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
@@ -4171,11 +4414,13 @@ def arch_run(arch: str, layers, gen: int, zero: dict, modules, dev) -> dict:
     base = torch.cuda.memory_reserved(dev)
     t0 = time.perf_counter()
     lm = build_model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    gates = draw_gates(lm, torch.Generator(dev).manual_seed(2)) if lm.ctx_len else []
     lm.compute_params()
     sync(dev)
     init_s = time.perf_counter() - t0
     prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), device=dev,
                             generator=torch.Generator(dev).manual_seed(1))
+    ctx = stub_context(lm, LM_BATCH, torch.Generator(dev).manual_seed(3))
     for m in modules:
         reset_launches(m)
     routed = []
@@ -4183,7 +4428,7 @@ def arch_run(arch: str, layers, gen: int, zero: dict, modules, dev) -> dict:
         # the MoE archs: picks kept per layer and group
         kept = lambda probs, dispatch: dispatch.sum(dim=(1, 2, 3))  # noqa: E731
         with recorded_dispatch(routed, kept) if cfg.moe else contextlib.nullcontext():
-            logits, cache = lm.prefill(prompts, max_len=max_len)
+            logits, cache = lm.prefill(prompts, max_len=max_len, context=ctx)
         sync(dev)
         check(all_launches(*modules) == zero, f"{arch} prefill launched kernels: {all_launches(*modules)}")
         check(tuple(logits.shape) == (LM_BATCH, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
@@ -4193,45 +4438,22 @@ def arch_run(arch: str, layers, gen: int, zero: dict, modules, dev) -> dict:
             # (token, expert) picks past an expert's capacity, per layer and group
             sg = min(cfg.moe.group_size, LM_BATCH * LM_PROMPT)
             dropped = [(cfg.moe.top_k * sg - k).round().long().tolist() for k in routed]
-        tok0 = logits.argmax(-1)[:, None]
-        eager_cache = [type(c)(*(t.clone() for t in c)) for c in cache]
-        eager_ms, tokens, eager_logits, tok = [], [], [], tok0
-        for i in range(gen):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            tokens.append(tok)
-            start.record()
-            logits, eager_cache = lm.decode_step(tok, LM_PROMPT + i, eager_cache)
-            end.record()
-            end.synchronize()
-            check(bool(torch.isfinite(logits).all()), f"{arch} eager decode step {i}: non-finite logits")
-            eager_ms.append(start.elapsed_time(end))
-            eager_logits.append(logits)
-            tok = logits.argmax(-1)[:, None]
-        step = lm.compile_decode(cache)
-        captured_ms, tok = [], tok0
-        for i in range(gen):
-            check(torch.equal(tok, tokens[i]), f"{arch} captured decode step {i}: input token differs from the eager loop's")
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            logits = step(tok, LM_PROMPT + i)
-            end.record()
-            end.synchronize()
-            check(same_bits((logits,), (eager_logits[i],)), f"{arch} captured decode step {i}: logits differ from the "
-                                                            "eager step's")
-            captured_ms.append(start.elapsed_time(end))
-            tok = logits.argmax(-1)[:, None]
-        check(all(torch.equal(x, y) for a, b in zip(cache, eager_cache) for x, y in zip(a, b)),
-              f"{arch}: the captured steps' cache or states differ from the eager loop's")
-        check(all_launches(*modules) == zero, f"{arch} decode launched kernels: {all_launches(*modules)}")
-        del eager_cache, eager_logits
-        prefill_ms = cuda_ms(lambda: lm.prefill(prompts, max_len=max_len), 2, warmup=0)
+        tok0, prefill_logits = logits.argmax(-1)[:, None], logits
+        cache0 = clone_cache(cache) if arch in ARCH_PRUNE_K else None  # for the pruned run
+        run = decode_runs(arch, lm, cache, gen, zero, modules, first=tok0)
+        step, tokens, eager_logits, eager_ms, captured_ms, tok = (
+            run[key] for key in ("step", "tokens", "eager_logits", "eager_ms", "captured_ms", "last"))
+        moved = gates_off(lm, prompts, ctx, max_len, cache0, tok0, prefill_logits, eager_logits[0]) if gates else None
+        dense_top1 = [lg.argmax(-1) for lg in eager_logits]
+        del run, eager_logits, prefill_logits
+        prefill_ms = cuda_ms(lambda: lm.prefill(prompts, max_len=max_len, context=ctx), 2, warmup=0)
         # where the time goes: device time by kernel of a captured step (it
         # rewrites the slot of position LM_PROMPT each call, and advances a
         # recurrent state) and of a prefill
         profiles, t_prof = {}, time.perf_counter()
         runs = [("captured_step", lambda: step(tok0, LM_PROMPT), steady(captured_ms))]
         if arch in ARCH_PREFILL_PROFILE:
-            runs.append(("prefill", lambda: lm.prefill(prompts, max_len=max_len), prefill_ms))
+            runs.append(("prefill", lambda: lm.prefill(prompts, max_len=max_len, context=ctx), prefill_ms))
         for name, fn, ms in runs:
             per_kernel = device_times(fn, 1 if name == "prefill" else 5)
             busy = sum(per_kernel.values())
@@ -4259,6 +4481,8 @@ def arch_run(arch: str, layers, gen: int, zero: dict, modules, dev) -> dict:
         "decode_step_bytes": nbytes, "sample_tokens": tok[:, 0].tolist(), "profiles": profiles,
         "eager_step_ops_ms": eager_ops, "profile_s": profile_s,
     }
+    if gates:
+        res.update(gates=gates, context=list(ctx.shape), gates_off_logit_change=moved)
     if dropped is not None:
         res["dropped_picks_by_layer_group"] = dropped
         res["dropped_picks_by_group"] = [sum(col) for col in zip(*dropped)]
@@ -4268,7 +4492,8 @@ def arch_run(arch: str, layers, gen: int, zero: dict, modules, dev) -> dict:
           f"eager / captured {res['eager_step_ms_median']:.3f} / {res['captured_step_ms_median']:.3f} ms median of "
           f"steps 2-{gen} ({res['eager_tokens_per_s']:.1f} / {res['captured_tokens_per_s']:.1f} tokens/s), bound "
           f"{nbytes['bound_ms']:.3f} ms ({nbytes['weights'] / 1e9:.2f} GB weights + {nbytes['kv_mean'] / 1e9:.3f} GB "
-          f"KV + {nbytes['states_read_and_written'] / 1e9:.4f} GB recurrent states a step), peak reserved {res['peak_reserved_gb']:.1f} GB ({res['reserved_before_gb']:.1f} GB before); "
+          f"KV, {nbytes['context_kv'] / 1e9:.3f} GB of it context, + {nbytes['states_read_and_written'] / 1e9:.4f} GB "
+          f"recurrent states a step), peak reserved {res['peak_reserved_gb']:.1f} GB ({res['reserved_before_gb']:.1f} GB before); "
           f"{gen} captured steps bit for bit the eager loop ({', '.join(res['cache_kinds'])}); sample tokens {res['sample_tokens']}")
     print(f"  {arch} profiles took {profile_s:.1f} s")
     for name, prof in profiles.items():
@@ -4278,7 +4503,129 @@ def arch_run(arch: str, layers, gen: int, zero: dict, modules, dev) -> dict:
     if dropped is not None:
         print(f"  {arch} prefill: (token, expert) picks dropped past capacity, by group of {cfg.moe.group_size} summed "
               f"over {cfg.num_layers} layers: {res['dropped_picks_by_group']}")
-    del lm, step, cache, prompts
+    if gates:
+        print(f"  {arch} cross path: gates drawn from N(0, 1) {[round(g, 3) for g in gates]}, context "
+              f"{list(ctx.shape)} on the card; with every gate at zero the logits move by {moved['prefill']:.4g} "
+              f"(prefill) and {moved['decode_step_1']:.4g} (decode step 1, same prefill cache)")
+        check(moved["prefill"] > 0 and moved["decode_step_1"] > 0, f"{arch}: the cross path does not move the logits")
+    del step, cache
+    if arch in ARCH_PRUNE_K:
+        res["pruned"] = pruned_run(arch, lm, cache0, tokens, dense_top1, res, zero, modules, dev)
+    del lm, cache0, prompts
+    return res
+
+
+def gates_off(lm, prompts, ctx, max_len: int, cache0, tok0, prefill_logits, step_logits) -> dict:
+    """How far the cross path moves the output: the largest change of the
+    prefill logits and of the first decode step's (from a clone of the same
+    prefill cache) when every gate is zero. The gates are put back."""
+    import torch
+
+    from repro_torch.models.lm import clone_cache
+
+    gates = [p for name, p in lm.named_parameters() if name.endswith("cross.gate")]
+    saved = [p.detach().clone() for p in gates]
+    for p in gates:  # compute_params holds these float32 leaves themselves
+        p.data.zero_()
+    try:
+        with torch.inference_mode():
+            lp, _ = lm.prefill(prompts, max_len=max_len, context=ctx)
+            ls, _ = lm.decode_step(tok0, LM_PROMPT, clone_cache(cache0))
+    finally:
+        for p, v in zip(gates, saved):
+            p.data.copy_(v)
+    return {"prefill": float((lp - prefill_logits).abs().max()), "decode_step_1": float((ls - step_logits).abs().max())}
+
+
+def pruned_run(arch: str, lm, cache0, tokens, dense_top1, dense: dict, zero: dict, modules, dev) -> dict:
+    """Phase 11, a cross-attention arch with ADE on: a second LM with
+    ``attn_prune_k = ARCH_PRUNE_K[arch]`` on the dense LM's parameters
+    (shared on the card, not copied), the dense run's decode steps from a
+    clone of its prefill cache (prefill does not prune), teacher-forced on
+    its tokens, eager then captured (``decode_runs``). An eager step
+    launches each kernel of #4 once a pruned attention
+    (``pruned_layers``) and no other kernel; of these, the launches over a
+    cache of ``ctx_len`` rows (kernel #4's ``LAUNCHES_BY_WIDTH``) are the
+    cross-attentions', one each. Step times beside the dense ones, the
+    top-1 agreement of the pruned logits with the dense ones (a report, not
+    a threshold), the step's byte bound, and the decode pair timed and held
+    to its plain version at the first cross-attention's inputs of the first
+    eager step (``decode_pair_times``)."""
+    import torch
+
+    from repro_torch.kernels.topk_decode_attention import ops as tda
+    from repro_torch.layers import attention
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import clone_cache
+
+    k = ARCH_PRUNE_K[arch]
+    plm = build_model(dataclasses.replace(lm.cfg, attn_prune_k=k), device=dev, params=dict(lm.named_parameters()))
+    check(all(p.data_ptr() == q.data_ptr() for p, q in zip(plm.parameters(), lm.parameters())),
+          f"{arch}: the pruned LM copied the dense one's parameters")
+    gen, ctx_len = len(tokens), plm.ctx_len
+    max_len = LM_PROMPT + gen
+    check(ctx_len != max_len, f"{arch}: the context and the self cache are both {max_len} rows wide")
+    per_step = pruned_layers(plm, max_len)
+    cross_per_step = sum(kind in "CD" and k < ctx_len for kind in plm.kinds)
+    want = dict(zero, **{"topk_decode_attention.score_prune": per_step, "topk_decode_attention.value_gather": per_step})
+    steady = lambda xs: median(xs[1:])  # noqa: E731  steps 2..gen
+    seen, real = [], attention.topk_decode_attention
+    at_ctx = {"score_prune": 0, "value_gather": 0}  # launches over the context, summed over the eager steps
+
+    def record(q, kc, vc, lens, kk, scale):  # the first cross-attention's inputs
+        if not seen and kc.shape[1] == ctx_len:
+            seen.append((q.clone(), kc.clone(), vc.clone(), lens.clone(), kk, scale))
+        return real(q, kc, vc, lens, kk, scale)
+
+    @contextlib.contextmanager
+    def hook(i):
+        attention.topk_decode_attention = record if i == 0 else real
+        try:
+            yield
+        finally:
+            attention.topk_decode_attention = real
+        got = {name: tda.LAUNCHES_BY_WIDTH.get((name, ctx_len), 0) for name in at_ctx}
+        check(got == dict.fromkeys(at_ctx, cross_per_step),
+              f"{arch} pruned eager decode step {i}: launches over the {ctx_len}-row context {got}, expected "
+              f"{cross_per_step} of each")
+        for name, n in got.items():
+            at_ctx[name] += n
+
+    with torch.inference_mode():
+        run = decode_runs(f"{arch} pruned", plm, clone_cache(cache0), gen, want, modules, forced=tokens, hook=hook)
+        eager_ms, captured_ms, launches = run["eager_ms"], run["captured_ms"], run["eager_launches"]
+        agree = sum(int((lg.argmax(-1) == d).sum()) for lg, d in zip(run["eager_logits"], dense_top1)) / (gen * LM_BATCH)
+        del run
+    check(len(seen) == 1, f"{arch}: no pruned cross-attention reached kernel #4")
+    pair_t, pair_b, pair_s = decode_pair_times(seen[0], dev)
+    nbytes = decode_step_bytes(plm, LM_BATCH, range(LM_PROMPT, max_len))
+    res = {
+        "prune_k": k, "pruned_attentions_per_step": per_step, "cross_attentions_per_step": cross_per_step,
+        "launches_eager": {key: n for key, n in launches.items() if n}, "decode_steps": gen,
+        "eager_step_ms_events": eager_ms, "captured_step_ms_events": captured_ms,
+        "eager_step_ms_median": steady(eager_ms), "captured_step_ms_median": steady(captured_ms),
+        "captured_tokens_per_s": LM_BATCH / (steady(captured_ms) / 1e3), "top1_agreement_with_dense": agree,
+        "captured_steps_bitwise_eager": gen, "decode_step_bytes": nbytes,
+        "cross_decode_pair": {"shapes": pair_s, "times_ms": pair_t,
+                              "bounds": {key: {"bound_ms": b[0], "bound_by": b[1], "bytes": b[2], "ops": b[3]}
+                                         for key, b in pair_b.items()},
+                              "launches_eager": at_ctx},
+    }
+    print(f"  {arch} pruned at K {k}: {per_step} + {per_step} kernel #4 launches each eager step (checked), "
+          f"{cross_per_step} + {cross_per_step} of them over the {ctx_len}-row context, none on a replay; decode step "
+          f"eager / captured "
+          f"{res['eager_step_ms_median']:.3f} / {res['captured_step_ms_median']:.3f} ms against dense "
+          f"{dense['eager_step_ms_median']:.3f} / {dense['captured_step_ms_median']:.3f} ms (median of steps 2-{gen}), "
+          f"bound {nbytes['bound_ms']:.3f} ms; top-1 agreement with the dense logits {agree:.4f} over {gen} steps x "
+          f"{LM_BATCH}; {gen} captured steps bit for bit the eager loop")
+    print(f"  {arch} kernel #4 at the first cross-attention of eager step 1 ({json.dumps(pair_s)}): K1 "
+          f"{pair_t['score_prune']:.4f} ms device ({pair_t['score_prune_source']}) / {pair_t['score_prune_event']:.4f} "
+          f"events, plain {pair_t['score_prune_plain']:.4f}, bound {pair_b['score_prune'][0]:.5f} ms "
+          f"({pair_b['score_prune'][1]}); K2 {pair_t['value_gather']:.4f} / {pair_t['value_gather_event']:.4f}, plain "
+          f"{pair_t['value_gather_plain']:.4f}, library {pair_t['value_gather_library']:.4f}, bound "
+          f"{pair_b['value_gather'][0]:.5f} ms; ids equal the plain version's, alpha err {pair_t['alpha_err']:.3g}, "
+          f"out err {pair_t['out_err']:.3g}; launches over the context in the eager steps, counted: {at_ctx}")
+    del plm
     return res
 
 
@@ -4355,7 +4702,7 @@ def main() -> int:
         flat_cases(acm_union.batch.sg_by_dst["paper"], acm_union.batch.total_nodes), dev
     ))
     check_flat_tie_and_width(dev)
-    dec_err, dec_ties = check_decode_kernels(dev)
+    dec_err, dec_ties, dec_cases = check_decode_kernels(dev)
     err.update(dec_err)
     check_decode_tie_and_width(dev)
     e_tie, tie_cases = check_decode_tie_path(dev)
@@ -4515,10 +4862,10 @@ def main() -> int:
     phase_s["10"] = time.perf_counter() - t_phase
     print(f"phase 10: wall time {phase_s['10']:.1f} s")
 
-    # phase 11: the dense, MoE and recurrent LM archs; phase 3's LM is freed first
+    # phase 11: the dense, MoE, recurrent and cross-attention LM archs; phase 3's LM is freed first
     del lm, prompts, cache0, tok0, decode_in
     t_phase = time.perf_counter()
-    print(f"phase 11: the dense, MoE and recurrent LM archs, prefill {LM_BATCH}x{LM_PROMPT} + decode: "
+    print(f"phase 11: the dense, MoE, recurrent and cross-attention LM archs, prefill {LM_BATCH}x{LM_PROMPT} + decode: "
           + ", ".join(f"{a} ({'whole' if n is None else f'{n} layers'}, {g} steps)" for a, n, g in ARCH_RUNS))
     archs = arch_phase((ops, tda_ops, ts_ops), card, dev)
     phase_s["11"] = time.perf_counter() - t_phase
@@ -4608,6 +4955,18 @@ def main() -> int:
             "library_event_ms": t[f"{lib}_event"] if lib else None,
             "shapes": s_dec["inputs"],
             "check": "pass: ids equal, alpha <= 1e-6" if key == "score_prune" else "pass: out <= 1e-5",
+            "launches_phase11_pruned": {arch: r["pruned"]["launches_eager"][f"topk_decode_attention.{key}"]
+                                        for arch, r in archs["runs"].items() if "pruned" in r},
+            "by_shape": {f"{arch} first cross-attention, eager step 1": {
+                "shapes": r["pruned"]["cross_decode_pair"]["shapes"],
+                "ms": r["pruned"]["cross_decode_pair"]["times_ms"][key],
+                "ms_source": r["pruned"]["cross_decode_pair"]["times_ms"][f"{key}_source"],
+                "event_ms": r["pruned"]["cross_decode_pair"]["times_ms"][f"{key}_event"],
+                "plain_ms": r["pruned"]["cross_decode_pair"]["times_ms"][f"{key}_plain"],
+                "library_ms": r["pruned"]["cross_decode_pair"]["times_ms"][lib] if lib else None,
+                **r["pruned"]["cross_decode_pair"]["bounds"][key],
+                "launches": r["pruned"]["cross_decode_pair"]["launches_eager"][key],
+            } for arch, r in archs["runs"].items() if "pruned" in r},
         })
     ts_row = t_ts["iii"]  # the widest and slowest of the shapes phase 3 feeds it
     kernels.append({
@@ -4637,6 +4996,7 @@ def main() -> int:
         "card": card, "results": results, "wide_path": wide_results, "lm": lm_result, "pruner": pruner_result, "times_ms": t,
         "decode_k1_tie_rows": {"phase2_cases": dec_ties, "phase2_tie_cases": tie_cases,
                                "main_path": lm_result["tie_rows"]},
+        "decode_phase2_errors": dec_cases,
         "pruner_times_ms": t_ts, "forward_ms": fwd, "forward_latency_ms": latency, "profiles": prof,
         "train": train, "sgb": sgb, "serve": served, "ego": ego, "stream": stream, "shard": sharded, "archs": archs,
         "kernels": kernels,
@@ -4695,8 +5055,13 @@ def main() -> int:
     print("archs " + json.dumps({
         "runs": {arch: {k: r[k] for k in ("cut", "prefill_ms", "eager_step_ms_median", "captured_step_ms_median",
                                           "captured_tokens_per_s", "peak_reserved_gb")}
-                 | {"bound_ms": r["decode_step_bytes"]["bound_ms"]} for arch, r in archs["runs"].items()},
-        "cpu_check": {arch: {k: r.get(k) for k in ("rel_errs", "logit_scale", "flip_share", "sequences_held")}
+                 | {"bound_ms": r["decode_step_bytes"]["bound_ms"]}
+                 | ({"pruned": {k: r["pruned"][k] for k in ("prune_k", "eager_step_ms_median", "captured_step_ms_median",
+                                                            "top1_agreement_with_dense", "launches_eager")}
+                               | {"bound_ms": r["pruned"]["decode_step_bytes"]["bound_ms"]}} if "pruned" in r else {})
+                 for arch, r in archs["runs"].items()},
+        "cpu_check": {arch: {k: r.get(k) for k in ("rel_errs", "pruned_rel_errs", "logit_scale", "flip_share",
+                                                    "sequences_held")}
                       for arch, r in archs["cpu_check"].items()},
         "card": card,
     }))

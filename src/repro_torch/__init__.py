@@ -2,8 +2,8 @@
 
 A port of the ``repro`` package's pruned HGNN inference path, of its LM
 serving path (prefill + decode, ADE-pruned where a config sets
-``attn_prune_k``; gemma3-4b and the dense, MoE and recurrent archs so
-far) and of its
+``attn_prune_k``; all ten archs of the registry, the cross-attention ones
+with their stub image or audio context) and of its
 standalone Pruner (``kernels/topk_select``). The module
 layout follows ``repro`` one for one (``repro_torch/core/flows.py`` is the
 counterpart of ``repro/core/flows.py``, ``repro_torch/models/lm.py`` of

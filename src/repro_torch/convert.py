@@ -38,9 +38,13 @@ with ``i = offset_gi + r·len(cycle_gi) + p``; its leaves go to
 ``layers.<i>.<path>`` (``layers.5.attn.wq``; an MoE block's nested
 ``moe.router.w`` and ``moe.experts.wi`` keep their paths, as do an "R"
 block's ``lru.*`` and a "W" block's ``rwkv.*``, ``rwkv.ln_x.scale``
-included). gemma3-4b has
+included, as do a "C" or "D" block's ``cross.*`` with its 0-dim ``gate``
+and a "D" block's ``lnx.*``). gemma3-4b has
 two groups, the cycle ``L L L L L A`` five times and a remainder
-``L L L L`` (layers 30–33).
+``L L L L`` (layers 30–33). An audio LM's tree also holds its encoder,
+``{"encoder": {"stack": (an "E" block tree stacked over enc_layers),
+"final_norm": ...}}``: ``encoder.stack.<path>`` row ``i`` goes to
+``encoder.layers.<i>.<path>``, and ``encoder.final_norm.*`` keeps its name.
 
 The standalone Pruner (``kernels/topk_select``) has no parameters, so
 nothing here converts for it.
@@ -107,12 +111,21 @@ def lm_layout(cfg, tree: Mapping) -> Iterator[Tuple[str, str, Optional[int]]]:
     norm and head). Leaves may be arrays or shape structs: only the tree
     is read."""
     tops = ("embed", "final_norm", "lm_head")
-    unknown = sorted(set(tree) - set(tops) - {"groups"})
+    unknown = sorted(set(tree) - set(tops) - {"groups", "encoder"})
     if unknown:
-        raise NotImplementedError(f"LM tree parts {unknown} are not ported to repro_torch yet")
+        raise ValueError(f"unknown LM tree parts {unknown}")
     for top in (t for t in tops if t in tree):
         for path in _flatten(tree[top], f"{top}."):
             yield path, path, None
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        if sorted(enc) != ["final_norm", "stack"]:
+            raise ValueError(f"encoder parts {sorted(enc)}, expected ['final_norm', 'stack']")
+        for path in _flatten(enc["final_norm"], "encoder.final_norm."):
+            yield path, path, None
+        for path in _flatten(enc["stack"]):
+            for r in range(cfg.enc_layers):
+                yield f"encoder.layers.{r}.{path}", f"encoder.stack.{path}", r
     offset = 0
     for gi, ((cycle, n), stacked) in enumerate(zip(cfg.layer_groups(), tree["groups"])):
         if len(stacked) != len(cycle):

@@ -29,6 +29,9 @@ MAX_GROUP = 32  # q-heads a kv-head may serve in K1 (its tie mask has a bit each
 # kernel launches, one per launch of each CUDA kernel; the plain versions do
 # not count
 LAUNCHES = {"score_prune": 0, "value_gather": 0}
+# the same launches by (kernel, cache rows S): a decode step prunes caches of
+# several widths (the self cache, a context)
+LAUNCHES_BY_WIDTH: dict = {}
 
 _ptr = ctypes.c_void_p
 _int = ctypes.c_int
@@ -115,6 +118,7 @@ def score_prune(
     if err != 0:
         raise RuntimeError(f"tda_score_prune launch failed: cudaError {err}")
     LAUNCHES["score_prune"] += 1
+    LAUNCHES_BY_WIDTH["score_prune", s] = LAUNCHES_BY_WIDTH.get(("score_prune", s), 0) + 1
     return (alpha, ids, tie) if tie_rows else (alpha, ids)
 
 
@@ -144,6 +148,7 @@ def value_gather(alpha: torch.Tensor, ids: torch.Tensor, v_cache: torch.Tensor) 
     if err != 0:
         raise RuntimeError(f"tda_value_gather launch failed: cudaError {err}")
     LAUNCHES["value_gather"] += 1
+    LAUNCHES_BY_WIDTH["value_gather", s] = LAUNCHES_BY_WIDTH.get(("value_gather", s), 0) + 1
     return out
 
 

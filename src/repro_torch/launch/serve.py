@@ -5,13 +5,18 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b --smoke \\
         --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-medium \
+        --prune-k 256
 
-``--arch`` takes any ported arch (``repro_torch.configs.PORTED``, by name
-or alias); the others raise naming their ROADMAP item.
+``--arch`` takes any of the ten archs (``repro_torch.configs.ARCHS``, by
+name or alias).
 
-Weights are seeded random (``--seed``), drawn on the device; prompts come
+Weights are seeded random (``--seed``), drawn on the device; prompts, and
+the stub context of a "vlm" or "audio" arch (image embeddings
+(B, num_img_tokens, d_model) or audio frames (B, num_audio_frames,
+d_model), standard normal, as the reference launcher draws them), come
 from a ``torch.Generator`` (they do not match the reference launcher's
-``jax.random`` prompts). Runs on the GPU unless ``--device cpu``. On the GPU
+``jax.random`` draws). Runs on the GPU unless ``--device cpu``. On the GPU
 the decode steps replay one captured CUDA graph (``LM.compile_decode``,
 captured at the first step); on the CPU they run eagerly.
 """
@@ -56,9 +61,11 @@ def main(argv=None):
     max_len = t + args.gen
     gen = torch.Generator(dev).manual_seed(args.seed + 1)
     prompts = torch.randint(0, cfg.vocab_size, (b, t), generator=gen, device=dev)
+    ctx = (torch.randn((b, model.ctx_len, cfg.d_model), generator=gen, device=dev)
+           if model.ctx_len else None)
 
     t0 = time.perf_counter()
-    logits, cache = model.prefill(prompts, max_len=max_len)
+    logits, cache = model.prefill(prompts, max_len=max_len, context=ctx)
     sync(dev)
     t_prefill = time.perf_counter() - t0
 

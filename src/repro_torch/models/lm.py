@@ -1,16 +1,25 @@
-"""Decoder-only language model assembled from layer blocks (the
-reference's ``repro/models/lm.py``), for the block kinds ported so far
-(A, L, M, R, W): prefill, then one token per ``decode_step``.
+"""Language model assembled from layer blocks (the reference's
+``repro/models/lm.py``) for every family: decoder-only over the block
+cycle (dense, MoE, hybrid, ssm); a "vlm" whose gated cross-attention ("C")
+layers attend to stub image embeddings; an "audio" encoder-decoder whose
+"E" encoder layers encode stub frame embeddings once and whose "D"
+decoder layers (self + cross) run over the text tokens. Serving only:
+prefill, then one token per ``decode_step`` (training is ROADMAP §1 LM-7).
 
-The layers are a ``ModuleList`` in ``cfg.pattern()`` order; the reference's
-``lax.scan`` over stacked cycle repeats is a Python loop here, and its
-sharding constraints have no counterpart on one card. Parameter names
-follow the port's flat naming (``embed.table``, ``layers.<i>.attn.wq``,
-``layers.<i>.mlp.wi``, ``layers.<i>.moe.router.w``,
-``layers.<i>.moe.experts.wi``, ``layers.<i>.lru.wa``,
-``layers.<i>.rwkv.ln_x.scale``, ``final_norm.scale``, ``lm_head.w`` when
-the head is untied, …; ``convert`` maps the reference's stacked tree onto
-them). Weights keep the reference's ``(in, out)`` layout.
+The layers are a ``ModuleList`` in :attr:`LM.kinds` order: ``cfg.pattern()``
+with an audio decoder's "A" blocks turned into "D" (the reference's
+``_decoder_cycle``); an audio LM also has ``encoder.layers`` ("E") and
+``encoder.final_norm``. The reference's ``lax.scan`` over stacked cycle
+repeats is a Python loop here, and its sharding constraints have no
+counterpart on one card. Parameter names follow the port's flat naming
+(``embed.table``, ``layers.<i>.attn.wq``, ``layers.<i>.mlp.wi``,
+``layers.<i>.moe.router.w``, ``layers.<i>.moe.experts.wi``,
+``layers.<i>.lru.wa``, ``layers.<i>.rwkv.ln_x.scale``,
+``layers.<i>.cross.gate``, ``layers.<i>.lnx.scale``,
+``encoder.layers.<i>.attn.wq``, ``encoder.final_norm.scale``,
+``final_norm.scale``, ``lm_head.w`` when the head is untied, …;
+``convert`` maps the reference's stacked tree onto them). Weights keep the
+reference's ``(in, out)`` layout.
 
 Storage dtypes (:func:`storage_dtype`). The reference keeps the embedding
 table and an untied head in ``param_dtype`` and every other leaf in
@@ -20,7 +29,8 @@ bfloat16 (qwen2-72b, arctic-480b), which is what each of the reference's
 uses reads (one rounding to bfloat16) in half the bytes. Vectors (norm
 scales, biases), the MoE router and RWKV's ``u``, ``decay_a`` and
 ``decay_b`` (which the reference reads in float32 at every use) stay
-float32 whatever ``param_dtype`` says.
+float32 whatever ``param_dtype`` says, and so does a cross-attention's
+0-dim ``gate``.
 
 Embeddings. As the reference does, a tied embedding is scaled by √d
 (gemma-style) for every arch, qwen2-1.5b included, and an untied one is
@@ -37,13 +47,17 @@ reference's does), and so do an MoE router, the dtype the reference
 routes in, and RWKV's float32 matrices.
 
 Seeded init (:meth:`LM.reset_parameters`) draws glorot matrices and zero
-vectors, but for the leaves the reference inits otherwise (RG-LRU's ``ba``,
-``lam`` and ``conv_w``; RWKV's ``mu_*``, ``w0``, decay LoRA and ``ln_x``:
-``blocks.init_rules``).
+vectors and gates, and inits every norm (``ln1``, ``ln2``, ``lnx``, the
+encoder's and the final one) as a norm, but for the leaves the reference
+inits otherwise (RG-LRU's ``ba``, ``lam`` and ``conv_w``; RWKV's ``mu_*``,
+``w0``, decay LoRA and ``ln_x``: ``blocks.init_rules``).
 
-Caches are a list per layer of a ``KVCache`` (A, L, M) or a recurrent
-state (``LRUState`` for R, ``RWKVState`` for W), updated in place by
-``decode_step`` (the same list, holding the same tensors, comes back).
+Caches are a list per decoder layer of a ``KVCache`` (A, L, M; C, over the
+context), a recurrent state (``LRUState`` for R, ``RWKVState`` for W) or a
+``DecoderCache`` (D: a self and a cross ``KVCache``), updated in place by
+``decode_step`` (the same list, holding the same tensors, comes back; a
+context cache is only read). :func:`cache_tensors` and
+:func:`clone_cache` walk any of them.
 
 ``LM.compile_decode(cache)`` is the counterpart of the reference's
 ``jax.jit(model.decode_step)``: a :class:`DecodeStep` bound to one cache,
@@ -63,12 +77,14 @@ from repro_torch.core.projection import glorot_
 from repro_torch.core import session as _session
 from repro_torch.layers import blocks
 from repro_torch.layers.attention import KVCache, position_tensor
+from repro_torch.layers.blocks import DecoderCache
 from repro_torch.layers.norms import apply_norm, norm_shapes
 from repro_torch.layers.rglru import LRUState
 from repro_torch.layers.rwkv import RWKVState
 
-Cache = Union[KVCache, LRUState, RWKVState]
+Cache = Union[KVCache, LRUState, RWKVState, DecoderCache]
 _RECURRENT = (LRUState, RWKVState)
+_NORMS = ("ln1", "ln2", "lnx")  # a block's norm parts
 # matrices the reference reads in float32 whatever the compute dtype
 _FLOAT32_MATRICES = ("router.w", "rwkv.u", "rwkv.decay_a", "rwkv.decay_b")
 
@@ -108,6 +124,33 @@ def _params(cfg: ModelConfig, prefix: str, shapes: Mapping, device) -> nn.Parame
     })
 
 
+def cache_tensors(cache) -> List[torch.Tensor]:
+    """Every tensor of a cache (a list of per-layer caches, or one), nested
+    ``DecoderCache`` parts included, in order."""
+    if isinstance(cache, torch.Tensor):
+        return [cache]
+    return [t for part in cache for t in cache_tensors(part)]
+
+
+def clone_cache(cache):
+    """A copy of a cache (a list of per-layer caches, or one) in storage of
+    its own, of the same structure and types."""
+    if isinstance(cache, torch.Tensor):
+        return cache.clone()
+    if isinstance(cache, list):
+        return [clone_cache(c) for c in cache]
+    return type(cache)(*(clone_cache(part) for part in cache))
+
+
+def decoder_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The decoder's block kinds, layer by layer: ``cfg.pattern()``, with an
+    audio decoder's "A" blocks turned into "D" (self + cross), as the
+    reference's ``_decoder_cycle`` does."""
+    if cfg.family == "audio":
+        return tuple("D" if k == "A" else k for k in cfg.pattern())
+    return cfg.pattern()
+
+
 def _reset_norm(cfg, norm: nn.ParameterDict) -> None:
     """RMSNorm's (1 + scale) at zero; LayerNorm's scale one, bias zero."""
     norm["scale"].data.fill_(0.0 if cfg.norm == "rmsnorm" else 1.0)
@@ -133,8 +176,9 @@ class Nested(nn.Module):
 
 class Block(nn.Module):
     """One layer's parameters, the reference's block tree: ``ln1``, ``ln2``
-    and ``attn`` + ``mlp`` (A, L), ``attn`` + ``moe`` (M; ``mlp`` too with a
-    dense residual), ``lru`` + ``mlp`` (R) or ``rwkv`` (W)."""
+    and ``attn`` + ``mlp`` (A, L, E), ``attn`` + ``moe`` (M; ``mlp`` too with
+    a dense residual), ``cross`` + ``mlp`` (C), ``attn`` + ``lnx`` + ``cross``
+    + ``mlp`` (D), ``lru`` + ``mlp`` (R) or ``rwkv`` (W)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device):
         super().__init__()
@@ -144,22 +188,37 @@ class Block(nn.Module):
                                  else _params(cfg, f"{part}.", shapes, device)))
 
 
+class Encoder(nn.Module):
+    """An audio LM's encoder: ``layers`` of kind "E" and ``final_norm``."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.layers = nn.ModuleList(Block(cfg, "E", device) for _ in range(cfg.enc_layers))
+        self.final_norm = _params(cfg, "encoder.final_norm.", norm_shapes(cfg), device)
+
+
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        if cfg.family in ("vlm", "audio"):
-            raise NotImplementedError(
-                f"{cfg.family} models are not ported to repro_torch yet: "
-                "ROADMAP §1 LM-5 / LM-6"
-            )
+        if cfg.family == "audio" and cfg.enc_layers < 1:
+            raise ValueError(f"{cfg.name}: an audio LM needs enc_layers >= 1, got {cfg.enc_layers}")
         self.cfg = cfg
+        self.kinds = decoder_kinds(cfg)
         self.device = resolve_device(device)
         self.embed = _params(cfg, "embed.", {"table": (cfg.vocab_size, cfg.d_model)}, self.device)
-        self.layers = nn.ModuleList(Block(cfg, kind, self.device) for kind in cfg.pattern())
+        self.layers = nn.ModuleList(Block(cfg, kind, self.device) for kind in self.kinds)
         self.final_norm = _params(cfg, "final_norm.", norm_shapes(cfg), self.device)
         if not cfg.tie_embeddings:
             self.lm_head = _params(cfg, "lm_head.", {"w": (cfg.d_model, cfg.vocab_size)}, self.device)
+        if cfg.family == "audio":
+            self.encoder = Encoder(cfg, self.device)
         self._compute: Optional[Dict] = None
+
+    @property
+    def ctx_len(self) -> int:
+        """Rows of the context the cross-attentions attend to (image tokens
+        or audio frames); 0 without one."""
+        return self.cfg.num_img_tokens or self.cfg.num_audio_frames
 
     # ------------------------------------------------------------- params
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -167,34 +226,42 @@ class LM(nn.Module):
         values are drawn there and copied): the embedding normal × 0.02,
         glorot-uniform weights (fan-in the first dim: an expert tensor
         (E, d, f) takes E, as the reference's ``glorot`` does), QKV biases
-        zero, norms as the reference inits them (RMSNorm's scale at zero),
-        the recurrent blocks' other leaves as the reference's
-        (``blocks.init_rules``), an untied head normal × 0.02."""
+        and cross-attention gates zero, every norm as the reference inits
+        it (RMSNorm's scale at zero, LayerNorm's at one), the recurrent
+        blocks' other leaves as the reference's (``blocks.init_rules``), an
+        untied head normal × 0.02, then an audio LM's encoder layers and
+        norm."""
 
         def fill(p: nn.Parameter, draw) -> None:
             buf = torch.empty(p.shape, dtype=torch.float32, device=generator.device)
             draw(buf)
             p.data.copy_(buf)
 
+        def reset_layers(layers, kinds) -> None:
+            for layer, kind in zip(layers, kinds):
+                rules = blocks.init_rules(self.cfg, kind)
+                for part, module in layer.named_children():
+                    if part in _NORMS:
+                        _reset_norm(self.cfg, module)
+                        continue
+                    for name, p in module.named_parameters():  # else weights glorot, biases and gates zero
+                        rule = rules.get(f"{part}.{name}")
+                        if rule is not None:
+                            fill(p, lambda t: rule(t, generator))
+                        elif p.dim() < 2:
+                            p.data.zero_()
+                        else:
+                            fill(p, lambda t: glorot_(t, generator))
+
         normal = lambda t: t.normal_(0.0, 1.0, generator=generator).mul_(0.02)  # noqa: E731
         fill(self.embed["table"], normal)
-        for layer, kind in zip(self.layers, self.cfg.pattern()):
-            rules = blocks.init_rules(self.cfg, kind)
-            for part, module in layer.named_children():
-                if part in ("ln1", "ln2"):
-                    _reset_norm(self.cfg, module)
-                    continue
-                for name, p in module.named_parameters():  # else weights glorot, biases zero
-                    rule = rules.get(f"{part}.{name}")
-                    if rule is not None:
-                        fill(p, lambda t: rule(t, generator))
-                    elif p.dim() == 1:
-                        p.data.zero_()
-                    else:
-                        fill(p, lambda t: glorot_(t, generator))
+        reset_layers(self.layers, self.kinds)
         _reset_norm(self.cfg, self.final_norm)
         if not self.cfg.tie_embeddings:
             fill(self.lm_head["w"], normal)
+        if self.cfg.family == "audio":
+            reset_layers(self.encoder.layers, ("E",) * self.cfg.enc_layers)
+            _reset_norm(self.cfg, self.encoder.final_norm)
         self._compute = None
 
     def load_params(self, params: Mapping[str, torch.Tensor]) -> None:
@@ -218,8 +285,9 @@ class LM(nn.Module):
 
     def compute_params(self) -> Dict:
         """The parameters as the forward uses them, as the reference's tree:
-        ``{"embed", "final_norm", "layers": [per-layer dicts], "lm_head"}``
-        (the head only when untied), weights and the table in
+        ``{"embed", "final_norm", "layers": [per-layer dicts], "lm_head",
+        "encoder": {"layers", "final_norm"}}`` (the head only when untied,
+        the encoder only for an audio LM), weights and the table in
         ``cfg.dtype`` (built once, kept), vectors, an MoE router and RWKV's
         float32 matrices as stored, in float32."""
         if self._compute is None:
@@ -242,6 +310,11 @@ class LM(nn.Module):
             }
             if not self.cfg.tie_embeddings:
                 self._compute["lm_head"] = tree(self.lm_head)
+            if self.cfg.family == "audio":
+                self._compute["encoder"] = {
+                    "layers": [tree(layer) for layer in self.encoder.layers],
+                    "final_norm": tree(self.encoder.final_norm),
+                }
         return self._compute
 
     # ------------------------------------------------------------ helpers
@@ -254,6 +327,16 @@ class LM(nn.Module):
         # CPU scalar tensor, since a device one would be a synchronizing copy
         return x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.adtype)
 
+    def _encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """The audio encoder over stub frame embeddings (B, F, d): "E" blocks
+        at positions 0..F-1, then the encoder's final norm."""
+        cfg = self.cfg
+        x = frames.to(cfg.adtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+        for lp in params["encoder"]["layers"]:
+            x, _ = blocks.apply_block_train(cfg, "E", lp, x, positions)
+        return apply_norm(cfg, params["encoder"]["final_norm"], x)
+
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         x = apply_norm(cfg, params["final_norm"], x)
@@ -265,9 +348,11 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------- decode
     def init_cache(self, batch: int, max_len: int) -> List[Cache]:
+        """A zero decode cache for ``max_len`` positions; a context cache
+        ("C", a "D" block's cross) ``ctx_len`` rows wide."""
         return [
-            blocks.init_block_cache(self.cfg, kind, batch, max_len, self.device)
-            for kind in self.cfg.pattern()
+            blocks.init_block_cache(self.cfg, kind, batch, max_len, self.device, self.ctx_len)
+            for kind in self.kinds
         ]
 
     def decode_step(self, token: torch.Tensor, pos, cache: List[Cache]):
@@ -278,7 +363,7 @@ class LM(nn.Module):
         cfg, params = self.cfg, self.compute_params()
         x = self._embed(params, token)
         pos = position_tensor(pos, token.device)
-        for i, kind in enumerate(cfg.pattern()):
+        for i, kind in enumerate(self.kinds):
             x, cache[i] = blocks.apply_block_decode(cfg, kind, params["layers"][i], x, pos, cache[i])
         return self._logits(params, x)[:, 0], cache
 
@@ -288,23 +373,37 @@ class LM(nn.Module):
         return DecodeStep(self, cache)
 
     # ------------------------------------------------------------ prefill
-    def prefill(self, tokens: torch.Tensor, max_len: int) -> Tuple[torch.Tensor, List[Cache]]:
+    def prefill(self, tokens: torch.Tensor, max_len: int,
+                context: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, List[Cache]]:
         """Run the prompt (B, S), returning (last-token logits (B, V)
-        float32, decode cache for ``max_len`` positions).
+        float32, decode cache for ``max_len`` positions). ``context`` is a
+        "vlm" LM's image embeddings (B, num_img_tokens, d), cast to
+        ``cfg.dtype``, or an "audio" LM's frame embeddings
+        (B, num_audio_frames, d), which the encoder encodes first; an LM
+        with a context raises ``ValueError`` without one of ``ctx_len`` rows.
 
         The prefill attention emits each layer's K/V, re-laid-out into the
         decode cache: global layers left-aligned and zero-padded to
         ``max_len``, local layers in the ring layout of the last ``window``
-        rows. A recurrent layer emits its state after the last token.
+        rows; a context cache (C, a "D" block's cross) as emitted. A
+        recurrent layer emits its state after the last token.
         """
         cfg, params = self.cfg, self.compute_params()
+        if self.ctx_len and (context is None or tuple(context.shape[1:]) != (self.ctx_len, cfg.d_model)):
+            got = None if context is None else tuple(context.shape)
+            raise ValueError(f"a {cfg.family!r} LM's prefill takes a context (B, {self.ctx_len}, {cfg.d_model}); "
+                             f"got {got}")
+        if cfg.family == "audio":
+            context = self._encode(params, context)
+        elif context is not None:
+            context = context.to(cfg.adtype)
         s = tokens.shape[1]
         x = self._embed(params, tokens)
         positions = torch.arange(s, device=tokens.device)
         caches = []
-        for i, kind in enumerate(cfg.pattern()):
+        for i, kind in enumerate(self.kinds):
             x, em = blocks.apply_block_train(
-                cfg, kind, params["layers"][i], x, positions, emit_cache=True
+                cfg, kind, params["layers"][i], x, positions, context=context, emit_cache=True
             )
             caches.append(self._relayout_cache(kind, em, s, max_len))
         return self._logits(params, x[:, -1:, :])[:, 0], caches
@@ -312,10 +411,16 @@ class LM(nn.Module):
     def _relayout_cache(self, kind: str, em: Cache, s: int, max_len: int) -> Cache:
         """One layer's emitted (B, S, Hkv, hd) K/V -> its decode cache; a
         recurrent state passes through, each tensor copied into storage of
-        its own (the emitted ones are views of whole-prompt tensors)."""
+        its own (the emitted ones are views of whole-prompt tensors); a
+        context cache (B, C, Hkv, hd) passes through as emitted."""
         cfg = self.cfg
+        if kind == "C":
+            return em
         if kind in ("R", "W"):
             return type(em)(*(t.clone(memory_format=torch.contiguous_format) for t in em))
+        if kind == "D":
+            return DecoderCache(self._relayout_cache("A", em.self, s, max_len),
+                                self._relayout_cache("C", em.cross, s, max_len))
         if kind in ("A", "M"):
             pad = (0, 0, 0, 0, 0, max_len - s)
             return KVCache(k=nn.functional.pad(em.k, pad), v=nn.functional.pad(em.v, pad))
@@ -347,7 +452,9 @@ class DecodeStep:
     cache exactly as one eager step leaves it. Every call (the first
     included) copies the token and position into the static inputs and
     replays; the launch counters tick at the warm-up and
-    the capture, never on a replay. The returned logits are the graph's
+    the capture, never on a replay. A context cache (C, a "D" block's
+    cross) is only read, so the warm-up leaves it as it was. The returned
+    logits are the graph's
     static output, overwritten by the next call: read them (an ``argmax``)
     before calling again. A step that cannot be captured raises; loading
     new weights into the model makes the step raise too (build a new one).

@@ -30,6 +30,10 @@ from repro_torch.kernels.topk_decode_attention import ref as tref  # noqa: E402
 
 ATOL = 2e-5  # the reference's kernel-vs-oracle tolerance
 SWEEP = ((2, 8, 2, 16, 200, 12), (3, 4, 4, 8, 128, 5), (1, 16, 4, 32, 300, 50))
+# the head groupings the cross-attention archs give the kernel, at a small
+# context: llama-3.2-vision's 8 q-heads a kv-head at hd 128, seamless-m4t's
+# 1 at hd 64 (every context row valid)
+CROSS = ((2, 16, 2, 128, 96, 24), (2, 4, 4, 64, 80, 20))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -72,6 +76,7 @@ def _port(q, kc, vc, lens, k, scale=None):
         torch.from_numpy(np.asarray(lens, np.int32)), k, scale,
     )
     assert tops.LAUNCHES == before, "a CPU tensor launched a kernel"
+    assert not tops.LAUNCHES_BY_WIDTH
     assert out.dtype == torch.float32
     return out.numpy()
 
@@ -82,6 +87,20 @@ def test_plain_matches_pallas_sweep(b, h, hkv, dh, s, k):
     q, kc, vc = _inputs(rng, b, h, hkv, dh, s)
     lens = rng.integers(k + 1, s, size=(b,)).astype(np.int32)
     np.testing.assert_allclose(_port(q, kc, vc, lens, k), _pallas(q, kc, vc, lens, k), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("b,h,hkv,dh,s,k", CROSS)
+def test_plain_matches_pallas_cross_attention_groupings(b, h, hkv, dh, s, k):
+    """Group 8 at hd 128 and group 1 at hd 64, every row valid (lengths =
+    C, as a cross-attention's context), float32 and a bfloat16 cache."""
+    rng = np.random.default_rng(dh + h)
+    q, kc, vc = _inputs(rng, b, h, hkv, dh, s)
+    lens = np.full((b,), s, np.int32)
+    np.testing.assert_allclose(_port(q, kc, vc, lens, k), _pallas(q, kc, vc, lens, k), atol=ATOL, rtol=0)
+    qb, kb, vb = (torch.from_numpy(a).bfloat16() for a in (q, kc, vc))
+    got = tops.topk_decode_attention(qb, kb, vb, torch.from_numpy(lens), k).numpy()
+    want = _pallas(*(t.float().numpy() for t in (qb, kb, vb)), lens, k)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
 def test_plain_k_geq_length_equals_full():
@@ -422,6 +441,10 @@ def _logit_case(case):
         return lg, [120], 16
     if case == "lengths":  # length 0, below K, equal to K, above K
         return rng.normal(size=(4, 2, 100)).astype(np.float32), [0, 30, 64, 100], 64
+    if case == "group8_integers":  # llama-3.2-vision's grouping: 16 q-heads on 2 kv-heads, hd 128
+        q = torch.from_numpy(rng.integers(-1, 2, size=(2, 16, 128)).astype(np.float32))
+        kc = torch.from_numpy(rng.integers(-1, 2, size=(2, 300, 2, 128)).astype(np.float32))
+        return tref.score_logits_plain(q, kc, 128 ** -0.5).numpy(), [300, 300], 64
     if case == "wide_gaussian":  # gemma3-4b's K on its cache width
         return rng.normal(size=(1, 2, 3104)).astype(np.float32) * 3, [3073], 2048
     lg = rng.integers(-4, 5, size=(1, 2, 3104)).astype(np.float32)  # wide_integers
@@ -431,7 +454,7 @@ def _logit_case(case):
 @pytest.mark.parametrize(
     "case",
     ("gaussian", "integers", "all_equal", "signed_zeros", "special", "lengths", "wide_gaussian",
-     "wide_integers"),
+     "wide_integers", "group8_integers"),
 )
 def test_kernel_two_paths_emulation_matches_plain(case):
     """The CUDA K1's selection (csrc/topk_decode_attention.cu), emulated in
@@ -458,7 +481,7 @@ def test_kernel_two_paths_emulation_matches_plain(case):
     expect = {"gaussian": 0, "wide_gaussian": 0, "all_equal": 2, "wide_integers": 2}
     if case in expect:
         assert int(tie.sum()) == expect[case]
-    if case == "integers":
+    if case in ("integers", "group8_integers"):
         assert 0 < int(tie.sum()) < tie.size
     if case == "signed_zeros":
         assert tie[0].tolist() == [1, 0, 0, 1]
@@ -498,7 +521,7 @@ K2_EDGES = ((2, 4, 2, 8, 64, 1), (1, 8, 2, 16, 200, 77), (2, 4, 2, 12, 100, 33),
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,hkv,dh,s,k", SWEEP + K2_EDGES + ((4, 8, 4, 256, 3104, 2048),))
+@pytest.mark.parametrize("b,h,hkv,dh,s,k", SWEEP + K2_EDGES + CROSS + ((4, 8, 4, 256, 3104, 2048),))
 @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
 def test_cuda_kernels_match_plain(cuda_device, b, h, hkv, dh, s, k, dtype):
     """K1 and K2 against their plain versions; K2 also with one (batch,

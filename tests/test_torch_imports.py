@@ -46,7 +46,8 @@ def test_no_jax_or_reference_imports(tmp_path):
     for mod in ("data/datasets.py", "data/sgb_cache.py", "core/dtypes.py", "core/ego.py",
                 "stream/delta.py", "stream/merge.py", "stream/ingest.py", "distributed/sharding.py",
                 "layers/moe.py", "configs/olmoe_1b_7b.py", "configs/qwen2_1_5b.py", "layers/rglru.py",
-                "layers/rwkv.py", "configs/recurrentgemma_2b.py", "configs/rwkv6_3b.py"):
+                "layers/rwkv.py", "configs/recurrentgemma_2b.py", "configs/rwkv6_3b.py",
+                "configs/llama32_vision_90b.py", "configs/seamless_m4t_medium.py"):
         assert port / mod in PORT_FILES, mod
     probe = tmp_path / "probe.py"
     probe.write_text(
@@ -102,6 +103,11 @@ def test_cpu_forward_loads_neither_jax_nor_reference(tmp_path):
         "lg, cache = lm.prefill(torch.zeros((1, 12), dtype=torch.long), max_len=14)\n"
         "lg, cache = lm.decode_step(lg.argmax(-1)[:, None], 12, cache)\n"
         "assert lg.shape == (1, 512)\n"
+        "lm = build_model(get_config('seamless-m4t-medium', smoke=True), device='cpu')\n"
+        "ctx = torch.zeros((1, lm.ctx_len, lm.cfg.d_model))\n"
+        "lg, cache = lm.prefill(torch.zeros((1, 12), dtype=torch.long), max_len=14, context=ctx)\n"
+        "lg, cache = lm.decode_step(lg.argmax(-1)[:, None], 12, cache)\n"
+        "assert lg.shape == (1, 256)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print('LOADED', bad)\n"
         "sys.exit(1 if bad else 0)\n"

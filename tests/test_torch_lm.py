@@ -42,7 +42,8 @@ ATOL_LOGITS = 1e-4  # the reference's decode-vs-forward tolerance
 # every ported arch: config module name -> registry name
 ARCHS = {"gemma3_4b": "gemma3-4b", "qwen2_1_5b": "qwen2-1.5b", "qwen2_72b": "qwen2-72b",
          "chatglm3_6b": "chatglm3-6b", "olmoe_1b_7b": "olmoe-1b-7b", "arctic_480b": "arctic-480b",
-         "recurrentgemma_2b": "recurrentgemma-2b", "rwkv6_3b": "rwkv6-3b"}
+         "recurrentgemma_2b": "recurrentgemma-2b", "rwkv6_3b": "rwkv6-3b",
+         "llama32_vision_90b": "llama-3.2-vision-90b", "seamless_m4t_medium": "seamless-m4t-medium"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -106,23 +107,24 @@ def test_config_matches_reference(arch, smoke):
 
 
 def test_unported_arch_and_kind_raise():
-    """What is still unported raises ``NotImplementedError`` naming its
-    ROADMAP item: the two archs of LM-5 and LM-6, the block kinds C, E and
-    D, and the plain-GELU MLP; an unknown name is a ``ValueError``."""
-    for arch, item in (("llama32_vision_90b", "LM-5"), ("seamless_m4t_medium", "LM-6")):
+    """Every arch of the registry is ported; an unknown arch, an unknown
+    block kind and an unknown activation raise ``ValueError`` (in the
+    registry, in ``block_shapes`` and when an LM is built)."""
+    from repro_torch.configs import ARCHS as ALL
+
+    assert sorted(ALL) == sorted(ARCHS)
+    for arch in ALL:
         for smoke in (False, True):
-            with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
-                tget(arch, smoke=smoke)
-    with pytest.raises(ValueError):
+            assert tget(arch, smoke=smoke).name.startswith(ARCHS[arch])
+    with pytest.raises(ValueError, match="unknown architecture"):
         tget("no-such-arch")
     smoke = tget("gemma3-4b", smoke=True)
-    for kind, item in (("C", "LM-5"), ("E", "LM-6"), ("D", "LM-6")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
-            tblocks.block_shapes(smoke, kind)
-        with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
-            LM(dataclasses.replace(smoke, cycle=("A", kind)), device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 LM-6"):
-        LM(dataclasses.replace(smoke, activation="gelu_mlp"), device="meta")
+    with pytest.raises(ValueError, match="unknown block kind"):
+        tblocks.block_shapes(smoke, "Z")
+    with pytest.raises(ValueError, match="unknown block kind"):
+        LM(dataclasses.replace(smoke, cycle=("A", "Z")), device="meta")
+    with pytest.raises(ValueError, match="unknown activation"):
+        LM(dataclasses.replace(smoke, activation="relu"), device="meta")
 
 
 @pytest.mark.parametrize("norm", ("rmsnorm", "layernorm"))
@@ -397,12 +399,12 @@ def test_lm_layout_full_config_shapes(arch):
         assert port["layers.0.moe.router.w"] == (tcfg.d_model, tcfg.moe.num_experts)
         assert port[f"layers.{tcfg.num_layers - 1}.moe.experts.wo"] == (
             tcfg.moe.num_experts, tcfg.moe.expert_d_ff, tcfg.d_model)
-    # the analytic count leaves out the biases and the norms, RG-LRU's gate
-    # matrices wa and wi and one of its four vectors a layer (it counts 3·w),
-    # and RWKV's lerps mu_*, its w0 and u
+    # the analytic count leaves out the biases and the norms, the
+    # cross-attentions' gates, RG-LRU's gate matrices wa and wi and one of its
+    # four vectors a layer (it counts 3·w), and RWKV's lerps mu_*, its w0 and u
     def left_out(name):
         part, leaf = name.split(".")[-2:]
-        return (leaf in ("bq", "bk", "bv", "scale", "bias") or (part == "lru" and leaf in ("wa", "wi"))
+        return (leaf in ("bq", "bk", "bv", "scale", "bias", "gate") or (part == "lru" and leaf in ("wa", "wi"))
                 or (part == "rwkv" and (leaf.startswith("mu_") or leaf in ("w0", "u"))))
 
     extra = sum(int(np.prod(s)) for n, s in port.items() if left_out(n))
@@ -422,18 +424,32 @@ def test_lm_layout_full_config_shapes(arch):
     if arch == "rwkv6_3b":
         assert names["layers.31.rwkv.ln_x.scale"] == ("groups.0.0.rwkv.ln_x.scale", 31)
         assert port["layers.31.rwkv.u"] == (40, 64) and port["layers.0.rwkv.decay_a"] == (2560, 64)
+    if arch == "llama32_vision_90b":  # cycle A A A A C: layer 99 is group 0's position 4, repeat 19
+        assert names["layers.99.cross.gate"] == ("groups.0.4.cross.gate", 19)
+        assert port["layers.99.cross.gate"] == () and port["layers.99.cross.wk"] == (8192, 1024)
+        assert "layers.98.cross.wq" not in port and "layers.99.attn.wq" not in port
+    if arch == "seamless_m4t_medium":  # decoder "D" blocks; the encoder's stack over enc_layers
+        assert names["encoder.layers.11.attn.bq"] == ("encoder.stack.attn.bq", 11)
+        assert names["encoder.final_norm.bias"] == ("encoder.final_norm.bias", None)
+        assert names["layers.11.lnx.scale"] == ("groups.0.0.lnx.scale", 11)
+        assert port["layers.0.cross.gate"] == () and "layers.0.mlp.wg" not in port
+        # 13 leaves an "E" block: two LayerNorms' scale and bias, wq wk wv wo, bq bk bv, wi wo
+        assert sum(n.startswith("encoder.layers.") for n in port) == 12 * 13
 
 
-@pytest.mark.parametrize("arch", ("gemma3-4b", "qwen2-1.5b", "olmoe-1b-7b", "recurrentgemma-2b", "rwkv6-3b"))
+@pytest.mark.parametrize("arch", ("gemma3-4b", "qwen2-1.5b", "olmoe-1b-7b", "recurrentgemma-2b", "rwkv6-3b",
+                                  "llama-3.2-vision-90b", "seamless-m4t-medium"))
 def test_serve_cli_on_cpu(arch, capsys):
-    """The serving CLI on gemma3 (pruned), an LM-1, an MoE and the two
-    recurrent smoke archs."""
+    """The serving CLI on gemma3 (pruned), an LM-1, an MoE, the two
+    recurrent smoke archs and the two cross-attention ones (with their stub
+    context, pruned by ``--prune-k 8``)."""
     from repro_torch.launch import serve
 
-    toks = serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--prompt-len", "20", "--gen", "4"])
+    extra = ["--prune-k", "8"] if arch in ("llama-3.2-vision-90b", "seamless-m4t-medium") else []
+    toks = serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--prompt-len", "20", "--gen", "4", *extra])
     assert tuple(toks.shape) == (4, 5)
     out = capsys.readouterr().out
-    prune_k = tget(arch, smoke=True).attn_prune_k
+    prune_k = 8 if extra else tget(arch, smoke=True).attn_prune_k
     assert f"[serve] arch={arch}-smoke prune_k={prune_k}" in out and "[serve] decode 4 steps" in out
 
 
