@@ -314,7 +314,32 @@ exits non-zero at the first phase that fails:
    routed tokens or at a flip whose margin exceeds 1e-5, and holds the
    logits only on sequences whose every token was routed and slotted
    alike;
-12. prints a ``train {...}`` line with the step times, a ``serve {...}``
+12. LM training (no kernel of the port is on its path; every launch
+   counter is zeroed first and must read zero after it): the flash
+   backward (``layers/flash.py``'s ``Flash``) against autograd through a
+   dense materialised-softmax attention in float32 at qwen2-1.5b's global
+   layer (12 q-heads over 2, hd 128, causal, S 4096), recurrentgemma-2b's
+   local one (10 over 1, hd 256, window 2048) and seamless-m4t-medium's
+   cross-attention (16 over 16, hd 64, 4096 queries over 1024 frames),
+   dq / dk / dv within 1e-4 of their largest magnitude, backward ms and
+   peak memory of both printed; then 6 eager ``make_train_step`` steps of
+   the token pipeline at (8, 4096), train_4k's sequence with its global
+   batch cut from 256 to 8, the config's optimizer, remat and grad_accum
+   and seeded weights (the step's first call on the card grows the
+   allocator's segments, ``steps.grow_allocator_segments``): qwen2-1.5b and seamless-m4t-medium (1024 stub
+   frames a row) whole, recurrentgemma-2b at 12 of 26 layers (whole it
+   needs ~104 GB); each prints step ms (steps 2-6, CUDA events), tokens/s,
+   peak reserved memory, every step's loss (finite), the leaves changed
+   and the model-FLOPs share of 989 TFLOP/s (dense bf16); arctic-480b is
+   not run (1 of 35 layers with its float32 gradient accumulator is ~84
+   GB). qwen2-1.5b at 2 layers, full width, float32, on the card and the
+   CPU: the loss of (2, 256) tokens within 1e-5 relative, every gradient
+   within 1e-4 of its leaf's largest magnitude, and AdamW's and
+   Adafactor's new parameters from the same gradients within 1e-6; a
+   ``Trainer`` run on the card stopped after an asynchronous save at step
+   3 and resumed in a new ``Trainer``, its losses equal to an uninterrupted
+   run's bit for bit, the bytes written and the save seconds printed;
+13. prints a ``train {...}`` line with the step times, a ``serve {...}``
    line with the serving numbers (serial and microbatched wall time, QPS,
    p50/p99, mean batch, pad fraction and blocks; the threaded p50/p99; the
    busy share; the overlap counts), an ``ego {...}`` line with phase 8's
@@ -322,7 +347,7 @@ exits non-zero at the first phase that fails:
    rebuild times and their ratio, per-ingest session times, bytes
    uploaded and tiers, the threaded QPS during the ingests, memory), a
    ``shard {...}`` line with phase 10's, an ``archs {...}`` line with phase
-   11's, the card line, then the
+   11's, an ``lm_train {...}`` line with phase 12's, the card line, then the
    ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
    the last line.
 """
@@ -331,6 +356,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -446,6 +472,33 @@ TOL_ARCH_REL, ARCH_FLIP_SHARE, ARCH_FLIP_MARGIN = 1e-4, 0.01, 1e-5
 # 512, no pad rows); the second half of each sequence is the "late" tokens
 ARCH_SPREAD_BATCH, ARCH_SPREAD_PROMPT = 2, 512
 ARCH_ROUTER_SPREAD = 2.4  # the std of a unit-scale router's logits on a normed input
+# phase 12, LM training (no kernel of the port is on its path): the flash
+# backward against autograd through a dense attention in float32 at three
+# archs' full-width shapes (name, B, S, Skv, H, Hkv, hd, causal, window),
+# each gradient within 1e-4 of its largest magnitude
+FLASH_BWD_CASES = (("qwen2-1.5b global", 1, 4096, 4096, 12, 2, 128, True, None),
+                   ("recurrentgemma-2b local", 1, 4096, 4096, 10, 1, 256, True, 2048),
+                   ("seamless-m4t-medium cross", 1, 4096, 1024, 16, 16, 64, False, None))
+TOL_FLASH_BWD = 1e-4
+# eager training steps at full width: train_4k's sequence (4096), its global
+# batch cut from 256 to 8; (arch, layers kept or None for the published
+# depth); recurrentgemma-2b whole needs ~104 GB (AdamW's update holds 9
+# float32 copies of its 2.89 B parameters; PERF.md §6), so 12 of 26
+# layers (R R L four times); arctic-480b does not fit at any depth (1 of 35
+# layers is 14.1 B bf16 parameters, the float32 gradient accumulator alone
+# 56 GB more) and is not run
+TRAIN_LM_SEQ, TRAIN_LM_BATCH, TRAIN_LM_STEPS = 4096, 8, 6
+TRAIN_LM_RUNS = (("qwen2-1.5b", None), ("seamless-m4t-medium", None), ("recurrentgemma-2b", 12))
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate, published
+# card vs CPU: qwen2-1.5b at 2 layers, full width, float32, (2, 256) tokens:
+# the loss (relative), each gradient (of its leaf's largest magnitude) and,
+# from the same gradients, each optimizer's new parameters (relative to the
+# leaf's largest magnitude)
+TRAIN_CPU_LAYERS, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 2, 256
+TOL_TRAIN_CPU_LOSS, TOL_TRAIN_CPU_GRAD, TOL_TRAIN_CPU_UPDATE = 1e-5, 1e-4, 1e-6
+# resume on the card: qwen2-1.5b at 2 layers, (4, 1024) a step, 6 steps
+# uninterrupted against 3, an asynchronous save, and 3 resumed
+RESUME_STEPS, RESUME_SPLIT, RESUME_SEQ, RESUME_BATCH = 6, 3, 1024, 4
 
 
 def check(cond, msg: str) -> None:
@@ -4153,7 +4206,7 @@ def routing_spread(lm, toks) -> list:
             out.append({"rms_residual": rms(x), "rms_attention": rms(h), "rms_moe": rms(mo),
                         "late_alike_attention": alike(h), "late_alike_router_input": alike(hn),
                         "dropped_share": (picks - kept[0]) / picks})
-            x, _ = blocks.apply_block_train(cfg, kind, p, x, positions)
+            x, _, _ = blocks.apply_block_train(cfg, kind, p, x, positions)
     return out
 
 
@@ -4657,6 +4710,324 @@ def arch_phase(modules, card, dev) -> dict:
     return out
 
 
+def graph_nodes(fn) -> set:
+    """The names of the autograd nodes reachable from ``fn``."""
+    seen, todo = set(), [fn]
+    while todo:
+        f = todo.pop()
+        if f is None or type(f).__name__ in seen:
+            continue
+        seen.add(type(f).__name__)
+        todo.extend(nxt for nxt, _ in f.next_functions)
+    return seen
+
+
+def dense_attention(q, k, v, causal: bool, window):
+    """Plain attention over a materialised (S, Skv) softmax, float32: the
+    flash backward's yardstick."""
+    import torch
+
+    b, s, h, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, s, hkv, h // hkv, hd)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k) * hd ** -0.5
+    qp = torch.arange(s, device=q.device)[:, None]
+    kp = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((s, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= kp > qp - window
+    p = torch.softmax(torch.where(mask, logits, -2.3e38), dim=-1)
+    return torch.einsum("bkgqs,bskd->bqkgd", p, v).reshape(b, s, h, hd)
+
+
+def flash_backward_check(dev) -> dict:
+    """The flash backward (``layers/flash.py``'s ``Flash``) against autograd
+    through ``dense_attention`` at ``FLASH_BWD_CASES``, float32, the
+    configs' chunks (1024): dq, dk, dv each within ``TOL_FLASH_BWD`` of its
+    largest magnitude; backward ms (CUDA events, retained graph, median of
+    3) and the peak memory above the inputs of each (forward + backward)."""
+    import types
+
+    import torch
+
+    from repro_torch.layers import flash
+
+    cfg = types.SimpleNamespace(attn_chunk_q=1024, attn_chunk_kv=1024)
+    out = {}
+    for i, (name, b, s, skv, h, hkv, hd, causal, window) in enumerate(FLASH_BWD_CASES):
+        g = torch.Generator(dev).manual_seed(i)
+        q, k, v = (torch.randn(shape, generator=g, device=dev) for shape in
+                   ((b, s, h, hd), (b, skv, hkv, hd), (b, skv, hkv, hd)))
+        dout = torch.randn((b, s, h, hd), generator=g, device=dev)
+        res = {}
+        for how, fn in (("flash", lambda *a: flash.flash_attention(cfg, *a, causal=causal, window=window)),
+                        ("dense", lambda *a: dense_attention(*a, causal, window))):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            sync(dev)
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            o = fn(*leaves)
+            grads = torch.autograd.grad(o, leaves, dout, retain_graph=True)
+            sync(dev)
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            if how == "flash":
+                check("FlashBackward" in graph_nodes(o.grad_fn), f"{name}: flash did not run through Flash")
+            ms = event_median_ms(lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True), 3, warmup=1)
+            res[how] = {"grads": grads, "peak_gb": peak / 1e9, "bwd_ms": ms}
+            del o, leaves
+        errs = {}
+        for part, gf, gd in zip(("dq", "dk", "dv"), res["flash"]["grads"], res["dense"]["grads"]):
+            errs[part] = float((gf - gd).abs().max() / gd.abs().max())
+            check(errs[part] <= TOL_FLASH_BWD, f"{name}: flash {part} off the dense one by {errs[part]:.2e} of its max")
+        out[name] = {"shape": {"B": b, "S": s, "Skv": skv, "H": h, "Hkv": hkv, "hd": hd, "causal": causal,
+                               "window": window},
+                     "rel_err": errs, **{f"{how}_{k}": res[how][k] for how in res for k in ("bwd_ms", "peak_gb")}}
+        print(f"  flash backward {name}: dq/dk/dv {errs['dq']:.1e}/{errs['dk']:.1e}/{errs['dv']:.1e} of their max; "
+              f"backward {res['flash']['bwd_ms']:.2f} ms (dense {res['dense']['bwd_ms']:.2f}), peak "
+              f"{res['flash']['peak_gb']:.2f} GB (dense {res['dense']['peak_gb']:.2f}) above the inputs")
+        del res
+    # the training microbatch's shape in its dtype: qwen2-1.5b, (2, 4096), bfloat16
+    b, s, h, hkv, hd = 2, 4096, 12, 2, 128
+    g = torch.Generator(dev).manual_seed(9)
+    q, k, v = (torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16).requires_grad_()
+               for shape in ((b, s, h, hd), (b, s, hkv, hd), (b, s, hkv, hd)))
+    dout = torch.randn((b, s, h, hd), generator=g, device=dev, dtype=torch.bfloat16)
+    fwd = event_median_ms(lambda: flash.flash_attention(cfg, q, k, v), 5)
+    o = flash.flash_attention(cfg, q, k, v)
+    bwd = event_median_ms(lambda: torch.autograd.grad(o, (q, k, v), dout, retain_graph=True), 5)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True, enable_gqa=True)
+
+    lib_fwd = event_median_ms(sdpa, 5)
+    lo = sdpa()
+    lib_bwd = event_median_ms(lambda: torch.autograd.grad(lo, (q, k, v), dout.transpose(1, 2), retain_graph=True), 5)
+    out["qwen2-1.5b global, bf16 (2, 4096)"] = {"flash_fwd_ms": fwd, "flash_bwd_ms": bwd, "sdpa_fwd_ms": lib_fwd,
+                                                 "sdpa_bwd_ms": lib_bwd}
+    print(f"  flash at qwen2-1.5b's training microbatch (2, 4096), bf16: forward {fwd:.2f} ms, backward {bwd:.2f} "
+          f"ms a layer; scaled_dot_product_attention (a library call, not used by the port) {lib_fwd:.2f} / "
+          f"{lib_bwd:.2f} ms")
+    return out
+
+
+def train_flops(cfg, params, batch: int, seq: int) -> dict:
+    """A training step's model FLOPs: 6 · N · rows (N without an untied
+    embedding table, whose gather multiplies nothing; the encoder's against
+    the frames, the rest against the tokens), and the attention's
+    3 · 4 · hd · H · (query, key) pairs attended (causal, windowed, over a
+    context; forward and backward, no recompute counted)."""
+    from repro_torch.models.lm import decoder_kinds
+
+    ctx = cfg.num_img_tokens or cfg.num_audio_frames
+    enc = sum(p.numel() for n, p in params.items() if n.startswith("encoder."))
+    dec = sum(p.numel() for n, p in params.items()
+              if not n.startswith("encoder.") and not (n == "embed.table" and not cfg.tie_embeddings))
+    dense = 6 * (dec * batch * seq + enc * batch * ctx)
+    causal = seq * (seq + 1) // 2
+    window = cfg.sliding_window or seq
+    local = sum(min(i + 1, window) for i in range(seq))
+    pairs = {"A": causal, "M": causal, "L": local, "C": seq * ctx, "D": causal + seq * ctx, "R": 0, "W": 0}
+    per_pair = 3 * 4 * cfg.hd * cfg.num_heads * batch
+    attn = per_pair * (sum(pairs[k] for k in decoder_kinds(cfg)) + cfg.enc_layers * ctx * ctx)
+    return {"dense": dense, "attention": attn, "total": dense + attn}
+
+
+def lm_train_run(arch: str, layers, dev) -> dict:
+    """``TRAIN_LM_STEPS`` eager ``make_train_step`` steps of ``arch`` at full
+    width (depth ``layers`` when cut) on the token pipeline at
+    (``TRAIN_LM_BATCH``, ``TRAIN_LM_SEQ``), the config's optimizer, remat
+    and grad_accum, seeded weights, a stub context drawn per step for a
+    context arch; steps 2-6 timed with CUDA events."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import LM
+
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    lm = LM(cfg, dev)
+    lm.reset_parameters(torch.Generator(dev).manual_seed(0))
+    params = {n: p.detach() for n, p in lm.named_parameters()}
+    del lm
+    sample = {n: p.reshape(-1)[:4096].clone() for n, p in params.items()}
+    opt = steps.make_optimizer(cfg)
+    state = opt.init(params)
+    step = steps.make_train_step(cfg)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_LM_SEQ, TRAIN_LM_BATCH, seed=0)
+    ctx_len = cfg.num_img_tokens or cfg.num_audio_frames
+    flops = train_flops(cfg, params, TRAIN_LM_BATCH, TRAIN_LM_SEQ)
+    n_params = sum(p.numel() for p in params.values())
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, ms = [], []
+    for i in range(TRAIN_LM_STEPS):
+        batch = pipe.batch(i, dev)
+        if ctx_len:
+            g = torch.Generator(dev).manual_seed(i)
+            batch["context"] = torch.randn((TRAIN_LM_BATCH, ctx_len, cfg.d_model), generator=g, device=dev)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        params, state, loss = step(params, state, batch)
+        e1.record()
+        sync(dev)
+        losses.append(float(loss))
+        ms.append(e0.elapsed_time(e1))
+    peak_reserved = torch.cuda.max_memory_reserved(dev) / 1e9
+    peak_alloc = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(all(math.isfinite(x) for x in losses), f"{arch}: a loss is not finite: {losses}")
+    unchanged = [n for n, p in params.items() if torch.equal(p.reshape(-1)[:4096], sample[n])]
+    check(len(unchanged) <= len(params) // 100, f"{arch}: {len(unchanged)} parameters unchanged: {unchanged[:8]}")
+    step_ms = sorted(ms[1:])[len(ms[1:]) // 2]
+    out = {
+        "cut": f"{cfg.num_layers} layers" if layers is not None else "whole",
+        "params": n_params, "optimizer": cfg.optimizer, "remat": cfg.remat, "grad_accum": cfg.grad_accum,
+        "microbatch": TRAIN_LM_BATCH // cfg.grad_accum, "batch": TRAIN_LM_BATCH, "seq": TRAIN_LM_SEQ,
+        "context_rows": ctx_len, "losses": losses, "step_ms_events": ms, "step_ms_median": step_ms,
+        "first_step_ms": ms[0], "tokens_per_s": TRAIN_LM_BATCH * TRAIN_LM_SEQ / (step_ms / 1e3),
+        "peak_reserved_gb": peak_reserved, "peak_allocated_gb": peak_alloc,
+        "leaves_changed": len(params) - len(unchanged), "leaves": len(params), "flops": flops,
+        "model_flops_share": flops["total"] / (step_ms / 1e3) / PEAK_BF16_FLOPS,
+    }
+    print(f"  train {arch} ({out['cut']}, {n_params / 1e9:.3f} B params, {cfg.optimizer}, remat {cfg.remat}, "
+          f"grad_accum {cfg.grad_accum}): step {step_ms:.1f} ms median of steps 2-{TRAIN_LM_STEPS} (first "
+          f"{ms[0]:.1f}), {out['tokens_per_s']:.0f} tokens/s, peak reserved {peak_reserved:.2f} GB (allocated "
+          f"{peak_alloc:.2f}), losses {[round(x, 4) for x in losses]}, {out['leaves_changed']}/{len(params)} leaves "
+          f"changed, model FLOPs {flops['total']:.3e} a step ({flops['attention']:.3e} attention), "
+          f"{100 * out['model_flops_share']:.2f} % of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s dense bf16")
+    return out
+
+
+def lm_train_cpu_check(dev) -> dict:
+    """qwen2-1.5b at ``TRAIN_CPU_LAYERS`` layers, full width, float32, on the
+    card and on the CPU from one seeded set of weights: the loss and every
+    gradient of (``TRAIN_CPU_BATCH``, ``TRAIN_CPU_SEQ``) pipeline tokens,
+    then AdamW's and Adafactor's new parameters from the CPU's gradients."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import LM
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=TRAIN_CPU_LAYERS, dtype="float32")
+    lm = LM(cfg, "cpu")
+    lm.reset_parameters(torch.Generator().manual_seed(0))
+    cpu = {n: p.detach() for n, p in lm.named_parameters()}
+    gpu = {n: p.to(dev) for n, p in cpu.items()}
+    batch = TokenPipeline(cfg.vocab_size, TRAIN_CPU_SEQ, TRAIN_CPU_BATCH, seed=0).batch_np(0)
+    model = LM(cfg, "meta")
+
+    def value_and_grad(params, device):
+        leaves = {n: p.detach().requires_grad_() for n, p in params.items()}
+        loss = model.loss_fn(leaves, {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+        return float(loss.detach()), dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+    t0 = time.perf_counter()
+    lc, gc = value_and_grad(cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    lg, gg = value_and_grad(gpu, dev)
+    loss_err = abs(lg - lc) / abs(lc)
+    check(loss_err <= TOL_TRAIN_CPU_LOSS, f"card vs CPU loss {lg} / {lc}: {loss_err:.2e} relative")
+    grad_err = {n: float((gg[n].cpu() - g).abs().max() / g.abs().max()) for n, g in gc.items()}
+    worst = max(grad_err, key=grad_err.get)
+    check(grad_err[worst] <= TOL_TRAIN_CPU_GRAD, f"card vs CPU gradient {worst}: {grad_err[worst]:.2e} of its max")
+    upd_err = {}
+    for optimizer in ("adamw", "adafactor"):
+        opt = steps.make_optimizer(dataclasses.replace(cfg, optimizer=optimizer))
+        new_c, _ = opt.update(gc, opt.init(cpu), cpu)
+        new_g, _ = opt.update({n: g.to(dev) for n, g in gc.items()}, opt.init(gpu), gpu)
+        errs = {n: float((new_g[n].cpu() - p).abs().max() / p.abs().max().clamp_min(1e-30)) for n, p in new_c.items()}
+        w = max(errs, key=errs.get)
+        check(errs[w] <= TOL_TRAIN_CPU_UPDATE, f"card vs CPU {optimizer} update {w}: {errs[w]:.2e} relative")
+        check(any(not torch.equal(new_c[n], cpu[n]) for n in cpu), f"{optimizer} moved no parameter")
+        upd_err[optimizer] = errs[w]
+    out = {"loss_cpu": lc, "loss_card": lg, "loss_rel_err": loss_err, "grad_rel_err_max": grad_err[worst],
+           "grad_worst_leaf": worst, "update_rel_err_max": upd_err, "cpu_s": cpu_s}
+    print(f"  card vs CPU (qwen2-1.5b, {TRAIN_CPU_LAYERS} layers, float32, ({TRAIN_CPU_BATCH}, {TRAIN_CPU_SEQ})): "
+          f"loss {lg:.6f} / {lc:.6f} ({loss_err:.1e} relative), gradients <= {grad_err[worst]:.1e} of their max "
+          f"({worst}), new parameters AdamW {upd_err['adamw']:.1e}, Adafactor {upd_err['adafactor']:.1e} relative")
+    return out
+
+
+def lm_resume_check(dev) -> dict:
+    """``Trainer`` on the card, qwen2-1.5b at 2 layers: ``RESUME_STEPS``
+    steps uninterrupted; then ``RESUME_SPLIT`` steps that end with an
+    asynchronous save, and a second ``Trainer`` resumed from that
+    checkpoint: its losses equal the uninterrupted run's bit for bit."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import TrainConfig, Trainer
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=2)
+    root = ROOT / "build" / "lm_resume"
+    shutil.rmtree(root, ignore_errors=True)
+    tc = TrainConfig(steps=RESUME_STEPS, seq_len=RESUME_SEQ, global_batch=RESUME_BATCH, ckpt_dir=str(root / "whole"),
+                     ckpt_every=10**9, keep=1, log_every=0)
+    try:
+        _, _, whole = Trainer(cfg, tc, device=dev).run()
+        shutil.rmtree(root / "whole")
+        split = dataclasses.replace(tc, ckpt_dir=str(root / "split"))
+        first = Trainer(cfg, dataclasses.replace(split, steps=RESUME_SPLIT), device=dev)
+        _, _, head = first.run()
+        saved = dict(first.ckpt.last_write)
+        second = Trainer(cfg, split, device=dev)
+        _, _, tail = second.run()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(head == whole[:RESUME_SPLIT], f"the first {RESUME_SPLIT} steps differ: {head} / {whole}")
+    check(tail == whole[RESUME_SPLIT:], f"resumed losses {tail} differ from the uninterrupted {whole[RESUME_SPLIT:]}")
+    out = {"losses": whole, "resumed": tail, "save": saved}
+    print(f"  resume (qwen2-1.5b, 2 layers, ({RESUME_BATCH}, {RESUME_SEQ})): steps {RESUME_SPLIT + 1}-{RESUME_STEPS} "
+          f"resumed from the step-{RESUME_SPLIT} checkpoint equal the uninterrupted run's bit for bit; the save wrote "
+          f"{saved['bytes']} bytes, snapshot {saved['snapshot_s']:.2f} s (before save returned), write "
+          f"{saved['write_s']:.2f} s (behind)")
+    return out
+
+
+def lm_train_phase(modules, card, dev) -> dict:
+    """Phase 12: LM training. Every launch counter is zeroed first and must
+    read zero after the training runs (no kernel of the port is on the
+    path). Every check raises."""
+    import gc
+
+    import torch
+
+    torch.cuda.init()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for m in modules:
+        reset_launches(m)
+    zero = {key: 0 for key in all_launches(*modules)}
+    out = {"card": card, "flash_backward": flash_backward_check(dev), "runs": {}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, layers in TRAIN_LM_RUNS:
+        t0 = time.perf_counter()
+        out["runs"][arch] = lm_train_run(arch, layers, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["runs"][arch]["wall_s"] = time.perf_counter() - t0
+        print(f"  {arch} training: wall time {out['runs'][arch]['wall_s']:.1f} s")
+    out["cpu_check"] = lm_train_cpu_check(dev)
+    out["resume"] = lm_resume_check(dev)
+    got = all_launches(*modules)
+    check(got == zero, f"a kernel launched during LM training: {got}")
+    out["launches"] = got
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4871,6 +5242,16 @@ def main() -> int:
     phase_s["11"] = time.perf_counter() - t_phase
     print(f"phase 11: wall time {phase_s['11']:.1f} s")
 
+    # phase 12: LM training
+    t_phase = time.perf_counter()
+    print(f"phase 12: LM training: the flash backward at {len(FLASH_BWD_CASES)} full-width shapes, then "
+          f"{TRAIN_LM_STEPS} eager steps of ({TRAIN_LM_BATCH}, {TRAIN_LM_SEQ}) tokens (train_4k's global batch 256 "
+          "cut to 8): " + ", ".join(f"{a} ({'whole' if n is None else f'{n} layers'})" for a, n in TRAIN_LM_RUNS)
+          + "; card vs CPU; a resumed run")
+    lm_train = lm_train_phase((ops, tda_ops, ts_ops), card, dev)
+    phase_s["12"] = time.perf_counter() - t_phase
+    print(f"phase 12: wall time {phase_s['12']:.1f} s")
+
     kernels = []
     for key, line, lib in KERNELS:
         bound_ms, bound_by, nbytes, nops = bounds[key]
@@ -4999,6 +5380,7 @@ def main() -> int:
         "decode_phase2_errors": dec_cases,
         "pruner_times_ms": t_ts, "forward_ms": fwd, "forward_latency_ms": latency, "profiles": prof,
         "train": train, "sgb": sgb, "serve": served, "ego": ego, "stream": stream, "shard": sharded, "archs": archs,
+        "lm_train": lm_train,
         "kernels": kernels,
         "phase_wall_s": phase_s,
     }, indent=1))
@@ -5063,6 +5445,16 @@ def main() -> int:
         "cpu_check": {arch: {k: r.get(k) for k in ("rel_errs", "pruned_rel_errs", "logit_scale", "flip_share",
                                                     "sequences_held")}
                       for arch, r in archs["cpu_check"].items()},
+        "card": card,
+    }))
+    print("lm_train " + json.dumps({
+        "flash_backward": {name: {k: v for k, v in r.items() if k != "shape"}
+                           for name, r in lm_train["flash_backward"].items()},
+        "runs": {arch: {k: r[k] for k in ("cut", "params", "optimizer", "grad_accum", "microbatch", "step_ms_median",
+                                          "tokens_per_s", "peak_reserved_gb", "losses", "leaves_changed",
+                                          "model_flops_share")}
+                 for arch, r in lm_train["runs"].items()},
+        "cpu_check": lm_train["cpu_check"], "resume": lm_train["resume"], "launches": lm_train["launches"],
         "card": card,
     }))
     print(card)

@@ -59,7 +59,9 @@ import torch
 from repro_torch import resolve_device
 
 
-def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+def _flatten(tree, prefix: str = "", is_leaf=lambda t: False) -> Dict[str, np.ndarray]:
+    if is_leaf(tree):
+        return {prefix[:-1]: tree}
     if isinstance(tree, Mapping):
         items = tree.items()
     elif isinstance(tree, (list, tuple)):
@@ -71,7 +73,7 @@ def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
         name = f"{prefix}{key}"
         if "." in str(key):
             raise ValueError(f"parameter key {name!r} contains '.'")
-        out.update(_flatten(val, name + "."))
+        out.update(_flatten(val, name + ".", is_leaf))
     return out
 
 
@@ -104,26 +106,27 @@ def params_from_reference(
     return out
 
 
-def lm_layout(cfg, tree: Mapping) -> Iterator[Tuple[str, str, Optional[int]]]:
+def lm_layout(cfg, tree: Mapping, is_leaf=lambda t: False) -> Iterator[Tuple[str, str, Optional[int]]]:
     """``(port name, reference path, repeat)`` for every leaf of the
     reference LM tree, one per layer for stacked leaves (``repeat`` indexes
     the stacking axis; ``None`` for the unstacked embedding and final
     norm and head). Leaves may be arrays or shape structs: only the tree
-    is read."""
+    is read; ``is_leaf`` marks other nodes as leaves (an optimizer's
+    per-parameter slots)."""
     tops = ("embed", "final_norm", "lm_head")
     unknown = sorted(set(tree) - set(tops) - {"groups", "encoder"})
     if unknown:
         raise ValueError(f"unknown LM tree parts {unknown}")
     for top in (t for t in tops if t in tree):
-        for path in _flatten(tree[top], f"{top}."):
+        for path in _flatten(tree[top], f"{top}.", is_leaf):
             yield path, path, None
     if "encoder" in tree:
         enc = tree["encoder"]
         if sorted(enc) != ["final_norm", "stack"]:
             raise ValueError(f"encoder parts {sorted(enc)}, expected ['final_norm', 'stack']")
-        for path in _flatten(enc["final_norm"], "encoder.final_norm."):
+        for path in _flatten(enc["final_norm"], "encoder.final_norm.", is_leaf):
             yield path, path, None
-        for path in _flatten(enc["stack"]):
+        for path in _flatten(enc["stack"], "", is_leaf):
             for r in range(cfg.enc_layers):
                 yield f"encoder.layers.{r}.{path}", f"encoder.stack.{path}", r
     offset = 0
@@ -131,7 +134,7 @@ def lm_layout(cfg, tree: Mapping) -> Iterator[Tuple[str, str, Optional[int]]]:
         if len(stacked) != len(cycle):
             raise ValueError(f"group {gi}: {len(stacked)} cycle positions, expected {len(cycle)}")
         for p, block in enumerate(stacked):
-            for path in _flatten(block):
+            for path in _flatten(block, "", is_leaf):
                 for r in range(n):
                     i = offset + r * len(cycle) + p
                     yield f"layers.{i}.{path}", f"groups.{gi}.{p}.{path}", r
@@ -165,3 +168,50 @@ def lm_params_from_reference(cfg, tree: Mapping, device="cuda") -> Dict[str, tor
             leaf = leaf.astype(np.float32)
         out[name] = torch.tensor(leaf, dtype=storage_dtype(cfg, name, leaf.shape), device=dev)
     return out
+
+
+def _host_tensor(a: np.ndarray, device) -> torch.Tensor:
+    """A reference numpy leaf as a tensor of its dtype (bfloat16 through
+    float32, which holds it exactly)."""
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.astype(np.float32), device=device).to(torch.bfloat16)
+    return torch.tensor(np.asarray(a), device=device)
+
+
+def opt_state_from_reference(cfg, opt_state, device="cuda"):
+    """The reference's optimizer state for its LM (numpy leaves:
+    ``jax.tree.map(np.asarray, state)``) as the port's, named as the port's
+    parameters: an ``AdamWState`` (``mu`` and ``nu`` per layer, each leaf's
+    row ``r`` of a stacked one) or an ``AdafactorState`` whose slots follow
+    the port's stacked layout (``optim/adafactor.py``): a stacked matrix's
+    row and column statistics row ``r``, a stacked vector's row ``r`` (0-d)
+    and its shared columns, a stacked scalar's ``full[r]``. A state from
+    ``launch.steps.make_optimizer(cfg)`` on the reference's side continues
+    in the port's step (``make_train_step``)."""
+    from repro_torch.optim.adafactor import AdafactorState, FactoredSlot
+    from repro_torch.optim.adamw import AdamWState
+
+    dev = resolve_device(device)
+    step = torch.tensor(int(np.asarray(opt_state.step)), dtype=torch.int32, device=dev)
+    if hasattr(opt_state, "mu"):
+        def moments(tree):
+            leaves = _flatten(tree)
+            return {name: _host_tensor(leaves[path] if r is None else leaves[path][r], dev)
+                    for name, path, r in lm_layout(cfg, tree)}
+
+        return AdamWState(step=step, mu=moments(opt_state.mu), nu=moments(opt_state.nu))
+    is_slot = lambda t: hasattr(t, "_fields")  # noqa: E731  the reference's FactoredSlot
+    leaves = _flatten(opt_state.slots, "", is_slot)
+    slots = {}
+    for name, path, r in lm_layout(cfg, opt_state.slots, is_slot):
+        row, col, full = leaves[path]
+        if r is None:
+            parts = (row, col, full)
+        elif full is not None:
+            parts = (None, None, full[r])
+        elif row.ndim == 1:  # a stacked vector: its columns are the group's
+            parts = (row[r], col, None)
+        else:
+            parts = (row[r], col[r], None)
+        slots[name] = FactoredSlot(*(None if a is None else _host_tensor(a, dev) for a in parts))
+    return AdafactorState(step=step, slots=slots)

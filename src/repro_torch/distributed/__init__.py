@@ -1,3 +1,4 @@
 """Multi-device plumbing of the port: the graph axes of the reference's
 logical-axis rules and the ambient ``torch.distributed`` device mesh that
-sharded grouped NA binds to (``sharding``)."""
+sharded grouped NA binds to (``sharding``); int8 gradient compression with
+error feedback (``compression``)."""

@@ -93,14 +93,15 @@ def init_rules(cfg, kind: str):
 
 def _ffn(cfg, kind: str, params, x):
     """The block's feed-forward on the residual stream ``x``: its MLP, or
-    for "M" the MoE (aux loss dropped) plus the dense residual MLP."""
+    for "M" the MoE plus the dense residual MLP. Returns (x, aux): the MoE's
+    auxiliary loss (a float32 scalar), 0.0 for the other kinds."""
     hn = apply_norm(cfg, params["ln2"], x)
     if kind != "M":
-        return x + mlp_mod.apply_mlp(cfg, params["mlp"], hn)
-    mo, _ = moe_mod.apply_moe(cfg, params["moe"], hn)
+        return x + mlp_mod.apply_mlp(cfg, params["mlp"], hn), 0.0
+    mo, aux = moe_mod.apply_moe(cfg, params["moe"], hn)
     if "mlp" in params:
         mo = mo + mlp_mod.apply_mlp(cfg, params["mlp"], hn)
-    return x + mo
+    return x + mo, aux
 
 
 def _attn_kind(kind: str) -> str:
@@ -108,25 +109,26 @@ def _attn_kind(kind: str) -> str:
 
 
 def apply_block_train(cfg, kind: str, params, x, positions, context=None, emit_cache: bool = False):
-    """Returns (x, cache_or_state_or_None). ``context`` (B, C, d) is what a
-    "C" or "D" block's cross-attention attends to; an "E" block emits no
-    cache."""
+    """Returns (x, aux, cache_or_state_or_None), the reference's triple:
+    ``aux`` is an "M" block's MoE auxiliary loss (0.0 for the other kinds;
+    prefill drops it). ``context`` (B, C, d) is what a "C" or "D" block's
+    cross-attention attends to; an "E" block emits no cache."""
     _check_kind(kind)
     if kind == "C":
         h, cache = attn.attention_train(cfg, params["cross"], apply_norm(cfg, params["ln1"], x), positions,
                                         context=context, emit_cache=emit_cache)
-        return _ffn(cfg, kind, params, x + h), cache
+        return (*_ffn(cfg, kind, params, x + h), cache)
     if kind == "D":
         h, self_cache = attn.attention_train(cfg, params["attn"], apply_norm(cfg, params["ln1"], x), positions,
                                              emit_cache=emit_cache)
         x = x + h
         h, cross_cache = attn.attention_train(cfg, params["cross"], apply_norm(cfg, params["lnx"], x), positions,
                                               context=context, emit_cache=emit_cache)
-        x = _ffn(cfg, kind, params, x + h)
-        return x, (DecoderCache(self_cache, cross_cache) if emit_cache else None)
+        x, aux = _ffn(cfg, kind, params, x + h)
+        return x, aux, (DecoderCache(self_cache, cross_cache) if emit_cache else None)
     if kind == "R":
         h, state = rglru.apply_recurrent_train(cfg, params["lru"], apply_norm(cfg, params["ln1"], x), emit_state=True)
-        return _ffn(cfg, kind, params, x + h), state if emit_cache else None
+        return (*_ffn(cfg, kind, params, x + h), state if emit_cache else None)
     if kind == "W":
         h1n = apply_norm(cfg, params["ln1"], x)
         h, s_final = rwkv.time_mix_train(cfg, params["rwkv"], h1n, emit_state=True)
@@ -134,13 +136,13 @@ def apply_block_train(cfg, kind: str, params, x, positions, context=None, emit_c
         h2n = apply_norm(cfg, params["ln2"], x)
         x = x + rwkv.channel_mix_train(cfg, params["rwkv"], h2n)
         state = rwkv.RWKVState(s=s_final, shift_t=h1n[:, -1], shift_c=h2n[:, -1]) if emit_cache else None
-        return x, state
+        return x, 0.0, state
     encoder = kind == "E"
     h, cache = attn.attention_train(
         cfg, params["attn"], apply_norm(cfg, params["ln1"], x), positions,
         kind=_attn_kind(kind), emit_cache=emit_cache and not encoder, causal=False if encoder else None,
     )
-    return _ffn(cfg, kind, params, x + h), cache
+    return (*_ffn(cfg, kind, params, x + h), cache)
 
 
 def init_block_cache(cfg, kind: str, batch: int, max_len: int, device, ctx_len: int = 0):
@@ -171,16 +173,16 @@ def apply_block_decode(cfg, kind: str, params, x, pos, cache):
         raise ValueError("an encoder block ('E') has no decode step")
     if kind == "C":
         h = attn.cross_attention_decode(cfg, params["cross"], apply_norm(cfg, params["ln1"], x), cache)
-        return _ffn(cfg, kind, params, x + h), cache
+        return _ffn(cfg, kind, params, x + h)[0], cache
     if kind == "D":
         h, _ = attn.attention_decode(cfg, params["attn"], apply_norm(cfg, params["ln1"], x), pos, cache.self,
                                      kind="A")
         x = x + h
         h = attn.cross_attention_decode(cfg, params["cross"], apply_norm(cfg, params["lnx"], x), cache.cross)
-        return _ffn(cfg, kind, params, x + h), cache
+        return _ffn(cfg, kind, params, x + h)[0], cache
     if kind == "R":
         h, state = rglru.apply_recurrent_decode(cfg, params["lru"], apply_norm(cfg, params["ln1"], x), cache)
-        x = _ffn(cfg, kind, params, x + h)
+        x = _ffn(cfg, kind, params, x + h)[0]
         return x, _write(cache, state)
     if kind == "W":
         h, s_new, shift_t = rwkv.time_mix_decode(cfg, params["rwkv"], apply_norm(cfg, params["ln1"], x), cache)
@@ -190,7 +192,7 @@ def apply_block_decode(cfg, kind: str, params, x, pos, cache):
     h, cache = attn.attention_decode(
         cfg, params["attn"], apply_norm(cfg, params["ln1"], x), pos, cache, kind=_attn_kind(kind)
     )
-    return _ffn(cfg, kind, params, x + h), cache
+    return _ffn(cfg, kind, params, x + h)[0], cache
 
 
 def _write(cache, state):

@@ -84,12 +84,21 @@ def _gates(params, c: torch.Tensor, dt):
 def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h_t = a_t·h_{t-1} + b_t along dim 1 from h_{-1} = 0, by doubling:
     after the pass at offset d every row holds the composition of the d·2
-    rows ending at it. Overwrites ``a`` and ``b``; returns ``b``."""
+    rows ending at it. Overwrites ``a`` and ``b`` and returns ``b`` when
+    autograd does not record; when it does (training), each pass makes new
+    tensors of the same values instead, since the backward reads every
+    pass's inputs."""
     s, d = a.shape[1], 1
+    record = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
     while d < s:
-        b[:, d:] = torch.addcmul(b[:, d:], a[:, d:], b[:, :-d])
-        if 2 * d < s:
-            a[:, d:] = a[:, d:] * a[:, :-d]
+        if record:
+            b = torch.cat([b[:, :d], torch.addcmul(b[:, d:], a[:, d:], b[:, :-d])], dim=1)
+            if 2 * d < s:
+                a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+        else:
+            b[:, d:] = torch.addcmul(b[:, d:], a[:, d:], b[:, :-d])
+            if 2 * d < s:
+                a[:, d:] = a[:, d:] * a[:, :-d]
         d *= 2
     return b
 

@@ -3,8 +3,10 @@
 cycle (dense, MoE, hybrid, ssm); a "vlm" whose gated cross-attention ("C")
 layers attend to stub image embeddings; an "audio" encoder-decoder whose
 "E" encoder layers encode stub frame embeddings once and whose "D"
-decoder layers (self + cross) run over the text tokens. Serving only:
-prefill, then one token per ``decode_step`` (training is ROADMAP §1 LM-7).
+decoder layers (self + cross) run over the text tokens. Serving: prefill,
+then one token per ``decode_step``; training: :meth:`LM.forward_train` and
+:meth:`LM.loss_fn` over a flat dict of master parameters (``launch/steps.py``
+builds the step, ``runtime/trainer.py`` the loop).
 
 The layers are a ``ModuleList`` in :attr:`LM.kinds` order: ``cfg.pattern()``
 with an audio decoder's "A" blocks turned into "D" (the reference's
@@ -37,9 +39,13 @@ Embeddings. As the reference does, a tied embedding is scaled by √d
 not.
 
 Compute dtype. The reference casts each float32 weight to ``cfg.dtype`` at
-every use; the port casts every weight and the embedding table once, at
-first use, and keeps those copies (:meth:`LM.compute_params`), which gives
-the same values. With ``dtype="bfloat16"`` and float32 parameters that is
+every use; the port casts every weight and the embedding table once
+(:func:`compute_tree`), which gives the same values. Serving keeps those
+copies (:meth:`LM.compute_params`) and builds them anew once the weights
+were replaced (``load_params``, which the trainer hands each step's
+parameters to) or, as the next prefill finds, written in place, so a
+trained LM serves its trained weights; training casts on every step,
+through autograd. With ``dtype="bfloat16"`` and float32 parameters that is
 2 bytes more per parameter (7.8 GB for gemma3-4b's 3.88 B); with a
 float32 ``dtype``, or parameters already in ``dtype``, the copies are the
 parameters themselves. Vectors stay float32 (each use casts them, as the
@@ -66,9 +72,10 @@ position. Prefill stays eager, as the reference does not jit it.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Tuple, Union
+from typing import Dict, Iterator, List, Mapping, Optional, Tuple, Union
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch import resolve_device
@@ -111,6 +118,33 @@ def _stays_float32(name: str, shape) -> bool:
     return len(shape) < 2 or name.endswith(_FLOAT32_MATRICES)
 
 
+def compute_tree(cfg: ModelConfig, params: Mapping[str, torch.Tensor]) -> Dict:
+    """Flat parameters (``named_parameters()`` names) as the forward reads
+    them, in the reference's tree: ``{"embed", "final_norm", "layers":
+    [per-layer dicts], "lm_head", "encoder": {"layers", "final_norm"}}``
+    (the head only when untied, the encoder only for an audio LM), weights
+    and the table cast to ``cfg.dtype``, vectors, an MoE router and RWKV's
+    float32 matrices as given. The casts are recorded by autograd when the
+    parameters require grad."""
+    dt = cfg.adtype
+    out: Dict = {}
+    for name, t in params.items():
+        *path, leaf = name.split(".")
+        node = out
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t if _stays_float32(name, t.shape) else t.to(dt)
+
+    def lists(node):  # the "layers" dicts keyed "0", "1", … as lists
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(out)
+
+
 def _params(cfg: ModelConfig, prefix: str, shapes: Mapping, device) -> nn.ParameterDict:
     """Inference-only parameters (no autograd state) named ``prefix`` +
     name, each in its :func:`storage_dtype`, zero until
@@ -149,6 +183,29 @@ def decoder_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
     if cfg.family == "audio":
         return tuple("D" if k == "A" else k for k in cfg.pattern())
     return cfg.pattern()
+
+
+def layer_stacks(cfg: ModelConfig) -> List[List[str]]:
+    """The LM's parameter names grouped as the reference stacks them: for
+    each group of ``cfg.layer_groups()``, cycle position and leaf, the
+    names of that leaf over the group's repeats (``layers.0.attn.wq``,
+    ``layers.3.attn.wq``, … for a cycle of three); for an audio LM each
+    encoder leaf over its layers. What the reference's Adafactor updates as
+    one leaf (``optim/adafactor.py``'s ``stacks``)."""
+    where = {}  # decoder layer -> (group, cycle position)
+    offset = 0
+    for gi, (cycle, n) in enumerate(cfg.layer_groups()):
+        for i in range(n * len(cycle)):
+            where[offset + i] = (gi, i % len(cycle))
+        offset += n * len(cycle)
+    stacks: Dict[tuple, List[str]] = {}
+    for name, _ in LM(cfg, device="meta").named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            stacks.setdefault(("layers",) + where[int(parts[1])] + (".".join(parts[2:]),), []).append(name)
+        elif parts[:2] == ["encoder", "layers"]:
+            stacks.setdefault(("encoder", ".".join(parts[3:])), []).append(name)
+    return list(stacks.values())
 
 
 def _reset_norm(cfg, norm: nn.ParameterDict) -> None:
@@ -213,6 +270,8 @@ class LM(nn.Module):
         if cfg.family == "audio":
             self.encoder = Encoder(cfg, self.device)
         self._compute: Optional[Dict] = None
+        self._compute_key: Optional[List] = None
+        self._param_list = list(self.parameters())  # fixed once built; walking the modules costs ~0.6 ms
 
     @property
     def ctx_len(self) -> int:
@@ -283,58 +342,51 @@ class LM(nn.Module):
             p.data = params[name].detach().to(self.device, p.dtype)
         self._compute = None
 
-    def compute_params(self) -> Dict:
-        """The parameters as the forward uses them, as the reference's tree:
-        ``{"embed", "final_norm", "layers": [per-layer dicts], "lm_head",
-        "encoder": {"layers", "final_norm"}}`` (the head only when untied,
-        the encoder only for an audio LM), weights and the table in
-        ``cfg.dtype`` (built once, kept), vectors, an MoE router and RWKV's
-        float32 matrices as stored, in float32."""
+    def compute_params(self, check: bool = False) -> Dict:
+        """The LM's own parameters as the forward uses them
+        (:func:`compute_tree`, detached), built once and kept until
+        ``load_params`` or ``reset_parameters`` replaces the weights. With
+        ``check`` (each :meth:`prefill`, each capture of a
+        :class:`DecodeStep`) they are also built anew when a parameter was
+        written in place since (its storage or version counter moved, as
+        ``with torch.no_grad(): p.copy_(t)`` moves it); a decode step reads
+        them as they are, an O(1) test."""
+        if check and self._compute is not None and self._param_key() != self._compute_key:
+            self._compute = None
         if self._compute is None:
-            dt = self.cfg.adtype
-
-            def tree(module: nn.Module):
-                out: Dict = {}
-                for name, p in module.named_parameters():
-                    *path, leaf = name.split(".")
-                    node = out
-                    for key in path:
-                        node = node.setdefault(key, {})
-                    node[leaf] = p.detach() if _stays_float32(name, p.shape) else p.detach().to(dt)
-                return out
-
-            self._compute = {
-                "embed": tree(self.embed),
-                "final_norm": tree(self.final_norm),
-                "layers": [tree(layer) for layer in self.layers],
-            }
-            if not self.cfg.tie_embeddings:
-                self._compute["lm_head"] = tree(self.lm_head)
-            if self.cfg.family == "audio":
-                self._compute["encoder"] = {
-                    "layers": [tree(layer) for layer in self.encoder.layers],
-                    "final_norm": tree(self.encoder.final_norm),
-                }
+            self._compute = compute_tree(self.cfg, {n: p.detach() for n, p in self.named_parameters()})
+            self._compute_key = self._param_key()
         return self._compute
+
+    def _param_key(self) -> List:
+        return [(p.data_ptr(), p._version) for p in self._param_list]
+
+    def _tree(self, params: Optional[Mapping[str, torch.Tensor]], check: bool = False) -> Dict:
+        return self.compute_params(check) if params is None else compute_tree(self.cfg, params)
 
     # ------------------------------------------------------------ helpers
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = params["embed"]["table"][tokens]
+        # the gather of table[tokens]; its backward sums the rows of repeated
+        # tokens by a sort on the card (deterministic), where advanced
+        # indexing's walks each token's duplicates in one warp
+        x = nn.functional.embedding(tokens, params["embed"]["table"])
         if not cfg.tie_embeddings:
             return x
         # gemma-style scaled embeddings (tied), the scale rounded to adtype; a
         # CPU scalar tensor, since a device one would be a synchronizing copy
         return x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.adtype)
 
-    def _encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+    def _encode(self, params, frames: torch.Tensor, remat: bool = False) -> torch.Tensor:
         """The audio encoder over stub frame embeddings (B, F, d): "E" blocks
-        at positions 0..F-1, then the encoder's final norm."""
+        at positions 0..F-1 (with ``remat``, each recomputed in the
+        backward), then the encoder's final norm."""
         cfg = self.cfg
         x = frames.to(cfg.adtype)
         positions = torch.arange(x.shape[1], device=x.device)
         for lp in params["encoder"]["layers"]:
-            x, _ = blocks.apply_block_train(cfg, "E", lp, x, positions)
+            layer = lambda h, lp=lp: blocks.apply_block_train(cfg, "E", lp, h, positions)[0]  # noqa: E731
+            x = _remat(layer, x) if remat else layer(x)
         return apply_norm(cfg, params["encoder"]["final_norm"], x)
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
@@ -346,6 +398,61 @@ class LM(nn.Module):
             logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
         return logits
 
+    # -------------------------------------------------------------- train
+    def cycle_repeats(self) -> Iterator[range]:
+        """The layers of each cycle repeat, in order: the unit the reference
+        scans over and rematerialises (``jax.checkpoint`` on the scan
+        body)."""
+        offset = 0
+        for cycle, n in self.cfg.layer_groups():
+            for r in range(n):
+                yield range(offset + r * len(cycle), offset + (r + 1) * len(cycle))
+            offset += n * len(cycle)
+
+    def forward_train(self, params: Mapping[str, torch.Tensor], tokens: torch.Tensor,
+                      context: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(logits (B, S, V) float32, aux loss float32 scalar) of ``tokens``
+        (B, S) under the flat master parameters ``params`` (any dtype;
+        autograd records through them when they require grad). The LM's
+        own parameters are not read. ``context``: a "vlm" LM's image
+        embeddings, cast to ``cfg.dtype``, or an "audio" LM's frames, which
+        the encoder encodes first. With ``cfg.remat`` each cycle repeat
+        (each encoder layer) is recomputed in the backward
+        (``torch.utils.checkpoint``, non-reentrant). ``aux`` sums the
+        blocks' MoE auxiliary losses."""
+        cfg = self.cfg
+        tree = compute_tree(cfg, params)
+        if cfg.family == "audio":
+            context = self._encode(tree, context, remat=cfg.remat)
+        elif context is not None:
+            context = context.to(cfg.adtype)
+        x = self._embed(tree, tokens)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        for layers in self.cycle_repeats():
+
+            def body(h, a, layers=layers):
+                for i in layers:
+                    h, da, _ = blocks.apply_block_train(cfg, self.kinds[i], tree["layers"][i], h, positions,
+                                                        context=context)
+                    if isinstance(da, torch.Tensor):  # an "M" block's; the others add 0.0
+                        a = a + da
+                return h, a
+
+            x, aux = _remat(body, x, aux) if cfg.remat else body(x, aux)
+        return self._logits(tree, x), aux
+
+    def loss_fn(self, params: Mapping[str, torch.Tensor], batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """The reference's loss: mean token cross entropy of ``batch``'s
+        ``tokens`` against its ``labels`` (B, S), plus the aux loss; the
+        row max taken without its gradient, the label's logit the value of
+        the reference's masked sum over the vocabulary (:class:`_Pick`)."""
+        logits, aux = self.forward_train(params, batch["tokens"], context=batch.get("context"))
+        m = logits.detach().amax(dim=-1, keepdim=True)
+        lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+        nll = lse - _Pick.apply(logits, batch["labels"].long())
+        return nll.mean() + aux
+
     # ------------------------------------------------------------- decode
     def init_cache(self, batch: int, max_len: int) -> List[Cache]:
         """A zero decode cache for ``max_len`` positions; a context cache
@@ -355,12 +462,14 @@ class LM(nn.Module):
             for kind in self.kinds
         ]
 
-    def decode_step(self, token: torch.Tensor, pos, cache: List[Cache]):
+    def decode_step(self, token: torch.Tensor, pos, cache: List[Cache],
+                    params: Optional[Mapping[str, torch.Tensor]] = None):
         """One decode step: ``token`` (B, 1) at position ``pos`` (an ``int``
         or a 0-dim int64 tensor on the model's device; both give the same
         bits) -> (logits (B, V) float32, cache), the cache updated in
-        place."""
-        cfg, params = self.cfg, self.compute_params()
+        place. ``params``: flat parameters to run with in place of the LM's
+        own (``launch/steps.py``'s decode step)."""
+        cfg, params = self.cfg, self._tree(params)
         x = self._embed(params, token)
         pos = position_tensor(pos, token.device)
         for i, kind in enumerate(self.kinds):
@@ -373,8 +482,8 @@ class LM(nn.Module):
         return DecodeStep(self, cache)
 
     # ------------------------------------------------------------ prefill
-    def prefill(self, tokens: torch.Tensor, max_len: int,
-                context: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, List[Cache]]:
+    def prefill(self, tokens: torch.Tensor, max_len: int, context: Optional[torch.Tensor] = None,
+                params: Optional[Mapping[str, torch.Tensor]] = None) -> Tuple[torch.Tensor, List[Cache]]:
         """Run the prompt (B, S), returning (last-token logits (B, V)
         float32, decode cache for ``max_len`` positions). ``context`` is a
         "vlm" LM's image embeddings (B, num_img_tokens, d), cast to
@@ -386,9 +495,10 @@ class LM(nn.Module):
         decode cache: global layers left-aligned and zero-padded to
         ``max_len``, local layers in the ring layout of the last ``window``
         rows; a context cache (C, a "D" block's cross) as emitted. A
-        recurrent layer emits its state after the last token.
+        recurrent layer emits its state after the last token. ``params``:
+        flat parameters to run with in place of the LM's own.
         """
-        cfg, params = self.cfg, self.compute_params()
+        cfg, params = self.cfg, self._tree(params, check=True)
         if self.ctx_len and (context is None or tuple(context.shape[1:]) != (self.ctx_len, cfg.d_model)):
             got = None if context is None else tuple(context.shape)
             raise ValueError(f"a {cfg.family!r} LM's prefill takes a context (B, {self.ctx_len}, {cfg.d_model}); "
@@ -402,7 +512,7 @@ class LM(nn.Module):
         positions = torch.arange(s, device=tokens.device)
         caches = []
         for i, kind in enumerate(self.kinds):
-            x, em = blocks.apply_block_train(
+            x, _, em = blocks.apply_block_train(
                 cfg, kind, params["layers"][i], x, positions, context=context, emit_cache=True
             )
             caches.append(self._relayout_cache(kind, em, s, max_len))
@@ -435,6 +545,32 @@ class LM(nn.Module):
         return KVCache(k=out[0], v=out[1])
 
 
+class _Pick(torch.autograd.Function):
+    """The label's logit, ``logits[..., labels]`` (B, S): the value of the
+    reference's masked sum over the vocabulary, which adds it to zeros. Its
+    backward scatters the gradient into zeros and keeps only the labels: the
+    masked sum would make a (B, S, V) mask and float32 temporary, and a
+    ``gather`` keep the (B, S, V) logits until the backward, 8.4 GB each for
+    recurrentgemma-2b's vocabulary at (2, 4096)."""
+
+    @staticmethod
+    def forward(ctx, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(labels)
+        ctx.shape = logits.shape
+        return logits.gather(-1, labels[..., None])[..., 0]
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (labels,) = ctx.saved_tensors
+        return g.new_zeros(ctx.shape).scatter_(-1, labels[..., None], g[..., None]), None
+
+
+def _remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward rather
+    than kept."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 class DecodeStep:
     """``decode_step`` compiled once for every position, bound to one cache:
     ``step(token, pos)`` -> logits (B, V) float32, the cache updated in
@@ -457,7 +593,9 @@ class DecodeStep:
     logits are the graph's
     static output, overwritten by the next call: read them (an ``argmax``)
     before calling again. A step that cannot be captured raises; loading
-    new weights into the model makes the step raise too (build a new one).
+    new weights into the model makes the step raise too (build a new one),
+    as does a prefill that found a parameter written in place since the
+    capture (a replay itself tests only that, in O(1)).
     On the CPU every call is an eager ``decode_step``.
     """
 
@@ -467,7 +605,7 @@ class DecodeStep:
 
     def _capture(self, token: torch.Tensor, pos) -> None:
         lm, dev = self.lm, self.lm.device
-        self._params = lm.compute_params()
+        self._params = lm.compute_params(check=True)
         self._token = token.detach().clone()
         self._pos = position_tensor(pos, dev).clone()
         states = [t for c in self.cache if isinstance(c, _RECURRENT) for t in c]
@@ -485,7 +623,7 @@ class DecodeStep:
                 return self.lm.decode_step(token, pos, self.cache)[0]
         if self._graph is None:
             self._capture(token, pos)
-        elif self.lm._compute is not self._params:
+        elif self.lm.compute_params() is not self._params:
             raise RuntimeError("the model's weights changed since the step was captured; compile a new step")
         if token.shape != self._token.shape:
             raise ValueError(

@@ -72,16 +72,28 @@ def adamw(
         bc1 = 1.0 - b1 ** step.to(torch.float32)
         bc2 = 1.0 - b2 ** step.to(torch.float32)
         p32 = [params[n].to(torch.float32) for n in names]
+        # each temporary is written in place once made here and dropped once
+        # read, the same operations as out of place: at most two lists of
+        # float32 temporaries beside m, v and the update
         m32 = torch._foreach_mul([state.mu[n].to(torch.float32) for n in names], b1)
-        torch._foreach_add_(m32, torch._foreach_mul(g32, 1 - b1))
+        tmp = torch._foreach_mul(g32, 1 - b1)
+        torch._foreach_add_(m32, tmp)
         v32 = torch._foreach_mul([state.nu[n].to(torch.float32) for n in names], b2)
-        torch._foreach_add_(v32, torch._foreach_mul(torch._foreach_mul(g32, g32), 1 - b2))
-        den = torch._foreach_sqrt(torch._foreach_div(v32, bc2))
+        tmp = torch._foreach_mul(g32, g32)
+        torch._foreach_mul_(tmp, 1 - b2)
+        torch._foreach_add_(v32, tmp)
+        del tmp, g32
+        den = torch._foreach_div(v32, bc2)
+        torch._foreach_sqrt_(den)
         torch._foreach_add_(den, eps)
-        upd = torch._foreach_div(torch._foreach_div(m32, bc1), den)
+        upd = torch._foreach_div(m32, bc1)
+        torch._foreach_div_(upd, den)
+        del den
         if weight_decay:
             torch._foreach_add_(upd, torch._foreach_mul(p32, weight_decay))
-        new_p = torch._foreach_sub(p32, torch._foreach_mul(upd, lr_t))
+        torch._foreach_mul_(upd, lr_t)
+        new_p = torch._foreach_sub(p32, upd)
+        del upd
         return (
             {n: p.to(params[n].dtype) for n, p in zip(names, new_p)},
             AdamWState(

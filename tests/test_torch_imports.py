@@ -37,7 +37,7 @@ def test_no_jax_or_reference_imports(tmp_path):
     assert (ROOT / "chip_smoke.py").is_file()
     port = ROOT / "src" / "repro_torch"
     for sub in ("core", "data", "kernels", "configs", "layers", "models", "launch", "serve", "stream",
-                "distributed"):
+                "distributed", "optim", "checkpoint", "runtime"):
         assert port / sub / "__init__.py" in PORT_FILES, sub
     for mod in ("clock", "faults", "frontend", "health", "load", "plane", "queueing"):
         assert port / "serve" / f"{mod}.py" in PORT_FILES, mod
@@ -47,7 +47,9 @@ def test_no_jax_or_reference_imports(tmp_path):
                 "stream/delta.py", "stream/merge.py", "stream/ingest.py", "distributed/sharding.py",
                 "layers/moe.py", "configs/olmoe_1b_7b.py", "configs/qwen2_1_5b.py", "layers/rglru.py",
                 "layers/rwkv.py", "configs/recurrentgemma_2b.py", "configs/rwkv6_3b.py",
-                "configs/llama32_vision_90b.py", "configs/seamless_m4t_medium.py"):
+                "configs/llama32_vision_90b.py", "configs/seamless_m4t_medium.py", "optim/adafactor.py",
+                "data/tokens.py", "launch/steps.py", "launch/train.py", "checkpoint/manager.py",
+                "runtime/straggler.py", "runtime/trainer.py", "distributed/compression.py"):
         assert port / mod in PORT_FILES, mod
     probe = tmp_path / "probe.py"
     probe.write_text(
@@ -119,3 +121,32 @@ def test_cpu_forward_loads_neither_jax_nor_reference(tmp_path):
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED []" in proc.stdout
+
+
+def test_training_modules_load_neither_jax_reference_nor_triton(tmp_path):
+    """The LM training modules import, and two smoke training steps run on
+    the CPU through the launcher, without loading JAX, the reference or
+    ``triton`` and without starting a process (no kernel is built)."""
+    code = (
+        "import subprocess, sys\n"
+        "started = []\n"
+        "popen_init = subprocess.Popen.__init__\n"
+        "def record(self, *a, **k):\n"
+        "    started.append(a)\n"
+        "    return popen_init(self, *a, **k)\n"
+        "subprocess.Popen.__init__ = record\n"
+        "import repro_torch.checkpoint.manager, repro_torch.data.tokens, repro_torch.distributed.compression\n"
+        "import repro_torch.launch.steps, repro_torch.layers.flash, repro_torch.optim.adafactor\n"
+        "import repro_torch.runtime.straggler, repro_torch.runtime.trainer\n"
+        "from repro_torch.launch import train\n"
+        f"train.main(['--arch', 'qwen2-1.5b', '--smoke', '--device', 'cpu', '--steps', '2', '--seq-len', '16',\n"
+        f"            '--global-batch', '4', '--ckpt-dir', {str(tmp_path / 'ckpt')!r}])\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton'))\n"
+        "print('LOADED', bad, 'STARTED', len(started))\n"
+        "sys.exit(1 if bad or started else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED [] STARTED 0" in proc.stdout and "[train] done" in proc.stdout

@@ -246,8 +246,8 @@ def test_blocks_match_reference(arch, kind):
     pos = np.arange(s)
     want, _, jc = jblocks.apply_block_train(jcfg, kind, p, jnp.asarray(x[:, :s]), jnp.asarray(pos),
                                             context=jnp.asarray(ctx), emit_cache=kind != "E")
-    got, tc = tblocks.apply_block_train(tcfg, kind, tp, torch.from_numpy(x[:, :s]), torch.from_numpy(pos),
-                                        context=torch.from_numpy(ctx), emit_cache=kind != "E")
+    got, _, tc = tblocks.apply_block_train(tcfg, kind, tp, torch.from_numpy(x[:, :s]), torch.from_numpy(pos),
+                                           context=torch.from_numpy(ctx), emit_cache=kind != "E")
     _assert_close(got, want, ATOL_BLOCK, "train")
     if kind == "E":
         assert tc is None and jc is None

@@ -163,11 +163,12 @@ def test_m_block_matches_reference(arch):
     rng = np.random.default_rng(5)
     x = rng.normal(size=(2, 20, tcfg.d_model)).astype(np.float32)
     pos = np.arange(20)
-    xj, _, cj = jax.jit(lambda p, x: jblocks.apply_block_train(jcfg, "M", p, x, jnp.asarray(pos), emit_cache=True))(
+    xj, aj, cj = jax.jit(lambda p, x: jblocks.apply_block_train(jcfg, "M", p, x, jnp.asarray(pos), emit_cache=True))(
         p, x)
-    xt, ct = tblocks.apply_block_train(tcfg, "M", _t(p), torch.from_numpy(x), torch.from_numpy(pos),
-                                       emit_cache=True)
+    xt, at, ct = tblocks.apply_block_train(tcfg, "M", _t(p), torch.from_numpy(x), torch.from_numpy(pos),
+                                           emit_cache=True)
     np.testing.assert_allclose(xt.numpy(), np.asarray(xj), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(float(at), float(aj), atol=ATOL, rtol=ATOL)  # the block's aux loss
     np.testing.assert_allclose(ct.k.numpy(), np.asarray(cj.k), atol=ATOL, rtol=0)
     pad = ((0, 0), (0, 4), (0, 0), (0, 0))
     kj, vj = (jnp.pad(c, pad) for c in (cj.k, cj.v))
