@@ -339,7 +339,36 @@ exits non-zero at the first phase that fails:
    ``Trainer`` run on the card stopped after an asynchronous save at step
    3 and resumed in a new ``Trainer``, its losses equal to an uninterrupted
    run's bit for bit, the bytes written and the save seconds printed;
-13. prints a ``train {...}`` line with the step times, a ``serve {...}``
+13. the LM on a device mesh (``distributed/sharding.py``, ``launch/mesh.py``,
+   ``launch/steps.py``): the caching allocator's settings in effect are
+   printed first (phase 12's train step turned expandable segments on),
+   then a one-rank NCCL ``DeviceMesh`` (1, 1) over ``("data", "model")``
+   (as phase 10's, destroyed at the end), serving before training.
+   (a) gemma3-4b, published config, phase 3's seeded weights and prompts
+   (its unsharded tokens equal phase 3's): prefill (4, 3072), one eager
+   step and the 32 captured steps unsharded and on the mesh (caches placed
+   by ``cache_shardings``, DTensors), tokens, logits and caches bit for
+   bit, kernel #4 counted on the mesh run (5 + 5 the eager step, 10 + 10
+   the capture), step ms beside the unsharded; (b) the split pruned decode
+   (``layers/attention.split_pruned_decode``, each rank a thread of this
+   process, its two collectives a ``ThreadLoopback``) at gemma3-4b's global-layer shape in float32
+   at 2 and 4 shards of positions, with and without ``hier_topk``, at K
+   2048 (where a shard holds fewer than K positions, so the merge falls
+   back to the gathered logits) and K 512 (the merge runs): the kept
+   positions equal unsplit kernel #4 K1's (the K-th / (K+1)-th logit gap
+   printed where not), the output within 1e-5 of the unsplit pair, kernel
+   #3's launches (n, or 2n with the merge) and K2's (n) counted on one run,
+   device ms; (b') ``attention_decode`` itself on 2 and 4 ranks, each a
+   thread of this process (``ThreadLoopback``), at gemma3-4b's global
+   (pruned at K 512 with and without ``hier_topk``, and dense) and local
+   layer shapes in float32: every rank's output within 1e-5 of the unsplit
+   decode, the owner-gated write bit for bit; (c) qwen2-1.5b whole at (8,
+   4096), fsdp placements, 3 sharded steps against 3 unsharded ones in the
+   same process: losses and parameters bit for bit; (d) the unsharded step-3 checkpoint restored
+   onto the mesh (``Trainer.restore_for_mesh``), every leaf bit for bit,
+   and one more step equal to the unsharded step 4 bit for bit; a ``mesh
+   {...}`` line;
+14. prints a ``train {...}`` line with the step times, a ``serve {...}``
    line with the serving numbers (serial and microbatched wall time, QPS,
    p50/p99, mean batch, pad fraction and blocks; the threaded p50/p99; the
    busy share; the overlap counts), an ``ego {...}`` line with phase 8's
@@ -347,7 +376,8 @@ exits non-zero at the first phase that fails:
    rebuild times and their ratio, per-ingest session times, bytes
    uploaded and tiers, the threaded QPS during the ingests, memory), a
    ``shard {...}`` line with phase 10's, an ``archs {...}`` line with phase
-   11's, an ``lm_train {...}`` line with phase 12's, the card line, then the
+   11's, an ``lm_train {...}`` line with phase 12's, the ``mesh {...}``
+   line, the card line, then the
    ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
    the last line.
 """
@@ -499,6 +529,25 @@ TOL_TRAIN_CPU_LOSS, TOL_TRAIN_CPU_GRAD, TOL_TRAIN_CPU_UPDATE = 1e-5, 1e-4, 1e-6
 # resume on the card: qwen2-1.5b at 2 layers, (4, 1024) a step, 6 steps
 # uninterrupted against 3, an asynchronous save, and 3 resumed
 RESUME_STEPS, RESUME_SPLIT, RESUME_SEQ, RESUME_BATCH = 6, 3, 1024, 4
+# phase 13, the LM on a device mesh: a one-rank NCCL mesh (1, 1) over
+# ("data", "model"). (b) the split pruned decode at gemma3-4b's global layer
+# (q (4, 8, 256), cache (4, 3104, 4, 256) in float32 as in phase 2, 3073
+# valid positions a row) cut into 2 and 4 blocks of positions, with and
+# without hier_topk: at the config's K 2048 a block holds fewer than K
+# positions, so hier_topk falls back to the gathered logits as the
+# reference's _hier_topk falls back; at K 512 the hierarchical merge runs.
+# (b') attention_decode itself (the owner-gated write, the dense
+# flash-decode merge, the pruned split) at gemma3-4b's global and local
+# layer shapes in float32, each of 2 and 4 ranks a thread of this process
+# (layers/attention.ThreadLoopback), against the unsplit decode.
+# (c) qwen2-1.5b whole at phase 12's (8, 4096), fsdp placements, 3 steps;
+# (d) its unsharded step-3 checkpoint restored onto the mesh, then step 4
+MESH_SPLITS, MESH_SPLIT_KS, MESH_SPLIT_LENGTH = (2, 4), (2048, 512), 3073
+TOL_MESH_SPLIT = 1e-5
+# (kind, attn_prune_k, hier_topk) of (b'): pruned at K 512 (the merge runs
+# at 2 and 4 ranks), dense global, the local ring (1024 positions)
+MESH_SPLIT_LAYERS = (("A", 512, False), ("A", 512, True), ("A", None, False), ("L", None, False))
+MESH_TRAIN_ARCH, MESH_TRAIN_STEPS = "qwen2-1.5b", 3
 
 
 def check(cond, msg: str) -> None:
@@ -1782,6 +1831,7 @@ def lm_main_path(dev, hgnn_ops, ts_ops):
         "prefill_launches": 0, "float32_kernel_vs_plain_logits": e32, "float32_max_abs_logit": top32,
         "init_and_cast_s": init_s, "captured_steps_bitwise_eager": LM_GEN,
         "step_ms_events": step_ms, "captured_step_ms_events": captured_ms, "param_count": cfg.param_count(),
+        "tokens": [t[:, 0].tolist() for t in tokens],
     }
     res["tie_rows"] = lm_tie_rows(lm, cache0, tokens)
     print(f"  main path {LM_ARCH}: decode K1's tie path took {res['tie_rows']['rows']} of "
@@ -5028,6 +5078,371 @@ def lm_train_phase(modules, card, dev) -> dict:
     return out
 
 
+def allocator_setting() -> str:
+    """The caching allocator's settings in effect: the user's
+    ``PYTORCH_CUDA_ALLOC_CONF``, or what the train step's first call on the
+    card set (``steps.grow_allocator_segments``), or the defaults."""
+    import os
+
+    from repro_torch.launch import steps
+
+    env = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    if env is not None:
+        return f"PYTORCH_CUDA_ALLOC_CONF={env}"
+    return steps.ALLOCATOR_SETTING["set"] or "defaults"
+
+
+def mesh_serve(mesh, lm_result: dict, modules, dev) -> dict:
+    """Phase 13 (a): gemma3-4b (published config, phase 3's seeded weights
+    and prompts) served unsharded and on the one-rank mesh: prefill (4,
+    3072), one eager step on a copy of the cache, then the 32 captured
+    steps; tokens, logits and caches bit for bit, the caches placed by
+    ``cache_shardings``, kernel #4's launches counted on the mesh run."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import cache_tensors, clone_cache
+
+    cfg = get_config(LM_ARCH)
+    max_len = LM_PROMPT + LM_GEN
+    per_step = sum(kind == "A" and cfg.attn_prune_k < max_len for kind in cfg.pattern())
+    lm = build_model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))  # phase 3's weights
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), device=dev,
+                            generator=torch.Generator(dev).manual_seed(1))
+    zero = {key: 0 for key in all_launches(*modules)}
+    runs = {}
+    for mode in ("unsharded", "mesh"):
+        for m in modules:
+            reset_launches(m)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with sharding.set_mesh(mesh if mode == "mesh" else None):
+            lm.prefill(prompts, max_len=max_len)  # warm-up: a mode's first call pays one-time costs
+            e0.record()
+            logits, cache = lm.prefill(prompts, max_len=max_len)
+            e1.record()
+        sync(dev)
+        local = lambda t: t.to_local() if type(t).__name__ == "DTensor" else t  # noqa: E731
+        run = {"prefill_ms": e0.elapsed_time(e1), "prefill_logits": local(logits).clone()}
+        tok = local(logits).argmax(-1)[:, None]
+        eager_logits, _ = lm.decode_step(tok, LM_PROMPT, clone_cache(cache))
+        sync(dev)
+        run["eager_launches"] = all_launches(*modules)
+        run["eager_logits"] = local(eager_logits).clone()
+        step = lm.compile_decode(cache)
+        tokens, step_logits, ms = [], [], []
+        for i in range(LM_GEN):
+            tokens.append(tok[:, 0].tolist())
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = step(tok, LM_PROMPT + i)
+            e1.record()
+            e1.synchronize()
+            ms.append(e0.elapsed_time(e1))
+            step_logits.append(local(out).clone())
+            tok = local(out).argmax(-1)[:, None]
+        run.update(tokens=tokens, step_logits=step_logits, step_ms=ms, cache=cache,
+                   launches=all_launches(*modules))
+        runs[mode] = run
+        del step
+    u, m = runs["unsharded"], runs["mesh"]
+    want_eager = dict(zero, **{"topk_decode_attention.score_prune": per_step,
+                               "topk_decode_attention.value_gather": per_step})
+    want = {k: 2 * v for k, v in want_eager.items()}  # the captured run's warm-up and capture, on top
+    for mode, r in runs.items():
+        got = {k: r["launches"][k] - r["eager_launches"][k] for k in zero}
+        check(r["eager_launches"] == want_eager and got == want,
+              f"phase 13 (a) {mode}: launches eager {r['eager_launches']}, captured {got}")
+    check(u["tokens"] == lm_result["tokens"], "phase 13 (a): the unsharded tokens differ from phase 3's")
+    check(same_bits((m["prefill_logits"], m["eager_logits"]), (u["prefill_logits"], u["eager_logits"])),
+          "phase 13 (a): the mesh prefill or eager step differs from the unsharded one")
+    check(m["tokens"] == u["tokens"] and all(same_bits((a,), (b,)) for a, b in zip(m["step_logits"], u["step_logits"])),
+          "phase 13 (a): the captured mesh steps differ from the unsharded ones")
+    specs = steps.cache_shardings(cfg, steps.ShapeSpec("serve", "decode", max_len, LM_BATCH), mesh, m["cache"])
+    placed = all(type(t).__name__ == "DTensor" and sharding.spec_of(t) == sh.spec
+                 for c, sp in zip(m["cache"], specs) for t, sh in zip(c, sp))
+    check(placed, "phase 13 (a): a mesh cache tensor is not placed by cache_shardings")
+    check(all(torch.equal(a.to_local(), b) for a, b in zip(cache_tensors(m["cache"]), cache_tensors(u["cache"]))),
+          "phase 13 (a): the mesh cache differs from the unsharded one after the steps")
+    median = lambda xs: sorted(xs[1:])[len(xs[1:]) // 2]  # noqa: E731
+    out = {"prefill_ms": {k: r["prefill_ms"] for k, r in runs.items()},
+           "captured_step_ms_median": {k: median(r["step_ms"]) for k, r in runs.items()},
+           "launches_mesh": {k: v for k, v in m["launches"].items() if v},
+           "cache_specs": sorted({str(sh.spec) for sp in specs for sh in sp}),
+           "bitwise": "prefill, eager step, 32 captured steps' tokens and logits, caches"}
+    print(f"  (a) {LM_ARCH} on the mesh: prefill {LM_BATCH}x{LM_PROMPT} {m['prefill_ms']:.1f} ms (unsharded "
+          f"{u['prefill_ms']:.1f}), captured step {out['captured_step_ms_median']['mesh']:.3f} ms median of steps "
+          f"2-{LM_GEN} (unsharded {out['captured_step_ms_median']['unsharded']:.3f}); tokens, logits and caches bit "
+          f"for bit; caches placed {out['cache_specs']}; kernel #4 launches {out['launches_mesh']}")
+    del runs, u, m, lm
+    return out
+
+
+def mesh_split_decode(modules, dev) -> dict:
+    """Phase 13 (b): the split pruned decode (``split_pruned_decode``, each
+    rank a thread, its collectives a ``ThreadLoopback``) at gemma3-4b's global-layer
+    shape against unsplit kernel #4: kept positions, the K-th / (K+1)-th
+    logit gap where they differ, the output's max error (1e-5), kernel #3
+    and K2 launches (counted on one run), device ms (CUDA events)."""
+    import torch
+
+    from repro_torch.kernels.topk_decode_attention import ops as tda
+    from repro_torch.kernels.topk_decode_attention import ref as tda_ref
+    from repro_torch.kernels.topk_select import ops as ts
+    from repro_torch.layers import attention
+
+    b, h, hkv, hd, c = LM_BATCH, 8, 4, 256, LM_PROMPT + LM_GEN
+    g = torch.Generator(dev).manual_seed(13)
+    q = torch.randn((b, h, hd), generator=g, device=dev)
+    kc = torch.randn((b, c, hkv, hd), generator=g, device=dev)
+    vc = torch.randn((b, c, hkv, hd), generator=g, device=dev)
+    lengths = torch.full((b,), MESH_SPLIT_LENGTH, dtype=torch.int32, device=dev)
+    scale = hd ** -0.5
+    desc = torch.sort(tda_ref.score_logits_plain(q, kc, scale)[..., :MESH_SPLIT_LENGTH], dim=-1, descending=True).values
+    out = {"shape": {"q": [b, h, hd], "cache": [b, c, hkv, hd], "dtype": "float32", "lengths": MESH_SPLIT_LENGTH},
+           "cases": {}}
+    for k in MESH_SPLIT_KS:
+        want = tda.topk_decode_attention(q, kc, vc, lengths, k, scale)
+        _, ids = tda.score_prune(q, kc, lengths, k, scale)
+        unsplit_ms = cuda_ms(lambda: tda.topk_decode_attention(q, kc, vc, lengths, k, scale), 10)
+        for n in MESH_SPLITS:
+            for hier in (False, True):
+                for m in modules:
+                    reset_launches(m)
+                got_out, got_ids = attention.split_pruned_decode_loopback(q, kc, vc, lengths, n, k, scale, hier,
+                                                                          return_ids=True)
+                sync(dev)
+                launches = {"topk_select": ts.LAUNCHES["topk_select"], "value_gather": tda.LAUNCHES["value_gather"],
+                            "score_prune": tda.LAUNCHES["score_prune"]}
+                merged = hier and c // n >= k
+                expect = {"topk_select": n * (2 if merged else 1), "value_gather": n, "score_prune": 0}
+                err = float((got_out - want).abs().max())
+                differ = (got_ids != ids).any(dim=-1)
+                gaps = (desc[..., k - 1] - desc[..., k])[differ].tolist()
+                ms = cuda_ms(lambda: attention.split_pruned_decode_loopback(q, kc, vc, lengths, n, k, scale, hier), 5)
+                key = f"K{k}/{n}way/{'hier' if hier else 'gathered'}"
+                out["cases"][key] = {"hier_merge_ran": merged, "launches": launches, "max_abs_err": err,
+                                     "rows_ids_differ": int(differ.sum()), "rows": b * h, "gaps_where_differ": gaps,
+                                     "ms": ms, "unsplit_ms": unsplit_ms}
+                check(launches == expect, f"phase 13 (b) {key}: launches {launches}, expected {expect}")
+                check(err <= TOL_MESH_SPLIT, f"phase 13 (b) {key}: output {err:.3g} off unsplit kernel #4")
+                check(not differ.any(), f"phase 13 (b) {key}: {int(differ.sum())} rows keep other positions than "
+                      f"kernel #4 K1 on tie-free logits (K-th minus (K+1)-th logit there: {gaps[:8]})")
+                print(f"  (b) {key}: {'merge of shard-local top-K' if merged else 'gathered logits'}, kept ids "
+                      f"{'equal K1' if not differ.any() else f'differ in {int(differ.sum())} rows, gaps {gaps[:4]}'}, "
+                      f"out {err:.2e} off unsplit, launches {launches}, {ms:.4f} ms (unsplit pair {unsplit_ms:.4f})")
+    out["launches"] = {key: sum(r["launches"][key] for r in out["cases"].values()) for key in ("topk_select",
+                                                                                              "value_gather")}
+    return out
+
+
+def mesh_split_layers(dev) -> dict:
+    """Phase 13 (b'): ``attention_decode`` on a cache whose positions are
+    split over 2 and 4 ranks, each rank a thread of this process
+    (``ThreadLoopback``), at gemma3-4b's shapes in float32 (d_model 2560,
+    8 q-heads, 4 kv-heads of 256; the global cache 3104 positions at
+    position 3072, the local ring 1024 wrapped): every rank's output
+    against the unsplit decode (1e-5), and the blocks joined against the
+    unsplit cache after its write (bit for bit)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.layers import attention
+
+    base = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    b, pos = LM_BATCH, LM_PROMPT
+    g = torch.Generator(dev).manual_seed(31)
+    params = {k: torch.randn(s, generator=g, device=dev) * s[0] ** -0.5
+              for k, s in attention.attention_shapes(base).items()}
+    x = torch.randn((b, 1, base.d_model), generator=g, device=dev)
+    out = {}
+    for kind, prune_k, hier in MESH_SPLIT_LAYERS:
+        cfg = dataclasses.replace(base, attn_prune_k=prune_k, hier_topk=hier)
+        c = LM_PROMPT + LM_GEN if kind == "A" else cfg.sliding_window
+        kc = torch.randn((b, c, cfg.num_kv_heads, cfg.hd), generator=g, device=dev)
+        vc = torch.randn((b, c, cfg.num_kv_heads, cfg.hd), generator=g, device=dev)
+        whole = attention.KVCache(kc.clone(), vc.clone())
+        want, _ = attention.attention_decode(cfg, params, x, pos, whole, kind)
+        for n in MESH_SPLITS:
+            cl = c // n
+            blocks = [attention.KVCache(kc[:, r * cl:(r + 1) * cl].clone(), vc[:, r * cl:(r + 1) * cl].clone())
+                      for r in range(n)]
+            loop = attention.ThreadLoopback(n)
+            outs = loop.run([lambda r=r: attention.attention_decode(
+                cfg, params, x, pos, blocks[r], kind, split=attention.PositionSplit(n, r, loop.comm(r)))[0]
+                for r in range(n)])
+            sync(dev)
+            err = max(float((o - want).abs().max()) for o in outs)
+            written = all(torch.equal(torch.cat([blk[i] for blk in blocks], dim=1), whole[i]) for i in (0, 1))
+            what = f"{kind}/{'dense' if prune_k is None else f'K{prune_k}'}{'/hier' if hier else ''}"
+            key = f"{what}/{n}way"
+            out[key] = {"positions": c, "max_abs_err": err, "out_max": float(want.abs().max()), "cache_bitwise": written}
+            check(err <= TOL_MESH_SPLIT, f"phase 13 (b') {key}: a rank's output {err:.3g} off the unsplit decode")
+            check(written, f"phase 13 (b') {key}: the split write differs from the unsplit cache's")
+            print(f"  (b') attention_decode {key} ({c} positions, {c // n} a rank, ranks as threads): "
+                  f"out {err:.2e} off unsplit (|out| max {out[key]['out_max']:.3g}), cache write bit for bit")
+    return out
+
+
+def mesh_train(mesh, dev) -> dict:
+    """Phase 13 (c) and (d): qwen2-1.5b whole at (``TRAIN_LM_BATCH``,
+    ``TRAIN_LM_SEQ``), fsdp placements. Unsharded: 3 steps, the step-3
+    state to host and a checkpoint written behind, step 4. On the mesh from
+    the same seeded weights, once the checkpoint is written: 3 steps,
+    losses and parameters bit for bit.
+    Then ``Trainer.restore_for_mesh`` places the unsharded step-3
+    checkpoint on the mesh (every leaf bit for bit) and one more step
+    there equals the unsharded step 4 bit for bit."""
+    import gc
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager, flatten_train_state
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime import TrainConfig, Trainer
+
+    cfg = dataclasses.replace(get_config(MESH_TRAIN_ARCH), fsdp=True)
+    root = ROOT / "build" / "lm_mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_LM_SEQ, TRAIN_LM_BATCH, seed=0)
+    opt = steps.make_optimizer(cfg)
+
+    def seeded():
+        lm = LM(cfg, dev)
+        lm.reset_parameters(torch.Generator(dev).manual_seed(0))
+        return {n: p.detach() for n, p in lm.named_parameters()}
+
+    def timed(step, params, state, i):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        params, state, loss = step(params, state, pipe.batch(i, dev))
+        e1.record()
+        e1.synchronize()
+        return params, state, float(loss), e0.elapsed_time(e1)
+
+    def pinned(t):  # a host copy in page-locked memory: one fast copy each way
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+
+    out = {"arch": MESH_TRAIN_ARCH, "fsdp": True, "batch": TRAIN_LM_BATCH, "seq": TRAIN_LM_SEQ, "cut": "whole"}
+    t0 = time.perf_counter()
+    params = seeded()
+    state = opt.init(params)
+    step = steps.make_train_step(cfg)
+    losses_u, ms_u = [], []
+    for i in range(MESH_TRAIN_STEPS):
+        params, state, loss, ms = timed(step, params, state, i)
+        losses_u.append(loss)
+        ms_u.append(ms)
+    ckpt = CheckpointManager(root, keep=1)
+    t1 = time.perf_counter()
+    host = {k: pinned(t) for k, t in flatten_train_state(params, state).items()}
+    ckpt.save(MESH_TRAIN_STEPS, host, blocking=False)  # written behind the next steps
+    snapshot_s = time.perf_counter() - t1
+    p3 = params
+    p4, _, loss4, ms4 = timed(step, params, state, MESH_TRAIN_STEPS)
+    p4 = {n: pinned(t) for n, t in p4.items()}
+    del state, params, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    ckpt.wait()  # the write's thread would slow the mesh steps' host-bound dispatch
+    wait_s = time.perf_counter() - t2
+    out["unsharded"] = {"losses": losses_u + [loss4], "step_ms": ms_u + [ms4]}
+
+    fresh = seeded()
+    psh, osh = steps.params_shardings(cfg, mesh, fresh, steps.state_specs(cfg, with_opt=True)[1])
+    placed = steps.place_tree(fresh, psh)
+    pstate = steps.place_tree(opt.init(fresh), osh)
+    del fresh
+    step = steps.make_train_step(cfg, grad_shardings=psh)
+    losses_m, ms_m = [], []
+    for i in range(MESH_TRAIN_STEPS):
+        placed, pstate, loss, ms = timed(step, placed, pstate, i)
+        losses_m.append(loss)
+        ms_m.append(ms)
+    check(losses_m == losses_u, f"phase 13 (c): mesh losses {losses_m} differ from the unsharded {losses_u}")
+    check(all(torch.equal(placed[n].to_local(), p3[n]) for n in p3),
+          "phase 13 (c): the mesh step's parameters differ from the unsharded ones")
+    out["mesh"] = {"losses": losses_m, "step_ms": ms_m,
+                   "param_specs": sorted({str(sh.spec) for sh in psh.values()})}
+    del placed, pstate, p3
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tr = Trainer(cfg, TrainConfig(steps=MESH_TRAIN_STEPS + 1, seq_len=TRAIN_LM_SEQ, global_batch=TRAIN_LM_BATCH,
+                                  ckpt_dir=str(root), keep=1, log_every=0), device=dev)
+    t3 = time.perf_counter()
+    (rp, rs), at = tr.restore_for_mesh(mesh, (psh, osh))
+    sync(dev)
+    restore_s = time.perf_counter() - t3
+    flat = flatten_train_state(rp, rs)
+    check(at == MESH_TRAIN_STEPS and all(type(v).__name__ == "DTensor" for v in flat.values()),
+          f"phase 13 (d): restored step {at}, or a leaf not placed")
+    check(all(torch.equal(v.to_local(), host[k].to(dev, non_blocking=True)) for k, v in flat.items()),
+          "phase 13 (d): the restored state differs from the unsharded step-3 state")
+    del flat, host
+    rp, rs, loss, ms = timed(step, rp, rs, MESH_TRAIN_STEPS)
+    check(loss == loss4, f"phase 13 (d): the step after the restore gives loss {loss}, unsharded {loss4}")
+    check(all(torch.equal(rp[n].to_local(), p4[n].to(dev, non_blocking=True)) for n in p4),
+          "phase 13 (d): the step after the restore differs from the unsharded step 4")
+    out["restore"] = {"step": at, "restore_s": restore_s, "write_wait_s": wait_s, "snapshot_s": snapshot_s,
+                      "bytes": ckpt.last_write.get("bytes"), "write_s": ckpt.last_write.get("write_s"),
+                      "next_loss": loss, "next_step_ms": ms, "read": "warm (the file was written in this run)"}
+    del rp, rs, tr
+    shutil.rmtree(root, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"  (c) {MESH_TRAIN_ARCH} whole, ({TRAIN_LM_BATCH}, {TRAIN_LM_SEQ}), fsdp placements, {MESH_TRAIN_STEPS} "
+          f"steps on the mesh: losses {[round(x, 4) for x in losses_m]} and parameters bit for bit the unsharded "
+          f"steps'; step ms mesh {[round(x, 1) for x in ms_m]}, unsharded {[round(x, 1) for x in ms_u]}")
+    print(f"  (d) restore_for_mesh: the unsharded step-{at} checkpoint ({out['restore']['bytes']} bytes) placed on "
+          f"the mesh in {restore_s:.1f} s (a warm read), every leaf bit for bit; step {at + 1} there: loss {loss:.6f} "
+          f"and parameters bit for bit the unsharded step's")
+    return out
+
+
+def lm_mesh_phase(modules, card, lm_result: dict, dev) -> dict:
+    """Phase 13: the LM on a one-rank NCCL device mesh (1, 1) over
+    ``("data", "model")`` (serving before training); the process group is
+    destroyed at the end. Every check raises."""
+    import gc
+
+    import torch
+    import torch.distributed as tdist
+    import torch.distributed.tensor  # noqa: F401 (its first import takes seconds: not inside a timed call)
+
+    from repro_torch.launch.mesh import make_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"card": card, "allocator": allocator_setting()}
+    print(f"  allocator settings in effect: {out['allocator']}")
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0,
+                             device_id=dev)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        t0 = time.perf_counter()
+        out["serve"] = mesh_serve(mesh, lm_result, modules, dev)
+        out["serve"]["wall_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["split_decode"] = mesh_split_decode(modules, dev)
+        out["split_decode"]["wall_s"] = time.perf_counter() - t0
+        out["split_layers"] = mesh_split_layers(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["train"] = mesh_train(mesh, dev)
+    finally:
+        tdist.destroy_process_group()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5252,6 +5667,16 @@ def main() -> int:
     phase_s["12"] = time.perf_counter() - t_phase
     print(f"phase 12: wall time {phase_s['12']:.1f} s")
 
+    # phase 13: the LM on a device mesh (serving first, then training)
+    t_phase = time.perf_counter()
+    print(f"phase 13: the LM on a one-rank NCCL mesh (1, 1) over (data, model): {LM_ARCH} served (prefill "
+          f"{LM_BATCH}x{LM_PROMPT}, {LM_GEN} captured steps); the split pruned decode at {list(MESH_SPLITS)} shards, "
+          f"K {list(MESH_SPLIT_KS)}, with and without hier_topk; {MESH_TRAIN_ARCH} whole, {MESH_TRAIN_STEPS} steps at "
+          f"({TRAIN_LM_BATCH}, {TRAIN_LM_SEQ}) with fsdp placements; restore_for_mesh")
+    lm_mesh = lm_mesh_phase((ops, tda_ops, ts_ops), card, lm_result, dev)
+    phase_s["13"] = time.perf_counter() - t_phase
+    print(f"phase 13: wall time {phase_s['13']:.1f} s")
+
     kernels = []
     for key, line, lib in KERNELS:
         bound_ms, bound_by, nbytes, nops = bounds[key]
@@ -5336,6 +5761,8 @@ def main() -> int:
             "library_event_ms": t[f"{lib}_event"] if lib else None,
             "shapes": s_dec["inputs"],
             "check": "pass: ids equal, alpha <= 1e-6" if key == "score_prune" else "pass: out <= 1e-5",
+            "launches_phase13_mesh": lm_mesh["serve"]["launches_mesh"].get(f"topk_decode_attention.{key}", 0),
+            "launches_phase13_split_decode": lm_mesh["split_decode"]["launches"].get(key, 0),
             "launches_phase11_pruned": {arch: r["pruned"]["launches_eager"][f"topk_decode_attention.{key}"]
                                         for arch, r in archs["runs"].items() if "pruned" in r},
             "by_shape": {f"{arch} first cross-attention, eager step 1": {
@@ -5371,6 +5798,8 @@ def main() -> int:
         "shapes": ts_row["shape"],
         "by_shape": {key: {name: v for name, v in r.items() if not name.endswith("_source")} for key, r in t_ts.items()},
         "check": "pass: values bitwise equal, ids equal",
+        "launches_phase13_split_decode": lm_mesh["split_decode"]["launches"]["topk_select"],
+        "launches_phase13_on": "the split pruned decode's selections (gemma3-4b global-layer shape, 2 and 4 shards)",
     })
     REPORT.parent.mkdir(exist_ok=True)
     REPORT.write_text(json.dumps({
@@ -5380,7 +5809,7 @@ def main() -> int:
         "decode_phase2_errors": dec_cases,
         "pruner_times_ms": t_ts, "forward_ms": fwd, "forward_latency_ms": latency, "profiles": prof,
         "train": train, "sgb": sgb, "serve": served, "ego": ego, "stream": stream, "shard": sharded, "archs": archs,
-        "lm_train": lm_train,
+        "lm_train": lm_train, "lm_mesh": lm_mesh,
         "kernels": kernels,
         "phase_wall_s": phase_s,
     }, indent=1))
@@ -5455,6 +5884,18 @@ def main() -> int:
                                           "model_flops_share")}
                  for arch, r in lm_train["runs"].items()},
         "cpu_check": lm_train["cpu_check"], "resume": lm_train["resume"], "launches": lm_train["launches"],
+        "card": card,
+    }))
+    print("mesh " + json.dumps({
+        "mesh": "(1, 1) data, model, one NCCL rank", "allocator": lm_mesh["allocator"],
+        "serve": {k: lm_mesh["serve"][k] for k in ("prefill_ms", "captured_step_ms_median", "launches_mesh", "bitwise",
+                                                   "wall_s")},
+        "split_decode": {key: {k: r[k] for k in ("hier_merge_ran", "rows_ids_differ", "max_abs_err", "launches", "ms",
+                                                 "unsplit_ms")}
+                         for key, r in lm_mesh["split_decode"]["cases"].items()},
+        "split_layers": lm_mesh["split_layers"],
+        "train": {"unsharded": lm_mesh["train"]["unsharded"], "mesh": lm_mesh["train"]["mesh"],
+                  "restore": lm_mesh["train"]["restore"], "wall_s": lm_mesh["train"]["wall_s"]},
         "card": card,
     }))
     print(card)

@@ -21,6 +21,13 @@ so only the write may run behind (``blocking=False``: one writer thread,
 at most one write in flight). numpy has no bfloat16: a bfloat16 tensor is
 stored as its 16-bit pattern (``uint16``), with ``bfloat16`` in the
 manifest, and restored bit for bit.
+
+A state placed on a device mesh (DTensor leaves) is saved whole: each
+leaf's ``full_tensor()`` (a collective, so every rank calls ``save``), and
+only global rank 0 writes it, once. ``restore(..., shardings=)`` places
+each leaf on a mesh again (``distribute_tensor``, each rank keeping its
+chunk), which may differ from the one it was saved from: the elastic
+rescale of ``runtime/trainer.py``'s ``restore_for_mesh``.
 """
 from __future__ import annotations
 
@@ -35,6 +42,8 @@ from typing import Dict, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding
+from repro_torch.npz import mmap_views
 from repro_torch.optim.adafactor import AdafactorState, FactoredSlot
 from repro_torch.optim.adamw import AdamWState
 
@@ -42,7 +51,10 @@ _SLOT_PARTS = ("row", "col", "full")
 
 
 def _to_host(t: torch.Tensor) -> Tuple[np.ndarray, str]:
-    """A copy of ``t`` in host memory as numpy, and its dtype's name."""
+    """A copy of ``t`` (a DTensor's whole value) in host memory as numpy,
+    and its dtype's name."""
+    if type(t).__name__ == "DTensor":
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     dtype = str(t.dtype).removeprefix("torch.")
     if t.dtype == torch.bfloat16:
@@ -67,11 +79,22 @@ class CheckpointManager:
     # ------------------------------------------------------------- save
     def save(self, step: int, state: Mapping[str, torch.Tensor], blocking: bool = True):
         """Snapshot ``state`` to host memory now; write it now
-        (``blocking``) or on the writer thread."""
+        (``blocking``) or on the writer thread. A placed state is gathered
+        on every rank and written by global rank 0 alone; a blocking save
+        then waits for every rank (a barrier), so no rank reads the step
+        before it is committed."""
         t0 = time.perf_counter()
+        placed = any(type(t).__name__ == "DTensor" for t in state.values())
         host = {name: _to_host(t) for name, t in state.items()}
         snapshot_s = time.perf_counter() - t0
         self.wait()  # one in-flight save at a time
+        if placed:
+            import torch.distributed as dist
+
+            if dist.get_rank() != 0:
+                if blocking:
+                    dist.barrier()
+                return
 
         def write():
             t1 = time.perf_counter()
@@ -101,6 +124,10 @@ class CheckpointManager:
 
         if blocking:
             write()
+            if placed:
+                import torch.distributed as dist
+
+                dist.barrier()
         else:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
@@ -130,9 +157,12 @@ class CheckpointManager:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, step: int, target: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def restore(self, step: int, target: Mapping[str, torch.Tensor],
+                shardings: Optional[Mapping[str, object]] = None) -> Dict[str, torch.Tensor]:
         """The state saved at ``step`` as ``target`` names, shapes, dtypes
-        and places it. A name missing or added, or a shape changed, raises
+        and places it; with ``shardings`` (a ``sharding.Sharding`` by name)
+        each leaf placed on its mesh instead (a DTensor, this rank holding
+        its chunk). A name missing or added, or a shape changed, raises
         ``ValueError``."""
         path = self.dir / f"step_{step}"
         manifest = json.loads((path / "manifest.json").read_text())
@@ -142,12 +172,19 @@ class CheckpointManager:
             raise ValueError(f"state structure changed: missing {missing}, unexpected {extra}")
         dtypes = dict(zip(manifest["names"], manifest["dtypes"]))
         out = {}
-        with np.load(path / "arrays.npz") as data:
-            for name, spec in target.items():
-                arr = data[name]
-                if list(arr.shape) != list(spec.shape):
-                    raise ValueError(f"{name}: checkpoint shape {arr.shape} != target {tuple(spec.shape)}")
-                out[name] = _from_host(arr, dtypes[name]).to(spec.device, spec.dtype)
+        data = mmap_views(path / "arrays.npz")
+        if data is None:
+            raise ValueError(f"{path / 'arrays.npz'} is not an npz of uncompressed members, as save writes")
+        for name, spec in target.items():
+            arr = data[name]
+            if list(arr.shape) != list(spec.shape):
+                raise ValueError(f"{name}: checkpoint shape {arr.shape} != target {tuple(spec.shape)}")
+            t = _from_host(arr, dtypes[name])
+            sh = None if shardings is None else shardings[name]
+            if sh is None:
+                out[name] = t.to(spec.device, spec.dtype)
+            else:
+                out[name] = sharding.place(t.to(spec.dtype), sh)
         return out
 
 

@@ -143,6 +143,26 @@ def lm_layout(cfg, tree: Mapping, is_leaf=lambda t: False) -> Iterator[Tuple[str
         raise ValueError(f"the groups hold {offset} layers, the config {cfg.num_layers}")
 
 
+def lm_reference_path(cfg, name: str) -> Tuple[str, Optional[int]]:
+    """A port parameter name -> (the reference's '/'-joined tree path, the
+    repeats its leaf is stacked over, or ``None`` for an unstacked leaf):
+    ``layers.<i>.<path>`` -> ``groups/<gi>/<p>/<path>`` over the group's
+    repeats, ``encoder.layers.<r>.<path>`` -> ``encoder/stack/<path>`` over
+    ``enc_layers``, any other name its dots as slashes. The inverse of
+    :func:`lm_layout`'s naming, without a reference tree."""
+    parts = name.split(".")
+    if parts[:2] == ["encoder", "layers"]:
+        return "/".join(["encoder", "stack"] + parts[3:]), cfg.enc_layers
+    if parts[0] != "layers":
+        return "/".join(parts), None
+    i, offset = int(parts[1]), 0
+    for gi, (cycle, n) in enumerate(cfg.layer_groups()):
+        if i < offset + n * len(cycle):
+            return "/".join(["groups", str(gi), str((i - offset) % len(cycle))] + parts[2:]), n
+        offset += n * len(cycle)
+    raise ValueError(f"{name}: layer {i} is past the config's {offset} layers")
+
+
 def lm_params_from_reference(cfg, tree: Mapping, device="cuda") -> Dict[str, torch.Tensor]:
     """The reference LM's parameter tree (numpy leaves) as the port's flat
     mapping on ``device``, each tensor in the dtype the LM stores it in

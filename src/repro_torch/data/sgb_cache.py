@@ -50,6 +50,7 @@ from repro_torch.core.hetgraph import (
     HetGraph,
     ShardedBucketLayout,
 )
+from repro_torch.npz import mmap_views
 
 CACHE_VERSION = 1
 
@@ -209,61 +210,6 @@ class _BlobReader:
         return self._blobs[dt][off: off + size].reshape(shape)
 
 
-def _npz_mmap_views(path) -> Optional[Dict[str, np.ndarray]]:
-    """Zero-copy raw views into an uncompressed npz: mmap the file once,
-    take member offsets from the zip directory, and skip the per-member
-    crc32 + copy pass ``np.load`` pays. Returns ``{member: read-only
-    ndarray}`` backed by the mapping, or ``None`` when the file isn't a
-    plain stored npz (the caller falls back to ``np.load``)."""
-    import ast
-    import mmap
-    import struct
-    import zipfile
-
-    out: Dict[str, np.ndarray] = {}
-    try:
-        with open(path, "rb") as f:
-            mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
-            with zipfile.ZipFile(f) as zf:
-                for info in zf.infolist():
-                    if info.compress_type != zipfile.ZIP_STORED:
-                        return None
-                    ho = info.header_offset
-                    if mm[ho: ho + 4] != b"PK\x03\x04":
-                        return None
-                    # local header: 30 fixed bytes + name + extra (the
-                    # extra field differs from the central directory's —
-                    # numpy pads it to 64-byte-align the array data)
-                    nlen, elen = struct.unpack("<HH", mm[ho + 26: ho + 30])
-                    npy = ho + 30 + nlen + elen
-                    if mm[npy: npy + 6] != b"\x93NUMPY":
-                        return None
-                    major = mm[npy + 6]
-                    if major == 1:
-                        (hlen,) = struct.unpack("<H", mm[npy + 8: npy + 10])
-                        hoff = npy + 10
-                    else:
-                        (hlen,) = struct.unpack("<I", mm[npy + 8: npy + 12])
-                        hoff = npy + 12
-                    hdr = ast.literal_eval(
-                        bytes(mm[hoff: hoff + hlen]).decode("latin1")
-                    )
-                    if hdr.get("fortran_order"):
-                        return None
-                    dt = np.dtype(hdr["descr"])
-                    shape = hdr["shape"]
-                    count = int(np.prod(shape)) if shape else 1
-                    name = info.filename
-                    if name.endswith(".npy"):
-                        name = name[:-4]
-                    out[name] = np.frombuffer(
-                        mm, dtype=dt, count=count, offset=hoff + hlen
-                    ).reshape(shape)
-    except Exception:
-        return None
-    return out  # arrays keep the mmap alive via their .base chain
-
-
 def _pack_grouped(prefix: str, lay: GroupedBucketLayout, bw: _BlobWriter) -> dict:
     for f in _GROUPED_ARRAYS:
         bw.add(f"{prefix}.{f}", getattr(lay, f))
@@ -365,7 +311,7 @@ def open_mmap_arrays(
     ``np.savez``. Fancy-indexing rows out of these views touches only the
     pages those rows cover. Falls back to an eager ``np.load`` for
     compressed archives."""
-    views = _npz_mmap_views(path)
+    views = mmap_views(path)
     if views is not None:
         return views
     with np.load(path) as z:
@@ -380,7 +326,7 @@ def load_sgb(
     injected into the graphs' layout caches so no dispatch rebuilds them.
     Arrays are zero-copy read-only views into an mmap of the
     entry when possible: whatever turns them into tensors copies them."""
-    views = _npz_mmap_views(path)
+    views = mmap_views(path)
     if views is not None:
         return _reconstruct_sgb(path, views)
     with np.load(path) as z:

@@ -12,12 +12,17 @@ E experts, as the reference computes them: at decode that reads every
 expert's weights, not only the routed ones.
 
 Returns the load-balance plus router z-loss auxiliary loss as the reference
-does; serving drops it.
+does; serving drops it. In a sharded train step each rank routes its own
+rows as whole groups, and the two per-expert means the load-balance loss
+multiplies are averaged over the ranks first (``sharding.batch_mean``), so
+the loss is the whole batch's.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import sharding
 
 
 def moe_shapes(cfg):
@@ -103,8 +108,8 @@ def apply_moe(cfg, params, x: torch.Tensor):
         y = y[: b * s]
 
     # GShard load-balance aux + router z-loss
-    me = probs.mean(dim=(0, 1))  # (E,)
-    ce = dispatch_c.float().sum(-1).mean(dim=(0, 1)) * (m.num_experts / m.top_k)
+    me = sharding.batch_mean(probs.mean(dim=(0, 1)))  # (E,)
+    ce = sharding.batch_mean(dispatch_c.float().sum(-1).mean(dim=(0, 1))) * (m.num_experts / m.top_k)
     lb_loss = m.num_experts * torch.sum(me * ce)
     z_loss = m.router_z_loss * torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
     return y.reshape(b, s, d).to(x.dtype), lb_loss + z_loss

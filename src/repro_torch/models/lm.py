@@ -12,8 +12,11 @@ The layers are a ``ModuleList`` in :attr:`LM.kinds` order: ``cfg.pattern()``
 with an audio decoder's "A" blocks turned into "D" (the reference's
 ``_decoder_cycle``); an audio LM also has ``encoder.layers`` ("E") and
 ``encoder.final_norm``. The reference's ``lax.scan`` over stacked cycle
-repeats is a Python loop here, and its sharding constraints have no
-counterpart on one card. Parameter names follow the port's flat naming
+repeats is a Python loop here. Its sharding constraints steer GSPMD and
+have no counterpart: on a device mesh the port computes on local tensors
+(``forward_train`` gathers placed weights layer by layer; ``prefill`` and
+``decode_step`` run each rank's batch rows over caches placed on the mesh,
+``layers/attention.py`` the positions split across ranks). Parameter names follow the port's flat naming
 (``embed.table``, ``layers.<i>.attn.wq``, ``layers.<i>.mlp.wi``,
 ``layers.<i>.moe.router.w``, ``layers.<i>.moe.experts.wi``,
 ``layers.<i>.lru.wa``, ``layers.<i>.rwkv.ln_x.scale``,
@@ -82,6 +85,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.projection import glorot_
 from repro_torch.core import session as _session
+from repro_torch.distributed import sharding
 from repro_torch.layers import blocks
 from repro_torch.layers.attention import KVCache, position_tensor
 from repro_torch.layers.blocks import DecoderCache
@@ -133,7 +137,7 @@ def compute_tree(cfg: ModelConfig, params: Mapping[str, torch.Tensor]) -> Dict:
         node = out
         for key in path:
             node = node.setdefault(key, {})
-        node[leaf] = t if _stays_float32(name, t.shape) else t.to(dt)
+        node[leaf] = t if _stays_float32(name, t.shape) else sharding.cast(t, dt)
 
     def lists(node):  # the "layers" dicts keyed "0", "1", … as lists
         if not isinstance(node, dict):
@@ -370,7 +374,7 @@ class LM(nn.Module):
         # the gather of table[tokens]; its backward sums the rows of repeated
         # tokens by a sort on the card (deterministic), where advanced
         # indexing's walks each token's duplicates in one warp
-        x = nn.functional.embedding(tokens, params["embed"]["table"])
+        x = nn.functional.embedding(tokens, sharding.gather(params["embed"]["table"]))
         if not cfg.tie_embeddings:
             return x
         # gemma-style scaled embeddings (tied), the scale rounded to adtype; a
@@ -384,15 +388,20 @@ class LM(nn.Module):
         cfg = self.cfg
         x = frames.to(cfg.adtype)
         positions = torch.arange(x.shape[1], device=x.device)
+        split = sharding.current_split()
         for lp in params["encoder"]["layers"]:
-            layer = lambda h, lp=lp: blocks.apply_block_train(cfg, "E", lp, h, positions)[0]  # noqa: E731
+
+            def layer(h, lp=lp):
+                with sharding.split_scope(split):
+                    return blocks.apply_block_train(cfg, "E", sharding.gather_tree(lp), h, positions)[0]
+
             x = _remat(layer, x) if remat else layer(x)
-        return apply_norm(cfg, params["encoder"]["final_norm"], x)
+        return apply_norm(cfg, sharding.gather_tree(params["encoder"]["final_norm"]), x)
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = apply_norm(cfg, params["final_norm"], x)
-        w = params["embed"]["table"].T if cfg.tie_embeddings else params["lm_head"]["w"]
+        x = apply_norm(cfg, sharding.gather_tree(params["final_norm"]), x)
+        w = sharding.gather(params["embed"]["table"]).T if cfg.tie_embeddings else sharding.gather(params["lm_head"]["w"])
         logits = (x @ w).float()
         if cfg.logit_softcap:
             logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
@@ -419,7 +428,14 @@ class LM(nn.Module):
         the encoder encodes first. With ``cfg.remat`` each cycle repeat
         (each encoder layer) is recomputed in the backward
         (``torch.utils.checkpoint``, non-reentrant). ``aux`` sums the
-        blocks' MoE auxiliary losses."""
+        blocks' MoE auxiliary losses.
+
+        Parameters placed as DTensors (``launch/steps.py``'s sharded step)
+        are gathered whole just before their use: a layer's inside the
+        remat body, so a recompute gathers them again and a rematerialized
+        model never holds all its weights gathered at once; the embedding
+        and the head at theirs. The body re-enters the step's batch split
+        (``sharding.split_scope``) wherever the recompute runs."""
         cfg = self.cfg
         tree = compute_tree(cfg, params)
         if cfg.family == "audio":
@@ -429,15 +445,17 @@ class LM(nn.Module):
         x = self._embed(tree, tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        split = sharding.current_split()
         for layers in self.cycle_repeats():
 
             def body(h, a, layers=layers):
-                for i in layers:
-                    h, da, _ = blocks.apply_block_train(cfg, self.kinds[i], tree["layers"][i], h, positions,
-                                                        context=context)
-                    if isinstance(da, torch.Tensor):  # an "M" block's; the others add 0.0
-                        a = a + da
-                return h, a
+                with sharding.split_scope(split):
+                    for i in layers:
+                        h, da, _ = blocks.apply_block_train(cfg, self.kinds[i], sharding.gather_tree(tree["layers"][i]),
+                                                            h, positions, context=context)
+                        if isinstance(da, torch.Tensor):  # an "M" block's; the others add 0.0
+                            a = a + da
+                    return h, a
 
             x, aux = _remat(body, x, aux) if cfg.remat else body(x, aux)
         return self._logits(tree, x), aux
@@ -468,13 +486,26 @@ class LM(nn.Module):
         or a 0-dim int64 tensor on the model's device; both give the same
         bits) -> (logits (B, V) float32, cache), the cache updated in
         place. ``params``: flat parameters to run with in place of the LM's
-        own (``launch/steps.py``'s decode step)."""
+        own (``launch/steps.py``'s decode step).
+
+        On a cache placed on a mesh (:meth:`prefill` under one) each rank
+        runs its rows: ``token`` is the whole batch (this rank's rows are
+        taken) or a DTensor of rows, and the logits come back a DTensor of
+        rows (``full_tensor()`` gives them whole)."""
+        mesh, entry = cache_rows(cache)
+        if mesh is None:
+            return self._decode_rows(token, pos, cache, params), cache
+        logits = self._decode_rows(_local_rows(token, mesh, entry), pos, cache, params)
+        return sharding.from_rows(logits, sharding.Sharding(mesh, (entry, None))), cache
+
+    def _decode_rows(self, token: torch.Tensor, pos, cache: List[Cache],
+                     params: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
         cfg, params = self.cfg, self._tree(params)
         x = self._embed(params, token)
         pos = position_tensor(pos, token.device)
         for i, kind in enumerate(self.kinds):
             x, cache[i] = blocks.apply_block_decode(cfg, kind, params["layers"][i], x, pos, cache[i])
-        return self._logits(params, x)[:, 0], cache
+        return self._logits(params, x)[:, 0]
 
     def compile_decode(self, cache: List[Cache]) -> "DecodeStep":
         """The decode step as one program, bound to ``cache`` and to the
@@ -497,7 +528,18 @@ class LM(nn.Module):
         rows; a context cache (C, a "D" block's cross) as emitted. A
         recurrent layer emits its state after the last token. ``params``:
         flat parameters to run with in place of the LM's own.
+
+        Under a mesh (``sharding.set_mesh``) each rank runs its rows of the
+        prompt (``tokens`` the whole batch, or a DTensor of rows), then keeps
+        its chunk of each cache as ``sharding.cache_shardings`` places it
+        (positions over ``model`` where they divide): the logits and every
+        cache tensor come back DTensors.
+        Decode state other than KV caches (R, W; C, E / D) raises
+        ``NotImplementedError`` under a mesh.
         """
+        mesh = sharding.ambient_mesh()
+        if mesh is not None:
+            return self._prefill_on_mesh(mesh, tokens, max_len, context, params)
         cfg, params = self.cfg, self._tree(params, check=True)
         if self.ctx_len and (context is None or tuple(context.shape[1:]) != (self.ctx_len, cfg.d_model)):
             got = None if context is None else tuple(context.shape)
@@ -517,6 +559,19 @@ class LM(nn.Module):
             )
             caches.append(self._relayout_cache(kind, em, s, max_len))
         return self._logits(params, x[:, -1:, :])[:, 0], caches
+
+    def _prefill_on_mesh(self, mesh, tokens, max_len, context, params):
+        others = sorted(set(self.kinds) - {"A", "L", "M"})
+        if others:
+            raise NotImplementedError(
+                f"{self.cfg.name}: decode state of kinds {others} under a mesh is not ported; KV caches only (A, L, M)")
+        rows = sharding.shard_batch_dim(tokens)
+        entry = sharding.spec_of(rows)[0]
+        with sharding.set_mesh(None):
+            logits, caches = self.prefill(rows.to_local(), max_len, context=context, params=params)
+        specs = sharding.cache_shardings(self.cfg, rows.shape[0], mesh, caches)
+        caches = [KVCache(*(sharding.from_rows(t, sh) for t, sh in zip(c, sp))) for c, sp in zip(caches, specs)]
+        return sharding.from_rows(logits, sharding.Sharding(mesh, (entry, None))), caches
 
     def _relayout_cache(self, kind: str, em: Cache, s: int, max_len: int) -> Cache:
         """One layer's emitted (B, S, Hkv, hd) K/V -> its decode cache; a
@@ -543,6 +598,22 @@ class LM(nn.Module):
             z[:, slots] = t[:, s - w:]
             out.append(z)
         return KVCache(k=out[0], v=out[1])
+
+
+def cache_rows(cache) -> Tuple[Optional[object], object]:
+    """(mesh, the spec entry of its batch rows) of a cache placed on a
+    mesh, or (None, None) for a cache of plain tensors."""
+    for t in cache_tensors(cache):
+        if type(t).__name__ == "DTensor":
+            return t.device_mesh, sharding.spec_of(t)[0]
+    return None, None
+
+
+def _local_rows(token: torch.Tensor, mesh, entry) -> torch.Tensor:
+    """A DTensor's local rows, or this rank's rows of the whole batch."""
+    if type(token).__name__ == "DTensor":
+        return token.to_local()
+    return sharding.take_rows(token, mesh, entry)
 
 
 class _Pick(torch.autograd.Function):
@@ -596,12 +667,16 @@ class DecodeStep:
     new weights into the model makes the step raise too (build a new one),
     as does a prefill that found a parameter written in place since the
     capture (a replay itself tests only that, in O(1)).
-    On the CPU every call is an eager ``decode_step``.
+    On the CPU every call is an eager ``decode_step``. On a cache placed on
+    a mesh the graph holds this rank's rows (its collectives, too, where a
+    cache's positions are split), and each call returns the static logits
+    as a DTensor of rows.
     """
 
     def __init__(self, lm: LM, cache: List[Cache]):
         self.lm, self.cache = lm, cache
         self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._mesh, self._rows = cache_rows(cache)
 
     def _capture(self, token: torch.Tensor, pos) -> None:
         lm, dev = self.lm, self.lm.device
@@ -611,7 +686,7 @@ class DecodeStep:
         states = [t for c in self.cache if isinstance(c, _RECURRENT) for t in c]
         before = [t.clone() for t in states]
         self._graph, self._logits = _session._capture_graph(
-            lambda: lm.decode_step(self._token, self._pos, self.cache)[0], dev
+            lambda: lm._decode_rows(self._token, self._pos, self.cache), dev
         )
         with torch.inference_mode():  # undo the warm-up's step
             for t, saved in zip(states, before):
@@ -621,6 +696,8 @@ class DecodeStep:
         if self.lm.device.type != "cuda":
             with torch.inference_mode():
                 return self.lm.decode_step(token, pos, self.cache)[0]
+        if self._mesh is not None:
+            token = _local_rows(token, self._mesh, self._rows)
         if self._graph is None:
             self._capture(token, pos)
         elif self.lm.compute_params() is not self._params:
@@ -637,6 +714,8 @@ class DecodeStep:
             else:
                 self._pos.fill_(int(pos))
             self._graph.replay()
+        if self._mesh is not None:
+            return sharding.from_rows(self._logits, sharding.Sharding(self._mesh, (self._rows, None)))
         return self._logits
 
 

@@ -25,6 +25,12 @@ name keeps its own slice of the slots (``row`` and ``col`` of a stacked
 matrix, ``row`` of a stacked vector, a 0-d one, ``full`` of a stacked
 scalar); a stacked vector's columns belong to the whole group and each of
 its names holds them (the update reads the first name's).
+
+``update(..., reduce=)`` runs on one rank's shards of tensors split over a
+device mesh (``launch/steps.py``'s sharded step): each mean over a leaf's
+dims goes through ``reduce.mean(name, x, dim, leaf_dims, keepdim)``, which
+completes it over the ranks that split those dims (``leaf_dims``: the
+updated leaf's dims, counted from the end); the rest is elementwise.
 """
 from __future__ import annotations
 
@@ -86,7 +92,10 @@ def adafactor(
                     slots[name] = FactoredSlot(_zeros(shape[:-1], dev), _zeros(shape[:-2] + shape[-1:], dev), None)
         return AdafactorState(step=torch.zeros((), dtype=torch.int32, device=dev), slots=slots)
 
-    def upd(p, g, s: FactoredSlot, beta, lr_t):
+    def plain_mean(x, dim, leaf_dims, keepdim=False):
+        return torch.mean(x) if dim is None else x.mean(dim=dim, keepdim=keepdim)
+
+    def upd(p, g, s: FactoredSlot, beta, lr_t, mean=plain_mean):
         g32 = g.to(torch.float32)
         g2 = torch.square(g32) + eps
         if s.full is not None:
@@ -94,18 +103,19 @@ def adafactor(
             u = g32 / torch.sqrt(v + eps)
             new_s = FactoredSlot(None, None, v)
         else:
-            row = beta * s.row + (1 - beta) * g2.mean(dim=-1)
-            col = beta * s.col + (1 - beta) * g2.mean(dim=-2)
-            rfac = row / row.mean(dim=-1, keepdim=True)
+            row = beta * s.row + (1 - beta) * mean(g2, -1, (-1,))
+            col = beta * s.col + (1 - beta) * mean(g2, -2, (-2,))
+            rfac = row / mean(row, -1, (-2,), keepdim=True)
             v = rfac[..., None] * col[..., None, :]
             u = g32 / torch.sqrt(v + eps)
             new_s = FactoredSlot(row, col, None)
-        rms = torch.sqrt(torch.mean(torch.square(u)) + eps)
+        rms = torch.sqrt(mean(torch.square(u), None, None) + eps)
         u = u / torch.clamp(rms / clip_threshold, min=1.0)
         new_p = (p.to(torch.float32) - lr_t * u).to(p.dtype)
         return new_p, new_s
 
-    def update(grads: Mapping[str, torch.Tensor], state: AdafactorState, params: Mapping[str, torch.Tensor]):
+    def update(grads: Mapping[str, torch.Tensor], state: AdafactorState, params: Mapping[str, torch.Tensor],
+               reduce=None):
         step = state.step + 1
         beta = 1.0 - step.to(torch.float32) ** (-decay)
         lr_t = lr(step) if callable(lr) else lr
@@ -113,9 +123,11 @@ def adafactor(
         new_slots: Dict[str, FactoredSlot] = {}
         stacked = {n for g in stacks for n in g}
         for unit in _units(list(params), stacks):
+            mean = plain_mean if reduce is None else (
+                lambda x, dim, leaf_dims, keepdim=False, name=unit[0]: reduce.mean(name, x, dim, leaf_dims, keepdim))
             if unit[0] not in stacked:
                 name = unit[0]
-                new_params[name], new_slots[name] = upd(params[name], grads[name], state.slots[name], beta, lr_t)
+                new_params[name], new_slots[name] = upd(params[name], grads[name], state.slots[name], beta, lr_t, mean)
                 continue
             first = state.slots[unit[0]]
             vector = first.row is not None and first.row.dim() == 0
@@ -128,7 +140,7 @@ def adafactor(
                 return torch.stack([getattr(state.slots[n], part) for n in unit])
 
             p, s = upd(torch.stack([params[n] for n in unit]), torch.stack([grads[n] for n in unit]),
-                       FactoredSlot(stack("row"), stack("col"), stack("full")), beta, lr_t)
+                       FactoredSlot(stack("row"), stack("col"), stack("full")), beta, lr_t, mean)
             for r, name in enumerate(unit):
                 new_params[name] = p[r]
                 new_slots[name] = FactoredSlot(

@@ -15,6 +15,11 @@ clip ``min(1, clip / (norm + 1e-9))``, bias corrections ``1 - b ** step``
 in float32, ``update = (m / bc1) / (sqrt(v / bc2) + eps) + wd · p``, then
 ``p - lr · update`` cast back to ``p``'s dtype. The moments are stored in
 ``moment_dtype`` (bfloat16 halves the optimizer's memory).
+
+``update(..., reduce=)`` runs on one rank's shards of tensors split over a
+device mesh (``launch/steps.py``'s sharded step): ``reduce.sums(names,
+sums)`` completes each leaf's local sum of squares over the ranks that
+split it, the only reduction AdamW makes; everything else is elementwise.
 """
 from __future__ import annotations
 
@@ -58,12 +63,16 @@ def adamw(
             nu={n: torch.zeros_like(p, dtype=moment_dtype) for n, p in params.items()},
         )
 
-    def update(grads: Mapping[str, torch.Tensor], state: AdamWState, params: Mapping[str, torch.Tensor]):
+    def update(grads: Mapping[str, torch.Tensor], state: AdamWState, params: Mapping[str, torch.Tensor],
+               reduce=None):
         names = list(params)
         step = state.step + 1
         g32 = [grads[n].to(torch.float32) for n in names]
         if grad_clip_norm is not None:
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in g32))
+            sq = [torch.sum(torch.square(g)) for g in g32]
+            if reduce is not None:
+                sq = reduce.sums(names, sq)
+            gnorm = torch.sqrt(sum(sq))
             # a division, as the reference's (a float over a tensor would
             # be a reciprocal and a product in torch)
             scale = torch.clamp(torch.full_like(gnorm, grad_clip_norm) / (gnorm + 1e-9), max=1.0)

@@ -12,8 +12,8 @@
 
 Each committed step's parameters are handed to the trainer's ``LM``
 (``load_params``, which shares the tensors), so serving it reads the
-trained weights. The reference's ``restore_for_mesh`` (elastic rescale onto
-another mesh) waits for the port's parameter sharding (ROADMAP §1 LM-8).
+trained weights. ``restore_for_mesh`` is the elastic rescale: the latest
+checkpoint, from any mesh or none, placed on another mesh.
 """
 from __future__ import annotations
 
@@ -85,6 +85,21 @@ class Trainer:
         self.model.load_params(params)
         print(f"[trainer] resumed from step {latest}", flush=True)
         return params, opt_state, latest
+
+    def restore_for_mesh(self, mesh, shardings):
+        """Elastic rescale: the latest checkpoint placed on ``mesh`` ->
+        ((params, opt_state), its step). ``shardings`` is ``(parameter
+        shardings, optimizer-state shardings)`` built against ``mesh``
+        (``launch/steps.py``'s ``params_shardings``). Every rank of
+        ``mesh`` calls it. Raises ``FileNotFoundError`` without a
+        checkpoint."""
+        latest = self.ckpt.latest_step()
+        if latest is None:
+            raise FileNotFoundError(f"no committed checkpoint in {self.ckpt.dir} to rescale from")
+        params, opt_state = steps_lib.state_specs(self.cfg, with_opt=True)  # names, shapes, dtypes (meta)
+        flat = self.ckpt.restore(latest, flatten_train_state(params, opt_state),
+                                 shardings=flatten_train_state(*shardings))
+        return unflatten_train_state(flat, opt_state), latest
 
     # ------------------------------------------------------------- loop
     def run(self, context_fn: Optional[Callable[[int], torch.Tensor]] = None):

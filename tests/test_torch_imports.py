@@ -49,7 +49,8 @@ def test_no_jax_or_reference_imports(tmp_path):
                 "layers/rwkv.py", "configs/recurrentgemma_2b.py", "configs/rwkv6_3b.py",
                 "configs/llama32_vision_90b.py", "configs/seamless_m4t_medium.py", "optim/adafactor.py",
                 "data/tokens.py", "launch/steps.py", "launch/train.py", "checkpoint/manager.py",
-                "runtime/straggler.py", "runtime/trainer.py", "distributed/compression.py"):
+                "runtime/straggler.py", "runtime/trainer.py", "distributed/compression.py", "launch/mesh.py",
+                "npz.py"):
         assert port / mod in PORT_FILES, mod
     probe = tmp_path / "probe.py"
     probe.write_text(
@@ -124,8 +125,8 @@ def test_cpu_forward_loads_neither_jax_nor_reference(tmp_path):
 
 
 def test_training_modules_load_neither_jax_reference_nor_triton(tmp_path):
-    """The LM training modules import, and two smoke training steps run on
-    the CPU through the launcher, without loading JAX, the reference or
+    """The LM training modules and the mesh functions (``launch/mesh.py``)
+    import, and two smoke training steps run on the CPU through the launcher, without loading JAX, the reference or
     ``triton`` and without starting a process (no kernel is built)."""
     code = (
         "import subprocess, sys\n"
@@ -138,6 +139,8 @@ def test_training_modules_load_neither_jax_reference_nor_triton(tmp_path):
         "import repro_torch.checkpoint.manager, repro_torch.data.tokens, repro_torch.distributed.compression\n"
         "import repro_torch.launch.steps, repro_torch.layers.flash, repro_torch.optim.adafactor\n"
         "import repro_torch.runtime.straggler, repro_torch.runtime.trainer\n"
+        "import repro_torch.launch.mesh, torch.distributed\n"
+        "assert not torch.distributed.is_initialized()  # importing the meshes starts no process group\n"
         "from repro_torch.launch import train\n"
         f"train.main(['--arch', 'qwen2-1.5b', '--smoke', '--device', 'cpu', '--steps', '2', '--seq-len', '16',\n"
         f"            '--global-batch', '4', '--ckpt-dir', {str(tmp_path / 'ckpt')!r}])\n"

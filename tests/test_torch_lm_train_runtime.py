@@ -111,6 +111,30 @@ def test_restore_rejects_shape_or_name_change(tmp_path):
         mgr.restore(1, {"v": torch.empty((4, 4))})
 
 
+def test_restore_reads_stored_members_and_rejects_compressed(tmp_path):
+    """``restore`` maps the archive's members in place (``npz.mmap_views``):
+    a transposed tensor, stored in Fortran order, comes back bit for bit;
+    an archive of compressed members, which ``save`` never writes, raises."""
+    import zipfile
+
+    state = {"t": torch.randn((6, 4), generator=torch.Generator().manual_seed(3)).T, **_state()}
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(2, state, blocking=True)
+    npz = tmp_path / "step_2" / "arrays.npz"
+    with np.load(npz) as z:
+        assert np.isfortran(z["t"])
+    out = mgr.restore(2, {n: torch.empty(t.shape, dtype=t.dtype) for n, t in state.items()})
+    for n, t in state.items():
+        assert torch.equal(out[n].reshape(-1).view(torch.uint8), t.reshape(-1).view(torch.uint8)), n
+    with zipfile.ZipFile(npz) as z:
+        assert {i.compress_type for i in z.infolist()} == {zipfile.ZIP_STORED}
+    with np.load(npz) as z:
+        arrays = {k: z[k] for k in z.files}
+    np.savez_compressed(npz, **arrays)
+    with pytest.raises(ValueError, match="uncompressed"):
+        mgr.restore(2, state)
+
+
 def test_train_state_layout_round_trip():
     """``opt.step``, ``opt.slots.<name>.row|col|full`` (only the parts set),
     and back."""

@@ -404,7 +404,11 @@ def test_graph_mesh_lookups():
         with dist.set_mesh(None):
             assert dist.graph_mesh() is None
     assert dist.graph_mesh() is None
-    assert dist.DEFAULT_RULES == {"bucket_tiles": ("data",), "targets": (), "ntype_feat": ()}
+    graph_axes = {k: dist.DEFAULT_RULES[k] for k in ("bucket_tiles", "targets", "ntype_feat")}
+    assert graph_axes == {"bucket_tiles": ("data",), "targets": (), "ntype_feat": ()}
+    from repro.distributed.sharding import DEFAULT_RULES  # the whole table, the LM axes included
+
+    assert dist.DEFAULT_RULES == DEFAULT_RULES
     with dist.set_mesh(_FakeMesh(model=8)):
         assert dist.graph_mesh() is None  # no bucket_tiles axis
 

@@ -181,15 +181,18 @@ def _rank_main(rank: int, world: int, init_file: str, q) -> None:
         q.put((rank, "error", traceback.format_exc()))
 
 
-def spawn(world: int, workdir: str, timeout: float = 240.0) -> list:
-    """Run :func:`rank_checks` on ``world`` gloo ranks; their results in
-    rank order. Raises ``RuntimeError`` with the first traceback if a rank
+def spawn(world: int, workdir: str, timeout: float = 240.0, main=None) -> list:
+    """Run :func:`rank_checks` (or ``main(rank, world, init_file, q)``,
+    a rank program that puts ``(rank, "ok", result)`` or ``(rank, "error",
+    traceback)`` on ``q``) on ``world`` gloo ranks; their results in rank
+    order. Raises ``RuntimeError`` with the first traceback if a rank
     failed or died, or if the ranks did not finish within ``timeout``
     seconds; every rank is ended before it returns."""
     ctx = multiprocessing.get_context("spawn")
     q = ctx.Queue()
     init_file = os.path.join(workdir, f"rendezvous_{world}")
-    procs = [ctx.Process(target=_rank_main, args=(r, world, init_file, q), daemon=True) for r in range(world)]
+    procs = [ctx.Process(target=main or _rank_main, args=(r, world, init_file, q), daemon=True)
+             for r in range(world)]
     for p in procs:
         p.start()
     results, error = {}, None
