@@ -4582,6 +4582,7 @@ def arch_run(arch: str, layers, gen: int, zero: dict, modules, dev) -> dict:
         "captured_steps_bitwise_eager": gen, "cache_kinds": sorted({type(c).__name__ for c in cache}),
         "reserved_before_gb": base / 1e9, "peak_reserved_gb": peak / 1e9,
         "decode_step_bytes": nbytes, "sample_tokens": tok[:, 0].tolist(), "profiles": profiles,
+        "step_tokens": [t[:, 0].tolist() for t in tokens],
         "eager_step_ops_ms": eager_ops, "profile_s": profile_s,
     }
     if gates:
@@ -4698,6 +4699,7 @@ def pruned_run(arch: str, lm, cache0, tokens, dense_top1, dense: dict, zero: dic
         run = decode_runs(f"{arch} pruned", plm, clone_cache(cache0), gen, want, modules, forced=tokens, hook=hook)
         eager_ms, captured_ms, launches = run["eager_ms"], run["captured_ms"], run["eager_launches"]
         agree = sum(int((lg.argmax(-1) == d).sum()) for lg, d in zip(run["eager_logits"], dense_top1)) / (gen * LM_BATCH)
+        argmax_tokens = [lg.argmax(-1).tolist() for lg in run["eager_logits"]]
         del run
     check(len(seen) == 1, f"{arch}: no pruned cross-attention reached kernel #4")
     pair_t, pair_b, pair_s = decode_pair_times(seen[0], dev)
@@ -4708,7 +4710,7 @@ def pruned_run(arch: str, lm, cache0, tokens, dense_top1, dense: dict, zero: dic
         "eager_step_ms_events": eager_ms, "captured_step_ms_events": captured_ms,
         "eager_step_ms_median": steady(eager_ms), "captured_step_ms_median": steady(captured_ms),
         "captured_tokens_per_s": LM_BATCH / (steady(captured_ms) / 1e3), "top1_agreement_with_dense": agree,
-        "captured_steps_bitwise_eager": gen, "decode_step_bytes": nbytes,
+        "captured_steps_bitwise_eager": gen, "decode_step_bytes": nbytes, "argmax_tokens": argmax_tokens,
         "cross_decode_pair": {"shapes": pair_s, "times_ms": pair_t,
                               "bounds": {key: {"bound_ms": b[0], "bound_by": b[1], "bytes": b[2], "ops": b[3]}
                                          for key, b in pair_b.items()},
@@ -5406,10 +5408,11 @@ def mesh_train(mesh, dev) -> dict:
     return out
 
 
-def lm_mesh_phase(modules, card, lm_result: dict, dev) -> dict:
+def lm_mesh_phase(modules, card, lm_result: dict, dev, late=None) -> dict:
     """Phase 13: the LM on a one-rank NCCL device mesh (1, 1) over
-    ``("data", "model")`` (serving before training); the process group is
-    destroyed at the end. Every check raises."""
+    ``("data", "model")`` (serving before training), then ``late(mesh,
+    out)`` where given (13 (e) and 14 (a)); the process group is destroyed
+    at the end. Every check raises."""
     import gc
 
     import torch
@@ -5438,8 +5441,435 @@ def lm_mesh_phase(modules, card, lm_result: dict, dev) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         out["train"] = mesh_train(mesh, dev)
+        if late is not None:
+            gc.collect()
+            torch.cuda.empty_cache()
+            late(mesh, out)
     finally:
         tdist.destroy_process_group()
+    return out
+
+
+# phase 13 (e), on the one-rank mesh: serving with the weights placed by
+# params_shardings (fsdp on) and, for the recurrent and cross-attention
+# archs, the decode state placed by cache_shardings. gemma3-4b as in (a);
+# rwkv6-3b and seamless-m4t-medium whole, as phase 11 runs them (seamless
+# pruned at ARCH_PRUNE_K, teacher-forced on phase 11's dense tokens); then
+# the split cross decode at llama-3.2-vision-90b's C layer shape
+# (CROSS_DECODE_SHAPES) on 2 and 4 ranks as threads, dense and pruned
+# (gathered logits and hier_topk's merge), against unsplit kernel #4
+MESH_E_ARCHS = ("rwkv6-3b", "seamless-m4t-medium")
+MESH_CROSS_SPLIT = ((None, False), (1024, False), (1024, True))  # (attn_prune_k, hier_topk)
+# phase 14, the dry-run (repro_torch.launch.dryrun). (a) on the one-rank
+# mesh: qwen2-1.5b whole at phase 12's (TRAIN_LM_BATCH, TRAIN_LM_SEQ), fsdp
+# on, counted on fake CUDA tensors, then one real step under the same
+# FlopCounterMode: FLOPs equal, the predicted peak within TOL_DRYRUN_PEAK of
+# the step's own max_memory_allocated; a gemma3-4b decode cell at phase 3's
+# shape (batch 4, cache 3104; the dry-run decodes at the last position, so
+# every row is valid) whose fake kernel #4 reports its bound's bytes. (b)
+# the production meshes, each a subprocess of the dry-run's CLI on the
+# card's path, started before (e) and read after (a): (arch, shape, mesh)
+DRYRUN_TRAIN_ARCH = "qwen2-1.5b"
+TOL_DRYRUN_PEAK = 0.10
+DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", "single"), ("gemma3-4b", "decode_32k", "multi"))
+DRYRUN_TIMEOUT = 600
+
+
+def placed_weights(cfg, mesh, lm):
+    """``lm``'s parameters placed by ``params_shardings`` (fsdp on)."""
+    from repro_torch.launch import steps
+
+    params = {n: p.detach() for n, p in lm.named_parameters()}
+    psh, _ = steps.params_shardings(dataclasses.replace(cfg, fsdp=True), mesh, params)
+    return steps.place_tree(params, psh)
+
+
+def placed_run(tag: str, cfg, mesh, lm, prompts, ctx, gen: int, want: dict, modules, forced=None) -> dict:
+    """``lm`` served on ``mesh`` with its weights placed (fsdp): the prefill
+    through ``make_prefill_step`` under the mesh, then ``gen`` captured
+    steps (``compile_decode(cache, params=)``), greedy or teacher-forced on
+    ``forced``; each cache tensor placed by ``cache_shardings``; launches
+    ``want`` an eager step, twice that on the first captured call, none on
+    a replay. Returns each step's input tokens and its logits' argmax."""
+    import torch
+
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import cache_tensors
+
+    max_len = LM_PROMPT + gen
+    placed = placed_weights(cfg, mesh, lm)
+    batch = {"tokens": prompts} if ctx is None else {"tokens": prompts, "context": ctx}
+    for m in modules:
+        reset_launches(m)
+    with torch.inference_mode():
+        with sharding.set_mesh(mesh):
+            logits, cache = steps.make_prefill_step(cfg, steps.ShapeSpec("serve", "prefill", max_len, LM_BATCH))(
+                placed, batch)
+        specs = steps.cache_shardings(cfg, steps.ShapeSpec("serve", "decode", max_len, LM_BATCH), mesh, cache)
+
+        def leaves(tree):
+            return [tree] if isinstance(tree, sharding.Sharding) else [x for part in tree for x in leaves(part)]
+
+        spec_ok = all(type(t).__name__ == "DTensor" and sharding.spec_of(t) == sh.spec
+                      for t, sh in zip(cache_tensors(cache), leaves(specs)))
+        check(spec_ok, f"phase 13 (e) {tag}: a cache tensor is not placed by cache_shardings")
+        step = lm.compile_decode(cache, params=placed)
+        tok = logits.to_local().argmax(-1)[:, None] if forced is None else forced[0]
+        tokens, argmax, ms = [], [], []
+        for i in range(gen):
+            tokens.append(tok[:, 0].tolist())
+            before = all_launches(*modules)
+            if e_on := prompts.is_cuda:
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+            out = step(tok, LM_PROMPT + i).to_local()
+            if e_on:
+                e1.record()
+                e1.synchronize()
+                ms.append(e0.elapsed_time(e1))
+            got = {k: v - before[k] for k, v in all_launches(*modules).items()}
+            expect = {k: (2 * want.get(k, 0) if i == 0 else 0) for k in got}
+            check(got == expect, f"phase 13 (e) {tag} captured step {i}: launches {got}, expected {expect}")
+            argmax.append(out.argmax(-1).tolist())
+            tok = out.argmax(-1)[:, None] if forced is None else forced[min(i + 1, gen - 1)]
+    sync(prompts.device)
+    kinds = sorted({type(c).__name__ for c in cache})
+    del step, cache, placed
+    return {"tokens": tokens, "argmax": argmax, "cache_kinds": kinds,
+            "cache_specs": sorted({str(sh.spec) for sh in leaves(specs)}),
+            "captured_step_ms_median": median(ms[1:]) if len(ms) > 1 else None}
+
+
+def mesh_cross_split(modules, dev) -> dict:
+    """Phase 13 (e), the split cross decode (``cross_attention_decode`` on
+    a context whose rows are split over ranks, each rank a thread of this
+    process) at llama-3.2-vision-90b's C layer shape in float32 against the
+    unsplit decode: every rank's output within 1e-5; pruned, the kept rows
+    (``split_pruned_decode_loopback``) equal unsplit kernel #4 K1's, and
+    kernel #3 / K2 launched as often as the ranks launch them."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.topk_decode_attention import ops as tda
+    from repro_torch.kernels.topk_select import ops as ts
+    from repro_torch.layers import attention
+
+    name, b, h, hkv, hd, c, _ = CROSS_DECODE_SHAPES[0]
+    base = dataclasses.replace(get_config("llama-3.2-vision-90b"), dtype="float32")
+    check((base.num_heads, base.num_kv_heads, base.hd) == (h, hkv, hd), f"{name}: the config's heads differ")
+    g = torch.Generator(dev).manual_seed(41)
+    params = {k: torch.randn(s, generator=g, device=dev) * (s[0] ** -0.5 if s else 1.0)
+              for k, s in attention.attention_shapes(base, cross=True).items()}
+    x = torch.randn((b, 1, base.d_model), generator=g, device=dev)
+    kc = torch.randn((b, c, hkv, hd), generator=g, device=dev)
+    vc = torch.randn((b, c, hkv, hd), generator=g, device=dev)
+    q = (x @ params["wq"]).reshape(b, h, hd)
+    lengths = torch.full((b,), c, dtype=torch.int32, device=dev)
+    scale = hd ** -0.5
+    out = {"shape": {"q": [b, h, hd], "context": [b, c, hkv, hd], "dtype": "float32"}, "cases": {}}
+    for prune_k, hier in MESH_CROSS_SPLIT:
+        cfg = dataclasses.replace(base, attn_prune_k=prune_k, hier_topk=hier)
+        want = attention.cross_attention_decode(cfg, params, x, attention.KVCache(kc, vc))
+        ids = tda.score_prune(q, kc, lengths, prune_k, scale)[1] if prune_k else None
+        for n in MESH_SPLITS:
+            cl = c // n
+            blocks = [attention.KVCache(kc[:, r * cl:(r + 1) * cl].contiguous(), vc[:, r * cl:(r + 1) * cl].contiguous())
+                      for r in range(n)]
+            for m in modules:
+                reset_launches(m)
+            loop = attention.ThreadLoopback(n)
+            outs = loop.run([lambda r=r: attention.cross_attention_decode(
+                cfg, params, x, blocks[r], split=attention.PositionSplit(n, r, loop.comm(r))) for r in range(n)])
+            sync(dev)
+            launches = {"topk_select": ts.LAUNCHES["topk_select"], "value_gather": tda.LAUNCHES["value_gather"],
+                        "score_prune": tda.LAUNCHES["score_prune"]}
+            err = max(float((o - want).abs().max()) for o in outs)
+            key = f"{'dense' if prune_k is None else f'K{prune_k}'}{'/hier' if hier else ''}/{n}way"
+            r = {"max_abs_err": err, "out_max": float(want.abs().max()), "launches": launches}
+            check(err <= TOL_MESH_SPLIT, f"phase 13 (e) cross {key}: a rank's output {err:.3g} off the unsplit decode")
+            if prune_k is None:
+                expect = dict.fromkeys(launches, 0)
+            else:
+                merged = hier and cl >= prune_k
+                expect = {"topk_select": n * (2 if merged else 1), "value_gather": n, "score_prune": 0}
+                _, got_ids = attention.split_pruned_decode_loopback(q, kc, vc, lengths, n, prune_k, scale, hier,
+                                                                    return_ids=True)
+                r["rows_ids_differ"] = int((got_ids != ids).any(dim=-1).sum())
+                check(r["rows_ids_differ"] == 0, f"phase 13 (e) cross {key}: {r['rows_ids_differ']} rows keep other "
+                      "context rows than unsplit kernel #4 K1")
+            check(launches == expect, f"phase 13 (e) cross {key}: launches {launches}, expected {expect}")
+            out["cases"][key] = r
+            print(f"  (e) cross {key} at {name} ({c} context rows, {cl} a rank, ranks as threads): out {err:.2e} off "
+                  f"unsplit (|out| max {r['out_max']:.3g}), launches {launches}"
+                  + ("" if prune_k is None else f", kept rows equal K1's in every row"))
+    return out
+
+
+def mesh_placed(mesh, lm_result: dict, archs: dict, modules, dev) -> dict:
+    """Phase 13 (e): serving on the one-rank mesh with placed weights and
+    placed decode state (see ``MESH_E_ARCHS``); tokens bit for bit those of
+    phase 3 (gemma3-4b) and phase 11 (the others)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    out, t0 = {}, time.perf_counter()
+    zero = {key: 0 for key in all_launches(*modules)}
+    max_len = LM_PROMPT + LM_GEN
+    cfg = get_config(LM_ARCH)
+    lm = build_model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))  # phase 3's weights
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), device=dev,
+                            generator=torch.Generator(dev).manual_seed(1))
+    per_step = pruned_layers(lm, max_len)
+    want = dict(zero, **{"topk_decode_attention.score_prune": per_step,
+                         "topk_decode_attention.value_gather": per_step})
+    r = placed_run(LM_ARCH, cfg, mesh, lm, prompts, None, LM_GEN, want, modules)
+    check(r["tokens"] == lm_result["tokens"], f"phase 13 (e) {LM_ARCH}: the placed-weight tokens differ from phase 3's")
+    out[LM_ARCH] = {k: r[k] for k in ("cache_kinds", "cache_specs", "captured_step_ms_median")} | {
+        "steps": LM_GEN, "tokens_equal": "phase 3"}
+    print(f"  (e) {LM_ARCH}: weights placed by params_shardings (fsdp), prefill {LM_BATCH}x{LM_PROMPT} and {LM_GEN} "
+          f"captured steps on the mesh: tokens bit for bit phase 3's; caches {r['cache_specs']}; captured step "
+          f"{r['captured_step_ms_median']} ms median of steps 2-{LM_GEN} (each layer's weights gathered and cast "
+          "inside the graph)")
+    del lm, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in MESH_E_ARCHS:
+        ref = archs["runs"][arch]
+        k = ARCH_PRUNE_K.get(arch)
+        cfg = get_config(arch) if k is None else dataclasses.replace(get_config(arch), attn_prune_k=k)
+        gen = ref["decode_steps"]
+        lm = build_model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))  # phase 11's weights
+        if lm.ctx_len:
+            draw_gates(lm, torch.Generator(dev).manual_seed(2))
+        prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), device=dev,
+                                generator=torch.Generator(dev).manual_seed(1))
+        ctx = stub_context(lm, LM_BATCH, torch.Generator(dev).manual_seed(3))
+        per_step = pruned_layers(lm, LM_PROMPT + gen) if k is not None else 0
+        want = dict(zero, **{"topk_decode_attention.score_prune": per_step,
+                             "topk_decode_attention.value_gather": per_step})
+        if k is None:  # greedy, as phase 11's dense run
+            r = placed_run(arch, cfg, mesh, lm, prompts, ctx, gen, want, modules)
+            check(r["tokens"] == ref["step_tokens"], f"phase 13 (e) {arch}: the tokens differ from phase 11's")
+            what = f"{gen} greedy steps' tokens bit for bit phase 11's"
+        else:  # teacher-forced on phase 11's dense tokens, as its pruned run
+            forced = [torch.tensor(t, device=dev)[:, None] for t in ref["step_tokens"]]
+            r = placed_run(arch, cfg, mesh, lm, prompts, ctx, gen, want, modules, forced=forced)
+            check(r["argmax"] == ref["pruned"]["argmax_tokens"],
+                  f"phase 13 (e) {arch} pruned at K {k}: the tokens differ from phase 11's pruned run")
+            what = f"pruned at K {k}, {gen} steps teacher-forced on phase 11's tokens: argmax bit for bit phase 11's"
+        out[arch] = {"cache_kinds": r["cache_kinds"], "cache_specs": r["cache_specs"], "steps": gen, "prune_k": k,
+                     "kernel4_launches_a_step": per_step, "captured_step_ms_median": r["captured_step_ms_median"]}
+        print(f"  (e) {arch} whole, weights placed (fsdp), decode state placed {r['cache_specs']} "
+              f"({', '.join(r['cache_kinds'])}): {what}; captured step {r['captured_step_ms_median']} ms median")
+        del lm, r
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["cross_split"] = mesh_cross_split(modules, dev)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def dryrun_train_cell(path: str) -> None:
+    """Phase 14 (a)'s count: ``DRYRUN_TRAIN_ARCH`` whole at
+    (``TRAIN_LM_BATCH``, ``TRAIN_LM_SEQ``), fsdp on, on fake CUDA tensors
+    on a (1, 1) mesh over a fake one-rank world (the dry-run's
+    ``count_cell``), written as JSON to ``path``. Run in a process of its
+    own (:func:`start_dryrun_cells`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, steps
+
+    cfg = dataclasses.replace(get_config(DRYRUN_TRAIN_ARCH), fsdp=True)
+    mesh = dryrun.cell_mesh("single", ((1, 1), ("data", "model")), "cuda")
+    t0 = time.perf_counter()
+    r = dryrun.count_cell(cfg, steps.ShapeSpec("chip", "train", TRAIN_LM_SEQ, TRAIN_LM_BATCH), mesh, device="cuda")
+    r["count_s"] = time.perf_counter() - t0
+    dryrun.stop_world()
+    Path(path).write_text(json.dumps(r))
+
+
+def start_dryrun_cells() -> dict:
+    """Phase 14's processes, started together before phase 13 so that they
+    run beside it: each of ``DRYRUN_CELLS`` (b) a subprocess of ``python -m
+    repro_torch.launch.dryrun`` on the card's path, its record under
+    ``build/dryrun``, and (a)'s count (:func:`dryrun_train_cell`); read by
+    :func:`finish_dryrun_cells` and :func:`dryrun_counts`."""
+    import os
+    import shutil
+
+    out = ROOT / "build" / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    for arch, shape, mesh in DRYRUN_CELLS:
+        d = out / f"{arch}_{shape}_{mesh}"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape, "--mesh", mesh,
+               "--out", str(d)]
+        procs[arch, shape, mesh] = (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                                     stderr=subprocess.PIPE, text=True), d, time.perf_counter())
+    path = out / "train_cell.json"
+    code = ("import sys; sys.path[:0] = ['src', '.']; import chip_smoke; "
+            f"chip_smoke.dryrun_train_cell({str(path)!r})")
+    procs["train_cell"] = (subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True), path, time.perf_counter())
+    return procs
+
+
+def wait_dryrun(procs: dict, key):
+    """A phase 14 process ended 0: (its output directory or file, its
+    seconds)."""
+    proc, d, t0 = procs[key]
+    stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    check(proc.returncode == 0, f"phase 14 {key}: exit {proc.returncode}\n" + stdout[-3000:] + stderr[-3000:])
+    return d, time.perf_counter() - t0
+
+
+def finish_dryrun_cells(procs: dict) -> dict:
+    """Phase 14 (b): each cell's process ended 0 with one record ``ok``; the
+    decode cell's kernels #3 and #4 stood in for on fake tensors (reported,
+    none launched)."""
+    out = {}
+    try:
+        for arch, shape, mesh in DRYRUN_CELLS:
+            d, wall = wait_dryrun(procs, (arch, shape, mesh))
+            recs = list(d.glob("*.json"))
+            check(len(recs) == 1, f"phase 14 (b) {arch} {shape} {mesh}: records {recs}")
+            rec = json.loads(recs[0].read_text())
+            check(rec["status"] == "ok", f"phase 14 (b) {arch} {shape} {mesh}: {rec.get('error')}")
+            called = sorted({c[0] for c in rec["kernel_calls"]})
+            check(not any(rec["kernel_launches"].values()), f"phase 14 (b) {arch}: kernels launched on fake tensors: "
+                  f"{rec['kernel_launches']}")
+            if rec["kind"] == "decode":
+                check(called == ["topk_select", "value_gather"], f"phase 14 (b) {arch}: fake kernels {called}")
+            mem = rec["memory"]
+            out[f"{arch} {shape} {mesh}"] = r = {
+                "chips": rec["chips"], "flops_per_device": rec["flops_per_device"],
+                "bytes_per_device": rec["bytes_per_device"],
+                "collective_bytes_per_device": rec["collective_bytes_per_device"],
+                "collectives": rec["collectives"], "collective_counts": rec["collective_counts"],
+                "peak_bytes": mem["peak_bytes"], "argument_bytes": mem["argument_bytes"], "temp_bytes": mem["temp_bytes"],
+                "dominant": rec["dominant"], "roofline_fraction": rec["roofline_fraction"],
+                "t_compute": rec["t_compute"], "t_memory": rec["t_memory"], "t_collective": rec["t_collective"],
+                "scanned_cost": rec["scanned_cost"], "probe": rec["probe"], "fake_kernels": called,
+                "fake_kernel_calls": len(rec["kernel_calls"]), "cell_s": rec["cell_s"], "read_after_s": wall}
+            print(f"  (b) {arch} {shape} on {mesh} ({rec['chips']} fake ranks): per device {r['flops_per_device']:.4e} "
+                  f"FLOPs, {r['bytes_per_device']:.4e} bytes, {r['collective_bytes_per_device']:.4e} collective bytes, "
+                  f"peak {r['peak_bytes'] / 1e9:.3f} GB (arguments {r['argument_bytes'] / 1e9:.3f}); dominant "
+                  f"{r['dominant']}, roofline fraction {r['roofline_fraction']}; fake kernels {called} "
+                  f"({r['fake_kernel_calls']} calls, none launched); cell {r['cell_s']} s (its record read {wall:.1f} s "
+                  "after the process started)")
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return out
+
+
+def dryrun_counts(mesh, procs: dict, dev) -> dict:
+    """Phase 14 (a) on the one-rank mesh (see ``DRYRUN_TRAIN_ARCH``): the
+    dry-run's count on fake CUDA tensors (its process,
+    :func:`dryrun_train_cell`) against one real step, and the fake kernel
+    #4's bytes against its bound's."""
+    import gc
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models.lm import LM
+
+    out = {}
+    cfg = dataclasses.replace(get_config(DRYRUN_TRAIN_ARCH), fsdp=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    other = torch.cuda.memory_allocated(dev)  # what the rest of this process holds
+    lm = LM(cfg, dev)
+    lm.reset_parameters(torch.Generator(dev).manual_seed(0))
+    params = {n: p.detach() for n, p in lm.named_parameters()}
+    del lm
+    opt = steps.make_optimizer(cfg)
+    state = opt.init(params)
+    psh, osh = steps.params_shardings(cfg, mesh, params, state)
+    placed, pstate = steps.place_tree(params, psh), steps.place_tree(state, osh)
+    del params, state
+    batch = TokenPipeline(cfg.vocab_size, TRAIN_LM_SEQ, TRAIN_LM_BATCH, seed=0).batch(0, dev)
+    step = steps.make_train_step(cfg, grad_shardings=psh)
+    sync(dev)
+    args_real = torch.cuda.memory_allocated(dev) - other
+    torch.cuda.reset_peak_memory_stats(dev)
+    t1 = time.perf_counter()
+    with FlopCounterMode(display=False) as fc:
+        new = step(placed, pstate, batch)
+    sync(dev)
+    real_s = time.perf_counter() - t1
+    peak_real = torch.cuda.max_memory_allocated(dev) - other
+    loss = float(new[2])
+    del new, placed, pstate, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    path, _ = wait_dryrun(procs, "train_cell")
+    fake = json.loads(path.read_text())
+    fake_s = fake["count_s"]
+    mem = fake["memory"]
+    rel = (mem["peak_bytes"] - peak_real) / peak_real
+    out["train"] = {"arch": DRYRUN_TRAIN_ARCH, "batch": TRAIN_LM_BATCH, "seq": TRAIN_LM_SEQ, "fsdp": True,
+                    "grad_accum": cfg.grad_accum, "flops_fake": fake["flops"], "flops_real": fc.get_total_flops(),
+                    "peak_predicted": mem["peak_bytes"], "peak_real": peak_real, "peak_rel_diff": rel,
+                    "arguments_predicted": mem["argument_bytes"], "arguments_real": args_real,
+                    "bytes_accessed": fake["bytes accessed"], "fake_s": fake_s, "real_step_s": real_s, "loss": loss,
+                    "other_allocated": other}
+    check(fake["flops"] == fc.get_total_flops(), f"phase 14 (a): fake FLOPs {fake['flops']} differ from the real "
+          f"step's {fc.get_total_flops()}")
+    check(abs(rel) <= TOL_DRYRUN_PEAK, f"phase 14 (a): predicted peak {mem['peak_bytes']} B is {100 * rel:.1f} % off "
+          f"the step's max_memory_allocated {peak_real} B")
+    print(f"  (a) {DRYRUN_TRAIN_ARCH} whole, ({TRAIN_LM_BATCH}, {TRAIN_LM_SEQ}), fsdp, grad_accum {cfg.grad_accum}: "
+          f"FLOPs fake {fake['flops']:.6e} == real {fc.get_total_flops():.6e}; peak predicted {mem['peak_bytes']} B, "
+          f"real max_memory_allocated over the step {peak_real} B ({100 * rel:+.2f} %; arguments {mem['argument_bytes']} "
+          f"predicted, {args_real} real); fake count {fake_s:.1f} s, real step {real_s:.2f} s")
+    # kernel #4 on fake tensors: a gemma3-4b decode cell at phase 3's shape
+    from repro_torch.kernels.topk_decode_attention import ops as tda
+
+    gcfg = get_config(LM_ARCH)
+    c = LM_PROMPT + LM_GEN
+    dshape = steps.ShapeSpec("chip", "decode", c, LM_BATCH)
+    before = dict(tda.LAUNCHES)
+    fake_d = dryrun.count_cell(gcfg, dshape, mesh, device="cuda")
+    check(tda.LAUNCHES == before, f"phase 14 (a): the fake decode cell launched kernel #4: {tda.LAUNCHES}")
+    g = torch.Generator(dev).manual_seed(17)
+    h, hkv, hd, k = gcfg.num_heads, gcfg.num_kv_heads, gcfg.hd, gcfg.attn_prune_k
+    q = torch.randn((LM_BATCH, h, hd), generator=g, device=dev).to(gcfg.adtype)
+    kc = torch.randn((LM_BATCH, c, hkv, hd), generator=g, device=dev).to(gcfg.adtype)
+    vc = torch.randn((LM_BATCH, c, hkv, hd), generator=g, device=dev).to(gcfg.adtype)
+    lengths = torch.full((LM_BATCH,), c, dtype=torch.int32, device=dev)  # pos c - 1: every row valid
+    _, bounds, shapes = decode_pair_times((q, kc, vc, lengths, k, hd ** -0.5), dev)
+    calls = fake_d["kernel_calls"]
+    k1 = [b for name, _, b in calls if name == "score_prune"]
+    k2 = [b for name, _, b in calls if name == "value_gather"]
+    el = kc.element_size()
+    k2_most = LM_BATCH * hkv * min(c, (h // hkv) * k) * hd * el + (2 * LM_BATCH * h * k + LM_BATCH * h * hd) * 4
+    check(len(k1) == len(k2) == sum(kd == "A" for kd in gcfg.pattern()) and set(k1) == {bounds["score_prune"][2]},
+          f"phase 14 (a): fake K1 bytes {sorted(set(k1))} ({len(k1)} calls), bound {bounds['score_prune'][2]}")
+    check(set(k2) == {k2_most} and k2_most >= bounds["value_gather"][2],
+          f"phase 14 (a): fake K2 bytes {sorted(set(k2))}, the most K2 reads {k2_most}, this data's "
+          f"{bounds['value_gather'][2]}")
+    out["decode"] = {"arch": LM_ARCH, "batch": LM_BATCH, "cache": c, "k1_calls": len(k1), "k1_bytes_fake": k1[0],
+                     "k1_bytes_bound": bounds["score_prune"][2], "k2_bytes_fake": k2[0],
+                     "k2_bytes_bound_this_data": bounds["value_gather"][2],
+                     "k2_distinct_rows_this_data": shapes["distinct_retained_rows"],
+                     "k2_rows_most": LM_BATCH * hkv * min(c, (h // hkv) * k), "flops": fake_d["flops"],
+                     "bytes_accessed": fake_d["bytes accessed"], "memory": fake_d["memory"]}
+    print(f"  (a) {LM_ARCH} decode cell ({LM_BATCH}, cache {c}) on fake tensors: {len(k1)} K1 + {len(k2)} K2 calls, none "
+          f"launched; K1 reports {k1[0]} B == its bound's {bounds['score_prune'][2]} B (every row valid); K2 reports "
+          f"{k2[0]} B, the most it can read ({out['decode']['k2_rows_most']} rows), where this data's retained rows "
+          f"need {bounds['value_gather'][2]} B ({shapes['distinct_retained_rows']} distinct rows)")
     return out
 
 
@@ -5673,9 +6103,34 @@ def main() -> int:
           f"{LM_BATCH}x{LM_PROMPT}, {LM_GEN} captured steps); the split pruned decode at {list(MESH_SPLITS)} shards, "
           f"K {list(MESH_SPLIT_KS)}, with and without hier_topk; {MESH_TRAIN_ARCH} whole, {MESH_TRAIN_STEPS} steps at "
           f"({TRAIN_LM_BATCH}, {TRAIN_LM_SEQ}) with fsdp placements; restore_for_mesh")
-    lm_mesh = lm_mesh_phase((ops, tda_ops, ts_ops), card, lm_result, dev)
+    dry, procs = {}, start_dryrun_cells()  # phase 14's processes run beside phase 13
+
+    def late(mesh, out):
+        t0 = time.perf_counter()
+        out["placed"] = mesh_placed(mesh, lm_result, archs, (ops, tda_ops, ts_ops), dev)
+        phase_s["13e"] = time.perf_counter() - t0
+        print(f"phase 13 (e): wall time {phase_s['13e']:.1f} s")
+        print(f"phase 14: the dry-run: (a) {DRYRUN_TRAIN_ARCH} whole at ({TRAIN_LM_BATCH}, {TRAIN_LM_SEQ}) on fake "
+              f"CUDA tensors against a real step, and kernel #4 on fake tensors at {LM_ARCH}'s decode; (b) "
+              f"{[' '.join(c) for c in DRYRUN_CELLS]} on the production meshes, fake worlds of 256 and 512 ranks")
+        t0 = time.perf_counter()
+        dry.update(dryrun_counts(mesh, procs, dev))
+        phase_s["14a"] = time.perf_counter() - t0
+
+    try:
+        lm_mesh = lm_mesh_phase((ops, tda_ops, ts_ops), card, lm_result, dev, late=late)
+        t0 = time.perf_counter()
+        dry["cells"] = finish_dryrun_cells(procs)
+        phase_s["14b_wait"] = time.perf_counter() - t0
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
     phase_s["13"] = time.perf_counter() - t_phase
-    print(f"phase 13: wall time {phase_s['13']:.1f} s")
+    print(f"phase 13 and 14: wall time {phase_s['13']:.1f} s (13 (e) {phase_s['13e']:.1f} s, 14 (a) "
+          f"{phase_s['14a']:.1f} s, then 14 (b)'s processes waited for {phase_s['14b_wait']:.1f} s; 14's processes "
+          "ran beside phase 13)")
 
     kernels = []
     for key, line, lib in KERNELS:
@@ -5809,7 +6264,7 @@ def main() -> int:
         "decode_phase2_errors": dec_cases,
         "pruner_times_ms": t_ts, "forward_ms": fwd, "forward_latency_ms": latency, "profiles": prof,
         "train": train, "sgb": sgb, "serve": served, "ego": ego, "stream": stream, "shard": sharded, "archs": archs,
-        "lm_train": lm_train, "lm_mesh": lm_mesh,
+        "lm_train": lm_train, "lm_mesh": lm_mesh, "dryrun": dry,
         "kernels": kernels,
         "phase_wall_s": phase_s,
     }, indent=1))
@@ -5897,6 +6352,13 @@ def main() -> int:
         "train": {"unsharded": lm_mesh["train"]["unsharded"], "mesh": lm_mesh["train"]["mesh"],
                   "restore": lm_mesh["train"]["restore"], "wall_s": lm_mesh["train"]["wall_s"]},
         "card": card,
+    }))
+    print("dryrun " + json.dumps({
+        "train_vs_real_step": dry["train"], "kernel4_fake_bytes": dry["decode"], "cells": dry["cells"],
+        "placed_serving": {k: v for k, v in lm_mesh["placed"].items() if k != "cross_split"},
+        "cross_split": {key: {k: r[k] for k in ("max_abs_err", "launches")}
+                        for key, r in lm_mesh["placed"]["cross_split"]["cases"].items()},
+        "wall_s": {k: phase_s[k] for k in ("13e", "14a", "14b_wait")}, "card": card,
     }))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -279,11 +279,14 @@ class Sharding(NamedTuple):
 def place(t: torch.Tensor, sharding: Sharding):
     """``t``, the whole value, the same on every rank, as a DTensor placed
     by ``sharding``: each rank keeps its own chunk, with no communication
-    (``distribute_tensor`` with ``src_data_rank=None``)."""
+    (``distribute_tensor`` with ``src_data_rank=None``). A tensor on
+    another device type than the mesh's is moved there first."""
     from torch.distributed.tensor import distribute_tensor
 
     mesh = sharding.mesh
-    return distribute_tensor(t.to(mesh.device_type), mesh, sharding.placements, src_data_rank=None)
+    if t.device.type != mesh.device_type:
+        t = t.to(mesh.device_type)
+    return distribute_tensor(t, mesh, sharding.placements, src_data_rank=None)
 
 
 def take_rows(x: torch.Tensor, mesh, entry) -> torch.Tensor:
@@ -539,6 +542,45 @@ def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
     return DTensor.from_local(x.to_local().to(dtype), x.device_mesh, x.placements, run_check=False,
                               shape=x.shape, stride=x.stride())
+
+
+def _state_splits(t):
+    """(mesh dim, tensor dim) of each split of DTensor ``t`` over a mesh dim
+    of more than one rank on a dim past its rows (dim 0), in mesh-dim
+    order."""
+    from torch.distributed.tensor import Shard
+
+    mesh = t.device_mesh
+    return [(i, p.dim) for i, p in enumerate(t.placements)
+            if isinstance(p, Shard) and p.dim != 0 and mesh.size(i) > 1]
+
+
+def gather_state(t: torch.Tensor) -> torch.Tensor:
+    """A decode state's tensor as one rank decodes it: a DTensor's local
+    rows with every other dim whole, each split of those dims gathered over
+    its mesh dim (:func:`replicate`, minor mesh dims first), the rows'
+    split kept; the local tensor itself, with no collective, where no mesh
+    dim of more than one rank splits them (a one-rank mesh); a plain tensor
+    as it is."""
+    if type(t).__name__ != "DTensor":
+        return t
+    x = t.to_local()
+    mesh = t.device_mesh
+    for i, d in reversed(_state_splits(t)):
+        x = replicate(x.movedim(d, 0), mesh, mesh.mesh_dim_names[i]).movedim(0, d)
+    return x
+
+
+def write_state(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Write ``src`` (this rank's rows, every other dim whole) into decode
+    state ``dst``: a DTensor keeps its own chunk of each split dim (as
+    :func:`from_rows` cuts it), a plain tensor the whole."""
+    if type(dst).__name__ == "DTensor":
+        mesh = dst.device_mesh
+        for i, d in _state_splits(dst):
+            src = src.chunk(int(mesh.size(i)), dim=d)[int(mesh.get_local_rank(i))]
+        dst = dst.to_local()
+    dst.copy_(src)
 
 
 def gather_tree(tree):

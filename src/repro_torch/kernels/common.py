@@ -84,6 +84,28 @@ def check_tensor(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+# the dry-run's cost counters (``launch/dryrun.py``): each is called with
+# (kernel, FLOPs, bytes) for a launch a wrapper stood in for on fake tensors
+COST_SINKS: List = []
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a fake tensor (``FakeTensorMode``'s: a shape, a
+    dtype and a device, no data), as the dry-run runs a step on."""
+    from torch._subclasses.fake_tensor import is_fake as fake
+
+    return fake(t)
+
+
+def fake_launch(kernel: str, flops: int, nbytes: int) -> None:
+    """A kernel's launch on fake CUDA tensors, which its wrapper does not
+    make: its FLOPs and bytes (those of the kernel's bound in ``PERF.md``:
+    each input byte read once, each output byte written once) handed to
+    the dry-run's counters. The launch counters do not move."""
+    for sink in COST_SINKS:
+        sink(kernel, int(flops), int(nbytes))
+
+
 def cuda_device(t: torch.Tensor) -> torch.device:
     """``t``'s device, which must be a CUDA device: the kernels run on CUDA
     tensors, their plain versions on CPU tensors."""

@@ -7,6 +7,11 @@ step wrappers launch the CUDA kernels of ``csrc/`` (built at first use) or
 raise; for CPU tensors they run the plain versions of ``ref.py``. There is
 no fallback from one to the other. ``prune_k=None`` gives the dense
 attention instead, on any device (what pruning is measured against).
+
+On fake CUDA tensors (``FakeTensorMode``: the dry-run, ``launch/dryrun.py``)
+a step wrapper launches nothing: it returns empty outputs of the kernel's
+shapes and dtypes and hands the launch's FLOPs and bytes to
+``common.fake_launch``; the launch counters stay as they were.
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import check_tensor, cuda_device
+from repro_torch.kernels.common import check_tensor, cuda_device, fake_launch, is_fake
 from repro_torch.kernels.topk_decode_attention import ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -105,10 +110,15 @@ def score_prune(
     check_tensor("q", q, q.dtype, (b, h, dh), dev)
     check_tensor("k_cache", k_cache, q.dtype, (b, s, hkv, dh), dev)
     check_tensor("lengths", lengths, torch.int32, (b,), dev)
-    logits = torch.empty((b, h, s), dtype=torch.float32, device=dev)
     alpha = torch.empty((b, h, k), dtype=torch.float32, device=dev)
     ids = torch.empty((b, h, k), dtype=torch.int32, device=dev)
     tie = torch.empty((b, h), dtype=torch.int32, device=dev)
+    if is_fake(q):  # the dry-run: no launch; every position valid, as a fake cache's lengths are unknown
+        el = q.element_size()
+        fake_launch("score_prune", 2 * b * s * h * dh + alpha.numel() * 6,
+                    k_cache.numel() * el + q.numel() * el + b * 4 + (alpha.numel() + ids.numel()) * 4)
+        return (alpha, ids, tie) if tie_rows else (alpha, ids)
+    logits = torch.empty((b, h, s), dtype=torch.float32, device=dev)
     lib, _ = library()
     err = lib.tda_score_prune(
         q.data_ptr(), k_cache.data_ptr(), lengths.data_ptr(), logits.data_ptr(),
@@ -140,6 +150,11 @@ def value_gather(alpha: torch.Tensor, ids: torch.Tensor, v_cache: torch.Tensor) 
     check_tensor("ids", ids, torch.int32, (b, h, k), dev)
     check_tensor("v_cache", v_cache, v_cache.dtype, (b, s, hkv, dh), dev)
     out = torch.empty((b, h, dh), dtype=torch.float32, device=dev)
+    if is_fake(v_cache):  # the dry-run: no launch; the most V rows K2 can read, min(S, group·K) a kv-head
+        rows = b * hkv * min(s, (h // hkv) * k)
+        fake_launch("value_gather", 2 * b * h * k * dh,
+                    rows * dh * v_cache.element_size() + (alpha.numel() + ids.numel() + out.numel()) * 4)
+        return out
     lib, _ = library()
     err = lib.tda_value_gather(
         alpha.data_ptr(), ids.data_ptr(), v_cache.data_ptr(), out.data_ptr(), b, h, hkv, s,

@@ -5,7 +5,9 @@ retention domain and returns its values and slot ids. For CUDA tensors it
 launches the CUDA kernel of ``csrc/`` (built at first use) or raises; for
 CPU tensors it runs the plain version of ``ref.py``. There is no fallback
 from one to the other. ``use_kernel=False`` runs the ``top_k`` oracle
-instead, on any device, as the reference's wrapper does.
+instead, on any device, as the reference's wrapper does. On fake CUDA
+tensors (the dry-run) it launches nothing: empty outputs, and the launch's
+FLOPs and bytes handed to ``common.fake_launch``.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import check_tensor, cuda_device
+from repro_torch.kernels.common import check_tensor, cuda_device, fake_launch, is_fake
 from repro_torch.kernels.topk_select import ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -80,6 +82,9 @@ def topk_select(
     check_tensor("mask", mask, torch.bool, (t, d), dev)
     vals = torch.empty((t, k), dtype=torch.float32, device=dev)
     ids = torch.empty((t, k), dtype=torch.int32, device=dev)
+    if is_fake(scores):  # the dry-run: no launch, empty outputs
+        fake_launch("topk_select", t * d, t * d * 5 + t * k * 8)
+        return vals, ids
     lib, _ = library()
     err = lib.ts_topk_select(
         scores.data_ptr(), mask.data_ptr(), vals.data_ptr(), ids.data_ptr(), t, d, k,

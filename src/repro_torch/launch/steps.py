@@ -25,6 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import lm_reference_path
 from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import Sharding, shard_batch_dim  # noqa: F401 (the reference's name here)
+from repro_torch.kernels.common import is_fake
 from repro_torch.models.lm import LM, layer_stacks
 from repro_torch.optim import adafactor, adamw
 from repro_torch.optim.adafactor import AdafactorState, FactoredSlot
@@ -397,7 +398,8 @@ def make_train_step(cfg: ModelConfig, grad_shardings: Optional[Mapping[str, Shar
     a; else one gradient of the whole batch. Then the optimizer's update.
     The step is pure: it returns new tensors and writes to none of its
     inputs (a failed step leaves the state as it was). Its first call on
-    the card calls :func:`grow_allocator_segments`.
+    the card calls :func:`grow_allocator_segments` (a call on fake tensors,
+    the dry-run's, does not).
 
     Sharded (the parameters are DTensors, placed by ``params_shardings``,
     and so is the optimizer state): SPMD written out. The batch is the
@@ -447,7 +449,7 @@ def make_train_step(cfg: ModelConfig, grad_shardings: Optional[Mapping[str, Shar
         return loss, {k: _local_in(_grad_like(g, params[k]), carry[k]) for k, g in zip(leaves, grads)}
 
     def train_step(params: Mapping[str, torch.Tensor], opt_state, batch: Mapping[str, torch.Tensor]):
-        if not on_card and batch["tokens"].is_cuda:
+        if not on_card and batch["tokens"].is_cuda and not is_fake(batch["tokens"]):
             grow_allocator_segments()
             on_card.append(True)
         mesh = next((p.device_mesh for p in params.values() if type(p).__name__ == "DTensor"), None)
@@ -485,7 +487,10 @@ def make_train_step(cfg: ModelConfig, grad_shardings: Optional[Mapping[str, Shar
 
 def make_prefill_step(cfg: ModelConfig, shape: ShapeSpec):
     """``prefill_step(params, batch) -> (last logits, decode cache for
-    shape.seq positions)``."""
+    shape.seq positions)``. ``params`` may be placed by
+    ``params_shardings`` (``LM.prefill`` gathers each layer at its use);
+    under ``sharding.set_mesh`` each rank runs its rows and the cache comes
+    back placed by ``cache_shardings``."""
     model = LM(cfg, device=META)
 
     def prefill_step(params: Mapping[str, torch.Tensor], batch: Mapping[str, torch.Tensor]):
@@ -497,7 +502,8 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeSpec):
 
 def make_decode_step(cfg: ModelConfig):
     """``decode_step(params, token, pos, cache) -> (logits, cache)``, the
-    cache updated in place."""
+    cache updated in place. ``params`` may be placed by
+    ``params_shardings``, the cache by ``cache_shardings``."""
     model = LM(cfg, device=META)
 
     def decode_step(params: Mapping[str, torch.Tensor], token, pos, cache):

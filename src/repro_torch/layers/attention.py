@@ -208,7 +208,7 @@ def attention_decode(cfg, params, x, pos, cache: KVCache, kind: str = "A", split
     return out.to(x.dtype), cache
 
 
-def cross_attention_decode(cfg, params, x, cache: KVCache):
+def cross_attention_decode(cfg, params, x, cache: KVCache, split=None):
     """Single-token cross-attention against a static context cache
     (B, C, Hkv, hd), which it only reads; ``x`` (B, 1, d) -> the gated
     output (B, 1, d).
@@ -225,16 +225,35 @@ def cross_attention_decode(cfg, params, x, cache: KVCache):
     logits [1, 1, 2] at K = 2 it keeps rows {1, 2}; the reference's
     ``jax.lax.top_k`` keeps the lower index, {0, 2}. The port follows the
     kernel, on the card and on the CPU; on float32 logits without ties the
-    two keep the same rows."""
+    two keep the same rows.
+
+    A context cache whose rows are split over ranks (``cache_shardings``
+    splits them over ``model`` where they divide) decodes in SPMD form,
+    every row valid: dense, the flash-decode merge of the ranks' (max,
+    sum, α·V); pruned, :func:`split_pruned_decode` (kernel #3 on the
+    gathered logits, or ``hier_topk``'s merge, then K2 on each rank's
+    rows, the partials summed). With one rank the unsplit path runs.
+    ``split`` as in :func:`attention_decode`."""
     b = x.shape[0]
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     dt = cfg.adtype
-    ck, cv = cache
-    c = ck.shape[1]
+    split = position_split(cache.k) if split is None else split
+    ck, cv = _local(cache.k), _local(cache.v)
+    c = split.n * ck.shape[1]
     q = _bias(params, "bq", x.to(dt) @ params["wq"].to(dt), dt)
     scale = hd ** -0.5
     prune_k = cfg.attn_prune_k
-    if prune_k is not None and prune_k < c:
+    if split.n > 1:
+        cl = ck.shape[1]
+        off = split.rank * cl
+        if prune_k is not None and prune_k < c:
+            lengths = torch.full((b,), c, dtype=torch.int32, device=x.device)
+            o = split_pruned_decode(q.reshape(b, h, hd), ck, cv, lengths, off, c, prune_k, scale, cfg.hier_topk,
+                                    split.comm).to(dt)
+        else:
+            valid = torch.ones(cl, dtype=torch.bool, device=x.device)
+            o = _merged_decode(q.reshape(b, 1, h, hd), ck, cv, valid, scale, split.comm).to(dt)
+    elif prune_k is not None and prune_k < c:
         lengths = torch.full((b,), c, dtype=torch.int32, device=x.device)
         o = topk_decode_attention(q.reshape(b, h, hd), ck, cv, lengths, prune_k, scale).to(dt)
     else:
@@ -403,6 +422,16 @@ def _split_decode(cfg, q, k, v, ck, cv, pos, kind: str, split: PositionSplit) ->
     valid = abs_pos >= 0
     if kind == "L" and cfg.sliding_window is not None:
         valid &= abs_pos > pos - cfg.sliding_window
+    return _merged_decode(q, ck, cv, valid, scale, comm)
+
+
+def _merged_decode(q, ck, cv, valid, scale: float, comm) -> torch.Tensor:
+    """Dense decode attention over positions split across ranks: this
+    rank's (B, c/n, Hkv, hd) block, ``valid`` (c/n,) its positions
+    attended to; the ranks' (max, sum, unnormalized α·V) merged the
+    flash-decode way in float32 -> (B, Hkv, g, hd) in ``cv``'s dtype."""
+    b, h, hd = q.shape[0], q.shape[-2], q.shape[-1]
+    hkv = ck.shape[2]
     qg = q.reshape(b, hkv, h // hkv, hd)
     logits = torch.einsum("bkgd,bskd->bkgs", qg, ck).float() * scale
     logits = torch.where(valid[None, None, None, :], logits, NEG)

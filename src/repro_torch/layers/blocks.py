@@ -13,7 +13,10 @@ dense MLP on the same normed input when ``cfg.moe.dense_residual``
 (arctic). "R" and "W" blocks carry a recurrent state (``LRUState``,
 ``RWKVState``) in place of a KV cache; a decode step writes the next state
 into the cache's own tensors, as it writes a KV slot, so a captured step
-reads and writes the same storage on every replay.
+reads and writes the same storage on every replay. Under a device mesh a
+state placed by ``sharding.cache_shardings`` (RWKV heads and recurrent
+widths over ``model``) is gathered whole for the rank's batch rows each
+step, and each rank keeps its own chunk of the next state.
 
 A "C" block (llama-vision) runs ``ln1``, the gated cross-attention over the
 context, the residual, then the ``ln2`` MLP (ungated, as the reference's);
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+from repro_torch.distributed import sharding
 from repro_torch.layers import attention as attn
 from repro_torch.layers import mlp as mlp_mod
 from repro_torch.layers import moe as moe_mod
@@ -181,13 +185,15 @@ def apply_block_decode(cfg, kind: str, params, x, pos, cache):
         h = attn.cross_attention_decode(cfg, params["cross"], apply_norm(cfg, params["lnx"], x), cache.cross)
         return _ffn(cfg, kind, params, x + h)[0], cache
     if kind == "R":
-        h, state = rglru.apply_recurrent_decode(cfg, params["lru"], apply_norm(cfg, params["ln1"], x), cache)
+        h, state = rglru.apply_recurrent_decode(cfg, params["lru"], apply_norm(cfg, params["ln1"], x),
+                                                _gathered(cache))
         x = _ffn(cfg, kind, params, x + h)[0]
         return x, _write(cache, state)
     if kind == "W":
-        h, s_new, shift_t = rwkv.time_mix_decode(cfg, params["rwkv"], apply_norm(cfg, params["ln1"], x), cache)
+        state = _gathered(cache)
+        h, s_new, shift_t = rwkv.time_mix_decode(cfg, params["rwkv"], apply_norm(cfg, params["ln1"], x), state)
         x = x + h
-        h2, shift_c = rwkv.channel_mix_decode(cfg, params["rwkv"], apply_norm(cfg, params["ln2"], x), cache)
+        h2, shift_c = rwkv.channel_mix_decode(cfg, params["rwkv"], apply_norm(cfg, params["ln2"], x), state)
         return x + h2, _write(cache, rwkv.RWKVState(s=s_new, shift_t=shift_t, shift_c=shift_c))
     h, cache = attn.attention_decode(
         cfg, params["attn"], apply_norm(cfg, params["ln1"], x), pos, cache, kind=_attn_kind(kind)
@@ -195,8 +201,16 @@ def apply_block_decode(cfg, kind: str, params, x, pos, cache):
     return _ffn(cfg, kind, params, x + h)[0], cache
 
 
+def _gathered(state):
+    """A recurrent state as this rank decodes it: its batch rows, each
+    tensor's other dims whole (``sharding.gather_state``: under a mesh the
+    RWKV heads or recurrent widths split over ``model`` are gathered)."""
+    return type(state)(*(sharding.gather_state(t) for t in state))
+
+
 def _write(cache, state):
-    """Copy each tensor of ``state`` into ``cache``'s own; returns ``cache``."""
+    """Copy each tensor of ``state`` into ``cache``'s own (a placed one
+    keeps its chunk, ``sharding.write_state``); returns ``cache``."""
     for dst, src in zip(cache, state):
-        dst.copy_(src)
+        sharding.write_state(dst, src)
     return cache

@@ -14,9 +14,10 @@ with an audio decoder's "A" blocks turned into "D" (the reference's
 ``encoder.final_norm``. The reference's ``lax.scan`` over stacked cycle
 repeats is a Python loop here. Its sharding constraints steer GSPMD and
 have no counterpart: on a device mesh the port computes on local tensors
-(``forward_train`` gathers placed weights layer by layer; ``prefill`` and
-``decode_step`` run each rank's batch rows over caches placed on the mesh,
-``layers/attention.py`` the positions split across ranks). Parameter names follow the port's flat naming
+(``forward_train``, ``prefill`` and ``decode_step`` gather placed weights
+layer by layer; ``prefill`` and ``decode_step`` run each rank's batch rows
+over caches placed on the mesh, ``layers/attention.py`` the positions split
+across ranks, ``layers/blocks.py`` the recurrent states' splits). Parameter names follow the port's flat naming
 (``embed.table``, ``layers.<i>.attn.wq``, ``layers.<i>.mlp.wi``,
 ``layers.<i>.moe.router.w``, ``layers.<i>.moe.experts.wi``,
 ``layers.<i>.lru.wa``, ``layers.<i>.rwkv.ln_x.scale``,
@@ -122,14 +123,15 @@ def _stays_float32(name: str, shape) -> bool:
     return len(shape) < 2 or name.endswith(_FLOAT32_MATRICES)
 
 
-def compute_tree(cfg: ModelConfig, params: Mapping[str, torch.Tensor]) -> Dict:
+def compute_tree(cfg: ModelConfig, params: Mapping[str, torch.Tensor], cast: bool = True) -> Dict:
     """Flat parameters (``named_parameters()`` names) as the forward reads
     them, in the reference's tree: ``{"embed", "final_norm", "layers":
     [per-layer dicts], "lm_head", "encoder": {"layers", "final_norm"}}``
     (the head only when untied, the encoder only for an audio LM), weights
     and the table cast to ``cfg.dtype``, vectors, an MoE router and RWKV's
     float32 matrices as given. The casts are recorded by autograd when the
-    parameters require grad."""
+    parameters require grad. ``cast=False``: the tree of the parameters as
+    given (:func:`cast_tree` casts a part of it later)."""
     dt = cfg.adtype
     out: Dict = {}
     for name, t in params.items():
@@ -137,7 +139,7 @@ def compute_tree(cfg: ModelConfig, params: Mapping[str, torch.Tensor]) -> Dict:
         node = out
         for key in path:
             node = node.setdefault(key, {})
-        node[leaf] = t if _stays_float32(name, t.shape) else sharding.cast(t, dt)
+        node[leaf] = t if not cast or _stays_float32(name, t.shape) else sharding.cast(t, dt)
 
     def lists(node):  # the "layers" dicts keyed "0", "1", … as lists
         if not isinstance(node, dict):
@@ -147,6 +149,21 @@ def compute_tree(cfg: ModelConfig, params: Mapping[str, torch.Tensor]) -> Dict:
         return {k: lists(v) for k, v in node.items()}
 
     return lists(out)
+
+
+def cast_tree(cfg: ModelConfig, node, name: str = ""):
+    """:func:`compute_tree`'s casts on one part of an uncast tree (a
+    layer's dict, ``embed``, …; ``name`` its path, ``"layers.3"``)."""
+    if isinstance(node, dict):
+        return {k: cast_tree(cfg, v, f"{name}.{k}" if name else k) for k, v in node.items()}
+    if isinstance(node, list):
+        return [cast_tree(cfg, v, f"{name}.{i}") for i, v in enumerate(node)]
+    return node if _stays_float32(name, node.shape) else node.to(cfg.adtype)
+
+
+def _placed(params: Optional[Mapping[str, torch.Tensor]]) -> bool:
+    """Whether flat ``params`` hold a DTensor (weights placed on a mesh)."""
+    return params is not None and any(type(t).__name__ == "DTensor" for t in params.values())
 
 
 def _params(cfg: ModelConfig, prefix: str, shapes: Mapping, device) -> nn.ParameterDict:
@@ -366,11 +383,26 @@ class LM(nn.Module):
         return [(p.data_ptr(), p._version) for p in self._param_list]
 
     def _tree(self, params: Optional[Mapping[str, torch.Tensor]], check: bool = False) -> Dict:
-        return self.compute_params(check) if params is None else compute_tree(self.cfg, params)
+        """The tree serving reads: the LM's own cast parameters, or
+        ``params`` cast; placed ``params`` uncast, each part cast once
+        gathered (:meth:`_use`)."""
+        if params is None:
+            return self.compute_params(check)
+        return compute_tree(self.cfg, params, cast=not _placed(params))
+
+    def _use(self, tree: Dict, key, placed: bool, name: str = ""):
+        """``tree[key]`` as a forward reads it: with ``placed`` weights
+        gathered whole (``sharding.gather_tree``: a one-rank mesh's local
+        tensors) and then cast (:func:`cast_tree`), just before their use,
+        so that a sharded model never holds all its weights gathered."""
+        node = tree[key]
+        return cast_tree(self.cfg, sharding.gather_tree(node), name or str(key)) if placed else node
 
     # ------------------------------------------------------------ helpers
-    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, params, tokens: torch.Tensor, placed: bool = False) -> torch.Tensor:
         cfg = self.cfg
+        if placed:
+            params = {"embed": self._use(params, "embed", True)}
         # the gather of table[tokens]; its backward sums the rows of repeated
         # tokens by a sort on the card (deterministic), where advanced
         # indexing's walks each token's duplicates in one warp
@@ -381,26 +413,32 @@ class LM(nn.Module):
         # CPU scalar tensor, since a device one would be a synchronizing copy
         return x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.adtype)
 
-    def _encode(self, params, frames: torch.Tensor, remat: bool = False) -> torch.Tensor:
+    def _encode(self, params, frames: torch.Tensor, remat: bool = False, placed: bool = False) -> torch.Tensor:
         """The audio encoder over stub frame embeddings (B, F, d): "E" blocks
         at positions 0..F-1 (with ``remat``, each recomputed in the
-        backward), then the encoder's final norm."""
+        backward), then the encoder's final norm. ``placed``: ``params``
+        uncast, each layer gathered and cast at its use (:meth:`_use`)."""
         cfg = self.cfg
         x = frames.to(cfg.adtype)
         positions = torch.arange(x.shape[1], device=x.device)
         split = sharding.current_split()
-        for lp in params["encoder"]["layers"]:
+        layers = params["encoder"]["layers"]
+        for i in range(len(layers)):
 
-            def layer(h, lp=lp):
+            def layer(h, i=i):
                 with sharding.split_scope(split):
-                    return blocks.apply_block_train(cfg, "E", sharding.gather_tree(lp), h, positions)[0]
+                    lp = self._use(layers, i, True, f"encoder.layers.{i}") if placed else sharding.gather_tree(layers[i])
+                    return blocks.apply_block_train(cfg, "E", lp, h, positions)[0]
 
             x = _remat(layer, x) if remat else layer(x)
         return apply_norm(cfg, sharding.gather_tree(params["encoder"]["final_norm"]), x)
 
-    def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
+    def _logits(self, params, x: torch.Tensor, placed: bool = False) -> torch.Tensor:
         cfg = self.cfg
         x = apply_norm(cfg, sharding.gather_tree(params["final_norm"]), x)
+        if placed:
+            params = {"embed": self._use(params, "embed", True)} if cfg.tie_embeddings else \
+                {"lm_head": self._use(params, "lm_head", True)}
         w = sharding.gather(params["embed"]["table"]).T if cfg.tie_embeddings else sharding.gather(params["lm_head"]["w"])
         logits = (x @ w).float()
         if cfg.logit_softcap:
@@ -491,7 +529,8 @@ class LM(nn.Module):
         On a cache placed on a mesh (:meth:`prefill` under one) each rank
         runs its rows: ``token`` is the whole batch (this rank's rows are
         taken) or a DTensor of rows, and the logits come back a DTensor of
-        rows (``full_tensor()`` gives them whole)."""
+        rows (``full_tensor()`` gives them whole). Placed ``params`` are
+        gathered layer by layer, as :meth:`prefill` gathers them."""
         mesh, entry = cache_rows(cache)
         if mesh is None:
             return self._decode_rows(token, pos, cache, params), cache
@@ -500,17 +539,21 @@ class LM(nn.Module):
 
     def _decode_rows(self, token: torch.Tensor, pos, cache: List[Cache],
                      params: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
-        cfg, params = self.cfg, self._tree(params)
-        x = self._embed(params, token)
+        cfg, placed = self.cfg, _placed(params)
+        params = self._tree(params)
+        x = self._embed(params, token, placed)
         pos = position_tensor(pos, token.device)
         for i, kind in enumerate(self.kinds):
-            x, cache[i] = blocks.apply_block_decode(cfg, kind, params["layers"][i], x, pos, cache[i])
-        return self._logits(params, x)[:, 0]
+            lp = self._use(params["layers"], i, placed, f"layers.{i}")
+            x, cache[i] = blocks.apply_block_decode(cfg, kind, lp, x, pos, cache[i])
+            del lp
+        return self._logits(params, x, placed)[:, 0]
 
-    def compile_decode(self, cache: List[Cache]) -> "DecodeStep":
+    def compile_decode(self, cache: List[Cache], params: Optional[Mapping[str, torch.Tensor]] = None) -> "DecodeStep":
         """The decode step as one program, bound to ``cache`` and to the
-        model's current weights (see :class:`DecodeStep`)."""
-        return DecodeStep(self, cache)
+        model's current weights, or to ``params`` (flat, placed on a mesh
+        or not) when given (see :class:`DecodeStep`)."""
+        return DecodeStep(self, cache, params)
 
     # ------------------------------------------------------------ prefill
     def prefill(self, tokens: torch.Tensor, max_len: int, context: Optional[torch.Tensor] = None,
@@ -534,44 +577,50 @@ class LM(nn.Module):
         its chunk of each cache as ``sharding.cache_shardings`` places it
         (positions over ``model`` where they divide): the logits and every
         cache tensor come back DTensors.
-        Decode state other than KV caches (R, W; C, E / D) raises
-        ``NotImplementedError`` under a mesh.
+        Recurrent states (R, W) are placed too, RWKV heads and recurrent
+        widths over ``model``, and so are context caches (C, a "D" block's
+        cross), their rows over ``model``; a context (B, C, d), the whole
+        batch or a DTensor of rows, is taken to the rank's rows, and an
+        audio LM's encoder runs on them.
+
+        Weights placed as DTensors (``params`` placed by
+        ``launch/steps.py``'s ``params_shardings``) are gathered whole and
+        cast layer by layer, just before each layer runs; the embedding and
+        the head at their use.
         """
         mesh = sharding.ambient_mesh()
         if mesh is not None:
             return self._prefill_on_mesh(mesh, tokens, max_len, context, params)
-        cfg, params = self.cfg, self._tree(params, check=True)
+        cfg, placed = self.cfg, _placed(params)
+        params = self._tree(params, check=True)
         if self.ctx_len and (context is None or tuple(context.shape[1:]) != (self.ctx_len, cfg.d_model)):
             got = None if context is None else tuple(context.shape)
             raise ValueError(f"a {cfg.family!r} LM's prefill takes a context (B, {self.ctx_len}, {cfg.d_model}); "
                              f"got {got}")
         if cfg.family == "audio":
-            context = self._encode(params, context)
+            context = self._encode(params, context, placed=placed)
         elif context is not None:
             context = context.to(cfg.adtype)
         s = tokens.shape[1]
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, placed)
         positions = torch.arange(s, device=tokens.device)
         caches = []
         for i, kind in enumerate(self.kinds):
-            x, _, em = blocks.apply_block_train(
-                cfg, kind, params["layers"][i], x, positions, context=context, emit_cache=True
-            )
+            lp = self._use(params["layers"], i, placed, f"layers.{i}")
+            x, _, em = blocks.apply_block_train(cfg, kind, lp, x, positions, context=context, emit_cache=True)
+            del lp
             caches.append(self._relayout_cache(kind, em, s, max_len))
-        return self._logits(params, x[:, -1:, :])[:, 0], caches
+        return self._logits(params, x[:, -1:, :], placed)[:, 0], caches
 
     def _prefill_on_mesh(self, mesh, tokens, max_len, context, params):
-        others = sorted(set(self.kinds) - {"A", "L", "M"})
-        if others:
-            raise NotImplementedError(
-                f"{self.cfg.name}: decode state of kinds {others} under a mesh is not ported; KV caches only (A, L, M)")
         rows = sharding.shard_batch_dim(tokens)
         entry = sharding.spec_of(rows)[0]
+        if context is not None:
+            context = _local_rows(context, mesh, entry)
         with sharding.set_mesh(None):
             logits, caches = self.prefill(rows.to_local(), max_len, context=context, params=params)
         specs = sharding.cache_shardings(self.cfg, rows.shape[0], mesh, caches)
-        caches = [KVCache(*(sharding.from_rows(t, sh) for t, sh in zip(c, sp))) for c, sp in zip(caches, specs)]
-        return sharding.from_rows(logits, sharding.Sharding(mesh, (entry, None))), caches
+        return sharding.from_rows(logits, sharding.Sharding(mesh, (entry, None))), _placed_cache(caches, specs)
 
     def _relayout_cache(self, kind: str, em: Cache, s: int, max_len: int) -> Cache:
         """One layer's emitted (B, S, Hkv, hd) K/V -> its decode cache; a
@@ -598,6 +647,17 @@ class LM(nn.Module):
             z[:, slots] = t[:, s - w:]
             out.append(z)
         return KVCache(k=out[0], v=out[1])
+
+
+def _placed_cache(cache, specs):
+    """Each tensor of ``cache`` (this rank's rows) placed by the
+    ``Sharding`` at its place in ``specs`` (``sharding.from_rows``), the
+    cache's structure and types kept."""
+    if isinstance(cache, torch.Tensor):
+        return sharding.from_rows(cache, specs)
+    if isinstance(cache, list):
+        return [_placed_cache(c, s) for c, s in zip(cache, specs)]
+    return type(cache)(*(_placed_cache(c, s) for c, s in zip(cache, specs)))
 
 
 def cache_rows(cache) -> Tuple[Optional[object], object]:
@@ -671,22 +731,29 @@ class DecodeStep:
     a mesh the graph holds this rank's rows (its collectives, too, where a
     cache's positions are split), and each call returns the static logits
     as a DTensor of rows.
+
+    ``params``: flat parameters to run with in place of the LM's own (as
+    ``decode_step`` takes them), placed on a mesh or not; the step is bound
+    to those tensors, and each replay gathers and casts placed weights
+    layer by layer as the eager step does (on a one-rank mesh the local
+    tensors, with no collective).
     """
 
-    def __init__(self, lm: LM, cache: List[Cache]):
-        self.lm, self.cache = lm, cache
+    def __init__(self, lm: LM, cache: List[Cache], params: Optional[Mapping[str, torch.Tensor]] = None):
+        self.lm, self.cache, self.params = lm, cache, params
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._mesh, self._rows = cache_rows(cache)
 
     def _capture(self, token: torch.Tensor, pos) -> None:
         lm, dev = self.lm, self.lm.device
-        self._params = lm.compute_params(check=True)
+        if self.params is None:
+            self._params = lm.compute_params(check=True)
         self._token = token.detach().clone()
         self._pos = position_tensor(pos, dev).clone()
         states = [t for c in self.cache if isinstance(c, _RECURRENT) for t in c]
         before = [t.clone() for t in states]
         self._graph, self._logits = _session._capture_graph(
-            lambda: lm._decode_rows(self._token, self._pos, self.cache), dev
+            lambda: lm._decode_rows(self._token, self._pos, self.cache, self.params), dev
         )
         with torch.inference_mode():  # undo the warm-up's step
             for t, saved in zip(states, before):
@@ -695,12 +762,12 @@ class DecodeStep:
     def __call__(self, token: torch.Tensor, pos) -> torch.Tensor:
         if self.lm.device.type != "cuda":
             with torch.inference_mode():
-                return self.lm.decode_step(token, pos, self.cache)[0]
+                return self.lm.decode_step(token, pos, self.cache, self.params)[0]
         if self._mesh is not None:
             token = _local_rows(token, self._mesh, self._rows)
         if self._graph is None:
             self._capture(token, pos)
-        elif self.lm.compute_params() is not self._params:
+        elif self.params is None and self.lm.compute_params() is not self._params:
             raise RuntimeError("the model's weights changed since the step was captured; compile a new step")
         if token.shape != self._token.shape:
             raise ValueError(

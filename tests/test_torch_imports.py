@@ -50,7 +50,7 @@ def test_no_jax_or_reference_imports(tmp_path):
                 "configs/llama32_vision_90b.py", "configs/seamless_m4t_medium.py", "optim/adafactor.py",
                 "data/tokens.py", "launch/steps.py", "launch/train.py", "checkpoint/manager.py",
                 "runtime/straggler.py", "runtime/trainer.py", "distributed/compression.py", "launch/mesh.py",
-                "npz.py"):
+                "npz.py", "distributed/probe.py", "launch/dryrun.py"):
         assert port / mod in PORT_FILES, mod
     probe = tmp_path / "probe.py"
     probe.write_text(
@@ -153,3 +153,33 @@ def test_training_modules_load_neither_jax_reference_nor_triton(tmp_path):
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED [] STARTED 0" in proc.stdout and "[train] done" in proc.stdout
+
+
+def test_dryrun_modules_load_neither_jax_nor_reference():
+    """``distributed/probe.py`` and ``launch/dryrun.py`` import without CUDA,
+    JAX or the reference, starting no process group; ``python -m
+    repro_torch.launch.dryrun --device cuda`` on a machine without CUDA
+    exits with a clear error and writes no record."""
+    code = (
+        "import sys\n"
+        "import repro_torch.distributed.probe as probe, repro_torch.launch.dryrun as dryrun, torch\n"
+        "import torch.distributed\n"
+        "assert not torch.distributed.is_initialized() and not probe.probing()\n"
+        "with probe.probe_mode():\n"
+        "    assert probe.probing()\n"
+        "assert dryrun.PEAK_FLOPS == 989e12 and dryrun.HBM_BW == 3.35e12 and dryrun.ICI_BW == 450e9\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton'))\n"
+        "print('LOADED', bad, torch.cuda.is_available())\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED [] False" in proc.stdout
+    out = ROOT / "build" / "dryrun_no_cuda"
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "qwen2-1.5b", "--smoke",
+                           "--shape", "decode_32k", "--device", "cuda", "--out", str(out)],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and "--device cuda needs a CUDA device" in proc.stderr, proc.stdout + proc.stderr
+    assert not out.exists()

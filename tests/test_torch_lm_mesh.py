@@ -12,8 +12,13 @@ every case of its meshes inside it), held to one device in float32:
     magnitude, placements kept, every leaf moved (fsdp on and off on (2, 2),
     on on the 2-rank meshes);
   * decode under the mesh (gemma3-4b smoke pruned, with and without
-    ``hier_topk``; qwen2-1.5b and olmoe-1b-7b smoke): prefill and 4 steps,
-    logits and caches within 1e-5 of one device; the split pruned decode
+    ``hier_topk``; qwen2-1.5b and olmoe-1b-7b smoke; recurrentgemma-2b,
+    rwkv6-3b, llama-3.2-vision-90b and seamless-m4t-medium smoke on (2, 2),
+    unpruned and at K 8): prefill and 4 steps, logits and caches within 1e-5 of one
+    device, every cache tensor placed by ``cache_shardings``, and on (2, 2)
+    the same steps through ``make_prefill_step`` / ``make_decode_step``
+    with the weights placed by ``params_shardings`` bit for bit; the split
+    pruned decode
     through the mesh's collectives keeps kernel #4's positions (tie-free;
     on the tie case the gathered-logits path still does, the hierarchical
     merge keeps other tied positions in 8 of 8 rows, as the loopback does);
@@ -26,8 +31,10 @@ every case of its meshes inside it), held to one device in float32:
     (2, 2) mesh of 4 CPU devices (``tests/torch_lm_mesh_reference.py``,
     in its own process while the ranks run): the train step of qwen2-1.5b
     and olmoe-1b-7b (fsdp, ``grad_accum`` 2; loss 1e-6 relative,
-    parameters and AdamW moments 1e-5 of their max) and gemma3-4b's pruned
-    decode with and without ``hier_topk`` (logits 1e-5).
+    parameters and AdamW moments 1e-5 of their max), gemma3-4b's pruned
+    decode with and without ``hier_topk``, recurrentgemma-2b's and
+    rwkv6-3b's decode and llama-3.2-vision-90b's and
+    seamless-m4t-medium's at K 8 (logits 1e-5).
 
 Worker time: ~12 s for the 2-rank spawn, ~32 s for the 4-rank one alone
 (the reference run, ~15 s, beside them); ~1.5× that in a full parallel
@@ -108,18 +115,27 @@ def test_sharded_train_step_equals_one_device(results, shape, arch, over, fsdp):
         assert got["placements_kept"] and got["moved"] == got["leaves"], got
 
 
-DECODE = [(shape, arch, tuple(sorted(over.items()))) for shapes in ranks.MESHES.values() for shape in shapes
-          for arch, over in ranks.DECODE]
+DECODE = [(shape, arch, tuple(sorted(over.items()))) for world, shapes in ranks.MESHES.items() for shape in shapes
+          for arch, over in ranks.DECODE + (ranks.DECODE_STATE if world == 4 else ())]
 
 
 @pytest.mark.parametrize("shape,arch,over", DECODE, ids=lambda v: str(v).replace(" ", ""))
 def test_decode_on_mesh_equals_one_device(results, shape, arch, over):
+    """Prefill and 4 steps under the mesh within 1e-5 of one device, the
+    caches placed by ``cache_shardings``; on (2, 2) the same run with the
+    weights placed by ``params_shardings`` (fsdp) bit for bit the
+    whole-weight one."""
     for r in results[_world(shape)]:
         got = r[shape]["decode"][arch, over]
         assert got["logits_err"] <= TOL_LOGITS and got["cache_err"] <= TOL_LOGITS, got
-        # every cache's positions divide the "model" axis, so the spec names it
-        # on every mesh, one rank on it included (that split runs unsplit)
-        assert set(got["positions_split"]) == {"model"}, got
+        assert got["specs_match"], got
+        assert got["placed_bitwise"] if _world(shape) == 4 else "placed_bitwise" not in got, got
+        if "positions_split" in got:
+            # every cache's positions divide the "model" axis, so the spec names it
+            # on every mesh, one rank on it included (that split runs unsplit)
+            assert set(got["positions_split"]) == {"model"}, got
+        else:  # recurrent states' heads / widths and context rows name "model" too
+            assert any("model" in spec for spec in got["split"]), got
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
@@ -179,10 +195,12 @@ def test_sharded_train_step_equals_sharded_reference(workdirs, sharded_reference
 @pytest.mark.parametrize("arch,over", ranks.REFERENCE_DECODE, ids=lambda v: str(v).replace(" ", ""))
 def test_decode_on_mesh_equals_sharded_reference(workdirs, sharded_reference, arch, over):
     """gemma3-4b smoke pruned (K 8), with and without ``hier_topk``, on the
-    (2, 2) mesh (each rank 16 of the 32 cache positions): the prefill's and
-    4 teacher-forced steps' logits within 1e-5 of the reference's prefill
-    and decode steps jitted with ``cache_shardings`` on a (2, 2) mesh, where
-    ``_hier_topk`` takes its shard-local pass."""
+    (2, 2) mesh (each rank 16 of the 32 cache positions), and the
+    recurrent and cross-attention archs (states split over ``model``, the
+    16 context rows 8 a rank): the prefill's and 4 teacher-forced steps'
+    logits within 1e-5 of the reference's prefill and decode steps jitted
+    with ``cache_shardings`` on a (2, 2) mesh, where ``_hier_topk`` takes
+    its shard-local pass."""
     name = ranks.reference_decode_name(arch, over)
     got = np.load(workdirs[4] / name)
     want = np.load(sharded_reference / ("ref_" + name[len("port_"):]))

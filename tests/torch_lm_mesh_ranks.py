@@ -20,7 +20,12 @@ Cases, per mesh:
     step 1) max error over that tensor's max magnitude;
   * ``decode``: prefill (4, 16) into 32 positions and 4 decode steps under
     the mesh against one device's logits (gemma3-4b smoke pruned, with
-    and without ``hier_topk``; qwen2-1.5b and olmoe-1b-7b smoke); the
+    and without ``hier_topk``; qwen2-1.5b and olmoe-1b-7b smoke; the
+    recurrent and cross-attention archs recurrentgemma-2b, rwkv6-3b,
+    llama-3.2-vision-90b and seamless-m4t-medium smoke on the 4-rank mesh,
+    a 16-row context for the last two, unpruned and at K 8), and on the
+    4-rank mesh the same steps with the weights placed by
+    ``params_shardings`` bit for bit the whole-weight ones; the
     split pruned decode through the mesh's collectives
     (``MeshComm``) against unsplit kernel #4's kept positions, tie-free
     and tie-heavy;
@@ -55,17 +60,26 @@ TRAIN_ALL = (("qwen2-1.5b", {}), ("olmoe-1b-7b", {}))
 TRAIN_FOUR = (("rwkv6-3b", {}), ("recurrentgemma-2b", {}), ("seamless-m4t-medium", {}),
               ("qwen2-1.5b", {"optimizer": "adafactor"}), ("qwen2-1.5b", {"remat": True}))
 DECODE = (("gemma3-4b", {}), ("gemma3-4b", {"hier_topk": True}), ("qwen2-1.5b", {}), ("olmoe-1b-7b", {}))
+# the recurrent and cross-attention archs (R, W, C, D decode state) on the
+# 4-rank mesh, each unpruned and pruned (K 8: a C block's 16 context rows split over ranks,
+# a D block's self cache too; R and W keep no global cache to prune)
+DECODE_STATE = tuple((arch, over) for arch in ("recurrentgemma-2b", "rwkv6-3b", "llama-3.2-vision-90b",
+                                               "seamless-m4t-medium")
+                     for over in ({}, {"attn_prune_k": 8}))
 BATCH, SEQ, PROMPT, MAX_LEN, GEN = 4, 32, 16, 32, 4
 # the cases whose mesh results are written whole for the reference run
 # sharded on the same mesh (tests/torch_lm_mesh_reference.py): train steps
 # (arch, fsdp) with grad_accum 2, and pruned decodes
 REFERENCE_MESH = (2, 2)
 REFERENCE_TRAIN = (("qwen2-1.5b", True), ("olmoe-1b-7b", True))
-REFERENCE_DECODE = (("gemma3-4b", {"hier_topk": True}), ("gemma3-4b", {}))
+REFERENCE_DECODE = (("gemma3-4b", {"hier_topk": True}), ("gemma3-4b", {}), ("recurrentgemma-2b", {}),
+                    ("rwkv6-3b", {}), ("llama-3.2-vision-90b", {"attn_prune_k": 8}),
+                    ("seamless-m4t-medium", {"attn_prune_k": 8}))
 
 
 def reference_decode_name(arch, over) -> str:
-    return f"port_decode_{arch}{'_hier' if over.get('hier_topk') else ''}.npz"
+    k = f"_k{over['attn_prune_k']}" if "attn_prune_k" in over else ""
+    return f"port_decode_{arch}{'_hier' if over.get('hier_topk') else ''}{k}.npz"
 
 
 def redrawn_params(cfg):
@@ -156,40 +170,80 @@ def train_case(arch, over, fsdp, mesh, dump=None) -> dict:
     return out
 
 
-def decode_case(arch, over, mesh) -> dict:
+def decode_case(arch, over, mesh, placed_run: bool) -> dict:
+    """Prefill and GEN steps one device and under the mesh (the LM's own
+    weights, whole on every rank): the mesh logits' and caches' errors
+    against one device, each cache tensor's spec against
+    ``cache_shardings``'. With ``placed_run`` also under the mesh through
+    ``make_prefill_step`` / ``make_decode_step`` with the weights placed
+    by ``params_shardings`` (fsdp on): its logits and caches bit for bit
+    the whole-weight mesh run's."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.distributed import sharding
-    from repro_torch.models.lm import build_model
+    from repro_torch.launch import steps
+    from repro_torch.layers.attention import KVCache
+    from repro_torch.models.lm import build_model, cache_tensors
 
     cfg = dataclasses.replace(get_config(arch, smoke=True), **over)
-    lm = build_model(cfg, device="cpu", params=redrawn_params(cfg))
+    params = redrawn_params(cfg)
+    lm = build_model(cfg, device="cpu", params=params)
     toks = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=torch.Generator().manual_seed(2))
+    n_ctx = cfg.num_img_tokens or cfg.num_audio_frames
+    ctx = torch.randn((BATCH, n_ctx, cfg.d_model), generator=torch.Generator().manual_seed(3)) if n_ctx else None
+    psh, _ = steps.params_shardings(dataclasses.replace(cfg, fsdp=True), mesh, params)
+    placed = steps.place_tree(params, psh)
+    prefill = steps.make_prefill_step(cfg, steps.ShapeSpec("mesh", "prefill", MAX_LEN, BATCH))
+    decode = steps.make_decode_step(cfg)
+    batch = {"tokens": toks} if ctx is None else {"tokens": toks, "context": ctx}
     with torch.inference_mode():
-        l1, c1 = lm.prefill(toks, max_len=MAX_LEN)
+        l1, c1 = lm.prefill(toks, max_len=MAX_LEN, context=ctx)
         with sharding.set_mesh(mesh):
-            l2, c2 = lm.prefill(toks, max_len=MAX_LEN)
+            l2, c2 = lm.prefill(toks, max_len=MAX_LEN, context=ctx)
+            if placed_run:
+                l3, c3 = prefill(placed, batch)
         errs = [float((l2.full_tensor() - l1).abs().max())]
+        same = [torch.equal(l3.to_local(), l2.to_local())] if placed_run else []
         tok = l1.argmax(-1)[:, None]
         for i in range(GEN):
             a, _ = lm.decode_step(tok, PROMPT + i, c1)
             b, _ = lm.decode_step(tok, PROMPT + i, c2)
+            if placed_run:
+                p, _ = decode(placed, tok, PROMPT + i, c3)
+                same.append(torch.equal(p.to_local(), b.to_local()))
             errs.append(float((b.full_tensor() - a).abs().max()))
             tok = a.argmax(-1)[:, None]
-        cache_err = max(float((x.full_tensor() - y).abs().max()) for cx, cy in zip(c2, c1) for x, y in zip(cx, cy))
-    split = [sharding.spec_of(c.k)[1] for c in c2]  # each layer's positions: split over "model" or not
-    return {"logits_err": max(errs), "cache_err": cache_err, "positions_split": split}
+        t1, t2 = cache_tensors(c1), cache_tensors(c2)
+        cache_err = max(float((x.full_tensor() - y).abs().max()) for x, y in zip(t2, t1))
+        if placed_run:
+            same.append(all(torch.equal(x.to_local(), y.to_local()) for x, y in zip(cache_tensors(c3), t2)))
+    def leaves(tree):  # the cache's shardings in cache_tensors' order
+        return [tree] if isinstance(tree, sharding.Sharding) else [x for part in tree for x in leaves(part)]
+
+    specs = leaves(steps.cache_shardings(cfg, steps.ShapeSpec("mesh", "decode", MAX_LEN, BATCH), mesh, c1))
+    out = {"logits_err": max(errs), "cache_err": cache_err,
+           "specs_match": all(sharding.spec_of(t) == sh.spec for t, sh in zip(t2, specs)) and len(t2) == len(specs),
+           "split": sorted({str(sharding.spec_of(t)) for t in t2})}
+    if placed_run:
+        out["placed_bitwise"] = all(same)
+    if all(isinstance(c, KVCache) for c in c2):
+        out["positions_split"] = [sharding.spec_of(c.k)[1] for c in c2]  # each layer's positions: over "model" or not
+    return out
 
 
 def decode_tokens(cfg):
-    """The prompt (BATCH, PROMPT) and the GEN teacher-forced decode tokens
-    (GEN, BATCH, 1) of :func:`reference_decode_case`, drawn with numpy."""
+    """The prompt (BATCH, PROMPT), the GEN teacher-forced decode tokens
+    (GEN, BATCH, 1) and the context (BATCH, rows, d) float32 of a "vlm" or
+    "audio" arch (else None) of :func:`reference_decode_case`, drawn with
+    numpy."""
     import numpy as np
 
     rng = np.random.default_rng(5)
-    return (rng.integers(0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32),
-            rng.integers(0, cfg.vocab_size, (GEN, BATCH, 1)).astype(np.int32))
+    prompt = rng.integers(0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
+    toks = rng.integers(0, cfg.vocab_size, (GEN, BATCH, 1)).astype(np.int32)
+    n = cfg.num_img_tokens or cfg.num_audio_frames
+    return prompt, toks, (rng.standard_normal((BATCH, n, cfg.d_model)).astype(np.float32) if n else None)
 
 
 def reference_decode_case(arch, over, mesh, dump) -> None:
@@ -204,10 +258,11 @@ def reference_decode_case(arch, over, mesh, dump) -> None:
 
     cfg = dataclasses.replace(get_config(arch, smoke=True), **over)
     lm = build_model(cfg, device="cpu", params=redrawn_params(cfg))
-    prompt, toks = decode_tokens(cfg)
+    prompt, toks, ctx = decode_tokens(cfg)
     with torch.inference_mode():
         with sharding.set_mesh(mesh):
-            logits, cache = lm.prefill(torch.from_numpy(prompt).long(), max_len=MAX_LEN)
+            logits, cache = lm.prefill(torch.from_numpy(prompt).long(), max_len=MAX_LEN,
+                                       context=None if ctx is None else torch.from_numpy(ctx))
         out = {"logits_0": logits}
         for i in range(GEN):
             out[f"logits_{i + 1}"], _ = lm.decode_step(torch.from_numpy(toks[i]).long(), PROMPT + i, cache)
@@ -337,8 +392,8 @@ def rank_checks(world: int, workdir: str) -> dict:
                     dump = os.path.join(workdir, f"port_train_{arch}.npz")
                 res["train"][arch, tuple(sorted(over.items())), fsdp] = train_case(arch, over, fsdp, mesh, dump)
         res["train_s"] = time.perf_counter() - t0
-        for arch, over in DECODE:
-            res["decode"][arch, tuple(sorted(over.items()))] = decode_case(arch, over, mesh)
+        for arch, over in DECODE + (DECODE_STATE if world == 4 else ()):
+            res["decode"][arch, tuple(sorted(over.items()))] = decode_case(arch, over, mesh, world == 4)
         if shape == REFERENCE_MESH:
             for arch, over in REFERENCE_DECODE:
                 reference_decode_case(arch, over, mesh, os.path.join(workdir, reference_decode_name(arch, over)))

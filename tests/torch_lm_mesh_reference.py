@@ -17,9 +17,10 @@ that JAX's CPU backend has the mesh's devices, and ``src`` and ``tests`` on
     names, to ``OUTDIR/ref_train_<arch>.npz``;
   * ``REFERENCE_DECODE``: the reference's prefill and decode steps
     (``make_prefill_step`` / ``make_decode_step``) with caches placed by
-    ``cache_shardings``, teacher-forced on the ranks' tokens: each step's
-    logits to ``OUTDIR/ref_<name>`` (``hier_topk`` runs its shard-local
-    pass over the ``model`` axis here).
+    ``cache_shardings`` (KV caches, recurrent states and context caches),
+    teacher-forced on the ranks' tokens and context: each step's logits to
+    ``OUTDIR/ref_<name>`` (``hier_topk`` runs its shard-local pass over the
+    ``model`` axis here).
 
 Each program is compiled with XLA's cheap CPU options, as
 ``tests/torch_lm_parity.py`` compiles the reference's.
@@ -94,14 +95,14 @@ def train(arch, fsdp, mesh, outdir):
 def decode(arch, over, mesh, outdir):
     jcfg, tcfg = (dataclasses.replace(get(arch, smoke=True), **over) for get in (jget, tget))
     tree = reference_tree(jcfg, tcfg)
-    prompt, toks = ranks.decode_tokens(tcfg)
+    prompt, toks, ctx = ranks.decode_tokens(tcfg)
     pshape = jsteps.ShapeSpec("mesh", "prefill", ranks.MAX_LEN, ranks.BATCH)
     dshape = jsteps.ShapeSpec("mesh", "decode", ranks.MAX_LEN, ranks.BATCH)
     p_sh, _ = jsteps.params_shardings(jcfg, mesh, jsteps.state_specs(jcfg, with_opt=False)[0])
     in_sh = jsteps.data_shardings(jcfg, pshape, mesh)
     tok_sh = jsteps.data_shardings(jcfg, dshape, mesh)
     params = jax.device_put(tree, p_sh)
-    batch = jax.device_put({"tokens": prompt}, in_sh)
+    batch = jax.device_put({"tokens": prompt} if ctx is None else {"tokens": prompt, "context": ctx}, in_sh)
     prefill_fn = jsteps.make_prefill_step(jcfg, pshape)
     cache_s = jax.eval_shape(lambda p, b: prefill_fn(p, b)[1], params, batch)
     c_sh = jsteps.cache_shardings(jcfg, dshape, mesh, cache_s)
