@@ -13,7 +13,7 @@ from typing import Dict, Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import from_host
+from repro_torch import from_host, trace
 
 
 class GraphBatch:
@@ -47,12 +47,14 @@ class GraphBatch:
         tables copied to ``device``. ``features`` overrides them: its
         tensors are taken as they are, with no copy (the stream ingestor
         hands a successor the serving batch's tensors of the node types a
-        delta did not touch)."""
+        delta did not touch). The copy is the build span ``upload``."""
         if features is None:
-            features = {
-                t: from_host(np.asarray(f, np.float32), device)
-                for t, f in g.features.items()
-            }
+            with trace.span("upload", always=True, what="features") as sp:
+                features = {
+                    t: from_host(np.asarray(f, np.float32), device)
+                    for t, f in g.features.items()
+                }
+                sp.set(bytes=sum(f.nbytes for f in features.values()))
         return cls(
             features=features, sgs=sgs, node_types=g.node_types,
             offsets=g.type_offsets(), num_nodes=g.num_nodes,

@@ -49,9 +49,10 @@ import contextvars
 import dataclasses
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
-from repro_torch import from_host
+from repro_torch import from_host, trace
 from repro_torch.core import attention
 from repro_torch.core.hetgraph import BucketedSemanticGraph, SemanticGraph
 from repro_torch.distributed import sharding as dist
@@ -178,6 +179,41 @@ def _kernel_rel(scores: attention.DecomposedScores) -> Optional[torch.Tensor]:
     return None if rel is None else rel.float()
 
 
+def _tick_slots(cfg: FlowConfig, sg, route, table) -> None:
+    """Tick the NA slot counters (``ops.NA_SLOTS`` and
+    ``NA_SLOTS_BY_GRAPH[sg.name]``) for the fused launch over ``table``,
+    one of ``sg``'s: a grouped layout or one shard of it (a
+    ``t_tile × w`` tile a grid step, the degrees of the targets it holds),
+    or a host padded mask (T × D slots). Every fused route ticks here,
+    before the launch, so a CPU forward counts too; nothing ticks off the
+    ``fused_kernel`` flow, for a table without grid steps or within the
+    §4.3 bypass (no launch), or for a table given as a tensor (an ego
+    batch's, built per query). The counts are cached on the graph per
+    ``route`` and ``prune_k``."""
+    if cfg.flow != "fused_kernel" or isinstance(table, torch.Tensor):
+        return
+    k = cfg.prune_k
+    if isinstance(table, np.ndarray):
+        if k is not None and k >= table.shape[1]:
+            return
+    elif table.num_steps == 0:
+        return
+    from repro_torch.kernels.fused_prune_aggregate import ops as k_ops
+
+    key = ("slots", route, k)
+    counts = sg._device.get(key)
+    if counts is None:
+        if isinstance(table, np.ndarray):
+            deg, slots = table.sum(axis=1), table.size
+        else:
+            deg, slots = sg.degrees()[table.perm >= 0], table.num_steps * table.t_tile * table.w
+        counts = sg._device[key] = k_ops.slot_counts(deg, slots, k)
+    by = k_ops.NA_SLOTS_BY_GRAPH.setdefault(sg.name, dict.fromkeys(k_ops.SLOT_FIELDS, 0))
+    for f in k_ops.SLOT_FIELDS:
+        k_ops.NA_SLOTS[f] += counts[f]
+        by[f] += counts[f]
+
+
 def _table(nbr, msk, ety, use_ety: bool, device: torch.device):
     """Device mirror of one padded-CSC table: int32 ids, bool mask, int32
     edge types (``None`` without a rel term), the dtypes the kernels take."""
@@ -196,7 +232,7 @@ def _flat_tables(sg: SemanticGraph, use_ety: bool, device: torch.device):
         return sg.nbr_idx, sg.nbr_mask, sg.edge_type if use_ety else None
     key = ("tables", use_ety, device)
     if key not in sg._device:
-        with torch.inference_mode(False):
+        with torch.inference_mode(False), trace.span("upload", always=True, what="na tables"):
             sg._device[key] = _table(sg.nbr_idx, sg.nbr_mask, sg.edge_type, use_ety, device)
     return sg._device[key]
 
@@ -205,7 +241,7 @@ def _bucket_loop_tables(sg: BucketedSemanticGraph, use_ety: bool, device: torch.
     """Per bucket: device targets and table, cached on the graph."""
     key = ("loop", use_ety, device)
     if key not in sg._device:
-        with torch.inference_mode(False):
+        with torch.inference_mode(False), trace.span("upload", always=True, what="na tables"):
             sg._device[key] = tuple(
                 (from_host(b.targets.astype("int64"), device),)
                 + _table(b.nbr_idx, b.nbr_mask, b.edge_type, use_ety, device)
@@ -219,7 +255,7 @@ def _device_tables(sg: BucketedSemanticGraph, use_ety: bool, device: torch.devic
     cached on the graph per device."""
     key = ("tables", use_ety, device)
     if key not in sg._device:
-        with torch.inference_mode(False):
+        with torch.inference_mode(False), trace.span("upload", always=True, what="na tables"):
             tables = tuple(
                 _table(b.nbr_idx, b.nbr_mask, b.edge_type, use_ety, device)
                 for b in sg.buckets
@@ -244,8 +280,10 @@ def run_aggregate_graph_bucket_loop(
     use_ety = scores.theta_rel is not None
     _, h, dh = h_proj.shape
     out = torch.zeros((sg.num_targets, h, dh), dtype=h_proj.dtype, device=h_proj.device)
-    for targets, nbr, msk, ety in _bucket_loop_tables(sg, use_ety, h_proj.device):
+    tables = _bucket_loop_tables(sg, use_ety, h_proj.device)
+    for i, (b, (targets, nbr, msk, ety)) in enumerate(zip(sg.buckets, tables)):
         DISPATCH["bucket_calls"] += 1
+        _tick_slots(cfg, sg, ("bucket", i), b.nbr_mask)
         z = run_aggregate(
             cfg, h_proj, attention.slice_targets(scores, targets), nbr, msk, ety
         )
@@ -279,11 +317,15 @@ def run_aggregate_graph(
             if gm is not None:
                 mesh, axis, _ = gm
                 DISPATCH["sharded_calls"] += 1
+                sl = sg.sharded(dist.axis_size(mesh, axis), k_ops.T_TILE, k_ops.W_TILE)
+                rank = dist.shard_rank(mesh, axis)
+                _tick_slots(cfg, sg, ("shard", len(sl.shards), rank), sl.shards[rank])
                 return k_ops.fused_prune_aggregate_grouped_sharded(
                     h_proj, scores.theta_src, scores.theta_dst, sg, mesh, axis,
                     theta_rel=_kernel_rel(scores), prune_k=cfg.prune_k,
                     slope=attention.LEAKY_SLOPE,
                 ).to(h_proj.dtype)
+            _tick_slots(cfg, sg, "grouped", sg.grouped(k_ops.T_TILE, k_ops.W_TILE))
             return k_ops.fused_prune_aggregate_grouped(
                 h_proj, scores.theta_src, scores.theta_dst, sg,
                 theta_rel=_kernel_rel(scores), prune_k=cfg.prune_k,
@@ -303,4 +345,6 @@ def run_aggregate_graph(
             outs.append(run_aggregate(cfg, h_proj, sc, nbr, msk, ety))
             off += t_b
         return torch.cat(outs, dim=0)[perm]
-    return run_aggregate(cfg, h_proj, scores, *_flat_tables(sg, use_ety, dev))
+    tables = _flat_tables(sg, use_ety, dev)
+    _tick_slots(cfg, sg, "flat", sg.nbr_mask)
+    return run_aggregate(cfg, h_proj, scores, *tables)

@@ -26,6 +26,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from repro_torch import trace
+
 Relation = Tuple[str, str, str]  # (src_type, rel_name, dst_type)
 
 AnySemanticGraph = Union["SemanticGraph", "BucketedSemanticGraph"]
@@ -187,7 +189,8 @@ class SemanticGraph:
     ``nbr_idx[v, j]`` is the *global* id of the j-th in-neighbor of target
     ``v``. Invalid slots are masked by ``nbr_mask`` and point at index 0.
     ``edge_type`` is all-zeros for single-relation graphs. ``_device``
-    caches device mirrors of the table.
+    caches device mirrors of the table, and the slot counts of its NA
+    launches (``flows._tick_slots``).
     """
 
     name: str
@@ -512,7 +515,8 @@ class BucketedSemanticGraph:
     Every target of ``dst_type`` lands in exactly one bucket — the tightest
     capacity that fits its (build-time-capped) degree. NA runs all buckets
     in one dispatch and restores target order with the precomputed inverse
-    permutation. ``_device`` caches device mirrors of the bucket tables.
+    permutation. ``_device`` caches device mirrors of the bucket tables,
+    and the slot counts of its NA launches (``flows._tick_slots``).
     """
 
     name: str
@@ -634,9 +638,10 @@ class BucketedSemanticGraph:
         """The single-launch ragged-grid relayout (cached per tile shape)."""
         key = (t_tile, w)
         if key not in self._grouped:
-            self._grouped[key] = _group_buckets(
-                self.buckets, self.num_targets, t_tile, w
-            )
+            with trace.span("sgb.group", always=True, graph=self.name):
+                self._grouped[key] = _group_buckets(
+                    self.buckets, self.num_targets, t_tile, w
+                )
         return self._grouped[key]
 
     def sharded(self, n_shards: int, t_tile: int = 8, w: int = 8) -> ShardedBucketLayout:
@@ -827,36 +832,38 @@ def bucketize(
     goes to the tightest capacity ≥ its degree; the last bucket has capacity
     D_max. Per-bucket tables are row/column slices of the flat table.
     ``bucket_sizes="auto"`` takes the capacities from this table's own
-    degree histogram (:func:`autotune_bucket_sizes`)."""
-    t, d_max = nbr.shape
-    deg = msk.sum(axis=1)
-    if isinstance(bucket_sizes, str):
-        if bucket_sizes != "auto":
-            raise ValueError(f"unknown bucket_sizes spec {bucket_sizes!r}")
-        bucket_sizes = autotune_bucket_sizes(deg)
-    caps = sorted({int(c) for c in bucket_sizes if 0 < c < d_max})
-    caps.append(d_max)
-    # assignment = index of the first capacity >= degree
-    assign = np.searchsorted(np.asarray(caps), deg, side="left")
-    buckets = []
-    for i, cap in enumerate(caps):
-        targets = np.where(assign == i)[0].astype(np.int32)
-        if targets.size == 0:
-            continue
-        buckets.append(
-            DegreeBucket(
-                targets=targets,
-                nbr_idx=nbr[targets, :cap],
-                nbr_mask=msk[targets, :cap],
-                edge_type=ety[targets, :cap],
+    degree histogram (:func:`autotune_bucket_sizes`). The build span
+    ``sgb.bucketize``."""
+    with trace.span("sgb.bucketize", always=True, graph=name):
+        t, d_max = nbr.shape
+        deg = msk.sum(axis=1)
+        if isinstance(bucket_sizes, str):
+            if bucket_sizes != "auto":
+                raise ValueError(f"unknown bucket_sizes spec {bucket_sizes!r}")
+            bucket_sizes = autotune_bucket_sizes(deg)
+        caps = sorted({int(c) for c in bucket_sizes if 0 < c < d_max})
+        caps.append(d_max)
+        # assignment = index of the first capacity >= degree
+        assign = np.searchsorted(np.asarray(caps), deg, side="left")
+        buckets = []
+        for i, cap in enumerate(caps):
+            targets = np.where(assign == i)[0].astype(np.int32)
+            if targets.size == 0:
+                continue
+            buckets.append(
+                DegreeBucket(
+                    targets=targets,
+                    nbr_idx=nbr[targets, :cap],
+                    nbr_mask=msk[targets, :cap],
+                    edge_type=ety[targets, :cap],
+                )
             )
+        sg = BucketedSemanticGraph(
+            name=name, src_types=src_types, dst_type=dst_type,
+            num_targets=t, buckets=tuple(buckets), num_edge_types=num_edge_types,
         )
-    sg = BucketedSemanticGraph(
-        name=name, src_types=src_types, dst_type=dst_type,
-        num_targets=t, buckets=tuple(buckets), num_edge_types=num_edge_types,
-    )
-    sg.target_perm()  # precompute: NA's inverse-permutation gather needs it
-    return sg
+        sg.target_perm()  # precompute: NA's inverse-permutation gather needs it
+        return sg
 
 
 def _make_graph(
@@ -908,9 +915,10 @@ def build_relation_graphs(
             loops = np.arange(g.num_nodes[dst_t], dtype=np.int64)
             gsrc = np.concatenate([gsrc, loops + offs[dst_t]])
             dst = np.concatenate([dst, loops])
-        nbr, msk, ety = _pad_csc(
-            gsrc, dst.astype(np.int64), g.num_nodes[dst_t], max_degree, rng
-        )
+        with trace.span("sgb.pad", always=True, graph=name):
+            nbr, msk, ety = _pad_csc(
+                gsrc, dst.astype(np.int64), g.num_nodes[dst_t], max_degree, rng
+            )
         out.append(
             _make_graph(name, (src_t,), dst_t, nbr, msk, ety, 1, bucket_sizes)
         )
@@ -955,7 +963,8 @@ def build_union_graph(
             np.concatenate([p[i] for p in parts]) if parts else np.zeros(0, np.int64)
             for i in range(3)
         )
-        nbr, msk, ety = _pad_csc(src, dst, g.num_nodes[dst_t], max_degree, rng, et)
+        with trace.span("sgb.pad", always=True, graph=f"union:{dst_t}"):
+            nbr, msk, ety = _pad_csc(src, dst, g.num_nodes[dst_t], max_degree, rng, et)
         out[dst_t] = _make_graph(
             f"union:{dst_t}", tuple(g.node_types), dst_t, nbr, msk, ety,
             self_loop_id + 1, bucket_sizes,
@@ -1036,19 +1045,21 @@ def build_metapath_graphs(
 
     out = []
     for mp_name, chain in metapaths.items():
-        s, d, src_t, dst_t = rel_pairs(chain[0])
-        for nxt in chain[1:]:
-            s2, d2, _, dst_t = rel_pairs(nxt)
-            s, d = _compose((s, d), (s2, d2), cap_fanout, rng)
-        # dedupe parallel paths (HAN treats the metapath graph as simple)
-        key = s.astype(np.int64) * (g.num_nodes[dst_t] + 1) + d.astype(np.int64)
-        _, uniq = np.unique(key, return_index=True)
-        s, d = s[uniq], d[uniq]
-        loops = np.arange(g.num_nodes[dst_t], dtype=np.int64)
-        s = np.concatenate([s, loops])
-        d = np.concatenate([d, loops])
-        gsrc = s + offs[dst_t]  # metapath endpoints share the dst type
-        nbr, msk, ety = _pad_csc(gsrc, d, g.num_nodes[dst_t], max_degree, rng)
+        with trace.span("sgb.compose", always=True, graph=mp_name):
+            s, d, src_t, dst_t = rel_pairs(chain[0])
+            for nxt in chain[1:]:
+                s2, d2, _, dst_t = rel_pairs(nxt)
+                s, d = _compose((s, d), (s2, d2), cap_fanout, rng)
+            # dedupe parallel paths (HAN treats the metapath graph as simple)
+            key = s.astype(np.int64) * (g.num_nodes[dst_t] + 1) + d.astype(np.int64)
+            _, uniq = np.unique(key, return_index=True)
+            s, d = s[uniq], d[uniq]
+            loops = np.arange(g.num_nodes[dst_t], dtype=np.int64)
+            s = np.concatenate([s, loops])
+            d = np.concatenate([d, loops])
+            gsrc = s + offs[dst_t]  # metapath endpoints share the dst type
+        with trace.span("sgb.pad", always=True, graph=mp_name):
+            nbr, msk, ety = _pad_csc(gsrc, d, g.num_nodes[dst_t], max_degree, rng)
         out.append(
             _make_graph(mp_name, (dst_t,), dst_t, nbr, msk, ety, 1, bucket_sizes)
         )

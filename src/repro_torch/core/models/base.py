@@ -27,6 +27,7 @@ from typing import Callable, Dict, Iterable, Iterator, Mapping, Tuple
 import torch
 from torch import nn
 
+from repro_torch import trace
 from repro_torch.core import flows
 from repro_torch.core.batch import GraphBatch, ModelSpec
 from repro_torch.core.dtypes import canonical
@@ -104,15 +105,27 @@ class HGNNModel(nn.Module):
         (Replaces ``nn.Module.apply``, which this protocol does not use.)
         float64 parameters compute as float32, as in the reference
         (``core/dtypes.py``). One ``flows.mesh_scope()`` around it resolves
-        the ambient mesh at most once, however many NA dispatches run."""
+        the ambient mesh at most once, however many NA dispatches run.
+        Its stages (``project``, ``na.<graph>``: Eq. 2, NA and what the
+        model does to NA's output, ``fuse``, ``readout``) are marked for
+        ``trace.stage_ms``: CUDA events in a session captured under device
+        tracing, nothing anywhere else."""
         params = {n: canonical(p) for n, p in params.items()}
         with flows.mesh_scope():
             carry: Carry = dict(batch.features)
             for step in self.layer_steps(params, batch, flow):
+                trace.mark("project")
                 h = step.project(carry)
-                zs = {name: fn(h) for name, fn in step.na}
+                zs = {}
+                for name, fn in step.na:
+                    trace.mark(f"na.{name}")
+                    zs[name] = fn(h)
+                trace.mark("fuse")
                 carry = step.fuse(carry, h, zs)
-            return self.readout(params, batch, carry)
+            trace.mark("readout")
+            out = self.readout(params, batch, carry)
+            trace.mark(None)
+            return out
 
     def forward(self, batch: GraphBatch, flow: FlowConfig = FlowConfig()) -> torch.Tensor:
         return self.apply(dict(self.named_parameters()), batch, flow)

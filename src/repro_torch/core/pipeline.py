@@ -23,7 +23,7 @@ from typing import Dict, Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, trace
 from repro_torch.core import hetgraph
 from repro_torch.core import session as _session
 from repro_torch.core.batch import GraphBatch, ModelSpec
@@ -97,15 +97,16 @@ class HGNNTask:
         key = (flow, self.device, mesh_fingerprint(gm), param_spec(params), bool(donate_params))
         sess = self._sessions.get(key)
         if sess is None:
-            twin = self._sessions.get(key[:4] + (not key[4],))
-            if twin is not None:
-                sess = twin.with_donation(donate_params)
-            else:
-                sess = InferenceSession(
-                    self.model, self.batch, flow, params=params, donate_params=donate_params,
-                    mesh_info=gm,
-                )
-            self._sessions[key] = sess
+            with trace.span("compile", always=True, flow=flow.flow):
+                twin = self._sessions.get(key[:4] + (not key[4],))
+                if twin is not None:
+                    sess = twin.with_donation(donate_params)
+                else:
+                    sess = InferenceSession(
+                        self.model, self.batch, flow, params=params, donate_params=donate_params,
+                        mesh_info=gm,
+                    )
+                self._sessions[key] = sess
         return sess
 
     def _train_step(self, flow: FlowConfig, lr: float, weight_decay: float = 1e-4) -> "TrainStep":
@@ -282,60 +283,68 @@ def prepare(
     mesh, no split: the sharded NA path then splits at its first
     dispatch), an int forces that many splits. With a cache directory the
     splits are saved in (or read from) the entry.
-    """
-    dev = resolve_device(device)
-    entry = get_entry(model_name)
-    g, ds_name, mps = datasets.resolve(dataset, scale=scale, seed=seed)
-    if metapaths is not None:
-        mps = metapaths
-    if shards is None:
-        gm = dist.graph_mesh()
-        shards = gm[2] if gm is not None else 0
-    sgb_kw = dict(
-        max_degree=max_degree, seed=seed, bucket_sizes=bucket_sizes,
-        cache_dir=sgb_cache_dir, shards=shards,
-    )
-    if entry.needs_metapaths:
-        if not mps:
-            raise ValueError(
-                f"model {model_name!r} needs metapaths for dataset "
-                f"{ds_name!r}: registry datasets define them; on-disk dumps "
-                "carry them in meta.json"
-            )
-        built, _ = sgb_cache.build_or_load(g, entry.sgb_kind, metapaths=mps, **sgb_kw)
-    else:
-        built, _ = sgb_cache.build_or_load(g, entry.sgb_kind, **sgb_kw)
-    # a union build is keyed by destination type, in node_types order
-    sgs = list(built.values()) if isinstance(built, dict) else list(built)
-    if shards:
-        # the kernel's tile shape, which the sharded dispatch keys its
-        # split on (a cache hit carries the split already: a no-op then)
-        from repro_torch.kernels.fused_prune_aggregate.ops import T_TILE, W_TILE
 
-        for sg in sgs:
-            if isinstance(sg, hetgraph.BucketedSemanticGraph):
-                sg.sharded(shards, T_TILE, W_TILE)
-    batch = GraphBatch.from_graph(g, sgs, dev)
-    spec = ModelSpec.from_graph(g, sgs)
-    model = entry.factory(spec)
-    model.reset_parameters(torch.Generator().manual_seed(seed))
-    model.to(dev)
-    return HGNNTask(
-        name=f"{model_name}/{ds_name}",
-        model_name=model_name,
-        model=model,
-        graph=g,
-        batch=batch,
-        spec=spec,
-        params=dict(model.named_parameters()),
-        labels=torch.from_numpy(g.labels.astype(np.int64)).to(dev),
-        splits=_splits(g.num_nodes[g.label_type], seed),
-        sgs=sgs,
-        device=dev,
-        sgb_kind=entry.sgb_kind,
-        sgb_args=dict(max_degree=max_degree, seed=seed, bucket_sizes=bucket_sizes),
-        metapaths=dict(mps) if mps else None,
-    )
+    Build spans (``trace``): ``prepare`` holding ``prepare.resolve`` (the
+    dataset and its schema check), ``sgb`` (``sgb_cache.build_or_load``),
+    ``upload`` (the feature tables) and ``model`` (factory, seeded init,
+    the move to ``device``).
+    """
+    with trace.span("prepare", always=True, model=model_name):
+        dev = resolve_device(device)
+        entry = get_entry(model_name)
+        with trace.span("prepare.resolve", always=True):
+            g, ds_name, mps = datasets.resolve(dataset, scale=scale, seed=seed)
+        if metapaths is not None:
+            mps = metapaths
+        if shards is None:
+            gm = dist.graph_mesh()
+            shards = gm[2] if gm is not None else 0
+        sgb_kw = dict(
+            max_degree=max_degree, seed=seed, bucket_sizes=bucket_sizes,
+            cache_dir=sgb_cache_dir, shards=shards,
+        )
+        if entry.needs_metapaths:
+            if not mps:
+                raise ValueError(
+                    f"model {model_name!r} needs metapaths for dataset "
+                    f"{ds_name!r}: registry datasets define them; on-disk dumps "
+                    "carry them in meta.json"
+                )
+            built, _ = sgb_cache.build_or_load(g, entry.sgb_kind, metapaths=mps, **sgb_kw)
+        else:
+            built, _ = sgb_cache.build_or_load(g, entry.sgb_kind, **sgb_kw)
+        # a union build is keyed by destination type, in node_types order
+        sgs = list(built.values()) if isinstance(built, dict) else list(built)
+        if shards:
+            # the kernel's tile shape, which the sharded dispatch keys its
+            # split on (a cache hit carries the split already: a no-op then)
+            from repro_torch.kernels.fused_prune_aggregate.ops import T_TILE, W_TILE
+
+            for sg in sgs:
+                if isinstance(sg, hetgraph.BucketedSemanticGraph):
+                    sg.sharded(shards, T_TILE, W_TILE)
+        batch = GraphBatch.from_graph(g, sgs, dev)
+        spec = ModelSpec.from_graph(g, sgs)
+        with trace.span("model", always=True):
+            model = entry.factory(spec)
+            model.reset_parameters(torch.Generator().manual_seed(seed))
+            model.to(dev)
+        return HGNNTask(
+            name=f"{model_name}/{ds_name}",
+            model_name=model_name,
+            model=model,
+            graph=g,
+            batch=batch,
+            spec=spec,
+            params=dict(model.named_parameters()),
+            labels=torch.from_numpy(g.labels.astype(np.int64)).to(dev),
+            splits=_splits(g.num_nodes[g.label_type], seed),
+            sgs=sgs,
+            device=dev,
+            sgb_kind=entry.sgb_kind,
+            sgb_args=dict(max_degree=max_degree, seed=seed, bucket_sizes=bucket_sizes),
+            metapaths=dict(mps) if mps else None,
+        )
 
 
 def train_hgnn(

@@ -55,7 +55,6 @@ Entry points:
   * ``compile_query(capacity)`` / ``prewarm(capacities)`` record the block
     capacities of a query ladder (the gather needs no program of its own)
     and ``query_capacities`` lists them;
-  * ``cost_analysis()`` is ``None``: there is no compiler estimate;
   * ``enable_ego(...)`` attaches an ``EgoPlanner`` (``core/ego.py``) and
     ``session.query_ego(params, idx)`` serves a block on its targets'
     extracted neighborhood: one program per ``EgoSignature``, on a CUDA
@@ -102,6 +101,7 @@ from typing import Callable, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import flows
 from repro_torch.core.batch import GraphBatch
 from repro_torch.core.ego import EgoBatch, EgoPlanner
@@ -154,19 +154,22 @@ def _capture_graph(forward: Callable[[], object], device: torch.device, inferenc
     to the capture's rules. Both runs are under ``torch.inference_mode()``
     unless ``inference=False`` (a training step, which differentiates).
     Raises if the capture fails. Every capture of the port goes through
-    here: sessions, ego graphs, ``TrainStep`` and ``DecodeStep``."""
+    here: sessions, ego graphs, ``TrainStep`` and ``DecodeStep``; each
+    records the build spans ``warmup`` and ``capture``."""
     mode = torch.inference_mode if inference else contextlib.nullcontext
     with _CAPTURE_LOCK:
         side = _WARMUP_STREAMS.get(device)
         if side is None:
             side = _WARMUP_STREAMS[device] = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side), mode():
+        with trace.span("warmup", always=True), torch.cuda.stream(side), mode():
             forward()
+            side.synchronize()  # the warm-up's device work is the warm-up's
         torch.cuda.current_stream(device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with mode(), torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            out = forward()
+        with trace.span("capture", always=True):
+            with mode(), torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                out = forward()
     return graph, out
 
 
@@ -260,6 +263,7 @@ class InferenceSession:
         self._spec = param_spec(params)
         self._capacities: set = set()
         self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._stages: Optional[trace.Stages] = None  # device stages (trace.stage_ms)
         self.forwards = 0
         # ego serving: the planner, one program per EgoSignature, and the
         # ego globals of the last params seen (by tensor and version)
@@ -288,9 +292,11 @@ class InferenceSession:
         with torch.no_grad():
             self._inputs = [params[n].detach().clone() for n in self._names]
         static = dict(zip(self._names, self._inputs))
-        self._graph, self._out = _capture_graph(
-            lambda: self._forward(static), self.graph_batch.device
-        )
+        with trace.stages_of_capture() as stages:
+            self._graph, self._out = _capture_graph(
+                lambda: self._forward(static), self.graph_batch.device
+            )
+        self._stages = stages
 
     def _forward(self, params) -> torch.Tensor:
         """The eager forward, pinned to the mesh resolved at build."""
@@ -313,7 +319,11 @@ class InferenceSession:
         ``params`` into the static inputs, the replay and ``read_out`` run on
         the caller's stream under the session's lock, after the stream of
         the previous call (module docstring); otherwise the eager forward,
-        then ``read_out``."""
+        then ``read_out``. Tracing off (no ``trace.enable()``, no profiler
+        recording, no device stages) costs this call one check; otherwise
+        :meth:`_run_traced` runs it."""
+        if self._stages is not None or trace.recording():
+            return self._run_traced(params, read_out)
         self._check(params)
         with torch.inference_mode():
             if self._graph is None:
@@ -326,6 +336,40 @@ class InferenceSession:
                 self._graph.replay()
                 self.forwards += 1
                 return read_out(self._out)
+
+    def _run_traced(self, params, read_out: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+        """:meth:`_run` with its spans: ``session.call`` holding
+        ``session.check``, ``session.copy_in``, ``session.replay`` and
+        ``session.read_out``. A session captured under device tracing also
+        records its call's events (``trace.stage_ms``) whatever the
+        switch."""
+        with trace.span("session.call"):
+            with trace.span("session.check"):
+                self._check(params)
+            with torch.inference_mode():
+                if self._graph is None:
+                    self.forwards += 1
+                    return read_out(self._forward(params))
+                serial, st = self._serial, self._stages
+                with serial.lock:
+                    stream = torch.cuda.current_stream(self.graph_batch.device)
+                    serial.follow(stream)
+                    with trace.span("session.copy_in"):
+                        if st is not None:
+                            st.point(0, stream)
+                        torch._foreach_copy_(self._inputs, [params[n] for n in self._names])
+                    with trace.span("session.replay"):
+                        if st is not None:
+                            st.point(1, stream)
+                        self._graph.replay()
+                        if st is not None:
+                            st.point(2, stream)
+                    self.forwards += 1
+                    with trace.span("session.read_out"):
+                        out = read_out(self._out)
+                        if st is not None:
+                            st.point(3, stream)
+                    return out
 
     def __call__(self, params) -> torch.Tensor:
         """(num_targets, num_classes) logits, a tensor of the caller's own."""
@@ -521,12 +565,6 @@ class InferenceSession:
         """Whether calls replay a captured CUDA graph (a CUDA batch)."""
         return self._graph is not None
 
-    def cost_analysis(self):
-        """The reference returns XLA's per-call estimate, or ``None`` where
-        its backend has none. A CUDA graph carries no compiler estimate, so
-        this is ``None``."""
-        return None
-
     @property
     def out_shape(self) -> Tuple[int, int]:
         """Forward-output shape ``(num_targets, num_classes)``."""
@@ -609,6 +647,10 @@ class _EgoGraph:
         return host
 
     def __call__(self, params, ego_batch) -> torch.Tensor:
+        """The block's logits; with tracing off one check more than the
+        replay, otherwise :meth:`_call_traced`."""
+        if trace.recording():
+            return self._call_traced(params, ego_batch)
         if ego_batch.sig != self.sig:
             raise ValueError("ego batch's signature is not this program's")
         host = self._pack(ego_batch.host_leaves())
@@ -616,10 +658,35 @@ class _EgoGraph:
             serial = self._serial
             with serial.lock:
                 serial.follow(torch.cuda.current_stream(self._buf.device))
-                torch._foreach_copy_(self._inputs, [params[n] for n in self._names])
-                for k, v in self._globals.items():
-                    v.copy_(ego_batch.ego_globals[k], non_blocking=True)
-                self._buf.copy_(host, non_blocking=True)
+                self._copy_in(params, ego_batch, host)
                 self._graph.replay()
                 self.forwards += 1
                 return self._out.clone()
+
+    def _copy_in(self, params, ego_batch, host) -> None:
+        """The params, the ego globals and the packed host arrays into the
+        static inputs, on the current stream."""
+        torch._foreach_copy_(self._inputs, [params[n] for n in self._names])
+        for k, v in self._globals.items():
+            v.copy_(ego_batch.ego_globals[k], non_blocking=True)
+        self._buf.copy_(host, non_blocking=True)
+
+    def _call_traced(self, params, ego_batch) -> torch.Tensor:
+        """``__call__`` with the session's spans, plus ``ego.pack``."""
+        with trace.span("session.call"):
+            with trace.span("session.check"):
+                if ego_batch.sig != self.sig:
+                    raise ValueError("ego batch's signature is not this program's")
+            with trace.span("ego.pack"):
+                host = self._pack(ego_batch.host_leaves())
+            with torch.inference_mode():
+                serial = self._serial
+                with serial.lock:
+                    serial.follow(torch.cuda.current_stream(self._buf.device))
+                    with trace.span("session.copy_in"):
+                        self._copy_in(params, ego_batch, host)
+                    with trace.span("session.replay"):
+                        self._graph.replay()
+                    self.forwards += 1
+                    with trace.span("session.read_out"):
+                        return self._out.clone()

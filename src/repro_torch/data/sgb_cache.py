@@ -42,6 +42,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from repro_torch import trace
 from repro_torch.core import hetgraph
 from repro_torch.core.hetgraph import (
     BucketedSemanticGraph,
@@ -435,43 +436,58 @@ def build_or_load(
     and saves the entry again with every split it carries (still a hit:
     the bucket and grouped stacks were loaded, not rebuilt); any other hit
     is never written back.
+
+    The build span ``sgb`` (``trace``; its ``status`` the one returned)
+    holds ``sgb.fingerprint`` (the key), then ``sgb.load``, or
+    ``sgb.build`` (with ``hetgraph``'s stages and the grouped layouts) and
+    ``sgb.save``.
     """
-    t_tile, w = _tile_constants()
-    if cache_dir is None:
-        cache_dir = default_cache_dir()
-    if cache_dir is None or bucket_sizes is None:
-        out = _build(g, kind, metapaths, max_degree, seed, bucket_sizes)
-        return out, "off"
-    key = cache_key(
-        g, kind, metapaths=metapaths, max_degree=max_degree, seed=seed,
-        bucket_sizes=bucket_sizes, t_tile=t_tile, w=w,
-    )
-    path = Path(cache_dir) / f"sgb_{key}.npz"
-    if path.is_file():
-        try:
-            sgs, keys = load_sgb(path)
-        except Exception:
-            sgs = None  # torn/stale entry: rebuild and overwrite below
-        if sgs is not None:
-            if shards > 0 and any((shards, t_tile, w) not in sg._sharded for sg in sgs):
-                _add_split(path, sgs, keys, shards, t_tile, w)
-            out = dict(zip(keys, sgs)) if keys is not None else sgs
-            return out, "hit"
-    out = _build(g, kind, metapaths, max_degree, seed, bucket_sizes)
-    if isinstance(out, dict):
-        keys, sgs = list(out), list(out.values())
-    else:
-        keys, sgs = None, out
-    # materialize the execution layouts now so the entry (and every future
-    # process) carries them precomputed
-    for sg in sgs:
-        if isinstance(sg, BucketedSemanticGraph):
-            sg.grouped(t_tile, w)
-            if shards > 0:
-                sg.sharded(shards, t_tile, w)
-    if all(isinstance(sg, BucketedSemanticGraph) for sg in sgs):
-        save_sgb(path, sgs, keys=keys, t_tile=t_tile, w=w, shards=shards)
-    return out, "miss"
+    with trace.span("sgb", always=True, kind=kind) as sp:
+        t_tile, w = _tile_constants()
+        if cache_dir is None:
+            cache_dir = default_cache_dir()
+        if cache_dir is None or bucket_sizes is None:
+            with trace.span("sgb.build", always=True):
+                out = _build(g, kind, metapaths, max_degree, seed, bucket_sizes)
+            sp.set(status="off")
+            return out, "off"
+        with trace.span("sgb.fingerprint", always=True):
+            key = cache_key(
+                g, kind, metapaths=metapaths, max_degree=max_degree, seed=seed,
+                bucket_sizes=bucket_sizes, t_tile=t_tile, w=w,
+            )
+        path = Path(cache_dir) / f"sgb_{key}.npz"
+        if path.is_file():
+            with trace.span("sgb.load", always=True):
+                try:
+                    sgs, keys = load_sgb(path)
+                except Exception:
+                    sgs = None  # torn/stale entry: rebuild and overwrite below
+            if sgs is not None:
+                if shards > 0 and any((shards, t_tile, w) not in sg._sharded for sg in sgs):
+                    with trace.span("sgb.save", always=True):
+                        _add_split(path, sgs, keys, shards, t_tile, w)
+                out = dict(zip(keys, sgs)) if keys is not None else sgs
+                sp.set(status="hit")
+                return out, "hit"
+        with trace.span("sgb.build", always=True):
+            out = _build(g, kind, metapaths, max_degree, seed, bucket_sizes)
+            if isinstance(out, dict):
+                keys, sgs = list(out), list(out.values())
+            else:
+                keys, sgs = None, out
+            # materialize the execution layouts now so the entry (and every future
+            # process) carries them precomputed
+            for sg in sgs:
+                if isinstance(sg, BucketedSemanticGraph):
+                    sg.grouped(t_tile, w)
+                    if shards > 0:
+                        sg.sharded(shards, t_tile, w)
+        if all(isinstance(sg, BucketedSemanticGraph) for sg in sgs):
+            with trace.span("sgb.save", always=True):
+                save_sgb(path, sgs, keys=keys, t_tile=t_tile, w=w, shards=shards)
+        sp.set(status="miss")
+        return out, "miss"
 
 
 def _add_split(path: Path, sgs, keys, shards: int, t_tile: int, w: int) -> None:

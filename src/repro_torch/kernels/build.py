@@ -25,6 +25,8 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
 
+from repro_torch import trace
+
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
 NVCC_FLAGS = (
@@ -52,33 +54,37 @@ def nvcc_path() -> str:
 def load(name: str, sources: Sequence[Path]) -> Tuple[ctypes.CDLL, dict]:
     """The shared library built from ``sources``, and a record of its build
     (``path``, ``seconds`` — 0 when reused — and ``log``, the compiler's
-    output including ``ptxas`` register and shared-memory counts)."""
+    output including ``ptxas`` register and shared-memory counts). The
+    first load in the process is the build span ``kernels.load``, its
+    ``status`` ``built`` or ``reused``."""
     if name in _LOADED:
         return _LOADED[name]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        h.update(Path(src).read_bytes())
-    out = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
-    record = {"path": str(out), "seconds": 0.0, "log": ""}
-    if not out.is_file():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-        t0 = time.perf_counter()
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) building {name}:\n"
-                    f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-                )
-            os.replace(tmp, out)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-        record["seconds"] = time.perf_counter() - t0
-        record["log"] = proc.stdout + proc.stderr
-    lib = ctypes.CDLL(str(out))
+    with trace.span("kernels.load", always=True, kernel=name) as sp:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for src in sources:
+            h.update(Path(src).read_bytes())
+        out = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+        record = {"path": str(out), "seconds": 0.0, "log": ""}
+        if not out.is_file():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+            t0 = time.perf_counter()
+            try:
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({proc.returncode}) building {name}:\n"
+                        f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+                    )
+                os.replace(tmp, out)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+            record["seconds"] = time.perf_counter() - t0
+            record["log"] = proc.stdout + proc.stderr
+        lib = ctypes.CDLL(str(out))
+        sp.set(status="built" if record["seconds"] else "reused")
     _LOADED[name] = (lib, record)
     return lib, record

@@ -18,7 +18,9 @@ no fallback from one to the other.
 
 Device mirrors of a layout's tile stack and its per-``prune_k`` block table
 are cached on the ``GroupedBucketLayout``, keyed by device and ``prune_k``,
-so repeated forwards ship no host arrays.
+so repeated forwards ship no host arrays; their first fill is the build
+span ``upload``. ``NA_SLOTS`` holds the launches' slot counts
+(``slot_counts``), which ``core/flows.py`` ticks.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.distributed import sharding as dist
 from repro_torch.kernels import build
 from repro_torch.kernels.common import check_tensor as _check
@@ -58,6 +61,18 @@ LAUNCHES = {
 
 # launches of the grouped fused kernel made by shard_out, per shard index
 SHARD_LAUNCHES: dict = {}
+
+# candidate slots of NA's fused launches, ticked by flows._tick_slots (every
+# fused route: grouped, sharded (this rank's shard), flat, per-bucket loop)
+# before the launch, so a CPU forward counts too; like LAUNCHES never on a
+# replay. slots: what the launch's grid visits (the padded table); valid:
+# real candidates; kept: sum of min(degree, prune_k), every candidate
+# without pruning; rows: targets; bypass_rows: targets whose candidates all
+# fit in prune_k (paper §4.3). NA_SLOTS_BY_GRAPH holds the same per semantic
+# graph name.
+SLOT_FIELDS = ("slots", "valid", "kept", "rows", "bypass_rows")
+NA_SLOTS = dict.fromkeys(SLOT_FIELDS, 0)
+NA_SLOTS_BY_GRAPH: dict = {}
 
 _ptr = ctypes.c_void_p
 _int = ctypes.c_int
@@ -159,7 +174,7 @@ def _layout_device(layout, prune_k: Optional[int], device: torch.device):
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-        with torch.inference_mode(False):
+        with torch.inference_mode(False), trace.span("upload", always=True, what="na layout") as sp:
             cache[base_key] = (
                 put(layout.nbr.astype(np.int32)),
                 put(layout.msk.astype(bool)),
@@ -167,13 +182,27 @@ def _layout_device(layout, prune_k: Optional[int], device: torch.device):
                 put(layout.row_targets.astype(np.int32)),
                 put(layout.perm.astype(np.int64)),
             )
+            sp.set(bytes=sum(t.nbytes for t in cache[base_key]))
     key = (device, prune_k)
     if key not in cache:
         meta, _, k_s = grouped_meta(layout, prune_k)
-        with torch.inference_mode(False):
+        with torch.inference_mode(False), trace.span("upload", always=True, what="na blocks") as sp:
             blk = torch.from_numpy(block_table(layout, meta)).to(device)
+            sp.set(bytes=blk.nbytes)
         cache[key] = (blk, k_s)
     return cache[base_key], cache[key]
+
+
+def slot_counts(degrees: np.ndarray, slots: int, prune_k: Optional[int]) -> dict:
+    """``NA_SLOTS``'s fields for one launch's table: ``degrees`` of its
+    target rows, ``slots`` the candidate slots its grid visits."""
+    deg = np.asarray(degrees, np.int64)
+    if prune_k is None:
+        kept, bypass = int(deg.sum()), deg.size
+    else:
+        kept, bypass = int(np.minimum(deg, prune_k).sum()), int((deg <= prune_k).sum())
+    return {"slots": int(slots), "valid": int(deg.sum()), "kept": kept, "rows": deg.size,
+            "bypass_rows": bypass}
 
 
 def prune(
@@ -442,7 +471,7 @@ def _sharded_perm(sl, device: torch.device) -> torch.Tensor:
     """``sl.perm`` as an int64 device tensor, cached on ``sl``."""
     key = ("perm", device)
     if key not in sl._dev:
-        with torch.inference_mode(False):
+        with torch.inference_mode(False), trace.span("upload", always=True, what="na perm"):
             sl._dev[key] = torch.from_numpy(sl.perm.astype(np.int64)).to(device)
     return sl._dev[key]
 
